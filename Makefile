@@ -4,8 +4,8 @@
 PYTHON ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 
-.PHONY: install test test-fast bench-smoke bench-serving bench-autotune \
-	bench-distributed bench-decoding bench-telemetry
+.PHONY: install test test-fast test-port bench-smoke bench-serving \
+	bench-autotune bench-distributed bench-decoding bench-telemetry
 
 install:
 	$(PYTHON) -m pip install -r requirements.txt
@@ -19,6 +19,11 @@ test-fast:       ## kernel + core contracts only (minutes, not tens of)
 	    tests/test_autotune.py tests/test_autotune_properties.py \
 	    tests/test_latency_regression.py tests/test_kvcache_paged.py \
 	    tests/test_paged_serving.py
+
+test-port:       ## PyTorch/CUDA port vs the JAX reference (CPU; card tests skip)
+	$(PYTHON) -m pytest -q tests/test_torch_core.py tests/test_torch_kernels.py \
+	    tests/test_torch_model.py tests/test_torch_serving.py \
+	    tests/test_torch_guard.py tests/test_torch_cuda.py
 
 bench-smoke:     ## quick analytic benchmark pass (no kernels executed)
 	$(PYTHON) benchmarks/bench_fused_mpgemm.py --smoke
