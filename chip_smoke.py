@@ -13,8 +13,15 @@ exit and no result line):
      projections and head), every table_quant mode: per_row bit-exact,
      None / per_group within 1e-4 relative. Times with CUDA events (L2
      flushed before every launch): kernel, plain version, a bf16
-     ``torch.matmul`` yardstick, and the bound max(bytes / 3.35 TB/s,
-     operations / peak rate of their type);
+     ``torch.matmul`` yardstick, and the bound (``bound``):
+       bytes = each input read once + each output written once (packed
+               weights and their scales, activations or table, output);
+       ops   = 2·M·N·K int8 for the two mpGEMMs (the multiply-adds of the
+               product; the one-hot T·CW contraction over G·E entries is
+               the kernels' way of doing it, not work the function needs),
+               plus M·G·E·(K-1) f32 adds of the table entries where the
+               kernel builds them;
+       bound_ms = max(bytes / 3.35 TB/s, ops / peak of their type);
   4. serve   — full-width tinyllama-1.1b, W2 symmetric K=4, random weights
      from a fixed seed made on the card, served through the port's engine
      (lut_pallas, table_quant auto -> per_row, fusion auto, 4 requests with
@@ -29,7 +36,8 @@ exit and no result line):
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record; the last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
-``build/chip_smoke.json``.
+``chip_smoke.json`` in the kernels' build directory
+(``src/repro_torch/build/``).
 """
 
 import json
@@ -163,7 +171,7 @@ def check_kernels(flush):
                 # times and bounds (the main path runs per_row)
                 pk_bytes = qw.packed.numel() + 4 * n
                 out_bytes = 4 * m * n
-                lut_ops = {"int8": 2 * m * n * g * e}
+                lut_ops = {"int8": 2 * m * n * k}
                 entry_ops = {"f32": m * g * e * (KG - 1)}
                 recs = {
                     "table_precompute": (
@@ -366,8 +374,7 @@ def main() -> int:
                 r["bound_ms"] for r in rs if r["bound_by"] == by)),
             "library_ms": tot("library_ms"),
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs]})
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+    with open(_build.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "records": records, "summary": summary,
                    "serve": st, "decode_step": step, "launches": launches,
                    "ptxas": ptxas,

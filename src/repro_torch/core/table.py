@@ -96,18 +96,20 @@ def precompute_table(a: torch.Tensor, k_group: int = 4,
 
 
 def quantize_table(entries: torch.Tensor, rowsum: torch.Tensor, k_group: int,
-                   mode: str, absmax: Optional[torch.Tensor] = None) -> Table:
+                   mode: str, absmax: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None) -> Table:
     """INT8 table quantization (§3.1.3): round half to even of
-    entries / scale (a true division), clipped to [-127, 127]."""
-    if absmax is None:
-        absmax = entries.abs().amax(dim=-1)  # [M, G]
-    if mode == "per_group":
-        absmax = absmax[..., None]
-    elif mode == "per_row":
-        absmax = absmax.amax(dim=-1)[:, None, None]
-    else:
+    entries / scale (a true division), clipped to [-127, 127]. A given
+    ``scale`` (the kernels' [M, 1, 1] row scale) replaces the one computed
+    from ``absmax``."""
+    if mode not in ("per_group", "per_row"):
         raise ValueError(f"unknown table_quant mode {mode!r}")
-    scale = true_divide(absmax.clamp_min(1e-30), 127.0)
+    if scale is None:
+        if absmax is None:
+            absmax = entries.abs().amax(dim=-1)  # [M, G]
+        absmax = (absmax[..., None] if mode == "per_group"
+                  else absmax.amax(dim=-1)[:, None, None])
+        scale = true_divide(absmax.clamp_min(1e-30), 127.0)
     q = torch.clamp(torch.round(entries / scale), -127, 127).to(torch.int8)
     return Table(q, scale, rowsum, k_group)
 

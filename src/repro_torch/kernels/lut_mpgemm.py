@@ -19,9 +19,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import packing
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import cw_from_codes
+from repro_torch.core.quantize import QuantizedWeight
+from repro_torch.core.table import Table
+from repro_torch.kernels import _build, ref
 
 __all__ = ["lut_mpgemm", "lut_mpgemm_plain", "tile_for", "TILES"]
 
@@ -56,31 +56,21 @@ def _mode(tv, ts, gp) -> int:
     return 2
 
 
-def cw_matrix(packed: torch.Tensor, k_group: int, g: int, planes: int,
-              plane_scales: Sequence[float]) -> torch.Tensor:
-    """Packed codes [N, G*B*K/8] -> CW int32 [N, G*E] (the kernels' tile
-    unpack, for the whole matrix)."""
-    sign, idx = packing.unpack_group_codes(packed, k_group, g, planes)
-    return cw_from_codes(sign, idx, plane_scales, k_group).reshape(
-        packed.shape[0], -1)
-
-
 def lut_mpgemm_plain(tv, ts, packed, wscale, *, k_group: int, planes: int,
                      plane_scales: Sequence[float]) -> torch.Tensor:
-    """Plain torch version. The int path contracts in float64, where the
-    integer sums are exact, so it equals the kernel's int32 sums."""
+    """Plain torch version: ``ref.lut_contract`` on the padded operands.
+    Its per_row path contracts in float64, where the integer sums are
+    exact, so it equals the kernel's int32 sums."""
     e = 1 << (k_group - 1)
     mp, ge = tv.shape
     gp = ge // e
-    mode = _mode(tv, ts, gp)
-    cw = cw_matrix(packed, k_group, gp, planes, plane_scales)
-    if mode == 1:
-        acc = (tv.to(torch.float64) @ cw.to(torch.float64).T).to(torch.float32)
-        return acc * ts * wscale[None, :]
-    tvf = tv.to(torch.float32)
-    if mode == 2:
-        tvf = (tvf.reshape(mp, gp, e) * ts[:, :, None]).reshape(mp, ge)
-    return (tvf @ cw.to(torch.float32).T) * wscale[None, :]
+    _mode(tv, ts, gp)
+    qw = QuantizedWeight(packed, wscale, None, plane_scales, bits=planes,
+                         k_group=k_group, k_total=gp * k_group,
+                         n=packed.shape[0])
+    table = Table(tv.reshape(mp, gp, e),
+                  None if ts is None else ts.reshape(mp, -1, 1), None, k_group)
+    return ref.lut_contract(table, qw)
 
 
 def check_operands(name, rows, packed, wscale, k_group, planes, gp, device):

@@ -19,8 +19,8 @@ import torch
 from repro_torch.core.quantize import QuantizedWeight, dequantize
 from repro_torch.core.table import Table, precompute_table
 
-__all__ = ["ref_dequant_mpgemm", "ref_lut_mpgemm_matmul", "build_cw",
-           "cw_from_codes", "zero_point_correction"]
+__all__ = ["ref_dequant_mpgemm", "ref_lut_mpgemm_matmul", "lut_contract",
+           "build_cw", "cw_from_codes", "zero_point_correction"]
 
 
 def zero_point_correction(out, qw: QuantizedWeight, rowsum):
@@ -58,7 +58,14 @@ def ref_lut_mpgemm_matmul(a, qw: QuantizedWeight,
     """T @ CW single-GEMM formulation (accepts a precomputed table)."""
     t = (table if table is not None
          else precompute_table(a, qw.k_group, table_quant))
-    m = a.shape[0]
+    return zero_point_correction(lut_contract(t, qw), qw, t.rowsum)
+
+
+def lut_contract(t: Table, qw: QuantizedWeight) -> torch.Tensor:
+    """T @ CW with the table's epilogue, times the weight scale: the
+    lookup without the zero-point correction (the staged kernel's plain
+    version)."""
+    m = t.values.shape[0]
     if t.scale is None:
         acc = t.values.reshape(m, -1) @ build_cw(qw, torch.float32)
     elif t.scale.shape[1] == 1:  # per_row: exact integer GEMM, then row scale
@@ -68,5 +75,4 @@ def ref_lut_mpgemm_matmul(a, qw: QuantizedWeight,
     else:  # per_group: dequantize the entries, f32 GEMM
         tv = (t.values.to(torch.float32) * t.scale).reshape(m, -1)
         acc = tv @ build_cw(qw, torch.float32)
-    out = acc * qw.scale[None, :]
-    return zero_point_correction(out, qw, t.rowsum)
+    return acc * qw.scale[None, :]

@@ -43,22 +43,18 @@ def table_precompute_plain(a: torch.Tensor, k_group: int,
                            table_quant: Optional[str],
                            row_scale: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain torch version: (values [M, G*E], scale) — the per_row scale as
-    given, the per_group scale [M, G], or None."""
-    m, k_total = a.shape
-    g = k_total // k_group
-    groups = a.reshape(m, g, k_group)
-    ent = table_mod.table_entries(groups, k_group)
-    if table_quant is None:
-        return ent.reshape(m, -1), None
-    if table_quant == "per_row":
-        scale = row_scale.reshape(m, 1, 1)
-    else:
-        scale = table_mod.true_divide(
-            table_mod.group_absmax(groups).clamp_min(1e-30), 127.0)[..., None]
-    q = torch.clamp(torch.round(ent / scale), -127, 127).to(torch.int8)
-    return q.reshape(m, -1), (row_scale if table_quant == "per_row"
-                              else scale.reshape(m, g))
+    """Plain torch version, ``core.table``'s precompute: (values [M, G*E],
+    scale) — the per_row scale as given, the per_group scale [M, G], or
+    None. per_row quantizes with the given row scale, as the kernel does."""
+    m = a.shape[0]
+    if table_quant != "per_row":
+        t = table_mod.precompute_table(a, k_group, table_quant)
+        return t.values.reshape(m, -1), (None if t.scale is None
+                                         else t.scale.reshape(m, -1))
+    t = table_mod.precompute_table(a, k_group)
+    t = table_mod.quantize_table(t.values, t.rowsum, k_group, "per_row",
+                                 scale=row_scale.reshape(m, 1, 1))
+    return t.values.reshape(m, -1), row_scale
 
 
 def table_precompute(a: torch.Tensor, k_group: int,

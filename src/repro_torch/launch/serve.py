@@ -23,17 +23,6 @@ from repro_torch.models import api
 from repro_torch.serving.engine import Request, ServingEngine
 
 
-def resolve_device(name: str) -> torch.device:
-    """The device to serve on; a CUDA device must exist, never a silent
-    fall back to the CPU."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} requested but no CUDA device is available; "
-            "pass --device cpu to run the kernels' plain versions")
-    return device
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
@@ -60,7 +49,7 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = api.resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))

@@ -9,11 +9,26 @@ from repro_torch.configs.registry import ArchConfig
 from repro_torch.models import layers as L, quantized, transformer
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig, device=None, *,
+def resolve_device(name) -> torch.device:
+    """The device to run on: a CUDA device must exist; only an explicit
+    "cpu" runs on the CPU (the kernels' plain versions), never a silent
+    fall back."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(name)!r} requested but no CUDA device is "
+            "available; pass device='cpu' (--device cpu) to run the "
+            "kernels' plain versions")
+    return device
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
                 serve_quantized: bool = True):
-    """Random params from ``gen``, made on ``device``. With serve_quantized
-    and a quant config, projections are packed per cfg.quant layer by
-    layer, so full-width float weights never all exist at once."""
+    """Random params from ``gen``, made on ``device`` (the card unless the
+    caller asks for the CPU). With serve_quantized and a quant config,
+    projections are packed per cfg.quant layer by layer, so full-width
+    float weights never all exist at once."""
+    device = resolve_device(device)
     dtype = cfg.param_dtype
     pack = serve_quantized and cfg.quant
 
@@ -37,5 +52,6 @@ def forward(params, batch, cfg: ArchConfig, **kw):
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
-               dtype=torch.bfloat16, device=None):
-    return transformer.init_cache(cfg, batch, s_cache, dtype, device)
+               dtype=torch.bfloat16, device="cuda"):
+    return transformer.init_cache(cfg, batch, s_cache, dtype,
+                                  resolve_device(device))

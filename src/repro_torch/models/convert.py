@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantize import QuantizedWeight
+from repro_torch.models.api import resolve_device
 
 _QW_FIELDS = ("packed", "scale", "plane_scales", "bits", "k_group",
               "k_total", "n")
@@ -55,9 +56,11 @@ def _convert(node, device, index=None) -> Any:
     return _tensor(node if index is None else node[index], device)
 
 
-def from_jax_params(np_tree, cfg, device="cpu"):
+def from_jax_params(np_tree, cfg, device="cuda"):
     """Reference param tree (numpy leaves) -> the port's param tree on
-    ``device``: the stacked [L, ...] layers become a list of L layer dicts."""
+    ``device`` (the card unless the caller asks for the CPU): the stacked
+    [L, ...] layers become a list of L layer dicts."""
+    device = resolve_device(device)
     layers = [_convert(np_tree["layers"], device, index=i)
               for i in range(cfg.n_layers)]
     out = {k: _convert(v, device) for k, v in np_tree.items() if k != "layers"}

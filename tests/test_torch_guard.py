@@ -19,6 +19,7 @@ from repro.models import api as japi
 from repro_torch.configs import registry as treg
 from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.launch import serve
+from repro_torch.models import api as tapi
 from repro_torch.models.convert import from_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -70,6 +71,22 @@ def test_serve_without_a_card_raises(monkeypatch):
         serve.main(["--reduced", "--requests", "1"])
 
 
+@pytest.mark.parametrize("entry", ["init_params", "init_cache",
+                                   "from_jax_params"])
+def test_api_without_a_card_raises(monkeypatch, entry):
+    """The library entry points default to the card too: without a device
+    argument and without CUDA they raise instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = treg.get_reduced("tinyllama-1.1b")
+    calls = {
+        "init_params": lambda: tapi.init_params(torch.Generator(), cfg),
+        "init_cache": lambda: tapi.init_cache(cfg, 1, 8),
+        "from_jax_params": lambda: from_jax_params({"layers": {}}, cfg),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
 def test_serve_on_cpu_when_asked(capsys):
     assert serve.main(["--reduced", "--device", "cpu", "--requests", "2",
                        "--max-new", "3", "--max-seq", "32",
@@ -81,7 +98,8 @@ def test_from_jax_params_roundtrips_a_reduced_tree():
     cfg = jreg.get_reduced("tinyllama-1.1b")
     params = japi.init_params(jax.random.key(0), cfg, serve_quantized=True)
     np_tree = jax.tree.map(np.asarray, params)
-    port = from_jax_params(np_tree, treg.get_reduced("tinyllama-1.1b"))
+    port = from_jax_params(np_tree, treg.get_reduced("tinyllama-1.1b"),
+                           "cpu")
     assert len(port["layers"]) == cfg.n_layers
 
     def check(ref, got, index):

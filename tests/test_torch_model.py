@@ -83,7 +83,7 @@ def test_teacher_forced_logits_match_reference(weights, mode, tq, act, tol):
     toks = _tokens()
     want, _, _ = japi.forward(params, {"tokens": jnp.asarray(toks, jnp.int32)},
                               jc)
-    got, _, _ = tapi.forward(from_jax_params(np_tree, tc),
+    got, _, _ = tapi.forward(from_jax_params(np_tree, tc, "cpu"),
                              {"tokens": torch.from_numpy(toks)}, tc)
     assert got.shape == (1, 130, tc.vocab_size)
     got, want = got.float().numpy(), np.asarray(want, np.float32)
@@ -99,7 +99,8 @@ def test_kernel_path_equals_plain_lut_path_per_row(weights):
     out = []
     for mode in ("lut_pallas", "lut_xla"):
         _, tc = _cfgs(mode, "per_row")
-        out.append(tapi.forward(from_jax_params(np_tree, tc), toks, tc)[0])
+        out.append(tapi.forward(from_jax_params(np_tree, tc, "cpu"), toks,
+                                tc)[0])
     assert torch.equal(out[0], out[1])
 
 
@@ -108,10 +109,10 @@ def test_cached_chunks_equal_one_pass(weights):
     per slot, gives the logits of one full pass (same port, same modes)."""
     _, np_tree = weights
     _, tc = _cfgs("lut_pallas", "per_row")
-    params = from_jax_params(np_tree, tc)
+    params = from_jax_params(np_tree, tc, "cpu")
     toks = torch.from_numpy(_tokens(b=2, s=24, seed=1))
     full, _, _ = tapi.forward(params, {"tokens": toks}, tc)
-    caches = tapi.init_cache(tc, 2, 32, dtype=torch.float32)
+    caches = tapi.init_cache(tc, 2, 32, dtype=torch.float32, device="cpu")
     for off in (0, 8):
         tapi.forward(params, {"tokens": toks[:, off:off + 8]}, tc,
                      caches=caches, cache_pos=off, head=False)
@@ -133,9 +134,9 @@ def test_quantize_params_matches_reference_and_skips(weights):
     fparams = japi.init_params(jax.random.key(1), cfg, serve_quantized=False)
     np_float = jax.tree.map(np.asarray, fparams)
     qcfg = treg.get_reduced("tinyllama-1.1b")
-    port_float = from_jax_params(np_float, qcfg)
+    port_float = from_jax_params(np_float, qcfg, "cpu")
     want = from_jax_params(jax.tree.map(np.asarray, japi.init_params(
-        jax.random.key(1), cfg, serve_quantized=True)), qcfg)
+        jax.random.key(1), cfg, serve_quantized=True)), qcfg, "cpu")
     got = tquant.quantize_params(port_float, qcfg.quant)
     for path in (("layers", 0, "attn", "wq"), ("layers", 1, "mlp", "down"),
                  ("lm_head",)):

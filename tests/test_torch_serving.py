@@ -50,7 +50,7 @@ def served():
         activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
                                                    table_quant="per_row")
     return jc, params, tc, from_jax_params(jax.tree.map(np.asarray, params),
-                                           tc)
+                                           tc, "cpu")
 
 
 PLENS, NEW = [5, 19, 11, 3, 17], [6, 8, 3, 7, 5]
@@ -121,7 +121,7 @@ def test_engine_matches_sequential_greedy(served):
     _, _, tc, tparams = served
     prompt = _prompts(seed=2)[1]
     _, (req,) = _serve(tc, tparams, [prompt], [6], decode_chunk=4)
-    caches = tapi.init_cache(tc, 1, 64, dtype=torch.float32)
+    caches = tapi.init_cache(tc, 1, 64, dtype=torch.float32, device="cpu")
     tapi.forward(tparams, {"tokens": torch.from_numpy(prompt[None, :-1])}, tc,
                  caches=caches, cache_pos=0, head=False)
     tok, pos, out = int(prompt[-1]), len(prompt) - 1, []
