@@ -11,8 +11,9 @@ exit and no result line):
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
      projections and head), every table_quant mode: per_row bit-exact,
-     None / per_group within 1e-4 relative. Times with CUDA events (L2
-     flushed before every launch): kernel, plain version, a bf16
+     None / per_group within 1e-4 relative. Device times with CUDA events
+     (``time_ms``: L2 flushed before every launch, the host's queueing
+     hidden behind a spin on the card): kernel, plain version, a bf16
      ``torch.matmul`` yardstick, and the bound (``bound``):
        bytes = each input read once + each output written once (packed
                weights and their scales, activations or table, output);
@@ -70,12 +71,16 @@ def device_line() -> str:
 
 def time_ms(fn, reps, flush):
     """Median device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush (CUDA events around the launch only)."""
+    L2 flush (CUDA events around the launch only). A spin of ~2 ms on the
+    card ahead of each start event keeps the card busy while the host
+    queues the call, so the events time the device work, not the host's
+    Python around the launch."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(4_000_000)  # clock cycles: ~2 ms at 1.98 GHz
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         fn()

@@ -23,7 +23,10 @@ from repro_torch.models import api as tapi
 from repro_torch.models.convert import from_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+PORT = ROOT / "src" / "repro_torch"
+# build/ (gitignored) holds only what the kernels' build writes
+PORT_FILES = sorted(p for p in PORT.rglob("*.py")
+                    if p.relative_to(PORT).parts[0] != "build") + [
     ROOT / "chip_smoke.py"]
 
 
