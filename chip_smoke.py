@@ -7,21 +7,26 @@ Phases (each prints its own line; any failure ends the run with a non-zero
 exit and no result line):
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the three kernels from ``src/repro_torch/csrc``;
+  2. build   — nvcc builds the four kernels from ``src/repro_torch/csrc``;
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
      projections and head), every table_quant mode: per_row bit-exact,
-     None / per_group within 1e-4 relative. Device times with CUDA events
+     None / per_group within 1e-4 relative; dequant_mpgemm (IEEE f32; its
+     plain version's matmul with TF32 off) within 1e-4 relative. Then the
+     dequant op path: ``ops.dequant_mpgemm``, the kernel's only entry point
+     (as in the reference, no serve step launches it), at the same ten
+     shapes with its launches counted. Device times with CUDA events
      (``time_ms``: L2 flushed before every launch, the host's queueing
      hidden behind a spin on the card): kernel, plain version, a bf16
      ``torch.matmul`` yardstick, and the bound (``bound``):
        bytes = each input read once + each output written once (packed
                weights and their scales, activations or table, output);
-       ops   = 2·M·N·K int8 for the two mpGEMMs (the multiply-adds of the
-               product; the one-hot T·CW contraction over G·E entries is
-               the kernels' way of doing it, not work the function needs),
-               plus M·G·E·(K-1) f32 adds of the table entries where the
-               kernel builds them;
+       ops   = 2·M·N·K int8 for the two LUT mpGEMMs (the multiply-adds of
+               the product; the one-hot T·CW contraction over G·E entries
+               is the kernels' way of doing it, not work the function
+               needs), plus M·G·E·(K-1) f32 adds of the table entries where
+               the kernel builds them; 2·M·N·K f32 for dequant_mpgemm,
+               whose contract is IEEE f32;
        bound_ms = max(bytes / 3.35 TB/s, ops / peak of their type);
   4. serve   — full-width tinyllama-1.1b, W2 symmetric K=4, random weights
      from a fixed seed made on the card, served through the port's engine
@@ -32,7 +37,17 @@ exit and no result line):
   5. parity  — a teacher-forced 128-token forward through the kernels
      (lut_pallas) and through the plain torch LUT path (lut_xla), both with
      per_row tables: the logits must be equal bit for bit, because every
-     per_row projection is exact integer arithmetic with the same epilogue.
+     per_row projection is exact integer arithmetic with the same epilogue;
+  6. paged   — phase 4's model through the block-paged KV pool (block 16,
+     96 blocks, 4 slots, max_seq 256): six requests sharing a 144-token
+     system prompt, then two identical 160-token prompts (copy-on-write),
+     16 greedy tokens each. Paged without prefix sharing must equal the
+     dense engine's streams exactly; with sharing too, except a divergence
+     at a near tie (top-2 logit margin <= 0.15), where that stream stops
+     being compared. Reused prompt tokens must equal the sharing rule's
+     count (879), with prefix hits, no evictions, only the prefix cache's
+     own block refs left after the run, every LUT kernel launched, and a
+     paged decode chunk free of host syncs.
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record; the last line
@@ -60,6 +75,8 @@ SHAPES = ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (32000, 2048))
 ROWS = (4, 128)            # decode batch, prefill chunk
 KG, BITS = 4, 2
 MAIN_M = {"fused_lut_mpgemm": 4, "lut_mpgemm": 128, "table_precompute": 128}
+# a near tie: top-2 logit margin, as in tests/test_torch_serving.py
+MARGIN = 0.15
 
 
 def device_line() -> str:
@@ -110,6 +127,7 @@ def random_weight(gen, n, k):
 def check_kernels(flush):
     """Phase 3. Returns (per-shape records, per-kernel max_abs_err)."""
     from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels import dequant_mpgemm as dk
     from repro_torch.kernels import fused_lut_mpgemm as fk
     from repro_torch.kernels import lut_mpgemm as lk
     from repro_torch.kernels import ops
@@ -120,7 +138,7 @@ def check_kernels(flush):
     gen.manual_seed(0)
     e = 1 << (KG - 1)
     records, err = [], {"table_precompute": 0.0, "lut_mpgemm": 0.0,
-                        "fused_lut_mpgemm": 0.0}
+                        "fused_lut_mpgemm": 0.0, "dequant_mpgemm": 0.0}
 
     def compare(name, got, want, tq, what):
         got, want = got.to(torch.float64), want.to(torch.float64)
@@ -150,6 +168,26 @@ def check_kernels(flush):
             basis = T.sign_basis(KG, "cuda")
             groups = x.reshape(m * g, KG)
             pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
+            # dequant_mpgemm (IEEE f32; the plain matmul runs with TF32 off,
+            # set in main) on operands padded to its own tile
+            _, dbm, dbn, dbg = dk.tile_for(m, KG)
+            xd = ops._pad_to(ops._pad_to(x, dbm, 0), dbg * KG, 1).contiguous()
+            pkd, wsd = ops._pad_packed(qw, xd.shape[1] // KG, dbn)
+            compare("dequant_mpgemm", dk.dequant_mpgemm(xd, pkd, wsd, **pw),
+                    dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw), None,
+                    f"M={m} N={n} K={k}")
+            b_ms, b_by = bound(qw.packed.numel() + 4 * n + 4 * m * k
+                               + 4 * m * n, {"f32": 2 * m * n * k})
+            records.append({
+                "kernel": "dequant_mpgemm", "m": m, "n": n, "k": k,
+                "table_quant": None,
+                "kernel_ms": time_ms(
+                    lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw), 10, flush),
+                "plain_ms": time_ms(
+                    lambda: dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw), 3,
+                    flush),
+                "library_ms": time_ms(library_mm, 10, flush),
+                "bound_ms": b_ms, "bound_by": b_by})
             for tq in MODES:
                 what = f"M={m} N={n} K={k} table_quant={tq}"
                 rs = (ops._padded_row_scale(x, g, KG, bm).contiguous()
@@ -208,6 +246,47 @@ def check_kernels(flush):
     return records, err
 
 
+def dequant_op_path():
+    """Phase 3, the dequant op path: ``ops.dequant_mpgemm`` at the ten
+    shapes, with the launch counts set to 0 just before and read just
+    after. Each output is held against ``x @ dequantize(qw).T`` in f32
+    (1e-4 relative). Returns (launches, max |diff|)."""
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    cases = [(torch.randn(m, k, generator=gen, device="cuda"),
+              random_weight(gen, n, k)) for m in ROWS for n, k in SHAPES]
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    outs = [ops.dequant_mpgemm(x, qw) for x, qw in cases]
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    err = 0.0
+    for (x, qw), out in zip(cases, outs):
+        want = x @ dequantize(qw).T
+        diff = (out - want).abs().max().item()
+        err = max(err, diff)
+        if (tuple(out.shape) != tuple(want.shape)
+                or not torch.isfinite(out).all()
+                or diff > 1e-4 * want.abs().max().item()):
+            raise AssertionError(f"dequant op M={x.shape[0]} N={qw.n}: "
+                                 f"max |diff| {diff}")
+    if launches != {**{n: 0 for n in mods}, "dequant_mpgemm": len(cases)}:
+        raise AssertionError(f"dequant op path: launches {launches}")
+    return launches["dequant_mpgemm"], err
+
+
+def kernel_modules():
+    from repro_torch.kernels import dequant_mpgemm as dk
+    from repro_torch.kernels import fused_lut_mpgemm as fk
+    from repro_torch.kernels import lut_mpgemm as lk
+    from repro_torch.kernels import table_precompute as tk
+    return {"table_precompute": tk, "lut_mpgemm": lk,
+            "fused_lut_mpgemm": fk, "dequant_mpgemm": dk}
+
+
 def serve(cfg, params, seed):
     """Phase 4: 4 requests through the engine; returns (engine, requests)."""
     from repro_torch.serving.engine import Request, ServingEngine
@@ -224,6 +303,173 @@ def serve(cfg, params, seed):
     return eng, reqs
 
 
+def paged_prompts(vocab, bs=16):
+    """Six prompts sharing a 144-token system prompt (9 blocks) with 8-40
+    token suffixes whose first tokens all differ, then two identical
+    160-token prompts (a block multiple: the second copies on write) whose
+    first token differs from the system prompt's."""
+    rng = np.random.default_rng(4)
+    sys_p = rng.integers(0, vocab, 9 * bs)
+    firsts = rng.choice(vocab, 6, replace=False)
+    prompts = []
+    for first in firsts:
+        suffix = rng.integers(0, vocab, int(rng.integers(8, 41)))
+        suffix[0] = first
+        prompts.append(np.concatenate([sys_p, suffix]))
+    cow = rng.integers(0, vocab, 10 * bs)
+    cow[0] = (sys_p[0] + 1) % vocab
+    return prompts + [cow, cow.copy()]
+
+
+def expected_reuse(prompts, bs):
+    """Prompt tokens the reference's sharing rule serves from cached blocks
+    for prompts admitted in this order, with nothing evicted: block j is
+    shared by reference when it ends at or below plen - 1 and an earlier
+    prompt wrote it; a prompt of whole blocks copies its last block on
+    write when all the others were shared."""
+    cached, total = set(), 0
+    for p in prompts:
+        plen, m_share = len(p), (len(p) - 1) // bs
+        m0 = 0
+        while m0 < m_share and tuple(p[:(m0 + 1) * bs]) in cached:
+            m0 += 1
+        start = m0 * bs
+        if (m0 == m_share and (m_share + 1) * bs == plen
+                and tuple(p) in cached):
+            start += bs
+        total += min(start, plen - 1)
+        cached |= {tuple(p[:(j + 1) * bs]) for j in range(m_share)}
+        if (m_share + 1) * bs == plen:
+            cached.add(tuple(p))
+    return total
+
+
+def first_kv_divergence(eng, prompt, donor, shared):
+    """Where a shared-prefix prefill first differs from a dense one: the
+    dense engine prefills ``prompt`` from 0 into cache A; cache B gets
+    ``donor``'s prefill (the blocks the prefix cache holds), then the
+    suffix of ``prompt`` from ``shared`` at that offset, as the paged
+    engine computes it. Returns (layer, position, max |diff|) of the first
+    layer whose K or V differ over the prompt's positions, or None."""
+    from repro_torch.models import api
+    a, b = (api.init_cache(eng.cfg, 1, eng.max_seq, dtype=torch.float32,
+                           device=eng.device) for _ in range(2))
+    eng._prefill(prompt, 0, a)
+    eng._prefill(donor, 0, b)
+    eng._prefill(prompt, shared, b)
+    n = len(prompt) - 1
+    for layer in range(eng.cfg.n_layers):
+        d = torch.stack([(x[layer, 0, :n] - y[layer, 0, :n]).abs()
+                         .amax(dim=(1, 2)) for x, y in zip(a, b)]).amax(0)
+        if d.max().item() > 0:
+            pos = int(torch.nonzero(d)[0, 0])
+            return layer, pos, d.max().item()
+    return None
+
+
+def paged(cfg, params):
+    """Phase 6: the block-paged pool at full width against the dense
+    engine. Returns (stats of the prefix-sharing run, launches, record)."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+    bs = 16
+    prompts = paged_prompts(cfg.vocab_size, bs)
+    reuse = expected_reuse(prompts, bs)
+    if reuse != 5 * 144 + 159:
+        raise AssertionError(f"paged: the prompts give {reuse} reusable "
+                             f"tokens, not 5*144 + 159")
+    kw = dict(max_batch=4, max_seq=256, decode_chunk=8, prefill_chunk=128)
+    paged_kw = dict(kw, cache_block_size=bs, num_cache_blocks=96)
+    mods = kernel_modules()
+
+    def run(**engine_kw):
+        eng = ServingEngine(cfg, params, **engine_kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        if not all(r.done and len(r.output) == 16 for r in reqs):
+            raise AssertionError("paged: a request did not finish 16 tokens")
+        return eng, [r.output for r in reqs]
+
+    dense_eng, dense = run(**kw)
+    unshared_eng, unshared = run(**paged_kw)
+    if unshared != dense:
+        raise AssertionError("paged: without prefix sharing the streams "
+                             "differ from the dense engine's")
+    for mod in mods.values():
+        mod.launches = 0
+    eng, shared = run(**paged_kw, prefix_cache=True)
+    launches = {name: mod.launches for name, mod in mods.items()}
+
+    # (a) streams: equal, or diverging at a near tie (then stop comparing)
+    divergences = []
+    for uid, (p, got, want) in enumerate(zip(prompts, shared, dense)):
+        j = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        if j is None:
+            continue
+        seq = torch.as_tensor(np.concatenate([p, want[:j]])[None],
+                              device=eng.device)
+        top2 = torch.topk(api.forward(params, {"tokens": seq}, cfg)[0][0, -1],
+                          2).values
+        margin = (top2[0] - top2[1]).item()
+        divergences.append({"uid": uid, "position": j, "margin": margin})
+        if margin > MARGIN:
+            raise AssertionError(f"paged: request {uid} diverges at token {j} "
+                                 f"with top-2 margin {margin} > {MARGIN}")
+    st = eng.stats()
+    # (b) reuse, hits, evictions; (c) only the prefix cache's refs are left
+    pc = st["prefix_cache"]
+    if st["prefill_tokens_reused"] != reuse:
+        raise AssertionError(f"paged: {st['prefill_tokens_reused']} prompt "
+                             f"tokens reused, the sharing rule gives {reuse}")
+    if pc["hits"] <= 0 or pc["evictions"] != 0:
+        raise AssertionError(f"paged: prefix cache {pc}")
+    if st["blocks_in_use"] != pc["entries"]:
+        raise AssertionError(f"paged: {st['blocks_in_use']} blocks in use, "
+                             f"{pc['entries']} prefix entries")
+    # (d) the LUT kernels ran
+    if min(launches[n] for n in MAIN_M) <= 0:
+        raise AssertionError(f"paged: a LUT kernel never ran: {launches}")
+    # (e) a paged decode chunk makes the host wait nowhere
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_chunk(sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dense_st = dense_eng.stats()
+    kv = first_kv_divergence(dense_eng, prompts[1], prompts[0], 144)
+    # decode step wall time of each engine in turns (dense, paged, paged,
+    # dense), then one profiled paged step: a profiler session can slow
+    # the host's later launches, so it comes last
+    walls = {"dense": [], "paged": []}
+    for name, e in (("dense", dense_eng), ("paged", eng), ("paged", eng),
+                    ("dense", dense_eng)):
+        walls[name].append(decode_step_wall(e))
+    return st, launches, {
+        "divergences": divergences, "first_kv_divergence": kv,
+        "dense_prefill_tokens": dense_st["prefill_tokens"],
+        "decode_tok_s": {"dense": dense_st["decode_tok_s"],
+                         "paged": unshared_eng.stats()["decode_tok_s"],
+                         "paged_prefix": st["decode_tok_s"]},
+        "decode_step_wall_ms": walls,
+        "paged_decode_step": decode_step_profile(eng)}
+
+
+def decode_step_wall(eng):
+    """Wall time per decode step of one decode chunk (host clock,
+    synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._decode_chunk(sampling=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / eng.decode_chunk
+
+
 def decode_step_profile(eng):
     """Wall time of a decode chunk (host clock, synchronized) against the
     device time of its kernels (torch.profiler), per decode step. The
@@ -231,11 +477,7 @@ def decode_step_profile(eng):
     wall time."""
     from torch.profiler import ProfilerActivity, profile
     n = eng.decode_chunk
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng._decode_chunk(sampling=False)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    wall_ms = decode_step_wall(eng)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng._decode_chunk(sampling=False)
@@ -261,9 +503,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
-    from repro_torch.kernels import fused_lut_mpgemm as fk
-    from repro_torch.kernels import lut_mpgemm as lk
-    from repro_torch.kernels import table_precompute as tk
     from repro_torch.models import api
 
     t_start = time.perf_counter()
@@ -287,7 +526,13 @@ def main() -> int:
         f"{r['bound_by']})" for r in records), flush=True)
     print("kernels vs plain: max |diff| " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
-        + " (per_row bit-exact; None/per_group <= 1e-4 relative)", flush=True)
+        + " (per_row bit-exact; None/per_group and dequant <= 1e-4 "
+        "relative)", flush=True)
+    dq_launches, dq_err = dequant_op_path()
+    err["dequant_mpgemm"] = max(err["dequant_mpgemm"], dq_err)
+    print(f"kernels: dequant op path (ops.dequant_mpgemm, 10 shapes): "
+          f"{dq_launches} launches, max |diff| {dq_err:.3g} vs the f32 "
+          f"dequantized product (<= 1e-4 relative)", flush=True)
 
     # phase 4: the main path, at full width
     cfg = registry.get_config("tinyllama-1.1b").replace(
@@ -301,8 +546,7 @@ def main() -> int:
     print(f"serve: tinyllama-1.1b W2 params made on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state, kernels
-    kernels = {"table_precompute": tk, "lut_mpgemm": lk,
-               "fused_lut_mpgemm": fk}
+    kernels = kernel_modules()
     for mod in kernels.values():
         mod.launches = 0
     eng, reqs = serve(cfg, params, seed=2)
@@ -310,7 +554,7 @@ def main() -> int:
     st = eng.stats()
     if not all(r.done and len(r.output) == 16 for r in reqs):
         raise AssertionError("serve: not every request finished with 16 tokens")
-    if min(launches.values()) <= 0:
+    if min(launches[n] for n in MAIN_M) <= 0:
         raise AssertionError(f"serve: a kernel never ran: {launches}")
     if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
         raise AssertionError(f"serve: {st['host_syncs_per_token']} host syncs "
@@ -357,7 +601,35 @@ def main() -> int:
     if diff != 0.0:
         raise AssertionError("parity: kernels and plain path disagree")
 
-    main_recs = [r for r in records if r["m"] == MAIN_M[r["kernel"]]
+    # phase 6: the block-paged pool with prefix sharing, at full width
+    t0 = time.perf_counter()
+    pst, paged_launches, paged_rec = paged(cfg, params)
+    kv, div = paged_rec["first_kv_divergence"], paged_rec["divergences"]
+    print(f"paged: 8 requests (6 share a 144-token prompt, 2 equal 160-token "
+          f"prompts), 16 tokens each, in {time.perf_counter() - t0:.1f} s; "
+          f"streams equal to the dense engine's without sharing, and with "
+          f"sharing " + ("too" if not div else f"up to near ties {div}")
+          + f"; {pst['prefill_tokens_reused']} prompt tokens reused "
+          f"(rule: 5*144 + 159), {pst['prefill_tokens']} prefilled (dense "
+          f"{paged_rec['dense_prefill_tokens']}); decode tok/s "
+          f"{paged_rec['decode_tok_s']}; a paged decode chunk under "
+          f"torch's sync check: no hidden sync; launches {paged_launches}; "
+          f"suffix prefill at offset 144 vs dense prefill: "
+          + ("K/V equal in every layer" if kv is None else
+             f"K/V first differ at layer {kv[0]}, position {kv[1]} (max "
+             f"|diff| {kv[2]:.3g})"), flush=True)
+    print("paged stats: " + json.dumps(pst), flush=True)
+    pstep = paged_rec["paged_decode_step"]
+    print("paged: decode step wall ms in turns (dense, paged, paged, "
+          f"dense): {paged_rec['decode_step_wall_ms']}; a profiled paged "
+          f"step: wall {pstep['wall_ms']:.2f} ms, " + (
+              "device busy not measured" if pstep["busy_ms"] is None else
+              f"device busy {pstep['busy_ms']:.2f} ms (idle share "
+              f"{pstep['idle_share']:.3f}); device time by kernel: "
+              + ", ".join(f"{n} {t:.2f} ms" for n, t in pstep["top"])),
+          flush=True)
+
+    main_recs = [r for r in records if r["m"] == MAIN_M.get(r["kernel"])
                  and (r["kernel"] != "table_precompute"
                       or (r["n"], r["k"]) in ((2048, 2048), (2048, 5632)))]
     sources = {"table_precompute": ("src/repro_torch/csrc/table_precompute.cu",
@@ -365,14 +637,22 @@ def main() -> int:
                "lut_mpgemm": ("src/repro_torch/csrc/lut_mpgemm.cu",
                               "src/repro/kernels/lut_mpgemm.py:119"),
                "fused_lut_mpgemm": ("src/repro_torch/csrc/fused_lut_mpgemm.cu",
-                                    "src/repro/kernels/fused_lut_mpgemm.py:126")}
+                                    "src/repro/kernels/fused_lut_mpgemm.py:126"),
+               "dequant_mpgemm": ("src/repro_torch/csrc/dequant_mpgemm.cu",
+                                  "src/repro/kernels/dequant_mpgemm.py:76")}
+    # dequant_mpgemm's path is its op entry (phase 3's op run, all ten
+    # shapes); a serve step launches it 0 times, as in the reference
+    main_recs += [r for r in records if r["kernel"] == "dequant_mpgemm"]
+    path_launches = dict(launches, dequant_mpgemm=dq_launches)
     summary = []
     for name, (src, replaces) in sources.items():
         rs = [r for r in main_recs if r["kernel"] == name]
         tot = lambda key: float(sum(r[key] for r in rs))
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err[name],
+            "launches": path_launches[name], "max_abs_err": err[name],
+            "serve_launches": launches[name],
+            "paged_launches": paged_launches[name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
@@ -382,6 +662,8 @@ def main() -> int:
     with open(_build.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "records": records, "summary": summary,
                    "serve": st, "decode_step": step, "launches": launches,
+                   "dequant_op_launches": dq_launches, "paged": pst,
+                   "paged_launches": paged_launches, "paged_check": paged_rec,
                    "ptxas": ptxas,
                    "parity_max_abs_diff": diff,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

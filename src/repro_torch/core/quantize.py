@@ -20,7 +20,7 @@ from . import packing, reinterpret
 from .table import true_divide
 
 __all__ = ["QuantizedWeight", "quantize_symmetric", "quantize_asymmetric",
-           "quantize_ternary", "quantize", "dequantize"]
+           "quantize_ternary", "quantize", "plane_codes", "dequantize"]
 
 
 class QuantizedWeight:
@@ -181,14 +181,22 @@ def quantize(w, bits: int, k_group: int = 4,
     raise ValueError(f"unknown scheme {scheme!r}")
 
 
-def dequantize(qw: QuantizedWeight) -> torch.Tensor:
-    """Reconstruct float weights [N, K]: s'·(Σ_b ps_b·σ_b − z')."""
+def plane_codes(qw: QuantizedWeight) -> torch.Tensor:
+    """Reinterpreted weights q' = Σ_b ps_b·σ_b, f32 [N, K], unfolded from the
+    stored codes (Eq. 6); no zero point, no scale."""
     sign, idx = qw.sign_idx()
     planes = reinterpret.unfold_group_codes(sign, idx, qw.k_group)
     sigma = 2.0 * planes.to(torch.float32) - 1.0
-    ps = torch.tensor(qw.plane_scales, dtype=torch.float32,
-                      device=sigma.device)
-    qp = torch.einsum("nkb,b->nk", sigma, ps)
+    # filled on the device: a host-to-device copy would wait for the stream
+    ps = torch.stack([torch.full((), s, dtype=torch.float32,
+                                 device=sigma.device)
+                      for s in qw.plane_scales])
+    return torch.einsum("nkb,b->nk", sigma, ps)
+
+
+def dequantize(qw: QuantizedWeight) -> torch.Tensor:
+    """Reconstruct float weights [N, K]: s'·(Σ_b ps_b·σ_b − z')."""
+    qp = plane_codes(qw)
     if qw.zero_prime is not None:
         qp = qp - qw.zero_prime[:, None]
     return qw.scale[:, None] * qp

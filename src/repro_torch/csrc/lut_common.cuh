@@ -1,7 +1,7 @@
-// Device code shared by the three LUT mpGEMM kernels (table_precompute.cu,
-// lut_mpgemm.cu, fused_lut_mpgemm.cu): the half-table entry, INT8 table
-// quantization, the packed-code unpack into CW entries, and the tiled
-// table x CW contraction.
+// Device code shared by the mpGEMM kernels (table_precompute.cu,
+// lut_mpgemm.cu, fused_lut_mpgemm.cu, dequant_mpgemm.cu): the half-table
+// entry, INT8 table quantization, the packed-code unpack into CW entries or
+// reinterpreted weights, and the tiled contractions.
 //
 // Numerics are fixed to match core/table.py bit for bit: a group's entry
 // sums k = 0..K-1 in order (the ±1 products are exact), the INT8 code is
@@ -67,23 +67,28 @@ __device__ __forceinline__ void load_group(const float* __restrict__ src,
   for (int i = 0; i < kMaxKGroup; ++i) a[i] = (i < k_group) ? src[i] : 0.0f;
 }
 
+// The k_group-bit field (sign << (K-1) | idx) of group g, plane b. `row` is
+// the channel's packed byte row: fields (g, b) sit at position g*planes + b,
+// k_group bits each, little-endian within a byte.
+__device__ __forceinline__ int read_field(const uint8_t* __restrict__ row, int g,
+                                          int b, int planes, int k_group) {
+  const int bit = (g * planes + b) * k_group;
+  return (row[bit >> 3] >> (bit & 7)) & ((1 << k_group) - 1);
+}
+
 // CW entries of one (channel, group): cw[e] = Σ_b ps_b (1 − 2 sign_b) [idx_b == e].
-// `row` is the channel's packed byte row: fields (g, b) sit at position
-// g*planes + b, k_group bits each, little-endian within a byte.
 template <typename T>
 __device__ __forceinline__ void unpack_cw_group(const uint8_t* __restrict__ row,
                                                 int g, int planes, int k_group,
                                                 const PlaneScales& ps, T* dst) {
   const int e_count = 1 << (k_group - 1);
-  const int mask = (1 << k_group) - 1;
   int coef[kMaxPlanes], idx[kMaxPlanes];
 #pragma unroll
   for (int b = 0; b < kMaxPlanes; ++b) {
     coef[b] = 0;
     idx[b] = -1;
     if (b < planes) {
-      const int bit = (g * planes + b) * k_group;
-      const int field = (row[bit >> 3] >> (bit & 7)) & mask;
+      const int field = read_field(row, g, b, planes, k_group);
       idx[b] = field & (e_count - 1);
       coef[b] = ps.v[b] * (1 - 2 * (field >> (k_group - 1)));
     }
@@ -94,6 +99,35 @@ __device__ __forceinline__ void unpack_cw_group(const uint8_t* __restrict__ row,
     for (int b = 0; b < kMaxPlanes; ++b) v += (idx[b] == e) ? coef[b] : 0;
     dst[e] = static_cast<T>(v);
   }
+}
+
+// Reinterpreted weights of one (channel, group), the Eq. 6 unfold:
+// q'[i] = Σ_b ps_b (2 bit_i − 1) with bit_i = idx_i XOR sign for i < K-1 and
+// bit_{K-1} = sign. The sums are small integers, exact in f32.
+__device__ __forceinline__ void unpack_qprime_group(const uint8_t* __restrict__ row,
+                                                    int g, int planes, int k_group,
+                                                    const PlaneScales& ps,
+                                                    float* dst) {
+  int q[kMaxKGroup];
+#pragma unroll
+  for (int i = 0; i < kMaxKGroup; ++i) q[i] = 0;
+#pragma unroll
+  for (int b = 0; b < kMaxPlanes; ++b) {
+    if (b < planes) {
+      const int field = read_field(row, g, b, planes, k_group);
+      const int sign = field >> (k_group - 1);
+#pragma unroll
+      for (int i = 0; i < kMaxKGroup; ++i) {
+        if (i < k_group) {
+          const int bit = (i < k_group - 1) ? (((field >> i) & 1) ^ sign) : sign;
+          q[i] += ps.v[b] * (2 * bit - 1);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxKGroup; ++i)
+    if (i < k_group) dst[i] = static_cast<float>(q[i]);
 }
 
 // Output tile BM x BN; each of the 256 threads owns TM x TN outputs at rows

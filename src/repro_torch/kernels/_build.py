@@ -21,7 +21,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("table_precompute", "lut_mpgemm", "fused_lut_mpgemm")
+SOURCES = ("table_precompute", "lut_mpgemm", "fused_lut_mpgemm",
+           "dequant_mpgemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "fused_lut_mpgemm": ("fused_lut_mpgemm_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                           _I, _P]),
+    "dequant_mpgemm": ("dequant_mpgemm_launch",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]),
 }
 
 _loaded: Dict[str, object] = {}  # name -> ctypes launch function

@@ -89,14 +89,18 @@ def check_operands(name, rows, packed, wscale, k_group, planes, gp, device):
                              f"{device}")
 
 
+def plane_args(planes, plane_scales):
+    """The plane scales as the kernels' C int array (they are integers)."""
+    return (ctypes.c_int * planes)(*[int(s) for s in plane_scales])
+
+
 def launch_args(k_group, planes, plane_scales, m, n, gp):
     """Shared ctypes arguments: validated tile config and plane scales."""
     config, bm, bn, bg = tile_for(m, k_group)
     if m % bm or n % bn or gp % bg:
         raise ValueError(f"shape (M={m}, N={n}, G={gp}) is not padded to the "
                          f"tile (BM={bm}, BN={bn}, bg={bg})")
-    ps = (ctypes.c_int * planes)(*[int(s) for s in plane_scales])
-    return config, bg, ps
+    return config, bg, plane_args(planes, plane_scales)
 
 
 def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],

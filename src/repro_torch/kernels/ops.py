@@ -21,13 +21,15 @@ from repro_torch.core.lmma import (LMMADescriptor, TileSchedule,
 from repro_torch.core.mpgemm import FUSION_MODES
 from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.core.table import Table
+from repro_torch.kernels import dequant_mpgemm as dequant_kernel
 from repro_torch.kernels import fused_lut_mpgemm as fused_kernel
 from repro_torch.kernels import lut_mpgemm as lut_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import table_precompute as tp_kernel
 
 __all__ = ["table_precompute", "lut_mpgemm", "fused_lut_mpgemm",
-           "pick_blocks", "auto_fusion", "resolve_dispatch", "FUSION_MODES"]
+           "dequant_mpgemm", "pick_blocks", "auto_fusion", "resolve_dispatch",
+           "FUSION_MODES"]
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int,
@@ -186,3 +188,17 @@ def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
         tv.contiguous(), ts, pkp, wsp, k_group=kg, planes=planes,
         plane_scales=qw.plane_scales)[:m, :qw.n]
     return ref.zero_point_correction(out, qw, table.rowsum)
+
+
+def dequant_mpgemm(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
+    """Dequantization-based mpGEMM through its kernel (the paper's baseline):
+    ``x @ dequantize(qw).T`` in f32, the zero point applied outside."""
+    _check_not_plane_sliced(qw, "dequant_mpgemm")
+    m, kg = x.shape[0], qw.k_group
+    _, bm, bn, bg = dequant_kernel.tile_for(m, kg)
+    xp = _pad_to(_pad_to(x.to(torch.float32), bm, 0), bg * kg, 1).contiguous()
+    pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
+    out = dequant_kernel.dequant_mpgemm(
+        xp, pkp, wsp, k_group=kg, planes=qw.num_planes,
+        plane_scales=qw.plane_scales)[:m, :qw.n]
+    return ref.zero_point_correction(out, qw, _rowsum(x, qw))

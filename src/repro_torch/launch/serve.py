@@ -2,7 +2,8 @@
 through the continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
-        --requests 8 --max-new 16 --mode lut_pallas --prefill-chunk 128
+        --requests 8 --max-new 16 --mode lut_pallas --prefill-chunk 128 \\
+        [--cache-block-size 16 --prefix-cache]
 
 Runs on the CUDA card; ``--device cpu`` runs every kernel's plain version
 on the CPU instead (the tests do this, at ``--reduced`` size). Without a
@@ -44,10 +45,22 @@ def main(argv=None):
     ap.add_argument("--fusion", default="auto", choices=list(FUSION_MODES),
                     help="lut_pallas precompute placement: fused keeps the "
                          "table on chip, staged writes it to device memory")
+    ap.add_argument("--cache-block-size", type=int, default=None,
+                    help="enable the block-paged KV cache pool with this "
+                         "many positions per block (must divide --max-seq)")
+    ap.add_argument("--num-cache-blocks", type=int, default=None,
+                    help="pool size in blocks incl. the reserved null block "
+                         "(default: dense-equivalent capacity)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="hash-based shared-prefix block reuse (requires "
+                         "--cache-block-size; identical prefixes prefill "
+                         "once and fan out by block reference)")
     ap.add_argument("--weight-bits", type=int, default=2)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.prefix_cache and args.cache_block_size is None:
+        ap.error("--prefix-cache requires --cache-block-size")
 
     device = api.resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,7 +80,10 @@ def main(argv=None):
 
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
                         max_seq=args.max_seq, decode_chunk=args.decode_chunk,
-                        prefill_chunk=args.prefill_chunk, eos_id=args.eos_id)
+                        prefill_chunk=args.prefill_chunk, eos_id=args.eos_id,
+                        cache_block_size=args.cache_block_size,
+                        num_cache_blocks=args.num_cache_blocks,
+                        prefix_cache=args.prefix_cache)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 24))
@@ -85,6 +101,12 @@ def main(argv=None):
     print(f"host syncs/token {st['host_syncs_per_token']:.4f} "
           f"(decode_chunk={args.decode_chunk}), chunk latency "
           f"p50 {st['p50_chunk_ms']:.1f} ms / p95 {st['p95_chunk_ms']:.1f} ms")
+    if st["paged"]:
+        print(f"paged cache: {st['num_cache_blocks']} blocks of "
+              f"{st['cache_block_size']}, {st['blocks_in_use']} in use, "
+              f"{st['admit_blocked']} of {st['admit_attempts']} admissions "
+              f"blocked, {st['prefill_tokens_reused']} prompt tokens reused, "
+              f"prefix cache {st.get('prefix_cache')}")
     return 0
 
 

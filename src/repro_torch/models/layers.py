@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core import mpgemm as mp
+from repro_torch.models import kvcache
 
 Params = Dict[str, Any]
 
@@ -186,7 +187,9 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
-                    cache_pos=0, quant: Optional[dict] = None):
+                    cache_pos=0, quant: Optional[dict] = None,
+                    page_table: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None):
     """Returns (out, kv_cache); the cache is updated in place.
 
     * ``cache_pos`` a [B] tensor (per-slot decode, s == 1): each slot writes
@@ -194,7 +197,19 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     * ``cache_pos`` an int with a cache (a prefill chunk at that offset):
       writes the chunk at the offset and attends causally over the cache;
     * no cache: causal attention over the sequence itself.
+
+    With ``page_table`` ([B, nb] int64) the cache leaves are pool-shaped
+    [num_blocks, block_size, KV, hd]: the fresh k/v scatter through the
+    table, the slot's blocks gather into a [B, nb*bs] view, and the same
+    ``chunked_attention`` call as the dense branch runs on it (bit-exact
+    with dense when nb*bs == max_seq; see ``kvcache``). Sliding-window
+    attention is not ported.
     """
+    if window is not None:
+        raise NotImplementedError(
+            "paged KV cache does not support sliding-window attention"
+            if page_table is not None
+            else "sliding-window attention is not ported")
     b, s, _ = x.shape
     hd = cfg.head_dim
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
@@ -207,13 +222,28 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
+    if per_slot and s != 1:
+        raise NotImplementedError("per-slot decode writes one token per "
+                                  "slot (speculative bursts not ported)")
     if kv_cache is None:
         out = chunked_attention(q, k, v, q_offset=cache_pos, causal=True,
                                 chunk=cfg.attn_chunk)
+    elif page_table is not None:
+        base = (cache_pos if per_slot else torch.full(
+            (b,), cache_pos, dtype=torch.int64, device=x.device))
+        pos2d = base[:, None] + steps[None, :]
+        for leaf, vals in zip(kv_cache, (k, v)):
+            kvcache.paged_scatter(leaf, vals, page_table, pos2d)
+        kg, vg = (kvcache.paged_gather(leaf, page_table) for leaf in kv_cache)
+        if per_slot:
+            out = chunked_attention(q, kg.to(q.dtype), vg.to(q.dtype),
+                                    causal=False, kv_valid_len=cache_pos + 1,
+                                    chunk=cfg.attn_chunk)
+        else:
+            out = chunked_attention(q, kg, vg, q_offset=cache_pos,
+                                    causal=True, kv_valid_len=cache_pos + s,
+                                    chunk=cfg.attn_chunk)
     elif per_slot:
-        if s != 1:
-            raise NotImplementedError("per-slot decode writes one token per "
-                                      "slot (speculative bursts not ported)")
         ck, cv = kv_cache
         bi = torch.arange(b, device=x.device)
         ck[bi, cache_pos] = k[:, 0].to(ck.dtype)

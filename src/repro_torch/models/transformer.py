@@ -42,10 +42,11 @@ def block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
 
 
 def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
-                quant=None):
+                quant=None, page_table=None):
     a, cache = L.attention_apply(
         p["attn"], L.rms_norm(p["attn_norm"], h, cfg.norm_eps), cfg,
-        kv_cache=cache, cache_pos=cache_pos, quant=quant)
+        kv_cache=cache, cache_pos=cache_pos, quant=quant,
+        page_table=page_table)
     h = h + a
     m = L.mlp_apply(p["mlp"], L.rms_norm(p["mlp_norm"], h, cfg.norm_eps),
                     quant)
@@ -53,23 +54,27 @@ def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
 
 
 def stack_apply(layers, h: torch.Tensor, cfg, *, caches=None, cache_pos=0,
-                quant=None):
-    """The layer loop; layer l reads and writes ``caches[*][l]`` in place."""
+                quant=None, page_table=None):
+    """The layer loop; layer l reads and writes ``caches[*][l]`` in place.
+    ``page_table`` ([B, nb], paged caches) is one table for all layers."""
     for i, lp in enumerate(layers):
         lc = None if caches is None else (caches[0][i], caches[1][i])
         h, _ = block_apply(lp, h, cfg, cache=lc, cache_pos=cache_pos,
-                           quant=quant)
+                           quant=quant, page_table=page_table)
     return h, caches
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
-            caches=None, cache_pos=0, head: bool = True):
+            caches=None, cache_pos=0, head: bool = True, page_table=None):
     """(logits [B, S, V] or None, caches, aux). ``head=False`` stops before
     the final norm and LM head, for callers that need only the caches
-    (prefill), where the reference's compiler drops the head as dead code."""
+    (prefill), where the reference's compiler drops the head as dead code.
+    With ``page_table`` ([B, nb] int64) ``caches`` is a block pool
+    (``kvcache`` module docstring)."""
     h = embed_apply(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
     h, caches = stack_apply(params["layers"], h, cfg, caches=caches,
-                            cache_pos=cache_pos, quant=cfg.quant)
+                            cache_pos=cache_pos, quant=cfg.quant,
+                            page_table=page_table)
     if not head:
         return None, caches, {}
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)

@@ -6,14 +6,16 @@ Run on a machine with a CUDA card (this file imports no JAX):
 
 Without a card every test skips. Tolerances as in chip_smoke.py: per_row
 bit-exact (exact int32 sums, same codes and epilogue), None / per_group
-within 1e-4 relative (fp32 sums in another order).
+and dequant_mpgemm within 1e-4 relative (fp32 sums in another order; the
+plain versions' matmuls run with TF32 off).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quantize import quantize
+from repro_torch.core.quantize import dequantize, quantize
+from repro_torch.kernels import dequant_mpgemm as dk
 from repro_torch.kernels import fused_lut_mpgemm as fk
 from repro_torch.kernels import lut_mpgemm as lk
 from repro_torch.kernels import ops
@@ -89,3 +91,22 @@ def test_launch_counts_and_no_fallback(cuda):
                       torch.zeros(32, 16, dtype=torch.uint8, device=cuda),
                       torch.ones(32, device=cuda), k_group=4, planes=2,
                       plane_scales=(1.0, 2.0))
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_dequant_kernel_matches_plain_version(cuda, case):
+    m, k, n, bits, scheme, kg = case
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    qw = quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+        np.float32)), bits, k_group=kg, scheme=scheme).to(cuda)
+    _, bm, bn, bg = dk.tile_for(m, kg)
+    xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * kg, 1).contiguous()
+    pkp, wsp = ops._pad_packed(qw, xp.shape[1] // kg, bn)
+    pw = dict(k_group=kg, planes=qw.num_planes, plane_scales=qw.plane_scales)
+    before = dk.launches
+    _close(dk.dequant_mpgemm(xp, pkp, wsp, **pw),
+           dk.dequant_mpgemm_plain(xp, pkp, wsp, **pw), None)
+    # the op: padding sliced off, zero point applied outside the kernel
+    _close(ops.dequant_mpgemm(x, qw), x @ dequantize(qw).T, None)
+    assert dk.launches == before + 2
