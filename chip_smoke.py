@@ -7,7 +7,10 @@ Phases (each prints its own line; any failure ends the run with a non-zero
 exit and no result line):
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the four kernels from ``src/repro_torch/csrc``;
+  2. build   — nvcc builds the four kernels from ``src/repro_torch/csrc``
+     and prints the registers and spills of ``lut_mpgemm``'s int-path
+     kernels (``-Xptxas -v``) and their IMMA count in the SASS (cuobjdump,
+     where the toolkit has it; none fails the run);
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
      projections and head), every table_quant mode: per_row bit-exact,
@@ -15,7 +18,9 @@ exit and no result line):
      plain version's matmul with TF32 off) within 1e-4 relative. Then the
      dequant op path: ``ops.dequant_mpgemm``, the kernel's only entry point
      (as in the reference, no serve step launches it), at the same ten
-     shapes with its launches counted. Device times with CUDA events
+     shapes with its launches counted. ``lut_mpgemm``'s per_row records
+     carry the int path's plan: tile, K-step, split-K count S, blocks and
+     shared memory. Device times with CUDA events
      (``time_ms``: L2 flushed before every launch, the host's queueing
      hidden behind a spin on the card): kernel, plain version, a bf16
      ``torch.matmul`` yardstick, and the bound (``bound``):
@@ -33,7 +38,9 @@ exit and no result line):
      (lut_pallas, table_quant auto -> per_row, fusion auto, 4 requests with
      130-200 token prompts, 16 new tokens, prefill chunk 128, decode chunk
      8, greedy). Every kernel's launch count must be > 0 and host syncs per
-     token <= 1/decode_chunk;
+     token <= 1/decode_chunk. After the timed serve, one decode step and
+     one 128-token prefill chunk are profiled (torch.profiler): wall,
+     device busy, idle share, device time by kernel;
   5. parity  — a teacher-forced 128-token forward through the kernels
      (lut_pallas) and through the plain torch LUT path (lut_xla), both with
      per_row tables: the logits must be equal bit for bit, because every
@@ -54,10 +61,17 @@ before that the kernels' JSON record; the last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
 (``src/repro_torch/build/``).
+
+    python3 chip_smoke.py --prefill-profile   # phases 1, 2 and the prefill
+                                              # chunk's profile only
+
+profiles one prefill chunk of phase 4's model alone; it runs on any
+checkout of the port, so one call can profile an older one beside this.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +98,48 @@ def device_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def kernel_report(text):
+    """{kernel: [registers line, spill line]} of the int path's kernels
+    (csrc/lut_mpgemm.cu: lut_mma_kernel per tile, splitk_epilogue_kernel)
+    from nvcc's ``-Xptxas -v`` log."""
+    out, fn = {}, None
+    for ln in text.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", ln)
+        if found:
+            fn = short_kernel_name(found.group(1))
+        elif fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(": ", 1)[-1].strip())
+    return {k: v for k, v in out.items()
+            if "lut_mma" in k or "splitk" in k}
+
+
+def short_kernel_name(mangled):
+    for base in ("lut_mma_kernel", "splitk_epilogue_kernel"):
+        if base in mangled:  # the tile's (BM, BN, WM, WN), if any
+            tile = re.findall(r"Li(\d+)E", mangled)
+            return base + (f"<{'x'.join(tile)}>" if tile else "")
+    return mangled[:48]
+
+
+def imma_counts(lib, nvcc):
+    """IMMA instructions per kernel in the library's SASS (cuobjdump from
+    nvcc's toolkit), or None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(os.path.realpath(nvcc)), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        found = re.search(r"Function : (\w+)", ln)
+        if found:
+            fn = short_kernel_name(found.group(1))
+            counts[fn] = 0
+        elif fn and "IMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def time_ms(fn, reps, flush):
@@ -199,10 +255,15 @@ def check_kernels(flush):
                 for gv, wv in zip(got, want):
                     if wv is not None:
                         compare("table_precompute", gv, wv, tq, what)
-                # staged lookup on the (padded) table
-                tv, ts = tk.table_precompute_plain(xp, KG, tq, rs)
-                got = lk.lut_mpgemm(tv, ts, pkp, wsp, **pw)
-                want = lk.lut_mpgemm_plain(tv, ts, pkp, wsp, **pw)
+                # staged lookup on the table padded to the kernel's own
+                # tile (the int path's for per_row)
+                tv, ts = tk.table_precompute_plain(x, KG, tq, rs_tp)
+                staged = ops.staged_operands(T.Table(
+                    tv.reshape(m, g, e),
+                    None if ts is None else ts.reshape(m, -1, 1), None, KG),
+                    qw)
+                got = lk.lut_mpgemm(*staged, **pw)
+                want = lk.lut_mpgemm_plain(*staged, **pw)
                 compare("lut_mpgemm", got, want, tq, what)
                 # fused
                 fw = dict(pw, table_quant=tq)
@@ -223,8 +284,8 @@ def check_kernels(flush):
                         lambda: torch.matmul(groups, basis),
                         4 * m * k + 4 * m + m * g * e, entry_ops),
                     "lut_mpgemm": (
-                        lambda: lk.lut_mpgemm(tv, ts, pkp, wsp, **pw),
-                        lambda: lk.lut_mpgemm_plain(tv, ts, pkp, wsp, **pw),
+                        lambda: lk.lut_mpgemm(*staged, **pw),
+                        lambda: lk.lut_mpgemm_plain(*staged, **pw),
                         library_mm, m * g * e + 4 * m + pk_bytes + out_bytes,
                         lut_ops),
                     "fused_lut_mpgemm": (
@@ -243,7 +304,29 @@ def check_kernels(flush):
                         "plain_ms": time_ms(plain, 3, flush),
                         "library_ms": time_ms(lib, 10, flush),
                         "bound_ms": b_ms, "bound_by": b_by})
+                    if name == "lut_mpgemm":
+                        records[-1].update(int_plan(m, staged))
     return records, err
+
+
+def int_plan(m, staged):
+    """The int path's launch plan for one shape: tile, K-step, split-K
+    count S, blocks, and dynamic shared memory (csrc/lut_mpgemm.cu:
+    launch_int: the stages, 3 where they fit, the CW tile and the W2 K=4
+    byte table)."""
+    from repro_torch.kernels import lut_mpgemm as lk
+    _, bm, bn, bg = lk.int_tile_for(m, KG, BITS)
+    e = 1 << (KG - 1)
+    mp, gp = staged[0].shape[0], staged[0].shape[1] // e
+    np_ = staged[2].shape[0]
+    splits, ranges = lk.split_for(mp, np_, gp, bm, bn, bg)
+    kt, pbs = bg * e, bg * BITS * KG // 8
+    stage, fixed = bm * (kt + 16) + bn * pbs, bn * (kt + 16) + 256 * 8
+    stages = 3 if 3 * stage + fixed <= 232448 else 2
+    return {"tile": [bm, bn, kt], "splits": splits,
+            "split_groups": [b - a for a, b in ranges],
+            "blocks": (mp // bm) * (np_ // bn) * splits,
+            "smem_bytes": stages * stage + fixed}
 
 
 def dequant_op_path():
@@ -495,13 +578,95 @@ def decode_step_profile(eng):
             "top": [(name[:60], t / 1e3 / n) for name, t in top]}
 
 
+# lut_mpgemm's kernels by name; lut_mpgemm_kernel is the port's first
+# version, which ``--prefill-profile`` meets in an older checkout
+STAGED_KERNELS = ("lut_mma_kernel", "splitk_epilogue_kernel",
+                  "lut_f32_kernel", "lut_mpgemm_kernel")
+
+
+def prefill_chunk_profile(eng):
+    """One 128-token prefill chunk into a fresh batch-1 cache: wall time
+    (host clock, synchronized) against the device time of its kernels
+    (torch.profiler), the staged lookup's share (``lut_mpgemm``'s kernels)
+    among them. The profiler runs on a second chunk, so its host overhead
+    stays out of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    prompt = np.random.default_rng(5).integers(0, eng.cfg.vocab_size,
+                                               eng.prefill_chunk + 1)
+    cache = api.init_cache(eng.cfg, 1, eng.max_seq, dtype=torch.float32,
+                           device=eng.device)
+    eng._prefill(prompt, 0, cache)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._prefill(prompt, 0, cache)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._prefill(prompt, 0, cache)
+        torch.cuda.synchronize()
+    per_name, staged = {}, [0.0, 0]
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            if any(k in e.name for k in STAGED_KERNELS):
+                staged[0] += e.device_time_total
+                staged[1] += 1
+    busy_ms = sum(per_name.values()) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms,
+            # None: the profiler saw no device activity (not measured)
+            "busy_ms": busy_ms if per_name else None,
+            "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
+            "staged_lookup_ms": staged[0] / 1e3 if per_name else None,
+            "staged_lookup_kernels": staged[1],
+            "top": [(name[:60], t / 1e3) for name, t in top]}
+
+
+def prefill_line(rec):
+    if rec["busy_ms"] is None:
+        return (f"wall {rec['wall_ms']:.2f} ms, device busy not measured "
+                f"(the profiler saw no device events)")
+    return (f"wall {rec['wall_ms']:.2f} ms, device busy {rec['busy_ms']:.2f} "
+            f"ms (idle share {rec['idle_share']:.3f}); lut_mpgemm "
+            f"{rec['staged_lookup_ms']:.2f} ms in "
+            f"{rec['staged_lookup_kernels']} kernels; device time by kernel: "
+            + ", ".join(f"{n} {t:.2f} ms" for n, t in rec["top"]))
+
+
+def main_config():
+    from repro_torch.configs import registry
+    return registry.get_config("tinyllama-1.1b").replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
+                                                   fusion="auto")
+
+
+def prefill_only(card) -> int:
+    """``--prefill-profile``: phase 4's model and engine, then only the
+    profile of one prefill chunk (one line of JSON). It uses no entry
+    point newer than the port's first slice, so it also profiles an
+    older checkout of the port."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine
+    cfg = main_config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, "cuda")
+    eng = ServingEngine(cfg, params, max_batch=4, max_seq=256,
+                        decode_chunk=8, prefill_chunk=128)
+    rec = prefill_chunk_profile(eng)
+    print("prefill chunk: " + prefill_line(rec), flush=True)
+    print(json.dumps({"prefill_chunk": rec, "card": card}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import registry
     from repro_torch.kernels import _build
     from repro_torch.models import api
 
@@ -516,6 +681,19 @@ def main() -> int:
              for n in paths if (_build.BUILD_DIR / f"{n}.ptxas.txt").exists()}
     print(f"build: {len(paths)} kernels in {_build.build_seconds:.1f} s "
           f"(nvcc {_build.nvcc_path()})", flush=True)
+    if len(sys.argv) > 1 and sys.argv[1] == "--prefill-profile":
+        return prefill_only(card)
+    int_report = kernel_report(
+        (_build.BUILD_DIR / "lut_mpgemm.ptxas.txt").read_text())
+    imma = imma_counts(paths["lut_mpgemm"], _build.nvcc_path())
+    print("build: lut_mpgemm int path (ptxas -v): " + "; ".join(
+        f"{k}: {', '.join(v)}" for k, v in int_report.items())
+        + "; IMMA instructions in SASS: " + (
+            "not counted (no cuobjdump)" if imma is None else ", ".join(
+                f"{k} {v}" for k, v in imma.items() if v)), flush=True)
+    if imma is not None and not any(
+            v for k, v in imma.items() if "lut_mma" in k):
+        raise AssertionError("build: lut_mpgemm's int path has no IMMA")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     records, err = check_kernels(flush)
@@ -523,7 +701,11 @@ def main() -> int:
         f"{r['kernel']} M={r['m']} N={r['n']} K={r['k']}: "
         f"{r['kernel_ms']:.4f} ms (plain {r['plain_ms']:.4f}, bf16 matmul "
         f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-        f"{r['bound_by']})" for r in records), flush=True)
+        f"{r['bound_by']})" + (
+            f" [tile {r['tile'][0]}x{r['tile'][1]}, K-step {r['tile'][2]} "
+            f"entries, S={r['splits']}, {r['blocks']} blocks, "
+            f"{r['smem_bytes']} B smem]" if "tile" in r else "")
+        for r in records), flush=True)
     print("kernels vs plain: max |diff| " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
         + " (per_row bit-exact; None/per_group and dequant <= 1e-4 "
@@ -535,9 +717,7 @@ def main() -> int:
           f"dequantized product (<= 1e-4 relative)", flush=True)
 
     # phase 4: the main path, at full width
-    cfg = registry.get_config("tinyllama-1.1b").replace(
-        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
-                                                   fusion="auto")
+    cfg = main_config()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -583,6 +763,9 @@ def main() -> int:
                 f"{n} {t:.2f} ms" for n, t in step["top"]))
     print(f"serve: one decode step (4 slots, 22 layers): wall "
           f"{step['wall_ms']:.2f} ms, {busy}", flush=True)
+    prefill = prefill_chunk_profile(eng)
+    print("serve: one 128-token prefill chunk (22 layers): "
+          + prefill_line(prefill), flush=True)
 
     # phase 5: kernels vs plain LUT path through the whole model
     toks = torch.as_tensor(np.random.default_rng(3).integers(
@@ -661,10 +844,12 @@ def main() -> int:
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs]})
     with open(_build.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "records": records, "summary": summary,
-                   "serve": st, "decode_step": step, "launches": launches,
+                   "serve": st, "decode_step": step,
+                   "prefill_chunk": prefill, "launches": launches,
                    "dequant_op_launches": dq_launches, "paged": pst,
                    "paged_launches": paged_launches, "paged_check": paged_rec,
-                   "ptxas": ptxas,
+                   "ptxas": ptxas, "int_path_ptxas": int_report,
+                   "imma": imma,
                    "parity_max_abs_diff": diff,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": summary}))

@@ -7,15 +7,22 @@ Like the TPU kernel it has an int path (per_row INT8 tables, exact int32
 sums, epilogue ``(acc·ts)·ws``) and an f32 path (float tables, or INT8
 tables dequantized per group); a per-row f32 table is refused.
 
-Inputs are pre-padded to the kernel's tile (``tile_for``, done by
-``kernels.ops``). The wrapper launches the kernel for CUDA tensors and runs
-the plain version for CPU tensors; ``launches`` counts kernel launches.
+The int path runs on the int8 tensor cores with its own tile
+(``int_tile_for``) and splits the K-steps into contiguous ranges
+(``split_for``) so that enough blocks fill the card; its partial int32 sums
+go to a workspace the wrapper allocates, summed in order by a second
+kernel of the same launch. The f32 path keeps the shared tiles
+(``tile_for``).
+
+Inputs are pre-padded to the kernel's tile (done by ``kernels.ops``). The
+wrapper launches the kernel for CUDA tensors and runs the plain version for
+CPU tensors; ``launches`` counts wrapper calls that launched the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,10 +30,17 @@ from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.core.table import Table
 from repro_torch.kernels import _build, ref
 
-__all__ = ["lut_mpgemm", "lut_mpgemm_plain", "tile_for", "TILES"]
+__all__ = ["lut_mpgemm", "lut_mpgemm_plain", "tile_for", "int_tile_for",
+           "split_for", "TILES", "INT_TILES"]
 
 # (BM, BN, KT_MIN) of csrc/lut_common.cuh: SmallTile (config 0), LargeTile (1)
 TILES = ((8, 32, 1024), (64, 64, 128))
+# (BM, BN) of the int path's tensor-core tiles (csrc/lut_mpgemm.cu: MmaSmall,
+# MmaMid, MmaLarge = configs 0, 1, 2); a K-step holds INT_KT table entries
+INT_TILES = ((16, 128), (64, 64), (128, 128))
+INT_KT = 128
+SMS = 132          # streaming multiprocessors of an H100 SXM
+MIN_STEPS = 2      # least K-steps in one split
 launches = 0
 
 
@@ -36,6 +50,36 @@ def tile_for(m: int, k_group: int) -> Tuple[int, int, int, int]:
     config = 0 if m <= TILES[0][0] else 1
     bm, bn, kt_min = TILES[config]
     return config, bm, bn, max(1, kt_min >> (k_group - 1))
+
+
+def int_tile_for(m: int, k_group: int, planes: int
+                 ) -> Tuple[int, int, int, int]:
+    """(config, BM, BN, bg) of the int path's tile for M rows: the smallest
+    row tile that holds M (the largest for more rows), and bg groups per
+    K-step: INT_KT table entries, more where the step's packed bytes per
+    channel (bg·B·K/8) would not fill whole 4-byte words."""
+    config = next((i for i, (bm, _) in enumerate(INT_TILES) if m <= bm),
+                  len(INT_TILES) - 1)
+    bm, bn = INT_TILES[config]
+    bg = max(1, INT_KT >> (k_group - 1))
+    while (bg * planes * k_group) % 32:
+        bg *= 2
+    return config, bm, bn, bg
+
+
+def split_for(mp: int, np_: int, gp: int, bm: int, bn: int, bg: int
+              ) -> Tuple[int, List[Tuple[int, int]]]:
+    """Split-K plan of the int path: (S, ranges of K-groups). The Gp/bg
+    K-steps split into S contiguous ranges, the first steps % S of them one
+    step longer, as the kernel computes them. S is the least count that
+    gives tiles·S >= SMS blocks, cut to keep MIN_STEPS steps per range."""
+    steps = gp // bg
+    tiles = (mp // bm) * (np_ // bn)
+    want = -(-SMS // tiles)
+    s = max(1, min(want, steps // MIN_STEPS))
+    q, r = divmod(steps, s)
+    starts = [z * q + min(z, r) for z in range(s + 1)]
+    return s, [(a * bg, b * bg) for a, b in zip(starts, starts[1:])]
 
 
 def _mode(tv, ts, gp) -> int:
@@ -94,9 +138,10 @@ def plane_args(planes, plane_scales):
     return (ctypes.c_int * planes)(*[int(s) for s in plane_scales])
 
 
-def launch_args(k_group, planes, plane_scales, m, n, gp):
-    """Shared ctypes arguments: validated tile config and plane scales."""
-    config, bm, bn, bg = tile_for(m, k_group)
+def launch_args(k_group, planes, plane_scales, m, n, gp, tile=None):
+    """Shared ctypes arguments: validated tile config (``tile``, by default
+    the shared ``tile_for``) and plane scales."""
+    config, bm, bn, bg = tile or tile_for(m, k_group)
     if m % bm or n % bn or gp % bg:
         raise ValueError(f"shape (M={m}, N={n}, G={gp}) is not padded to the "
                          f"tile (BM={bm}, BN={bn}, bg={bg})")
@@ -119,22 +164,35 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
                            or not ts.is_contiguous() or ts.shape[0] != mp):
         raise ValueError("lut_mpgemm: table scales must be contiguous f32 "
                          "[M, *] on the table's device")
-    if tv.data_ptr() % 4:
-        raise ValueError("lut_mpgemm: the kernel reads the table in 4-byte "
-                         "words; pass a 4-byte aligned table")
+    if mode == 1 and (tv.data_ptr() % 16 or packed.data_ptr() % 4):
+        raise ValueError("lut_mpgemm: the int path copies the table in "
+                         "16-byte and the codes in 4-byte pieces; pass "
+                         "aligned operands")
     if tv.device.type == "cpu":
         return lut_mpgemm_plain(tv, ts, packed, wscale, k_group=k_group,
                                 planes=planes, plane_scales=plane_scales)
     if tv.device.type != "cuda":
         raise ValueError(f"lut_mpgemm: unsupported device {tv.device}")
     np_ = packed.shape[0]
-    config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_, gp)
+    splits, work = 1, None
+    if mode == 1:
+        tile = int_tile_for(mp, k_group, planes)
+        config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_,
+                                     gp, tile)
+        splits, _ = split_for(mp, np_, gp, tile[1], tile[2], bg)
+        if splits > 1:
+            work = torch.empty((splits, mp, np_), device=tv.device,
+                               dtype=torch.int32)
+    else:
+        config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_,
+                                     gp)
     out = torch.empty((mp, np_), device=tv.device, dtype=torch.float32)
     fn = _build.launcher("lut_mpgemm")
     with torch.cuda.device(tv.device):
         rc = fn(tv.data_ptr(), None if ts is None else ts.data_ptr(),
                 packed.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-                mp, np_, gp, k_group, planes, ps, mode, config, bg,
+                None if work is None else work.data_ptr(), mp, np_, gp,
+                k_group, planes, ps, mode, config, bg, splits,
                 torch.cuda.current_stream(tv.device).cuda_stream)
     _build.check("lut_mpgemm", rc)
     launches += 1

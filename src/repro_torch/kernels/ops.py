@@ -28,8 +28,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import table_precompute as tp_kernel
 
 __all__ = ["table_precompute", "lut_mpgemm", "fused_lut_mpgemm",
-           "dequant_mpgemm", "pick_blocks", "auto_fusion", "resolve_dispatch",
-           "FUSION_MODES"]
+           "dequant_mpgemm", "staged_operands", "pick_blocks", "auto_fusion",
+           "resolve_dispatch", "FUSION_MODES"]
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int,
@@ -157,6 +157,28 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     return ref.zero_point_correction(out, qw, _rowsum(x, qw))
 
 
+def staged_operands(table: Table, qw: QuantizedWeight):
+    """(tv, ts, packed, wscale) of the staged kernel, padded to its tile:
+    the int path's (``lut_mpgemm.int_tile_for``) for a per_row INT8 table,
+    the shared ``tile_for`` otherwise. Padded rows and groups get a scale
+    of 1 and zero entries."""
+    m, g, e = table.values.shape
+    kg = qw.k_group
+    per_row = (table.values.dtype == torch.int8 and table.scale is not None
+               and table.scale.shape[1] == 1)
+    _, bm, bn, bg = (lut_kernel.int_tile_for(m, kg, qw.num_planes) if per_row
+                     else lut_kernel.tile_for(m, kg))
+    tv = _pad_to(_pad_to(table.values.reshape(m, g * e), bm, 0), bg * e, 1)
+    gp = tv.shape[1] // e
+    ts = None
+    if table.scale is not None:
+        ts = _pad_to(table.scale.reshape(m, -1), bm, 0, value=1.0)
+        if ts.shape[1] != 1:  # per_group
+            ts = _pad_to(ts, bg, 1, value=1.0)
+        ts = ts.contiguous()
+    return (tv.contiguous(), ts) + _pad_packed(qw, gp, bn)
+
+
 def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
                table_quant: Optional[str] = "per_row",
                table: Optional[Table] = None,
@@ -168,24 +190,13 @@ def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     _check_not_plane_sliced(qw, "lut_mpgemm")
     m = x.shape[0]
     g, kg, planes = qw.g, qw.k_group, qw.num_planes
-    e = 1 << (kg - 1)
     fusion = resolve_dispatch(m, qw.n, g, kg, planes, fusion=fusion)
     if table is None and fusion == "fused":
         return fused_lut_mpgemm(x, qw, table_quant=table_quant)
     if table is None:
         table = table_precompute(x, kg, table_quant)
-    _, bm, bn, bg = lut_kernel.tile_for(m, kg)
-    tv = _pad_to(_pad_to(table.values.reshape(m, g * e), bm, 0), bg * e, 1)
-    gp = tv.shape[1] // e
-    ts = None
-    if table.scale is not None:  # padded rows and groups: inert scale 1
-        ts = _pad_to(table.scale.reshape(m, -1), bm, 0, value=1.0)
-        if ts.shape[1] != 1:  # per_group
-            ts = _pad_to(ts, bg, 1, value=1.0)
-        ts = ts.contiguous()
-    pkp, wsp = _pad_packed(qw, gp, bn)
     out = lut_kernel.lut_mpgemm(
-        tv.contiguous(), ts, pkp, wsp, k_group=kg, planes=planes,
+        *staged_operands(table, qw), k_group=kg, planes=planes,
         plane_scales=qw.plane_scales)[:m, :qw.n]
     return ref.zero_point_correction(out, qw, table.rowsum)
 

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quantize import dequantize, quantize
+from repro_torch.core.quantize import QuantizedWeight, dequantize, quantize
+from repro_torch.core.table import Table
 from repro_torch.kernels import dequant_mpgemm as dk
 from repro_torch.kernels import fused_lut_mpgemm as fk
 from repro_torch.kernels import lut_mpgemm as lk
@@ -67,14 +68,61 @@ def test_kernels_match_plain_versions(cuda, case, tq):
     assert torch.equal(got[0], want[0])
     if tq == "per_group":
         assert torch.equal(got[1], want[1])
-    tv, ts = want
-    _close(lk.lut_mpgemm(tv, ts, pkp, wsp, **pw),
-           lk.lut_mpgemm_plain(tv, ts, pkp, wsp, **pw), tq)
+    staged = _staged_operands(x, qw, tq)
+    got = lk.lut_mpgemm(*staged, **pw)
+    _close(got, lk.lut_mpgemm_plain(*staged, **pw), tq)
     fused = fk.fused_lut_mpgemm(xp, rs, pkp, wsp, table_quant=tq, **pw)
     _close(fused, fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp, table_quant=tq,
                                             **pw), tq)
     if tq == "per_row":  # fused == staged, bit for bit
-        assert torch.equal(fused, lk.lut_mpgemm(tv, ts, pkp, wsp, **pw))
+        assert torch.equal(fused[:m, :n], got[:m, :n])
+
+
+def _staged_operands(x, qw, tq):
+    """The plain table of x, padded with the weights to the staged kernel's
+    own tile (``ops.staged_operands``: the int path's for per_row)."""
+    m, k = x.shape
+    kg = qw.k_group
+    g, e = k // kg, 1 << (kg - 1)
+    rs = (ops._closed_form_row_scale(x, g, kg).contiguous()
+          if tq == "per_row" else None)
+    tv, ts = tk.table_precompute_plain(x, kg, tq, rs)
+    table = Table(tv.reshape(m, g, e),
+                  None if ts is None else ts.reshape(m, -1, 1), None, kg)
+    return ops.staged_operands(table, qw)
+
+
+# tinyllama-1.1b's projections and head (N, K) at a 128-token prefill
+# chunk, W2 K=4, and (640, 1600), whose 25 K-steps split 3, 2, ..., 2
+SERVE_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632),
+                (32000, 2048), (640, 1600)]
+
+
+@pytest.mark.parametrize("nk", SERVE_SHAPES, ids=str)
+def test_int_path_is_bit_exact_at_the_serve_shapes(cuda, nk):
+    """The tensor-core int path with split-K against its plain version,
+    bit for bit, at M = 128."""
+    n, k = nk
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.normal(size=(128, k)).astype(np.float32)
+                         ).to(cuda)
+    qw = QuantizedWeight(
+        torch.from_numpy(rng.integers(0, 256, (n, k // 4), dtype=np.uint8)
+                         ).to(cuda),
+        torch.from_numpy(rng.uniform(1e-3, 1.1e-2, n).astype(np.float32)
+                         ).to(cuda),
+        None, (1.0, 2.0), bits=2, k_group=4, k_total=k, n=n)
+    staged = _staged_operands(x, qw, "per_row")
+    pw = dict(k_group=4, planes=2, plane_scales=qw.plane_scales)
+    splits, ranges = lk.split_for(128, n, k // 4,
+                                  *lk.int_tile_for(128, 4, 2)[1:])
+    assert (splits == 1) == (n == 32000)
+    if nk == (640, 1600):
+        assert ranges[-1][1] - ranges[-1][0] < ranges[0][1] - ranges[0][0]
+    before = lk.launches
+    got = lk.lut_mpgemm(*staged, **pw)
+    assert lk.launches == before + 1
+    assert torch.equal(got, lk.lut_mpgemm_plain(*staged, **pw))
 
 
 def test_launch_counts_and_no_fallback(cuda):

@@ -32,6 +32,7 @@ from repro_torch.core import table as TT
 from repro_torch.kernels import fused_lut_mpgemm as tfused
 from repro_torch.kernels import lut_mpgemm as tlut
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref
 from repro_torch.kernels import table_precompute as ttp
 from repro_torch.models.convert import _qw as to_port_qw
 
@@ -166,36 +167,137 @@ def test_fusion_rule_on_the_h100_budget():
 
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
-    """ops pads rows to BM, K-groups to bg and channels to BN: every shape
-    it hands a kernel wrapper passes the card path's launch checks."""
+    """ops pads rows to BM, K-groups to bg and channels to BN of each
+    kernel's own tile: the staged int path (per_row tables) to
+    ``int_tile_for``, the staged f32 path (None, per_group) and the fused
+    kernel to ``tile_for``. Every shape it hands a kernel wrapper passes
+    the card path's launch checks and is padded no further than the tile
+    needs."""
     m, k, n, bits, scheme, k_group = case
+    g = k // k_group
     rng = np.random.default_rng(m + k)
     a = rng.normal(size=(m, k)).astype(np.float32)
     tq_w = TQ.quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
         np.float32)), bits, k_group=k_group, scheme=scheme)
     seen = []
 
-    def spy(plain, rows_of):
+    def up(x, mult):
+        return -(-x // mult) * mult
+
+    def spy(plain, name, rows_of):
         def run(*args, **kw):
-            rows, packed = args[0], args[2]
+            rows, scale, packed = args[:3]
             gp = packed.shape[1] * 8 // (kw["planes"] * kw["k_group"])
-            seen.append(tlut.launch_args(kw["k_group"], kw["planes"],
-                                         kw["plane_scales"], rows.shape[0],
-                                         packed.shape[0], gp))
+            int_path = (name == "staged" and scale is not None
+                        and scale.shape[1] == 1)
+            tile = (tlut.int_tile_for(m, k_group, bits) if int_path
+                    else tlut.tile_for(m, k_group))
+            tlut.launch_args(kw["k_group"], kw["planes"], kw["plane_scales"],
+                             rows.shape[0], packed.shape[0], gp, tile)
+            _, bm, bn, bg = tile
+            assert (rows.shape[0], packed.shape[0], gp) == (
+                up(m, bm), up(n, bn), up(g, bg))
             assert rows_of(rows, kw["k_group"]) == gp
+            seen.append((name, int_path))
             return plain(*args, **kw)
         return run
 
     monkeypatch.setattr(tlut, "lut_mpgemm_plain", spy(
-        tlut.lut_mpgemm_plain, lambda t, kg: t.shape[1] >> (kg - 1)))
+        tlut.lut_mpgemm_plain, "staged",
+        lambda t, kg: t.shape[1] >> (kg - 1)))
     monkeypatch.setattr(tfused, "fused_lut_mpgemm_plain", spy(
-        tfused.fused_lut_mpgemm_plain, lambda t, kg: t.shape[1] // kg))
+        tfused.fused_lut_mpgemm_plain, "fused",
+        lambda t, kg: t.shape[1] // kg))
     x = torch.from_numpy(a)
-    for fusion in ("fused", "staged"):
-        tops.lut_mpgemm(x, tq_w, table_quant="per_row", fusion=fusion)
-    assert len(seen) == 2
+    for tq in MODES:
+        tops.lut_mpgemm(x, tq_w, table_quant=tq, fusion="staged")
+    tops.lut_mpgemm(x, tq_w, table_quant="per_row", fusion="fused")
+    assert seen == [("staged", False), ("staged", True), ("staged", False),
+                    ("fused", False)]
+    assert tlut.int_tile_for(m, k_group, bits)[1:] != tlut.tile_for(
+        m, k_group)[1:]
     with pytest.raises(ValueError, match="padded"):
         tlut.launch_args(4, 2, (1.0, 2.0), 5, 64, 32)
+
+
+# tinyllama-1.1b's projections and head, (N, K), at W2 K=4
+MAIN_SHAPES = ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632),
+               (32000, 2048))
+# a shape whose last split is shorter than the others (25 K-steps in 12)
+RAGGED = (16, 1600, 256, 2, "symmetric", 4)
+SPLIT_PLANS = ([(m, k, n, bits, kg) for m, k, n, bits, _, kg in CASES]
+               + [(m, k, n, 2, 4) for m in (4, 128) for n, k in MAIN_SHAPES]
+               + [RAGGED[:4] + RAGGED[5:]])
+
+
+def _padded_plan(m, k, n, bits, kg):
+    _, bm, bn, bg = tlut.int_tile_for(m, kg, bits)
+    mp, np_, gp = (-(-x // y) * y for x, y in ((m, bm), (n, bn),
+                                               (k // kg, bg)))
+    return (mp, np_, gp, bm, bn, bg) + tlut.split_for(mp, np_, gp, bm, bn, bg)
+
+
+@pytest.mark.parametrize("plan", SPLIT_PLANS, ids=str)
+def test_split_plan_partitions_the_k_steps(plan):
+    """The int path's split-K plan: S contiguous, non-empty, bg-aligned
+    ranges that cover [0, Gp) exactly, in the kernel's own order (the
+    first steps % S ranges one step longer), with >= 132 blocks wherever
+    the K-steps allow MIN_STEPS per range."""
+    mp, np_, gp, bm, bn, bg, s, ranges = _padded_plan(*plan)
+    assert len(ranges) == s >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == gp
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    assert all(b > a and a % bg == 0 and b % bg == 0 for a, b in ranges)
+    steps, tiles = gp // bg, (mp // bm) * (np_ // bn)
+    if (steps // tlut.MIN_STEPS) * tiles >= tlut.SMS:
+        assert tiles * s >= tlut.SMS
+    if s > 1:
+        assert min(b - a for a, b in ranges) >= tlut.MIN_STEPS * bg
+    q, r = divmod(steps, s)  # csrc/lut_mpgemm.cu: first, count
+    assert ranges == [(bg * (z * q + min(z, r)),
+                       bg * (z * q + min(z, r) + q + (z < r)))
+                      for z in range(s)]
+
+
+def test_split_plans_of_the_serve_shapes():
+    """At a 128-token prefill chunk every projection but the head splits
+    K, and the ragged case's last range is shorter than the others."""
+    for n, k in MAIN_SHAPES:
+        s = _padded_plan(128, k, n, 2, 4)[6]
+        assert (s == 1) == (n == 32000)
+    ranges = _padded_plan(*RAGGED[:4], RAGGED[5])[7]
+    assert ranges[-1][1] - ranges[-1][0] < ranges[0][1] - ranges[0][0]
+
+
+@pytest.mark.parametrize("case", CASES + [RAGGED], ids=str)
+def test_split_sums_equal_the_unsplit_contraction(case):
+    """A plain int64 emulation of the int path's split-K: Σ over the plan's
+    ranges of table x CW, each range's sum exact, then the epilogue
+    (float(acc)·ts)·ws, equals the unsplit plain version bit for bit; every
+    sum fits the kernel's int32 accumulator."""
+    m, k, n, bits, scheme, k_group = case
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    qw = TQ.quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+        np.float32)), bits, k_group=k_group, scheme=scheme)
+    tv, ts, pk, ws = tops.staged_operands(
+        tops.table_precompute(x, k_group, "per_row"), qw)
+    pw = dict(k_group=k_group, planes=bits, plane_scales=qw.plane_scales)
+    want = tlut.lut_mpgemm_plain(tv, ts, pk, ws, **pw)
+    e = 1 << (k_group - 1)
+    mp, np_, gp = tv.shape[0], pk.shape[0], tv.shape[1] // e
+    _, bm, bn, bg = tlut.int_tile_for(m, k_group, bits)
+    s, ranges = tlut.split_for(mp, np_, gp, bm, bn, bg)
+    qwp = TQ.QuantizedWeight(pk, ws, None, qw.plane_scales, bits=bits,
+                             k_group=k_group, k_total=gp * k_group, n=np_)
+    cw = ref.build_cw(qwp, torch.int64)
+    parts = [tv[:, a * e:b * e].to(torch.int64) @ cw[a * e:b * e]
+             for a, b in ranges]
+    acc = torch.stack(parts).sum(0)
+    assert acc.abs().max().item() < 2 ** 31
+    got = (acc.to(torch.float32) * ts[:, :1]) * ws[None, :]
+    assert torch.equal(got, want)
+    assert torch.equal(acc, tv.to(torch.int64) @ cw)
 
 
 @pytest.fixture
