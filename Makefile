@@ -21,9 +21,7 @@ test-fast:       ## kernel + core contracts only (minutes, not tens of)
 	    tests/test_paged_serving.py
 
 test-port:       ## PyTorch/CUDA port vs the JAX reference (CPU; card tests skip)
-	$(PYTHON) -m pytest -q tests/test_torch_core.py tests/test_torch_kernels.py \
-	    tests/test_torch_model.py tests/test_torch_serving.py \
-	    tests/test_torch_guard.py tests/test_torch_cuda.py
+	$(PYTHON) -m pytest -q $(sort $(wildcard tests/test_torch_*.py))
 
 bench-smoke:     ## quick analytic benchmark pass (no kernels executed)
 	$(PYTHON) benchmarks/bench_fused_mpgemm.py --smoke

@@ -8,9 +8,10 @@ exit and no result line):
 
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds the four kernels from ``src/repro_torch/csrc``
-     and prints the registers and spills of ``lut_mpgemm``'s int-path
-     kernels (``-Xptxas -v``) and their IMMA count in the SASS (cuobjdump,
-     where the toolkit has it; none fails the run);
+     and prints the registers and spills of the int-path kernels of
+     ``lut_mpgemm`` and ``fused_lut_mpgemm`` (``-Xptxas -v``) and their
+     IMMA count in the SASS (cuobjdump, where the toolkit has it; none
+     fails the run);
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
      projections and head), every table_quant mode: per_row bit-exact,
@@ -18,9 +19,12 @@ exit and no result line):
      plain version's matmul with TF32 off) within 1e-4 relative. Then the
      dequant op path: ``ops.dequant_mpgemm``, the kernel's only entry point
      (as in the reference, no serve step launches it), at the same ten
-     shapes with its launches counted. ``lut_mpgemm``'s per_row records
-     carry the int path's plan: tile, K-step, split-K count S, blocks and
-     shared memory. Device times with CUDA events
+     shapes with its launches counted. The fused kernel's per_row operands
+     are padded to the int path's tile (x's rows as they are), the others
+     to the shared tile. The per_row records of ``lut_mpgemm`` and
+     ``fused_lut_mpgemm`` carry their int path's plan: tile, K-step,
+     split-K count S, blocks, shared memory and kernels per call. Device
+     times with CUDA events
      (``time_ms``: L2 flushed before every launch, the host's queueing
      hidden behind a spin on the card): kernel, plain version, a bf16
      ``torch.matmul`` yardstick, and the bound (``bound``):
@@ -40,7 +44,8 @@ exit and no result line):
      8, greedy). Every kernel's launch count must be > 0 and host syncs per
      token <= 1/decode_chunk. After the timed serve, one decode step and
      one 128-token prefill chunk are profiled (torch.profiler): wall,
-     device busy, idle share, device time by kernel;
+     device busy, idle share, device time by kernel, and the decode step's
+     ``fused_lut_mpgemm`` time and kernels;
   5. parity  — a teacher-forced 128-token forward through the kernels
      (lut_pallas) and through the plain torch LUT path (lut_xla), both with
      per_row tables: the logits must be equal bit for bit, because every
@@ -101,9 +106,10 @@ def device_line() -> str:
 
 
 def kernel_report(text):
-    """{kernel: [registers line, spill line]} of the int path's kernels
-    (csrc/lut_mpgemm.cu: lut_mma_kernel per tile, splitk_epilogue_kernel)
-    from nvcc's ``-Xptxas -v`` log."""
+    """{kernel: [registers line, spill line]} of the int paths' kernels
+    (csrc/lut_mpgemm.cu: lut_mma_kernel per tile, splitk_epilogue_kernel;
+    csrc/fused_lut_mpgemm.cu: fused_mma_kernel per tile) from nvcc's
+    ``-Xptxas -v`` log."""
     out, fn = {}, None
     for ln in text.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -111,12 +117,15 @@ def kernel_report(text):
             fn = short_kernel_name(found.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             out.setdefault(fn, []).append(ln.split(": ", 1)[-1].strip())
-    return {k: v for k, v in out.items()
-            if "lut_mma" in k or "splitk" in k}
+    return {k: v for k, v in out.items() if k.startswith(INT_KERNELS)}
+
+
+# the int paths' kernels (csrc/lut_mpgemm.cu, csrc/fused_lut_mpgemm.cu)
+INT_KERNELS = ("lut_mma_kernel", "splitk_epilogue_kernel", "fused_mma_kernel")
 
 
 def short_kernel_name(mangled):
-    for base in ("lut_mma_kernel", "splitk_epilogue_kernel"):
+    for base in INT_KERNELS:
         if base in mangled:  # the tile's (BM, BN, WM, WN), if any
             tile = re.findall(r"Li(\d+)E", mangled)
             return base + (f"<{'x'.join(tile)}>" if tile else "")
@@ -217,10 +226,6 @@ def check_kernels(flush):
             w_bf16 = dequantize(qw).to(torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
             library_mm = lambda: torch.matmul(x_bf16, w_bf16.T)
-            _, bm, bn, bg = lk.tile_for(m, KG)
-            xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * KG, 1).contiguous()
-            gp = xp.shape[1] // KG
-            pkp, wsp = ops._pad_packed(qw, gp, bn)
             basis = T.sign_basis(KG, "cuda")
             groups = x.reshape(m * g, KG)
             pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
@@ -246,18 +251,17 @@ def check_kernels(flush):
                 "bound_ms": b_ms, "bound_by": b_by})
             for tq in MODES:
                 what = f"M={m} N={n} K={k} table_quant={tq}"
-                rs = (ops._padded_row_scale(x, g, KG, bm).contiguous()
-                      if tq == "per_row" else None)
-                rs_tp = rs[:m].contiguous() if rs is not None else None
+                # the fused kernel's operands, padded as ops pads them
+                xp, rs, pkp, wsp = fused_operands(x, qw, tq)
                 # table precompute
-                got = tk.table_precompute(x, KG, tq, rs_tp)
-                want = tk.table_precompute_plain(x, KG, tq, rs_tp)
+                got = tk.table_precompute(x, KG, tq, rs)
+                want = tk.table_precompute_plain(x, KG, tq, rs)
                 for gv, wv in zip(got, want):
                     if wv is not None:
                         compare("table_precompute", gv, wv, tq, what)
                 # staged lookup on the table padded to the kernel's own
                 # tile (the int path's for per_row)
-                tv, ts = tk.table_precompute_plain(x, KG, tq, rs_tp)
+                tv, ts = tk.table_precompute_plain(x, KG, tq, rs)
                 staged = ops.staged_operands(T.Table(
                     tv.reshape(m, g, e),
                     None if ts is None else ts.reshape(m, -1, 1), None, KG),
@@ -279,8 +283,8 @@ def check_kernels(flush):
                 entry_ops = {"f32": m * g * e * (KG - 1)}
                 recs = {
                     "table_precompute": (
-                        lambda: tk.table_precompute(x, KG, tq, rs_tp),
-                        lambda: tk.table_precompute_plain(x, KG, tq, rs_tp),
+                        lambda: tk.table_precompute(x, KG, tq, rs),
+                        lambda: tk.table_precompute_plain(x, KG, tq, rs),
                         lambda: torch.matmul(groups, basis),
                         4 * m * k + 4 * m + m * g * e, entry_ops),
                     "lut_mpgemm": (
@@ -305,28 +309,61 @@ def check_kernels(flush):
                         "library_ms": time_ms(lib, 10, flush),
                         "bound_ms": b_ms, "bound_by": b_by})
                     if name == "lut_mpgemm":
-                        records[-1].update(int_plan(m, staged))
+                        records[-1].update(int_plan(
+                            m, staged[0].shape[0], staged[2].shape[0],
+                            staged[0].shape[1] // e))
+                    if name == "fused_lut_mpgemm":
+                        records[-1].update(int_plan(
+                            m, m, pkp.shape[0], xp.shape[1] // KG,
+                            fused=True))
     return records, err
 
 
-def int_plan(m, staged):
-    """The int path's launch plan for one shape: tile, K-step, split-K
-    count S, blocks, and dynamic shared memory (csrc/lut_mpgemm.cu:
-    launch_int: the stages, 3 where they fit, the CW tile and the W2 K=4
-    byte table)."""
+def fused_operands(x, qw, tq):
+    """(x, row scale, packed, wscale) of the fused kernel, padded as
+    ``ops.fused_lut_mpgemm`` pads them: per_row to the int path's tile with
+    x's rows as they are, None and per_group to the shared tile."""
+    from repro_torch.kernels import fused_lut_mpgemm as fk
     from repro_torch.kernels import lut_mpgemm as lk
-    _, bm, bn, bg = lk.int_tile_for(m, KG, BITS)
+    from repro_torch.kernels import ops
+    m, k = x.shape
+    g = k // KG
+    if tq == "per_row":
+        _, _, bn, bg = fk.int_tile(m, KG, BITS)
+        rs = ops._closed_form_row_scale(x, g, KG).contiguous()
+        xp = ops._pad_to(x, bg * KG, 1).contiguous()
+    else:
+        _, bm, bn, bg = lk.tile_for(m, KG)
+        rs = None
+        xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * KG, 1).contiguous()
+    return (xp, rs) + ops._pad_packed(qw, xp.shape[1] // KG, bn)
+
+
+def int_plan(m, mp, np_, gp, fused=False):
+    """An int path's launch plan for one shape (M rows, of which the kernel
+    is given mp; np_ channels; gp K-groups): tile, K-step, split-K count S,
+    blocks, dynamic shared memory and kernels per call. csrc/lut_mma.cuh:
+    ring_plan: the stages, 3 where they fit, then the CW tile, the W2 K=4
+    byte table and, in the fused kernel, the built table tile. A stage holds
+    the table tile (staged) or the activation tile of x's rows (fused), and
+    the packed codes. The staged kernel sums a split in a second kernel; the
+    fused one in the same launch."""
+    from repro_torch.kernels import fused_lut_mpgemm as fk
+    from repro_torch.kernels import lut_mpgemm as lk
+    _, bm, bn, bg = (fk.int_tile if fused else lk.int_tile_for)(m, KG, BITS)
     e = 1 << (KG - 1)
-    mp, gp = staged[0].shape[0], staged[0].shape[1] // e
-    np_ = staged[2].shape[0]
-    splits, ranges = lk.split_for(mp, np_, gp, bm, bn, bg)
+    rows = -(-mp // bm) * bm
+    splits, ranges = lk.split_for(rows, np_, gp, bm, bn, bg)
     kt, pbs = bg * e, bg * BITS * KG // 8
-    stage, fixed = bm * (kt + 16) + bn * pbs, bn * (kt + 16) + 256 * 8
+    a_bytes = min(bm, m) * bg * KG * 4 if fused else bm * (kt + 16)
+    stage = a_bytes + bn * pbs
+    fixed = (bn + (bm if fused else 0)) * (kt + 16) + 256 * 8
     stages = 3 if 3 * stage + fixed <= 232448 else 2
     return {"tile": [bm, bn, kt], "splits": splits,
             "split_groups": [b - a for a, b in ranges],
-            "blocks": (mp // bm) * (np_ // bn) * splits,
-            "smem_bytes": stages * stage + fixed}
+            "blocks": (rows // bm) * (np_ // bn) * splits,
+            "smem_bytes": stages * stage + fixed,
+            "kernels_per_call": 1 if fused or splits == 1 else 2}
 
 
 def dequant_op_path():
@@ -565,17 +602,26 @@ def decode_step_profile(eng):
                              ProfilerActivity.CUDA]) as prof:
         eng._decode_chunk(sampling=False)
         torch.cuda.synchronize()
-    per_name = {}
+    per_name, fused = {}, [0.0, 0]
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            if any(k in e.name for k in FUSED_KERNELS):
+                fused[0] += e.device_time_total
+                fused[1] += 1
     busy_ms = sum(per_name.values()) / 1e3 / n
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms,
             # None: the profiler saw no device activity (not measured)
             "busy_ms": busy_ms if per_name else None,
             "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
+            "fused_ms": fused[0] / 1e3 / n if per_name else None,
+            "fused_kernels": fused[1] / n,
             "top": [(name[:60], t / 1e3 / n) for name, t in top]}
+
+
+# fused_lut_mpgemm's kernels by name (csrc/fused_lut_mpgemm.cu)
+FUSED_KERNELS = ("fused_mma_kernel", "fused_f32_kernel")
 
 
 # lut_mpgemm's kernels by name; lut_mpgemm_kernel is the port's first
@@ -683,17 +729,21 @@ def main() -> int:
           f"(nvcc {_build.nvcc_path()})", flush=True)
     if len(sys.argv) > 1 and sys.argv[1] == "--prefill-profile":
         return prefill_only(card)
-    int_report = kernel_report(
-        (_build.BUILD_DIR / "lut_mpgemm.ptxas.txt").read_text())
-    imma = imma_counts(paths["lut_mpgemm"], _build.nvcc_path())
-    print("build: lut_mpgemm int path (ptxas -v): " + "; ".join(
-        f"{k}: {', '.join(v)}" for k, v in int_report.items())
-        + "; IMMA instructions in SASS: " + (
-            "not counted (no cuobjdump)" if imma is None else ", ".join(
-                f"{k} {v}" for k, v in imma.items() if v)), flush=True)
-    if imma is not None and not any(
-            v for k, v in imma.items() if "lut_mma" in k):
-        raise AssertionError("build: lut_mpgemm's int path has no IMMA")
+    int_report, imma = {}, {}
+    for lib in ("lut_mpgemm", "fused_lut_mpgemm"):
+        int_report[lib] = kernel_report(
+            (_build.BUILD_DIR / f"{lib}.ptxas.txt").read_text())
+        imma[lib] = imma_counts(paths[lib], _build.nvcc_path())
+        print(f"build: {lib} int path (ptxas -v): " + "; ".join(
+            f"{k}: {', '.join(v)}" for k, v in int_report[lib].items())
+            + "; IMMA instructions in SASS: " + (
+                "not counted (no cuobjdump)" if imma[lib] is None else
+                ", ".join(f"{k} {v}" for k, v in imma[lib].items() if v)),
+            flush=True)
+        if imma[lib] is not None and not any(
+                v for k, v in imma[lib].items()
+                if k.startswith(("lut_mma", "fused_mma"))):
+            raise AssertionError(f"build: {lib}'s int path has no IMMA")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     records, err = check_kernels(flush)
@@ -704,7 +754,8 @@ def main() -> int:
         f"{r['bound_by']})" + (
             f" [tile {r['tile'][0]}x{r['tile'][1]}, K-step {r['tile'][2]} "
             f"entries, S={r['splits']}, {r['blocks']} blocks, "
-            f"{r['smem_bytes']} B smem]" if "tile" in r else "")
+            f"{r['smem_bytes']} B smem, {r['kernels_per_call']} kernel(s) "
+            f"per call]" if "tile" in r else "")
         for r in records), flush=True)
     print("kernels vs plain: max |diff| " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
@@ -759,7 +810,9 @@ def main() -> int:
     busy = ("device busy not measured (the profiler saw no device events)"
             if step["busy_ms"] is None else
             f"device busy {step['busy_ms']:.2f} ms (idle share "
-            f"{step['idle_share']:.3f}); device time by kernel: " + ", ".join(
+            f"{step['idle_share']:.3f}); fused_lut_mpgemm "
+            f"{step['fused_ms']:.3f} ms in {step['fused_kernels']:g} kernels; "
+            "device time by kernel: " + ", ".join(
                 f"{n} {t:.2f} ms" for n, t in step["top"]))
     print(f"serve: one decode step (4 slots, 22 layers): wall "
           f"{step['wall_ms']:.2f} ms, {busy}", flush=True)

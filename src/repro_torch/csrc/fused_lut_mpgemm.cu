@@ -1,45 +1,156 @@
-// Fused precompute -> lookup LUT mpGEMM: activations [Mp, Gp*K] f32 x packed
-// B-bit weight codes [Np, Gp*B*K/8] -> f32 [Mp, Np]. The half-table of each
-// K-step is rebuilt in shared memory from the activation tile (quantized to
-// INT8 with the wrapper's per-row scale, or per_group quantize->dequantize,
-// or left in f32) and contracted at once; it never reaches device memory.
+// Fused precompute -> lookup LUT mpGEMM: activations [M, Gp*K] f32 x packed
+// B-bit weight codes [Np, Gp*B*K/8] -> f32 [M, Np]. Each table tile is
+// built in shared memory from the activation tile (quantized to INT8 with
+// the wrapper's per-row scale, or per_group quantize->dequantize, or left
+// in f32) and contracted at once; it never reaches device memory.
 //
 // Replaces the TPU kernel kernels/fused_lut_mpgemm.py:fused_lut_mpgemm_pallas
-// (_table_block, _kernel_int, _kernel_f32). What bounds it on the H100: at
-// decode (M = batch <= 64) it reads each packed weight byte once and does
-// few operations per byte, so device-memory bytes bound it. This first
-// version gives every block BN channels and all (padded) rows of M, walks
-// K inside the block, and runs the int8 path on __dp4a with exact int32
-// sums; a small-M tile (8 x 32 outputs) keeps decode from computing 64
-// padded rows. Overlapping the weight stream with the contraction (TMA,
-// pipelining) and tensor cores are later work.
-#include <type_traits>
+// (_table_block, _kernel_int, _kernel_f32).
+//
+// What bounds it on the H100. At decode (M = batch <= 64) the kernel reads
+// each packed weight byte once and does few operations per byte, so bytes
+// bound it: about 1.1 MB at M = 4, (N, K) = (2048, 2048), 0.34 µs at
+// 3.35 TB/s. To approach that a kernel must keep the whole card busy, with
+// loads in flight, for a few microseconds. A first version (one block per
+// 8 x 32 outputs walking all of K, the table rebuilt for 8 padded rows,
+// __dp4a sums) ran 64 blocks at N = 2048 and 8 at N = 256, and took
+// 0.11 ms at both.
+//
+// The int path (per_row: exact int32 sums; the decode path) now runs the
+// tensor-core main loop of lut_mma.cuh with the table built from x as A:
+//  * the staged int path's tiles (16 x 128 at M <= 16, 64 x 64 at M <= 64,
+//    128 x 128 above) with K-steps of 256 table entries, twice the staged
+//    path's, since at decode each step's phases wait on each other in turn
+//    and fewer, wider steps cost less (kernels/fused_lut_mpgemm.py:
+//    int_tile); the activation and packed tiles of the next K-steps stream
+//    in through a cp.async ring;
+//  * each block builds only its own table tile: its rows < M (rows >= M
+//    are zero) x its K-range x E entries, with table_precompute's entry
+//    and quantization code, so the codes, the sums and the epilogue equal
+//    the staged pair's bit for bit;
+//  * the W2 K=4 CW decode reads the 256-entry byte table;
+//  * split-K (kernels/lut_mpgemm.py: split_for) gives tiles x S >= 132
+//    blocks where the K-steps allow. The split sums are reduced in the same
+//    launch: each block adds its int32 tile into a workspace with atomics,
+//    then bumps its tile's arrival count; the last block to arrive reads
+//    the sum (and zeroes the workspace tile and the count for the next
+//    call) and writes the epilogue (float(acc) · rs[m]) · ws[n]. Integer
+//    addition is exact in any order, so the split changes no bit.
+// The f32 paths (None and per_group tables; no serve step runs them) keep
+// the first version: IEEE fp32 FMA from shared memory, one block per 8 x 32
+// or 64 x 64 tile walking all of K.
+#include <algorithm>
 
-#include "lut_common.cuh"
+#include "lut_mma.cuh"
 
 namespace {
 
-template <class C, bool kInt>
+// ---------------------------------------------------------------- int path
+
+template <class C>
+__global__ void __launch_bounds__(lut::kThreads, 2)
+fused_mma_kernel(const float* __restrict__ x, const float* __restrict__ rs,
+                 const uint8_t* __restrict__ packed, const float* __restrict__ ws,
+                 float* __restrict__ out, int* __restrict__ work,
+                 int* __restrict__ arrivals, int m, int np, int gp, int k_group,
+                 int planes, int bg, int splits, int stages, int pchunk,
+                 lut::PlaneScales ps) {
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN, z = blockIdx.z;
+  const int steps = gp / bg, q = steps / splits, r = steps % splits;
+  const int first = z * q + min(z, r), count = q + (z < r ? 1 : 0);
+  int acc[C::MT][C::NT][4];
+  const lut::ActivationA<C> a{x, rs, static_cast<long long>(gp) * k_group, m,
+                              k_group, __ffs(bg) - 1};
+  lut::int_mainloop<C>(a, packed, gp, k_group, planes, bg, first, count,
+                       stages, pchunk, ps, m0, n0, acc);
+  auto store = [&](int ml, int nl, int v0, int v1) {
+    const int mg = m0 + ml, n = n0 + nl;
+    *reinterpret_cast<float2*>(out + static_cast<long long>(mg) * np + n) =
+        lut::int_epilogue(v0, v1, rs[mg], ws, n);
+  };
+  if (splits == 1) {
+    lut::for_each_pair<C>([&](int mi, int nj, int h, int ml, int nl) {
+      if (m0 + ml < m) store(ml, nl, acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+    });
+    return;
+  }
+  // split-K: add this block's sums into the tile's workspace [m, np]
+  const auto at = [&](int ml, int nl) {
+    return work + static_cast<long long>(m0 + ml) * np + n0 + nl;
+  };
+  lut::for_each_pair<C>([&](int mi, int nj, int h, int ml, int nl) {
+    if (m0 + ml < m) {
+      atomicAdd(at(ml, nl), acc[mi][nj][2 * h]);
+      atomicAdd(at(ml, nl) + 1, acc[mi][nj][2 * h + 1]);
+    }
+  });
+  __threadfence();  // this thread's adds are seen before the arrival below
+  __syncthreads();
+  __shared__ int last;
+  int* arrival = arrivals + blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) last = atomicAdd(arrival, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: every split's adds have landed; read and zero the sums
+  lut::for_each_pair<C>([&](int, int, int, int ml, int nl) {
+    if (m0 + ml < m) {
+      const int v0 = atomicExch(at(ml, nl), 0), v1 = atomicExch(at(ml, nl) + 1, 0);
+      store(ml, nl, v0, v1);
+    }
+  });
+  if (threadIdx.x == 0) *arrival = 0;
+}
+
+template <class C>
+int launch_int(const float* x, const float* rs, const uint8_t* packed,
+               const float* ws, float* out, int* work, int* arrivals, int m,
+               int np, int gp, int k_group, int planes, int bg, int splits,
+               const lut::PlaneScales& ps, cudaStream_t stream) {
+  const int kt = bg << (k_group - 1), ld = kt + lut::kPad;
+  const int pbs = bg * planes * k_group / 8;
+  const int x_bytes = bg * k_group * static_cast<int>(sizeof(float));
+  const long long pb = static_cast<long long>(gp / bg) * pbs;
+  const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
+  if (np % C::BN || kt % 32 || pbs % 4 || x_bytes % 16 || (bg & (bg - 1)) ||
+      splits < 1 || splits > gp / bg ||
+      (splits > 1) != (work != nullptr && arrivals != nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || pk % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const lut::RingPlan plan = lut::ring_plan(
+      static_cast<size_t>(std::min(C::BM, m)) * x_bytes + C::BN * pbs,
+      static_cast<size_t>(C::BN + C::BM) * ld + 256 * sizeof(uint2));
+  if (plan.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fused_mma_kernel<C>;
+  cudaError_t err = lut::allow_smem(kernel, plan.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(np / C::BN, (m + C::BM - 1) / C::BM, splits);
+  kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
+      x, rs, packed, ws, out, work, arrivals, m, np, gp, k_group, planes, bg,
+      splits, plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- f32 path
+
+template <class C>
 __global__ void __launch_bounds__(lut::kThreads)
-fused_lut_mpgemm_kernel(const float* __restrict__ x, const float* __restrict__ rs,
-                        const uint8_t* __restrict__ packed,
-                        const float* __restrict__ ws, float* __restrict__ out,
-                        int n_total, int gp, int k_group, int planes, int bg,
-                        int mode, lut::PlaneScales ps) {
-  using T = typename std::conditional<kInt, int8_t, float>::type;
+fused_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                 const float* __restrict__ ws, float* __restrict__ out,
+                 int n_total, int gp, int k_group, int planes, int bg, int mode,
+                 lut::PlaneScales ps) {
   const int e_count = 1 << (k_group - 1);
   const int kt = bg * e_count;
-  const int ld = lut::tile_ld<T>(kt);
+  const int ld = lut::tile_ld<float>(kt);
   const long long kp = static_cast<long long>(gp) * k_group;   // activation row
   const int pb = gp * planes * k_group / 8;                    // packed row
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + C::BM * ld;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + C::BM * ld;
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
   const int ty = threadIdx.x / C::TX, tx = threadIdx.x % C::TX;
 
-  using Acc = typename std::conditional<kInt, int, float>::type;
-  Acc acc[C::TM][C::TN];
+  float acc[C::TM][C::TN];
 #pragma unroll
   for (int i = 0; i < C::TM; ++i)
 #pragma unroll
@@ -52,13 +163,8 @@ fused_lut_mpgemm_kernel(const float* __restrict__ x, const float* __restrict__ r
       float a[lut::kMaxKGroup];
       lut::load_group(x + (m0 + r) * kp + static_cast<long long>(g0 + gl) * k_group,
                       k_group, a);
-      T* dst = As + r * ld + gl * e_count;
-      if constexpr (kInt) {
-        const float s = rs[m0 + r];
-        for (int e = 0; e < e_count; ++e)
-          dst[e] = static_cast<int8_t>(
-              lut::quantize_entry(lut::half_table_entry(a, k_group, e), s));
-      } else if (mode == lut::kPerGroup) {
+      float* dst = As + r * ld + gl * e_count;
+      if (mode == lut::kPerGroup) {
         const float s = lut::per_group_scale(lut::group_abs_sum(a, k_group));
         for (int e = 0; e < e_count; ++e)
           dst[e] = __fmul_rn(lut::quantize_entry(lut::half_table_entry(a, k_group, e), s), s);
@@ -66,64 +172,78 @@ fused_lut_mpgemm_kernel(const float* __restrict__ x, const float* __restrict__ r
         for (int e = 0; e < e_count; ++e) dst[e] = lut::half_table_entry(a, k_group, e);
       }
     }
-    lut::unpack_cw_tile<T, C>(packed, pb, n0, g0, bg, planes, k_group, ps, Bs);
+    lut::unpack_cw_tile<float, C>(packed, pb, n0, g0, bg, planes, k_group, ps, Bs);
     __syncthreads();
-    if constexpr (kInt)
-      lut::contract_int8<C>(As, Bs, kt, ty, tx, acc);
-    else
-      lut::contract_f32<C>(As, Bs, kt, ty, tx, acc);
+    lut::contract_f32<C>(As, Bs, kt, ty, tx, acc);
     __syncthreads();
   }
-  if constexpr (kInt)
-    lut::store_int<C>(acc, rs, ws, out, n_total, m0, n0, ty, tx);
-  else
-    lut::store_f32<C>(acc, ws, out, n_total, m0, n0, ty, tx);
+  lut::store_f32<C>(acc, ws, out, n_total, m0, n0, ty, tx);
 }
 
-template <class C, bool kInt>
-int launch(const float* x, const float* rs, const uint8_t* packed, const float* ws,
-           float* out, int mp, int np, int gp, int k_group, int planes, int bg,
-           int mode, const lut::PlaneScales& ps, cudaStream_t stream) {
+template <class C>
+int launch_f32(const float* x, const uint8_t* packed, const float* ws, float* out,
+               int mp, int np, int gp, int k_group, int planes, int bg, int mode,
+               const lut::PlaneScales& ps, cudaStream_t stream) {
   if (mp % C::BM || np % C::BN) return static_cast<int>(cudaErrorInvalidValue);
-  using T = typename std::conditional<kInt, int8_t, float>::type;
-  const size_t smem = lut::tile_smem_bytes<T, C>(bg << (k_group - 1));
-  auto kernel = fused_lut_mpgemm_kernel<C, kInt>;
+  const size_t smem = lut::tile_smem_bytes<float, C>(bg << (k_group - 1));
+  auto kernel = fused_f32_kernel<C>;
   cudaError_t err = lut::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(np / C::BN, mp / C::BM);
-  kernel<<<grid, lut::kThreads, smem, stream>>>(x, rs, packed, ws, out, np, gp,
-                                                k_group, planes, bg, mode, ps);
+  kernel<<<grid, lut::kThreads, smem, stream>>>(x, packed, ws, out, np, gp, k_group,
+                                                planes, bg, mode, ps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// mode: 0 f32 table, 1 per_row INT8 (row_scale [mp]), 2 per_group
-// quantize->dequantize. config: 0 SmallTile, 1 LargeTile. bg: groups per
-// K-step (gp % bg == 0). plane_scales: host array of `planes` ints.
+// mode: 0 f32 table, 1 per_row INT8 (row_scale [m]), 2 per_group
+// quantize->dequantize. m: rows of x and out. config: the tile; for mode 1
+// MmaSmall (0), MmaMid (1), MmaLarge (2), any m, with `splits` K-ranges
+// and, when splits > 1, an int32 workspace [m, np] and arrival counts
+// [ceil(m / BM) * np / BN], both zero on entry and left zero; for modes 0
+// and 2 SmallTile (0) or LargeTile (1), m padded to the tile, splits 1 and
+// no workspace. bg: groups per K-step (gp % bg == 0). plane_scales: host
+// array of `planes` ints.
 extern "C" int fused_lut_mpgemm_launch(const float* x, const float* row_scale,
                                        const uint8_t* packed, const float* ws,
-                                       float* out, int mp, int np, int gp,
-                                       int k_group, int planes,
-                                       const int* plane_scales, int mode,
-                                       int config, int bg, cudaStream_t stream) {
+                                       float* out, int* workspace, int* arrivals,
+                                       int m, int np, int gp, int k_group,
+                                       int planes, const int* plane_scales,
+                                       int mode, int config, int bg, int splits,
+                                       cudaStream_t stream) {
   if (!lut::valid_k_group(k_group) || planes < 1 || planes > lut::kMaxPlanes ||
       bg < 1 || gp % bg || ((bg << (k_group - 1)) % 4) ||
       (bg * planes * k_group) % 8 || mode < lut::kFloat || mode > lut::kPerGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mp == 0 || np == 0) return static_cast<int>(cudaSuccess);
+  if (m == 0 || np == 0) return static_cast<int>(cudaSuccess);
   lut::PlaneScales ps{};
   for (int b = 0; b < planes; ++b) ps.v[b] = plane_scales[b];
-  const bool int_path = mode == lut::kPerRow;
+  if (mode == lut::kPerRow) {
+    switch (config) {
+      case 0:
+        return launch_int<lut::MmaSmall>(x, row_scale, packed, ws, out, workspace,
+                                         arrivals, m, np, gp, k_group, planes, bg,
+                                         splits, ps, stream);
+      case 1:
+        return launch_int<lut::MmaMid>(x, row_scale, packed, ws, out, workspace,
+                                       arrivals, m, np, gp, k_group, planes, bg,
+                                       splits, ps, stream);
+      case 2:
+        return launch_int<lut::MmaLarge>(x, row_scale, packed, ws, out, workspace,
+                                         arrivals, m, np, gp, k_group, planes, bg,
+                                         splits, ps, stream);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (splits != 1 || workspace != nullptr || arrivals != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (config == 0)
-    return int_path ? launch<lut::SmallTile, true>(x, row_scale, packed, ws, out, mp, np,
-                                                   gp, k_group, planes, bg, mode, ps, stream)
-                    : launch<lut::SmallTile, false>(x, row_scale, packed, ws, out, mp, np,
-                                                    gp, k_group, planes, bg, mode, ps, stream);
+    return launch_f32<lut::SmallTile>(x, packed, ws, out, m, np, gp, k_group, planes,
+                                      bg, mode, ps, stream);
   if (config == 1)
-    return int_path ? launch<lut::LargeTile, true>(x, row_scale, packed, ws, out, mp, np,
-                                                   gp, k_group, planes, bg, mode, ps, stream)
-                    : launch<lut::LargeTile, false>(x, row_scale, packed, ws, out, mp, np,
-                                                    gp, k_group, planes, bg, mode, ps, stream);
+    return launch_f32<lut::LargeTile>(x, packed, ws, out, m, np, gp, k_group, planes,
+                                      bg, mode, ps, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

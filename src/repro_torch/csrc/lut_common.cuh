@@ -1,7 +1,8 @@
 // Device code shared by the mpGEMM kernels (table_precompute.cu,
 // lut_mpgemm.cu, fused_lut_mpgemm.cu, dequant_mpgemm.cu): the half-table
 // entry, INT8 table quantization, the packed-code unpack into CW entries or
-// reinterpreted weights, and the tiled contractions.
+// reinterpreted weights, and the f32 paths' tiled contraction (the int
+// paths' tensor-core main loop is in lut_mma.cuh).
 //
 // Numerics are fixed to match core/table.py bit for bit: a group's entry
 // sums k = 0..K-1 in order (the ±1 products are exact), the INT8 code is
@@ -141,11 +142,12 @@ struct TileCfg {
   static_assert(TY * TX == kThreads, "one micro-tile per thread");
 };
 
-// Decode-sized M (<= 8 rows) and everything larger. The Python wrappers
-// (kernels/lut_mpgemm.py: TILES) carry the same numbers. The small tile
-// takes long K-steps (1024 entries, 128 groups at K=4): at decode the
-// kernel waits on global loads, and fewer, wider steps put more loads in
-// flight per barrier.
+// The f32 paths' tiles (None and per_group tables in lut_mpgemm.cu and
+// fused_lut_mpgemm.cu, and dequant_mpgemm.cu), for M <= 8 rows and for
+// more; the int paths have their own (lut_mma.cuh: MmaTile). The Python
+// wrappers (kernels/lut_mpgemm.py: TILES) carry the same numbers. The small
+// tile takes long K-steps (1024 entries, 128 groups at K=4): fewer, wider
+// steps put more loads in flight per barrier.
 using SmallTile = TileCfg<8, 32, 1, 1, 1024>;
 using LargeTile = TileCfg<64, 64, 4, 4, 128>;
 
@@ -161,28 +163,8 @@ size_t tile_smem_bytes(int kt) {
   return static_cast<size_t>(C::BM + C::BN) * tile_ld<T>(kt) * sizeof(T);
 }
 
-// acc[i][j] += Σ_k As[row i][k] · Bs[col j][k] over one K-step, int8 -> int32.
-template <class C>
-__device__ __forceinline__ void contract_int8(const int8_t* As, const int8_t* Bs,
-                                              int kt, int ty, int tx,
-                                              int (&acc)[C::TM][C::TN]) {
-  const int ld = tile_ld<int8_t>(kt);
-  for (int kk = 0; kk < kt; kk += 4) {
-    int a[C::TM], b[C::TN];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-      a[i] = *reinterpret_cast<const int*>(As + (ty + i * C::TY) * ld + kk);
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j)
-      b[j] = *reinterpret_cast<const int*>(Bs + (tx + j * C::TX) * ld + kk);
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-  }
-}
-
-// The same in IEEE fp32 (fused multiply-add, no TF32).
+// acc[i][j] += Σ_k As[row i][k] · Bs[col j][k] over one K-step in IEEE fp32
+// (fused multiply-add, no TF32).
 template <class C>
 __device__ __forceinline__ void contract_f32(const float* As, const float* Bs,
                                              int kt, int ty, int tx,
@@ -216,25 +198,7 @@ __device__ __forceinline__ void unpack_cw_tile(const uint8_t* __restrict__ packe
   }
 }
 
-// Epilogue: int path (acc · ts[m]) · ws[n], f32 path acc · ws[n].
-template <class C>
-__device__ __forceinline__ void store_int(const int (&acc)[C::TM][C::TN],
-                                          const float* __restrict__ ts,
-                                          const float* __restrict__ ws,
-                                          float* __restrict__ out, int n_total,
-                                          int m0, int n0, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int m = m0 + ty + i * C::TY;
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      const int n = n0 + tx + j * C::TX;
-      out[static_cast<size_t>(m) * n_total + n] =
-          __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), ts[m]), ws[n]);
-    }
-  }
-}
-
+// Epilogue of the f32 paths: acc · ws[n].
 template <class C>
 __device__ __forceinline__ void store_f32(const float (&acc)[C::TM][C::TN],
                                           const float* __restrict__ ws,

@@ -6,28 +6,52 @@ each table tile from the activations in shared memory (per_row INT8 with
 the wrapper's row scale, per_group quantize→dequantize, or f32) and
 contracts it against the CW tile at once, so the table never reaches device
 memory. It shares the entry, quantization and CW code of the staged pair
-(``csrc/lut_common.cuh``), which makes per_row bit-exact with them.
+(``csrc/lut_common.cuh``, ``csrc/lut_mma.cuh``), which makes per_row
+bit-exact with them.
 
-Inputs are pre-padded to the kernel's tile (``lut_mpgemm.tile_for``). The
-wrapper launches the kernel for CUDA tensors and runs the plain version —
-the staged pair's plain versions composed — for CPU tensors.
+The per_row path (the decode path) runs on the int8 tensor cores with the
+staged int path's row and channel tiles and split-K plan
+(``lut_mpgemm.int_tile_for``, ``lut_mpgemm.split_for``) but K-steps twice
+as wide (``int_tile``, ``INT_KT``). It takes any number of rows: x and the
+row scale need no row padding, and the output has x's rows. Its split
+sums meet in an int32 workspace inside the one launch; the workspace and
+the tiles' arrival counts are allocated once per device, grown when a call
+needs more, and left zeroed by every launch, so calls on one device must
+share one stream. None and per_group keep the shared tiles
+(``lut_mpgemm.tile_for``), rows padded too.
+
+Channels and K-groups are pre-padded to the tile (done by ``kernels.ops``).
+The wrapper launches the kernel for CUDA tensors and runs the plain version
+— the staged pair's plain versions composed — for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import lut_mpgemm as lut_kernel
 from repro_torch.kernels.lut_mpgemm import (check_operands, launch_args,
-                                            lut_mpgemm_plain)
+                                            lut_mpgemm_plain, plane_args,
+                                            split_for)
 from repro_torch.kernels.table_precompute import (MODES, check_activations,
                                                   table_precompute_plain)
 
-__all__ = ["fused_lut_mpgemm", "fused_lut_mpgemm_plain"]
+__all__ = ["fused_lut_mpgemm", "fused_lut_mpgemm_plain", "int_tile",
+           "int_plan", "INT_KT"]
 
+# Table entries per K-step of the per_row path. At decode each K-step of a
+# block waits in turn on its loads, its table build, its CW decode and its
+# contraction, so fewer, wider steps cost less: on an H100 at tinyllama's
+# decode shapes, 256 entries beat the staged path's 128 at four of the five,
+# and 512 beat 256 at two only.
+INT_KT = 2 * lut_kernel.INT_KT
 launches = 0
+# device index -> (split-K workspace, tile arrival counts), int32, all zero
+# between launches
+_workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def fused_lut_mpgemm_plain(x, row_scale, packed, wscale, *, k_group: int,
@@ -38,15 +62,47 @@ def fused_lut_mpgemm_plain(x, row_scale, packed, wscale, *, k_group: int,
                             planes=planes, plane_scales=plane_scales)
 
 
+def int_tile(m: int, k_group: int, planes: int):
+    """(config, BM, BN, bg) of the per_row path for M rows: the staged int
+    path's tile (``lut_mpgemm.int_tile_for``) with INT_KT entries a step."""
+    return lut_kernel.int_tile_for(m, k_group, planes, INT_KT)
+
+
+def int_plan(m: int, n: int, gp: int, k_group: int, planes: int):
+    """Launch plan of the per_row path for M rows, N channels and Gp
+    K-groups: ((config, BM, BN, bg), S, grid tiles). Raises where N or Gp
+    is not padded to the tile."""
+    tile = int_tile(m, k_group, planes)
+    _, bm, bn, bg = tile
+    if n % bn or gp % bg:
+        raise ValueError(f"shape (N={n}, G={gp}) is not padded to the tile "
+                         f"(BN={bn}, bg={bg})")
+    mp = -(-m // bm) * bm
+    splits, _ = split_for(mp, n, gp, bm, bn, bg)
+    return tile, splits, (mp // bm) * (n // bn)
+
+
+def _workspace(device: torch.device, words: int, tiles: int):
+    """The device's zeroed split-K workspace and arrival counts, at least
+    ``words`` and ``tiles`` long."""
+    work, arrivals = _workspaces.get(device.index, (None, None))
+    if work is None or work.numel() < words:
+        work = torch.zeros(words, device=device, dtype=torch.int32)
+    if arrivals is None or arrivals.numel() < tiles:
+        arrivals = torch.zeros(tiles, device=device, dtype=torch.int32)
+    _workspaces[device.index] = (work, arrivals)
+    return work, arrivals
+
+
 def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                      packed: torch.Tensor, wscale: torch.Tensor, *,
                      k_group: int, table_quant: Optional[str], planes: int,
                      plane_scales: Sequence[float]) -> torch.Tensor:
-    """x f32 [Mp, Gp*K]; row_scale f32 [Mp, 1] (per_row); packed uint8
-    [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [Mp, Np]."""
+    """x f32 [M, Gp*K]; row_scale f32 [M, 1] (per_row); packed uint8
+    [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]."""
     global launches
     check_activations(x, k_group, table_quant, row_scale)
-    mp = x.shape[0]
+    m = x.shape[0]
     gp = x.shape[1] // k_group
     check_operands("fused_lut_mpgemm", x, packed, wscale, k_group, planes,
                    gp, x.device)
@@ -57,15 +113,30 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"fused_lut_mpgemm: unsupported device {x.device}")
     np_ = packed.shape[0]
-    config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_, gp)
-    out = torch.empty((mp, np_), device=x.device, dtype=torch.float32)
+    splits, work, arrivals = 1, None, None
+    if table_quant == "per_row":
+        if x.data_ptr() % 16 or packed.data_ptr() % 4:
+            raise ValueError("fused_lut_mpgemm: the per_row path copies x "
+                             "in 16-byte and the codes in 4-byte pieces; "
+                             "pass aligned operands")
+        (config, _, _, bg), splits, tiles = int_plan(m, np_, gp, k_group,
+                                                     planes)
+        ps = plane_args(planes, plane_scales)
+        if splits > 1:
+            work, arrivals = _workspace(x.device, m * np_, tiles)
+    else:
+        config, bg, ps = launch_args(k_group, planes, plane_scales, m, np_,
+                                     gp)
+    out = torch.empty((m, np_), device=x.device, dtype=torch.float32)
     fn = _build.launcher("fused_lut_mpgemm")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(),
                 row_scale.data_ptr() if table_quant == "per_row" else None,
                 packed.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-                mp, np_, gp, k_group, planes, ps, MODES[table_quant], config,
-                bg, torch.cuda.current_stream(x.device).cuda_stream)
+                None if work is None else work.data_ptr(),
+                None if arrivals is None else arrivals.data_ptr(),
+                m, np_, gp, k_group, planes, ps, MODES[table_quant], config,
+                bg, splits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("fused_lut_mpgemm", rc)
     launches += 1
     return out

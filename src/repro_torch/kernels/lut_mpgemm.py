@@ -52,16 +52,16 @@ def tile_for(m: int, k_group: int) -> Tuple[int, int, int, int]:
     return config, bm, bn, max(1, kt_min >> (k_group - 1))
 
 
-def int_tile_for(m: int, k_group: int, planes: int
+def int_tile_for(m: int, k_group: int, planes: int, kt: int = INT_KT
                  ) -> Tuple[int, int, int, int]:
     """(config, BM, BN, bg) of the int path's tile for M rows: the smallest
     row tile that holds M (the largest for more rows), and bg groups per
-    K-step: INT_KT table entries, more where the step's packed bytes per
+    K-step: kt table entries, more where the step's packed bytes per
     channel (bg·B·K/8) would not fill whole 4-byte words."""
     config = next((i for i, (bm, _) in enumerate(INT_TILES) if m <= bm),
                   len(INT_TILES) - 1)
     bm, bn = INT_TILES[config]
-    bg = max(1, INT_KT >> (k_group - 1))
+    bg = max(1, kt >> (k_group - 1))
     while (bg * planes * k_group) % 32:
         bg *= 2
     return config, bm, bn, bg

@@ -75,7 +75,9 @@ def auto_fusion(m, n, g, k_group, planes) -> str:
 
 def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto") -> str:
     """The pipeline for one shape: "fused"/"staged" as forced, "auto" by
-    ``auto_fusion``. (The CUDA kernels tile by ``lut_mpgemm.tile_for``.)"""
+    ``auto_fusion``. (The CUDA kernels' tiles: ``lut_mpgemm.int_tile_for``
+    and ``fused_lut_mpgemm.int_tile`` on per_row tables,
+    ``lut_mpgemm.tile_for`` otherwise.)"""
     if fusion not in FUSION_MODES:
         raise ValueError(f"fusion {fusion!r} not in {FUSION_MODES}")
     return auto_fusion(m, n, g, k_group, planes) if fusion == "auto" else fusion
@@ -99,11 +101,6 @@ def _closed_form_row_scale(a: torch.Tensor, g: int, k_group: int):
                                                              k_group))
     return table_mod.true_divide(am.amax(dim=-1).clamp_min(1e-30),
                                  127.0)[:, None]
-
-
-def _padded_row_scale(a, g, k_group, bm):
-    # padded rows get an inert scale of 1
-    return _pad_to(_closed_form_row_scale(a, g, k_group), bm, 0, value=1.0)
 
 
 def _pad_packed(qw: QuantizedWeight, gp: int, bn: int):
@@ -146,10 +143,16 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     _check_not_plane_sliced(qw, "fused_lut_mpgemm")
     m = x.shape[0]
     g, kg, planes = qw.g, qw.k_group, qw.num_planes
-    _, bm, bn, bg = lut_kernel.tile_for(m, kg)
-    row_scale = (_padded_row_scale(x, g, kg, bm).contiguous()
-                 if table_quant == "per_row" else None)
-    xp = _pad_to(_pad_to(x.to(torch.float32), bm, 0), bg * kg, 1).contiguous()
+    xp = x.to(torch.float32)
+    if table_quant == "per_row":
+        # the int path's tile; the kernel takes x's rows as they are
+        _, _, bn, bg = fused_kernel.int_tile(m, kg, planes)
+        row_scale = _closed_form_row_scale(xp, g, kg).contiguous()
+        xp = _pad_to(xp, bg * kg, 1).contiguous()
+    else:
+        _, bm, bn, bg = lut_kernel.tile_for(m, kg)
+        row_scale = None
+        xp = _pad_to(_pad_to(xp, bm, 0), bg * kg, 1).contiguous()
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = fused_kernel.fused_lut_mpgemm(
         xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,

@@ -55,13 +55,8 @@ def test_kernels_match_plain_versions(cuda, case, tq):
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
     qw = quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
         np.float32)), bits, k_group=kg, scheme=scheme).to(cuda)
-    g = k // kg
-    _, bm, bn, bg = lk.tile_for(m, kg)
-    xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * kg, 1).contiguous()
-    pkp, wsp = ops._pad_packed(qw, xp.shape[1] // kg, bn)
-    rs = (ops._padded_row_scale(x, g, kg, bm).contiguous()
-          if tq == "per_row" else None)
     pw = dict(k_group=kg, planes=qw.num_planes, plane_scales=qw.plane_scales)
+    xp, rs, pkp, wsp = _fused_operands(x, qw, tq)
 
     got = tk.table_precompute(xp, kg, tq, rs)
     want = tk.table_precompute_plain(xp, kg, tq, rs)
@@ -76,6 +71,25 @@ def test_kernels_match_plain_versions(cuda, case, tq):
                                             **pw), tq)
     if tq == "per_row":  # fused == staged, bit for bit
         assert torch.equal(fused[:m, :n], got[:m, :n])
+
+
+def _fused_operands(x, qw, tq):
+    """(x, row scale, packed, wscale) of the fused kernel, padded as
+    ``ops.fused_lut_mpgemm`` pads them: per_row to the int path's tile
+    (``fused_lut_mpgemm.int_tile``; x's rows as they are), None and
+    per_group to the shared ``tile_for`` (rows padded too)."""
+    m, k = x.shape
+    kg = qw.k_group
+    g = k // kg
+    if tq == "per_row":
+        _, _, bn, bg = fk.int_tile(m, kg, qw.num_planes)
+        rs = ops._closed_form_row_scale(x, g, kg).contiguous()
+        xp = ops._pad_to(x, bg * kg, 1).contiguous()
+    else:
+        _, bm, bn, bg = lk.tile_for(m, kg)
+        rs = None
+        xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * kg, 1).contiguous()
+    return (xp, rs) + ops._pad_packed(qw, xp.shape[1] // kg, bn)
 
 
 def _staged_operands(x, qw, tq):
@@ -106,12 +120,7 @@ def test_int_path_is_bit_exact_at_the_serve_shapes(cuda, nk):
     rng = np.random.default_rng(n + k)
     x = torch.from_numpy(rng.normal(size=(128, k)).astype(np.float32)
                          ).to(cuda)
-    qw = QuantizedWeight(
-        torch.from_numpy(rng.integers(0, 256, (n, k // 4), dtype=np.uint8)
-                         ).to(cuda),
-        torch.from_numpy(rng.uniform(1e-3, 1.1e-2, n).astype(np.float32)
-                         ).to(cuda),
-        None, (1.0, 2.0), bits=2, k_group=4, k_total=k, n=n)
+    qw = _random_w2(rng, n, k, cuda)
     staged = _staged_operands(x, qw, "per_row")
     pw = dict(k_group=4, planes=2, plane_scales=qw.plane_scales)
     splits, ranges = lk.split_for(128, n, k // 4,
@@ -123,6 +132,63 @@ def test_int_path_is_bit_exact_at_the_serve_shapes(cuda, nk):
     got = lk.lut_mpgemm(*staged, **pw)
     assert lk.launches == before + 1
     assert torch.equal(got, lk.lut_mpgemm_plain(*staged, **pw))
+
+
+def _random_w2(rng, n, k, device):
+    return QuantizedWeight(
+        torch.from_numpy(rng.integers(0, 256, (n, k // 4), dtype=np.uint8)
+                         ).to(device),
+        torch.from_numpy(rng.uniform(1e-3, 1.1e-2, n).astype(np.float32)
+                         ).to(device),
+        None, (1.0, 2.0), bits=2, k_group=4, k_total=k, n=n)
+
+
+@pytest.mark.parametrize("nk", SERVE_SHAPES, ids=str)
+@pytest.mark.parametrize("m", (1, 3, 4, 16, 17, 64))
+def test_fused_int_path_is_bit_exact_at_the_serve_shapes(cuda, m, nk):
+    """The fused per_row path (tensor cores, split-K summed inside the one
+    launch) against its plain version and the staged kernel, bit for bit,
+    across the row tiles' edges (16 x 128 up to 16 rows, 64 x 64 up to 64);
+    each call launches once."""
+    n, k = nk
+    rng = np.random.default_rng(m * 7 + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    qw = _random_w2(rng, n, k, cuda)
+    pw = dict(k_group=4, planes=2, plane_scales=qw.plane_scales)
+    xp, rs, pkp, wsp = _fused_operands(x, qw, "per_row")
+    before = fk.launches
+    got = fk.fused_lut_mpgemm(xp, rs, pkp, wsp, table_quant="per_row", **pw)
+    assert fk.launches == before + 1
+    assert got.shape == (m, n)
+    assert torch.equal(got, fk.fused_lut_mpgemm_plain(
+        xp, rs, pkp, wsp, table_quant="per_row", **pw))
+    staged = lk.lut_mpgemm(*_staged_operands(x, qw, "per_row"), **pw)
+    assert torch.equal(got, staged[:m, :n])
+
+
+def test_fused_workspace_is_left_zeroed(cuda):
+    """Split-K calls in a row on different shapes (sharing the device's
+    workspace and arrival counts) give the bits of each call alone."""
+    rng = np.random.default_rng(11)
+    cases = []
+    for m, (n, k) in ((4, (2048, 2048)), (17, (640, 1600)), (4, (256, 2048)),
+                      (64, (2048, 5632))):
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                             ).to(cuda)
+        cases.append(_fused_operands(x, _random_w2(rng, n, k, cuda),
+                                     "per_row"))
+    pw = dict(k_group=4, planes=2, plane_scales=(1.0, 2.0),
+              table_quant="per_row")
+    alone = []
+    for ops_ in cases:
+        alone.append(fk.fused_lut_mpgemm(*ops_, **pw))
+        torch.cuda.synchronize()
+    in_a_row = [fk.fused_lut_mpgemm(*ops_, **pw) for ops_ in cases * 2]
+    torch.cuda.synchronize()
+    for i, got in enumerate(in_a_row):
+        assert torch.equal(got, alone[i % len(cases)])
+    for work in fk._workspaces[torch.cuda.current_device()]:
+        assert not work.any()
 
 
 def test_launch_counts_and_no_fallback(cuda):

@@ -167,10 +167,12 @@ def test_fusion_rule_on_the_h100_budget():
 
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
-    """ops pads rows to BM, K-groups to bg and channels to BN of each
-    kernel's own tile: the staged int path (per_row tables) to
-    ``int_tile_for``, the staged f32 path (None, per_group) and the fused
-    kernel to ``tile_for``. Every shape it hands a kernel wrapper passes
+    """ops pads K-groups to bg and channels to BN of each kernel's own
+    tile, and rows to BM where the kernel needs it: the int paths (per_row)
+    (``lut_mpgemm.int_tile_for``; ``fused_lut_mpgemm.int_tile``, its
+    K-steps twice as wide) — the staged one with rows padded, the fused one
+    with x's rows as they are — and the f32 paths (None, per_group) of both
+    kernels to ``tile_for``. Every shape it hands a kernel wrapper passes
     the card path's launch checks and is padded no further than the tile
     needs."""
     m, k, n, bits, scheme, k_group = case
@@ -188,13 +190,19 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
         def run(*args, **kw):
             rows, scale, packed = args[:3]
             gp = packed.shape[1] * 8 // (kw["planes"] * kw["k_group"])
-            int_path = (name == "staged" and scale is not None
-                        and scale.shape[1] == 1)
-            tile = (tlut.int_tile_for(m, k_group, bits) if int_path
-                    else tlut.tile_for(m, k_group))
-            tlut.launch_args(kw["k_group"], kw["planes"], kw["plane_scales"],
-                             rows.shape[0], packed.shape[0], gp, tile)
+            int_path = scale is not None and scale.shape[1] == 1
+            tile = (tlut.tile_for(m, k_group) if not int_path
+                    else tfused.int_tile(m, k_group, bits) if name == "fused"
+                    else tlut.int_tile_for(m, k_group, bits))
             _, bm, bn, bg = tile
+            if name == "fused" and int_path:
+                assert tfused.int_plan(rows.shape[0], packed.shape[0], gp,
+                                       kw["k_group"], kw["planes"])[0] == tile
+                bm = 1  # the fused int path takes x's rows as they are
+            else:
+                tlut.launch_args(kw["k_group"], kw["planes"],
+                                 kw["plane_scales"], rows.shape[0],
+                                 packed.shape[0], gp, tile)
             assert (rows.shape[0], packed.shape[0], gp) == (
                 up(m, bm), up(n, bn), up(g, bg))
             assert rows_of(rows, kw["k_group"]) == gp
@@ -209,13 +217,15 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
         tfused.fused_lut_mpgemm_plain, "fused",
         lambda t, kg: t.shape[1] // kg))
     x = torch.from_numpy(a)
-    for tq in MODES:
-        tops.lut_mpgemm(x, tq_w, table_quant=tq, fusion="staged")
-    tops.lut_mpgemm(x, tq_w, table_quant="per_row", fusion="fused")
-    assert seen == [("staged", False), ("staged", True), ("staged", False),
-                    ("fused", False)]
+    for fusion in ("staged", "fused"):
+        for tq in MODES:
+            tops.lut_mpgemm(x, tq_w, table_quant=tq, fusion=fusion)
+    assert seen == [(name, tq == "per_row") for name in ("staged", "fused")
+                    for tq in MODES]
     assert tlut.int_tile_for(m, k_group, bits)[1:] != tlut.tile_for(
         m, k_group)[1:]
+    assert tfused.int_tile(m, k_group, bits)[3] > tlut.int_tile_for(
+        m, k_group, bits)[3]
     with pytest.raises(ValueError, match="padded"):
         tlut.launch_args(4, 2, (1.0, 2.0), 5, 64, 32)
 
@@ -230,8 +240,8 @@ SPLIT_PLANS = ([(m, k, n, bits, kg) for m, k, n, bits, _, kg in CASES]
                + [RAGGED[:4] + RAGGED[5:]])
 
 
-def _padded_plan(m, k, n, bits, kg):
-    _, bm, bn, bg = tlut.int_tile_for(m, kg, bits)
+def _padded_plan(m, k, n, bits, kg, tile_of=tlut.int_tile_for):
+    _, bm, bn, bg = tile_of(m, kg, bits)
     mp, np_, gp = (-(-x // y) * y for x, y in ((m, bm), (n, bn),
                                                (k // kg, bg)))
     return (mp, np_, gp, bm, bn, bg) + tlut.split_for(mp, np_, gp, bm, bn, bg)
@@ -298,6 +308,84 @@ def test_split_sums_equal_the_unsplit_contraction(case):
     got = (acc.to(torch.float32) * ts[:, :1]) * ws[None, :]
     assert torch.equal(got, want)
     assert torch.equal(acc, tv.to(torch.int64) @ cw)
+
+
+# the fused per_row plan at M = 4: (N, K) -> (tiles, S, blocks)
+FUSED_M4_PLANS = {(2048, 2048): (16, 8, 128), (256, 2048): (2, 8, 16),
+                  (5632, 2048): (44, 3, 132), (2048, 5632): (16, 9, 144),
+                  (32000, 2048): (250, 1, 250)}
+
+
+@pytest.mark.parametrize("nk", MAIN_SHAPES, ids=str)
+@pytest.mark.parametrize("m", (1, 4, 16, 64))
+def test_fused_decode_plans_fill_the_card(m, nk):
+    """The fused per_row path at decode M: the staged int path's row and
+    channel tile with K-steps twice as wide, and the split-K plan of that
+    tile on x's own rows, with tiles x S >= 132 blocks wherever the K-steps
+    allow MIN_STEPS per range."""
+    n, k = nk
+    tile, s, tiles = tfused.int_plan(m, n, k // 4, 4, 2)
+    mp, np_, gp, bm, bn, bg, s_staged, _ = _padded_plan(m, k, n, 2, 4,
+                                                        tfused.int_tile)
+    staged = tlut.int_tile_for(m, 4, 2)
+    assert tile == staged[:3] + (2 * staged[3],) and (mp, np_, gp) == (
+        -(-m // bm) * bm, n, k // 4)
+    assert (s, tiles) == (s_staged, (mp // bm) * (np_ // bn))
+    if (gp // bg // tlut.MIN_STEPS) * tiles >= tlut.SMS:
+        assert tiles * s >= tlut.SMS
+    else:
+        assert s == gp // bg // tlut.MIN_STEPS
+    if m == 4:
+        assert (tiles, s, tiles * s) == FUSED_M4_PLANS[nk]
+    with pytest.raises(ValueError, match="padded"):
+        tfused.int_plan(m, n + 8, k // 4, 4, 2)
+
+
+@pytest.mark.parametrize("case", CASES + [RAGGED, (4, 2048, 256, 2,
+                                                    "symmetric", 4)], ids=str)
+def test_fused_split_tables_equal_the_unsplit_contraction(case):
+    """A plain int64 emulation of the fused per_row path with split-K: for
+    each range of the plan, the table tile built from that range of x
+    alone, contracted with the range's CW, the ranges' sums added in any
+    order, then the epilogue (float(acc)·rs)·ws, equals the unsplit
+    ``fused_lut_mpgemm_plain`` bit for bit."""
+    m, k, n, bits, scheme, k_group = case
+    rng = np.random.default_rng(m + k + n + 1)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    qw = TQ.quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+        np.float32)), bits, k_group=k_group, scheme=scheme)
+    _, bm, bn, bg = tfused.int_tile(m, k_group, bits)
+    g = k // k_group
+    rs = tops._closed_form_row_scale(x, g, k_group).contiguous()
+    xp = tops._pad_to(x, bg * k_group, 1).contiguous()
+    gp = xp.shape[1] // k_group
+    pk, ws = tops._pad_packed(qw, gp, bn)
+    pw = dict(k_group=k_group, planes=bits, plane_scales=qw.plane_scales)
+    want = tfused.fused_lut_mpgemm_plain(xp, rs, pk, ws,
+                                         table_quant="per_row", **pw)
+    s, ranges = tlut.split_for(-(-m // bm) * bm, pk.shape[0], gp, bm, bn, bg)
+    assert tfused.int_plan(m, pk.shape[0], gp, k_group, bits)[1] == s
+    e = 1 << (k_group - 1)
+    cw = ref.build_cw(TQ.QuantizedWeight(
+        pk, ws, None, qw.plane_scales, bits=bits, k_group=k_group,
+        k_total=gp * k_group, n=pk.shape[0]), torch.int64)
+    parts = []
+    for a, b in ranges:
+        tv, _ = ttp.table_precompute_plain(
+            xp[:, a * k_group:b * k_group].contiguous(), k_group, "per_row",
+            rs)
+        parts.append(tv.to(torch.int64) @ cw[a * e:b * e])
+    full = ttp.table_precompute_plain(xp, k_group, "per_row", rs)[0]
+    assert torch.equal(torch.cat([ttp.table_precompute_plain(
+        xp[:, a * k_group:b * k_group].contiguous(), k_group, "per_row",
+        rs)[0] for a, b in ranges], 1), full)
+    for order in (range(s), reversed(range(s)), rng.permutation(s)):
+        acc = torch.zeros_like(parts[0])
+        for z in order:
+            acc = acc + parts[z]
+        assert acc.abs().max().item() < 2 ** 31
+        got = (acc.to(torch.float32) * rs) * ws[None, :]
+        assert torch.equal(got, want)
 
 
 @pytest.fixture
