@@ -8,34 +8,43 @@ exit and no result line):
 
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds the four kernels from ``src/repro_torch/csrc``
-     and prints the registers and spills of the int-path kernels of
-     ``lut_mpgemm`` and ``fused_lut_mpgemm`` (``-Xptxas -v``) and their
-     IMMA count in the SASS (cuobjdump, where the toolkit has it; none
-     fails the run);
+     and prints the registers and spills (``-Xptxas -v``) of the
+     tensor-core kernels (the int paths of ``lut_mpgemm`` and
+     ``fused_lut_mpgemm``, and ``dequant_mpgemm``) and their IMMA / HMMA
+     count in the SASS (cuobjdump, where the toolkit has it; none fails the
+     run);
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
      projections and head), every table_quant mode: per_row bit-exact,
-     None / per_group within 1e-4 relative; dequant_mpgemm (IEEE f32; its
-     plain version's matmul with TF32 off) within 1e-4 relative. Then the
-     dequant op path: ``ops.dequant_mpgemm``, the kernel's only entry point
-     (as in the reference, no serve step launches it), at the same ten
-     shapes with its launches counted. The fused kernel's per_row operands
-     are padded to the int path's tile (x's rows as they are), the others
-     to the shared tile. The per_row records of ``lut_mpgemm`` and
-     ``fused_lut_mpgemm`` carry their int path's plan: tile, K-step,
-     split-K count S, blocks, shared memory and kernels per call. Device
-     times with CUDA events
+     None / per_group within 1e-4 relative; dequant_mpgemm (bf16 tensor
+     cores, activations split into three bf16 terms, f32 sums; its plain
+     version's matmul in IEEE f32, TF32 off) within 1e-4 relative, and two
+     calls bit-equal. Then the dequant op path: ``ops.dequant_mpgemm``, the
+     kernel's only entry point (as in the reference, no serve step launches
+     it), at the same ten shapes with its launches counted. Operands are
+     padded as ``kernels.ops`` pads them: the per_row fused kernel's and
+     dequant_mpgemm's to their own tiles with x's rows as they are, the
+     others to the shared tile. The records of the tensor-core paths carry
+     their plan: tile, K-step, split-K count S, blocks, shared memory and
+     kernels per call (dequant_mpgemm's also its bf16 passes and max
+     relative error). Device times with CUDA events
      (``time_ms``: L2 flushed before every launch, the host's queueing
      hidden behind a spin on the card): kernel, plain version, a bf16
-     ``torch.matmul`` yardstick, and the bound (``bound``):
+     ``torch.matmul`` yardstick, and the bound (``bound``), for every
+     kernel at both M; the two LUT mpGEMMs in all three table modes:
        bytes = each input read once + each output written once (packed
                weights and their scales, activations or table, output);
-       ops   = 2·M·N·K int8 for the two LUT mpGEMMs (the multiply-adds of
-               the product; the one-hot T·CW contraction over G·E entries
-               is the kernels' way of doing it, not work the function
-               needs), plus M·G·E·(K-1) f32 adds of the table entries where
-               the kernel builds them; 2·M·N·K f32 for dequant_mpgemm,
-               whose contract is IEEE f32;
+       ops   = 2·M·N·K int8 for the two LUT mpGEMMs' per_row paths (the
+               multiply-adds of the product; the one-hot T·CW contraction
+               over G·E entries is the kernels' way of doing it, not work
+               the function needs), 2·M·N·K f32 for their None and
+               per_group paths (IEEE FMA), plus M·G·E·(K-1) f32 adds of
+               the table entries where the kernel builds them; for
+               dequant_mpgemm the bf16 tensor-core operations it issues,
+               3 passes x 2·M·N·K (its per-shape records in
+               chip_smoke.json keep the count of its first version,
+               2·M·N·K f32, as ``bound_f32_ms``; the kernels line does
+               not carry it);
        bound_ms = max(bytes / 3.35 TB/s, ops / peak of their type);
   4. serve   — full-width tinyllama-1.1b, W2 symmetric K=4, random weights
      from a fixed seed made on the card, served through the port's engine
@@ -88,7 +97,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
-PEAK_OPS_S = {"int8": 1979e12, "f32": 67e12}  # dense, published peaks
+# dense, published peaks
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 MODES = (None, "per_row", "per_group")
 SHAPES = ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (32000, 2048))
 ROWS = (4, 128)            # decode batch, prefill chunk
@@ -106,10 +116,8 @@ def device_line() -> str:
 
 
 def kernel_report(text):
-    """{kernel: [registers line, spill line]} of the int paths' kernels
-    (csrc/lut_mpgemm.cu: lut_mma_kernel per tile, splitk_epilogue_kernel;
-    csrc/fused_lut_mpgemm.cu: fused_mma_kernel per tile) from nvcc's
-    ``-Xptxas -v`` log."""
+    """{kernel: [registers line, spill line]} of the tensor-core kernels
+    (``MMA_KERNELS``) from nvcc's ``-Xptxas -v`` log."""
     out, fn = {}, None
     for ln in text.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -117,24 +125,32 @@ def kernel_report(text):
             fn = short_kernel_name(found.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             out.setdefault(fn, []).append(ln.split(": ", 1)[-1].strip())
-    return {k: v for k, v in out.items() if k.startswith(INT_KERNELS)}
+    return {k: v for k, v in out.items() if k.startswith(MMA_KERNELS)}
 
 
-# the int paths' kernels (csrc/lut_mpgemm.cu, csrc/fused_lut_mpgemm.cu)
-INT_KERNELS = ("lut_mma_kernel", "splitk_epilogue_kernel", "fused_mma_kernel")
+# the tensor-core kernels: the int paths' (csrc/lut_mpgemm.cu: lut_mma_kernel
+# per tile, splitk_epilogue_kernel; csrc/fused_lut_mpgemm.cu:
+# fused_mma_kernel per tile) and csrc/dequant_mpgemm.cu: dequant_mma_kernel
+MMA_KERNELS = ("lut_mma_kernel", "splitk_epilogue_kernel", "fused_mma_kernel",
+               "dequant_mma_kernel")
+# library -> the kernels whose SASS must hold tensor-core instructions
+MMA_LIBS = {"lut_mpgemm": ("lut_mma_kernel", "IMMA"),
+            "fused_lut_mpgemm": ("fused_mma_kernel", "IMMA"),
+            "dequant_mpgemm": ("dequant_mma_kernel", "HMMA")}
 
 
 def short_kernel_name(mangled):
-    for base in INT_KERNELS:
+    for base in MMA_KERNELS:
         if base in mangled:  # the tile's (BM, BN, WM, WN), if any
             tile = re.findall(r"Li(\d+)E", mangled)
             return base + (f"<{'x'.join(tile)}>" if tile else "")
     return mangled[:48]
 
 
-def imma_counts(lib, nvcc):
-    """IMMA instructions per kernel in the library's SASS (cuobjdump from
-    nvcc's toolkit), or None where the toolkit has no cuobjdump."""
+def mma_counts(lib, nvcc, op):
+    """Tensor-core instructions (SASS opcode ``op``: IMMA or HMMA) per
+    kernel in the library's SASS (cuobjdump from nvcc's toolkit), or None
+    where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(os.path.realpath(nvcc)), "cuobjdump")
     if not os.path.exists(tool):
         return None
@@ -146,7 +162,7 @@ def imma_counts(lib, nvcc):
         if found:
             fn = short_kernel_name(found.group(1))
             counts[fn] = 0
-        elif fn and "IMMA" in ln:
+        elif fn and op in ln:
             counts[fn] += 1
     return counts
 
@@ -229,26 +245,37 @@ def check_kernels(flush):
             basis = T.sign_basis(KG, "cuda")
             groups = x.reshape(m * g, KG)
             pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
-            # dequant_mpgemm (IEEE f32; the plain matmul runs with TF32 off,
-            # set in main) on operands padded to its own tile
-            _, dbm, dbn, dbg = dk.tile_for(m, KG)
-            xd = ops._pad_to(ops._pad_to(x, dbm, 0), dbg * KG, 1).contiguous()
+            # dequant_mpgemm (bf16 tensor cores; the plain matmul runs in
+            # IEEE f32 with TF32 off, set in main) on operands padded as
+            # ops pads them: x's rows as they are
+            _, _, dbn, dbg = dk.tile_for(m, KG)
+            xd = ops._pad_to(x, dbg * KG, 1).contiguous()
             pkd, wsd = ops._pad_packed(qw, xd.shape[1] // KG, dbn)
-            compare("dequant_mpgemm", dk.dequant_mpgemm(xd, pkd, wsd, **pw),
-                    dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw), None,
-                    f"M={m} N={n} K={k}")
-            b_ms, b_by = bound(qw.packed.numel() + 4 * n + 4 * m * k
-                               + 4 * m * n, {"f32": 2 * m * n * k})
+            kern = lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw)
+            got, want = kern(), dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw)
+            compare("dequant_mpgemm", got, want, None, f"M={m} N={n} K={k}")
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"dequant_mpgemm M={m} N={n} K={k}: "
+                                     f"not within rtol = atol = 1e-4 of "
+                                     f"each output")
+            if not torch.equal(kern(), got):
+                raise AssertionError(f"dequant_mpgemm M={m} N={n} K={k}: two "
+                                     f"calls differ")
+            nbytes = qw.packed.numel() + 4 * n + 4 * m * k + 4 * m * n
+            b_ms, b_by = bound(nbytes, {"bf16": dk.PASSES * 2 * m * n * k})
             records.append({
                 "kernel": "dequant_mpgemm", "m": m, "n": n, "k": k,
                 "table_quant": None,
-                "kernel_ms": time_ms(
-                    lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw), 10, flush),
+                "kernel_ms": time_ms(kern, 10, flush),
                 "plain_ms": time_ms(
                     lambda: dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw), 3,
                     flush),
                 "library_ms": time_ms(library_mm, 10, flush),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_f32_ms": bound(nbytes, {"f32": 2 * m * n * k})[0],
+                "max_rel_err": ((got.double() - want.double()).abs().max()
+                                / want.double().abs().max()).item(),
+                **dequant_plan(m, pkd.shape[0], xd.shape[1] // KG)})
             for tq in MODES:
                 what = f"M={m} N={n} K={k} table_quant={tq}"
                 # the fused kernel's operands, padded as ops pads them
@@ -274,31 +301,40 @@ def check_kernels(flush):
                 got = fk.fused_lut_mpgemm(xp, rs, pkp, wsp, **fw)
                 want = fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp, **fw)
                 compare("fused_lut_mpgemm", got, want, tq, what)
-                if tq != "per_row":
-                    continue
-                # times and bounds (the main path runs per_row)
+                # times and bounds: every mode of the two LUT mpGEMMs (the
+                # main path runs per_row), table_precompute on per_row
                 pk_bytes = qw.packed.numel() + 4 * n
                 out_bytes = 4 * m * n
-                lut_ops = {"int8": 2 * m * n * k}
                 entry_ops = {"f32": m * g * e * (KG - 1)}
+                if tq == "per_row":
+                    lut_ops = {"int8": 2 * m * n * k}
+                    table_bytes = m * g * e + 4 * m
+                else:
+                    lut_ops = {"f32": 2 * m * n * k}
+                    table_bytes = (4 * m * g * e if tq is None
+                                   else m * g * e + 4 * m * g)
+                fused_ops = dict(lut_ops)
+                fused_ops["f32"] = fused_ops.get("f32", 0) + entry_ops["f32"]
                 recs = {
-                    "table_precompute": (
-                        lambda: tk.table_precompute(x, KG, tq, rs),
-                        lambda: tk.table_precompute_plain(x, KG, tq, rs),
-                        lambda: torch.matmul(groups, basis),
-                        4 * m * k + 4 * m + m * g * e, entry_ops),
                     "lut_mpgemm": (
                         lambda: lk.lut_mpgemm(*staged, **pw),
                         lambda: lk.lut_mpgemm_plain(*staged, **pw),
-                        library_mm, m * g * e + 4 * m + pk_bytes + out_bytes,
+                        library_mm, table_bytes + pk_bytes + out_bytes,
                         lut_ops),
                     "fused_lut_mpgemm": (
                         lambda: fk.fused_lut_mpgemm(xp, rs, pkp, wsp, **fw),
                         lambda: fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp,
                                                           **fw),
-                        library_mm, 4 * m * k + 4 * m + pk_bytes + out_bytes,
-                        dict(lut_ops, **entry_ops)),
+                        library_mm, 4 * m * k + (4 * m if rs is not None
+                                                 else 0)
+                        + pk_bytes + out_bytes, fused_ops),
                 }
+                if tq == "per_row":
+                    recs["table_precompute"] = (
+                        lambda: tk.table_precompute(x, KG, tq, rs),
+                        lambda: tk.table_precompute_plain(x, KG, tq, rs),
+                        lambda: torch.matmul(groups, basis),
+                        4 * m * k + 4 * m + m * g * e, entry_ops)
                 for name, (kern, plain, lib, nbytes, nops) in recs.items():
                     b_ms, b_by = bound(nbytes, nops)
                     records.append({
@@ -308,6 +344,8 @@ def check_kernels(flush):
                         "plain_ms": time_ms(plain, 3, flush),
                         "library_ms": time_ms(lib, 10, flush),
                         "bound_ms": b_ms, "bound_by": b_by})
+                    if tq != "per_row":
+                        continue
                     if name == "lut_mpgemm":
                         records[-1].update(int_plan(
                             m, staged[0].shape[0], staged[2].shape[0],
@@ -364,6 +402,41 @@ def int_plan(m, mp, np_, gp, fused=False):
             "blocks": (rows // bm) * (np_ // bn) * splits,
             "smem_bytes": stages * stage + fixed,
             "kernels_per_call": 1 if fused or splits == 1 else 2}
+
+
+def dequant_plan(m, np_, gp):
+    """dequant_mpgemm's launch plan for one shape (M rows, np_ channels, gp
+    K-groups): tile, K-step, bf16 passes, split-K count S, blocks, the
+    ring's stages and dynamic shared memory as the kernel's launch plans
+    them (``dequant_mpgemm.ring``), and kernels per call."""
+    from repro_torch.kernels import dequant_mpgemm as dk
+    (_, bm, bn, bg), splits, tiles = dk.plan(m, np_, gp, KG)
+    stages, smem = dk.ring(m, KG, BITS)
+    return {"tile": [bm, bn, bg * KG], "passes": dk.PASSES, "splits": splits,
+            "blocks": tiles * splits, "stages": stages, "smem_bytes": smem,
+            "kernels_per_call": 1}
+
+
+def record_line(r):
+    """One phase-3 record as text: times, bound and, for a tensor-core
+    path, its plan."""
+    line = (f"{r['kernel']} M={r['m']} N={r['n']} K={r['k']}"
+            + ("" if r["kernel"] == "dequant_mpgemm" else
+               f" {r['table_quant']}")
+            + f": {r['kernel_ms']:.4f} ms (plain {r['plain_ms']:.4f}, bf16 "
+            f"matmul {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+            f"{r['bound_by']}; {r['kernel_ms'] / r['library_ms']:.2f}x the "
+            f"matmul, {r['kernel_ms'] / r['bound_ms']:.1f}x the bound)")
+    if "tile" not in r:
+        return line
+    step = (f"K-step {r['tile'][2]} weights, {r['passes']} bf16 passes"
+            if "passes" in r else f"K-step {r['tile'][2]} entries")
+    return line + (
+        f" [tile {r['tile'][0]}x{r['tile'][1]}, {step}, S={r['splits']}, "
+        f"{r['blocks']} blocks, {r['smem_bytes']} B smem, "
+        f"{r['kernels_per_call']} kernel(s) per call"
+        + (f"; max rel err {r['max_rel_err']:.3g}" if "passes" in r else "")
+        + "]")
 
 
 def dequant_op_path():
@@ -729,34 +802,25 @@ def main() -> int:
           f"(nvcc {_build.nvcc_path()})", flush=True)
     if len(sys.argv) > 1 and sys.argv[1] == "--prefill-profile":
         return prefill_only(card)
-    int_report, imma = {}, {}
-    for lib in ("lut_mpgemm", "fused_lut_mpgemm"):
-        int_report[lib] = kernel_report(
+    mma_report, mma = {}, {}
+    for lib, (kernel, op) in MMA_LIBS.items():
+        mma_report[lib] = kernel_report(
             (_build.BUILD_DIR / f"{lib}.ptxas.txt").read_text())
-        imma[lib] = imma_counts(paths[lib], _build.nvcc_path())
-        print(f"build: {lib} int path (ptxas -v): " + "; ".join(
-            f"{k}: {', '.join(v)}" for k, v in int_report[lib].items())
-            + "; IMMA instructions in SASS: " + (
-                "not counted (no cuobjdump)" if imma[lib] is None else
-                ", ".join(f"{k} {v}" for k, v in imma[lib].items() if v)),
+        mma[lib] = mma_counts(paths[lib], _build.nvcc_path(), op)
+        print(f"build: {lib} tensor-core kernels (ptxas -v): " + "; ".join(
+            f"{k}: {', '.join(v)}" for k, v in mma_report[lib].items())
+            + f"; {op} instructions in SASS: " + (
+                "not counted (no cuobjdump)" if mma[lib] is None else
+                ", ".join(f"{k} {v}" for k, v in mma[lib].items() if v)),
             flush=True)
-        if imma[lib] is not None and not any(
-                v for k, v in imma[lib].items()
-                if k.startswith(("lut_mma", "fused_mma"))):
-            raise AssertionError(f"build: {lib}'s int path has no IMMA")
+        if mma[lib] is not None and not any(
+                v for k, v in mma[lib].items() if k.startswith(kernel)):
+            raise AssertionError(f"build: {lib}'s {kernel} has no {op}")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     records, err = check_kernels(flush)
-    print("kernels: " + "; ".join(
-        f"{r['kernel']} M={r['m']} N={r['n']} K={r['k']}: "
-        f"{r['kernel_ms']:.4f} ms (plain {r['plain_ms']:.4f}, bf16 matmul "
-        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-        f"{r['bound_by']})" + (
-            f" [tile {r['tile'][0]}x{r['tile'][1]}, K-step {r['tile'][2]} "
-            f"entries, S={r['splits']}, {r['blocks']} blocks, "
-            f"{r['smem_bytes']} B smem, {r['kernels_per_call']} kernel(s) "
-            f"per call]" if "tile" in r else "")
-        for r in records), flush=True)
+    print("kernels: " + "; ".join(record_line(r) for r in records),
+          flush=True)
     print("kernels vs plain: max |diff| " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
         + " (per_row bit-exact; None/per_group and dequant <= 1e-4 "
@@ -866,6 +930,7 @@ def main() -> int:
           flush=True)
 
     main_recs = [r for r in records if r["m"] == MAIN_M.get(r["kernel"])
+                 and r["table_quant"] == "per_row"
                  and (r["kernel"] != "table_precompute"
                       or (r["n"], r["k"]) in ((2048, 2048), (2048, 5632)))]
     sources = {"table_precompute": ("src/repro_torch/csrc/table_precompute.cu",
@@ -901,8 +966,8 @@ def main() -> int:
                    "prefill_chunk": prefill, "launches": launches,
                    "dequant_op_launches": dq_launches, "paged": pst,
                    "paged_launches": paged_launches, "paged_check": paged_rec,
-                   "ptxas": ptxas, "int_path_ptxas": int_report,
-                   "imma": imma,
+                   "ptxas": ptxas, "mma_ptxas": mma_report,
+                   "mma_instructions": mma,
                    "parity_max_abs_diff": diff,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": summary}))

@@ -103,13 +103,12 @@ __device__ __forceinline__ void unpack_cw_group(const uint8_t* __restrict__ row,
 }
 
 // Reinterpreted weights of one (channel, group), the Eq. 6 unfold:
-// q'[i] = Σ_b ps_b (2 bit_i − 1) with bit_i = idx_i XOR sign for i < K-1 and
-// bit_{K-1} = sign. The sums are small integers, exact in f32.
-__device__ __forceinline__ void unpack_qprime_group(const uint8_t* __restrict__ row,
-                                                    int g, int planes, int k_group,
-                                                    const PlaneScales& ps,
-                                                    float* dst) {
-  int q[kMaxKGroup];
+// q[i] = Σ_b ps_b (2 bit_i − 1) with bit_i = idx_i XOR sign for i < K-1 and
+// bit_{K-1} = sign; q[i] = 0 for i >= K. Integers with |q| <= Σ|ps_b| <= 255.
+__device__ __forceinline__ void qprime_group(const uint8_t* __restrict__ row, int g,
+                                             int planes, int k_group,
+                                             const PlaneScales& ps,
+                                             int (&q)[kMaxKGroup]) {
 #pragma unroll
   for (int i = 0; i < kMaxKGroup; ++i) q[i] = 0;
 #pragma unroll
@@ -126,9 +125,6 @@ __device__ __forceinline__ void unpack_qprime_group(const uint8_t* __restrict__ 
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < kMaxKGroup; ++i)
-    if (i < k_group) dst[i] = static_cast<float>(q[i]);
 }
 
 // Output tile BM x BN; each of the 256 threads owns TM x TN outputs at rows
@@ -143,8 +139,8 @@ struct TileCfg {
 };
 
 // The f32 paths' tiles (None and per_group tables in lut_mpgemm.cu and
-// fused_lut_mpgemm.cu, and dequant_mpgemm.cu), for M <= 8 rows and for
-// more; the int paths have their own (lut_mma.cuh: MmaTile). The Python
+// fused_lut_mpgemm.cu), for M <= 8 rows and for more; the int paths and
+// dequant_mpgemm.cu have their own (lut_mma.cuh: MmaTile). The Python
 // wrappers (kernels/lut_mpgemm.py: TILES) carry the same numbers. The small
 // tile takes long K-steps (1024 entries, 128 groups at K=4): fewer, wider
 // steps put more loads in flight per barrier.

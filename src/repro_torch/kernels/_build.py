@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles to its own shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3``, IEEE division
 and rounding: no ``--use_fast_math``). All sources build together, one
 ``nvcc`` process each, at the first launch of any kernel; a library is
-rebuilt when the hash of its sources changes. Nothing here runs at import
-time, so the CPU tests import every module without a compiler.
+rebuilt when the hash of its sources changes. A variant of one source,
+built with extra ``-D`` defines, gets a library of its own (``library``).
+Nothing here runs at import time, so the CPU tests import every module
+without a compiler.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -38,9 +40,11 @@ _SIGNATURES = {
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                           _I, _I, _I, _I, _P]),
     "dequant_mpgemm": ("dequant_mpgemm_launch",
-                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]),
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
+                        _I, _P]),
 }
 
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}  # (name, defines)
 _loaded: Dict[str, object] = {}  # name -> ctypes launch function
 build_seconds = None  # wall time of the last build_all(), for reports
 
@@ -53,65 +57,84 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(name: str, defines: Sequence[str] = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name, defines)}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every stale source in parallel; return name -> library path.
-
-    Raises RuntimeError with the compiler's output if any build fails. The
-    compiler's resource report (``-Xptxas -v``) is kept beside each library
-    as ``<name>.ptxas.txt``.
-    """
-    global build_seconds
-    t0 = time.perf_counter()
+def _compile(jobs: Sequence[Tuple[str, Tuple[str, ...]]]) -> None:
+    """Compile the stale (source, defines) jobs in parallel, one ``nvcc``
+    each. Raises RuntimeError with the compiler's output if any fails; the
+    compiler's resource report (``-Xptxas -v``) of a build without defines
+    is kept as ``<name>.ptxas.txt``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    for name in SOURCES:
-        lib = _lib_path(name)
+    procs = []
+    for name, defines in jobs:
+        lib = _lib_path(name, defines)
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs.append((name, defines, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib))
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
+    for name, defines, proc, tmp, lib in procs:
         log, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
+        if not defines:
+            (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- {name} {' '.join(defines)} (nvcc exit "
+                          f"{proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every stale source in parallel; return name -> library path."""
+    global build_seconds
+    t0 = time.perf_counter()
+    _compile([(name, ()) for name in SOURCES])
     build_seconds = time.perf_counter() - t0
     return {name: _lib_path(name) for name in SOURCES}
 
 
-def launcher(name: str):
+def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, built on first use
+    (with ``defines``, e.g. ``("-DDEQUANT_TERMS=2",)``, that source alone;
+    without, every source)."""
+    key = (name, tuple(defines))
+    if key not in _libs:
+        if defines:
+            _compile([key])
+            _libs[key] = ctypes.CDLL(str(_lib_path(name, defines)))
+        else:
+            for lib_name, path in build_all().items():
+                _libs.setdefault((lib_name, ()), ctypes.CDLL(str(path)))
+    return _libs[key]
+
+
+def launcher(name: str, defines: Sequence[str] = ()):
     """The ctypes launch function of kernel library ``name`` (built on first
     use). It returns the launch's ``cudaGetLastError()`` as an int."""
-    fn = _loaded.get(name)
+    fn = None if defines else _loaded.get(name)
     if fn is None:
-        paths = build_all()
-        for lib_name, path in paths.items():
-            symbol, argtypes = _SIGNATURES[lib_name]
-            f = getattr(ctypes.CDLL(str(path)), symbol)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-            _loaded[lib_name] = f
-        fn = _loaded[name]
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(library(name, defines), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        if not defines:
+            _loaded[name] = fn
     return fn
 
 

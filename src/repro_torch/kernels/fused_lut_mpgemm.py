@@ -33,9 +33,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import lut_mpgemm as lut_kernel
-from repro_torch.kernels.lut_mpgemm import (check_operands, launch_args,
-                                            lut_mpgemm_plain, plane_args,
-                                            split_for)
+from repro_torch.kernels.lut_mpgemm import (check_operands, device_workspace,
+                                            launch_args, lut_mpgemm_plain,
+                                            plane_args, split_for)
 from repro_torch.kernels.table_precompute import (MODES, check_activations,
                                                   table_precompute_plain)
 
@@ -82,18 +82,6 @@ def int_plan(m: int, n: int, gp: int, k_group: int, planes: int):
     return tile, splits, (mp // bm) * (n // bn)
 
 
-def _workspace(device: torch.device, words: int, tiles: int):
-    """The device's zeroed split-K workspace and arrival counts, at least
-    ``words`` and ``tiles`` long."""
-    work, arrivals = _workspaces.get(device.index, (None, None))
-    if work is None or work.numel() < words:
-        work = torch.zeros(words, device=device, dtype=torch.int32)
-    if arrivals is None or arrivals.numel() < tiles:
-        arrivals = torch.zeros(tiles, device=device, dtype=torch.int32)
-    _workspaces[device.index] = (work, arrivals)
-    return work, arrivals
-
-
 def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                      packed: torch.Tensor, wscale: torch.Tensor, *,
                      k_group: int, table_quant: Optional[str], planes: int,
@@ -123,7 +111,8 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                                                      planes)
         ps = plane_args(planes, plane_scales)
         if splits > 1:
-            work, arrivals = _workspace(x.device, m * np_, tiles)
+            work, arrivals = device_workspace(_workspaces, x.device, m * np_,
+                                              tiles, torch.int32)
     else:
         config, bg, ps = launch_args(k_group, planes, plane_scales, m, np_,
                                      gp)

@@ -31,7 +31,7 @@ from repro_torch.core.table import Table
 from repro_torch.kernels import _build, ref
 
 __all__ = ["lut_mpgemm", "lut_mpgemm_plain", "tile_for", "int_tile_for",
-           "split_for", "TILES", "INT_TILES"]
+           "split_for", "k_ranges", "TILES", "INT_TILES"]
 
 # (BM, BN, KT_MIN) of csrc/lut_common.cuh: SmallTile (config 0), LargeTile (1)
 TILES = ((8, 32, 1024), (64, 64, 128))
@@ -77,9 +77,30 @@ def split_for(mp: int, np_: int, gp: int, bm: int, bn: int, bg: int
     tiles = (mp // bm) * (np_ // bn)
     want = -(-SMS // tiles)
     s = max(1, min(want, steps // MIN_STEPS))
-    q, r = divmod(steps, s)
+    return s, k_ranges(gp, bg, s)
+
+
+def k_ranges(gp: int, bg: int, s: int) -> List[Tuple[int, int]]:
+    """The K-group ranges of S contiguous splits of the Gp/bg K-steps, the
+    first steps % S of them one step longer, as the kernels compute them."""
+    q, r = divmod(gp // bg, s)
     starts = [z * q + min(z, r) for z in range(s + 1)]
-    return s, [(a * bg, b * bg) for a, b in zip(starts, starts[1:])]
+    return [(a * bg, b * bg) for a, b in zip(starts, starts[1:])]
+
+
+def device_workspace(cache, device: torch.device, words: int, tiles: int,
+                     dtype: torch.dtype):
+    """A split-K workspace (at least ``words`` of ``dtype``) and tile arrival
+    counts (int32, at least ``tiles``) on ``device``, kept in ``cache``
+    (device index -> the pair) and grown when a call needs more; both are
+    zero when made."""
+    work, arrivals = cache.get(device.index, (None, None))
+    if work is None or work.numel() < words:
+        work = torch.zeros(words, device=device, dtype=dtype)
+    if arrivals is None or arrivals.numel() < tiles:
+        arrivals = torch.zeros(tiles, device=device, dtype=torch.int32)
+    cache[device.index] = (work, arrivals)
+    return work, arrivals
 
 
 def _mode(tv, ts, gp) -> int:
@@ -133,9 +154,21 @@ def check_operands(name, rows, packed, wscale, k_group, planes, gp, device):
                              f"{device}")
 
 
+MAX_QPRIME = 255  # the largest Σ|ps_b|: every q' is then exact in bf16
+
+
 def plane_args(planes, plane_scales):
-    """The plane scales as the kernels' C int array (they are integers)."""
-    return (ctypes.c_int * planes)(*[int(s) for s in plane_scales])
+    """The plane scales as the kernels' C int array. Each must be an integer
+    (the kernels take C ints) and Σ|ps_b| <= MAX_QPRIME (dequant_mpgemm's
+    bf16 q' tiles then hold every q' = Σ_b ±ps_b exactly); anything else
+    raises ValueError."""
+    scales = [float(s) for s in plane_scales]
+    if not all(s.is_integer() for s in scales):
+        raise ValueError(f"plane scales must be integers, got {scales}")
+    if sum(abs(s) for s in scales) > MAX_QPRIME:
+        raise ValueError(f"plane scales {scales}: Σ|ps_b| exceeds "
+                         f"{MAX_QPRIME}")
+    return (ctypes.c_int * planes)(*[int(s) for s in scales])
 
 
 def launch_args(k_group, planes, plane_scales, m, n, gp, tile=None):

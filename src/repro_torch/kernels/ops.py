@@ -209,8 +209,11 @@ def dequant_mpgemm(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     ``x @ dequantize(qw).T`` in f32, the zero point applied outside."""
     _check_not_plane_sliced(qw, "dequant_mpgemm")
     m, kg = x.shape[0], qw.k_group
-    _, bm, bn, bg = dequant_kernel.tile_for(m, kg)
-    xp = _pad_to(_pad_to(x.to(torch.float32), bm, 0), bg * kg, 1).contiguous()
+    # the kernel takes x's rows as they are
+    _, _, bn, bg = dequant_kernel.tile_for(m, kg)
+    xp = _pad_to(x.to(torch.float32), bg * kg, 1).contiguous()
+    if xp.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
+        xp = xp.clone()
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = dequant_kernel.dequant_mpgemm(
         xp, pkp, wsp, k_group=kg, planes=qw.num_planes,

@@ -6,8 +6,9 @@ Run on a machine with a CUDA card (this file imports no JAX):
 
 Without a card every test skips. Tolerances as in chip_smoke.py: per_row
 bit-exact (exact int32 sums, same codes and epilogue), None / per_group
-and dequant_mpgemm within 1e-4 relative (fp32 sums in another order; the
-plain versions' matmuls run with TF32 off).
+within 1e-4 relative (fp32 sums in another order), dequant_mpgemm (bf16
+tensor cores, activations split into three bf16 terms, f32 sums) within
+1e-4 relative; the plain versions' matmuls run with TF32 off.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core.quantize import QuantizedWeight, dequantize, quantize
 from repro_torch.core.table import Table
+from repro_torch.kernels import _build
 from repro_torch.kernels import dequant_mpgemm as dk
 from repro_torch.kernels import fused_lut_mpgemm as fk
 from repro_torch.kernels import lut_mpgemm as lk
@@ -45,6 +47,12 @@ def _close(got, want, tq):
     else:
         scale = want.abs().max().clamp_min(1e-30)
         assert ((got - want).abs().max() / scale).item() <= 1e-4
+
+
+def _elementwise(got, want):
+    """The reference's dequant contract: each output within rtol = atol =
+    1e-4 (repro/kernels/dequant_mpgemm.py's tests)."""
+    return torch.allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("tq", MODES)
@@ -209,18 +217,97 @@ def test_launch_counts_and_no_fallback(cuda):
 
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_dequant_kernel_matches_plain_version(cuda, case):
+    """Every scheme and k_group of CASES: the bf16 tensor-core kernel within
+    1e-4 of its IEEE f32 plain version, the same bits from a second call,
+    and the op (x's rows as they are, padding sliced off, zero point
+    outside the kernel) within 1e-4 of the f32 dequantized product."""
     m, k, n, bits, scheme, kg = case
     rng = np.random.default_rng(m + k + n)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
     qw = quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
         np.float32)), bits, k_group=kg, scheme=scheme).to(cuda)
-    _, bm, bn, bg = dk.tile_for(m, kg)
-    xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * kg, 1).contiguous()
+    _, _, bn, bg = dk.tile_for(m, kg)
+    xp = ops._pad_to(x, bg * kg, 1).contiguous()
     pkp, wsp = ops._pad_packed(qw, xp.shape[1] // kg, bn)
     pw = dict(k_group=kg, planes=qw.num_planes, plane_scales=qw.plane_scales)
     before = dk.launches
-    _close(dk.dequant_mpgemm(xp, pkp, wsp, **pw),
-           dk.dequant_mpgemm_plain(xp, pkp, wsp, **pw), None)
+    got = dk.dequant_mpgemm(xp, pkp, wsp, **pw)
+    want = dk.dequant_mpgemm_plain(xp, pkp, wsp, **pw)
+    _close(got, want, None)
+    assert _elementwise(got, want)
+    assert torch.equal(dk.dequant_mpgemm(xp, pkp, wsp, **pw), got)
     # the op: padding sliced off, zero point applied outside the kernel
     _close(ops.dequant_mpgemm(x, qw), x @ dequantize(qw).T, None)
-    assert dk.launches == before + 2
+    assert dk.launches == before + 3
+
+
+@pytest.mark.parametrize("nk", SERVE_SHAPES, ids=str)
+@pytest.mark.parametrize("m", (1, 3, 4, 16, 17, 64, 128))
+def test_dequant_kernel_at_the_serve_shapes(cuda, m, nk):
+    """W2 K=4 (the byte-table decode) at tinyllama's shapes, across the row
+    tiles' edges: within 1e-4 of the plain version, one launch a call, and
+    back-to-back calls give equal bits, with split-K (S > 1) and without
+    (the head)."""
+    n, k = nk
+    rng = np.random.default_rng(m * 5 + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    qw = _random_w2(rng, n, k, cuda)
+    pw = dict(k_group=4, planes=2, plane_scales=qw.plane_scales)
+    _, _, bn, bg = dk.tile_for(m, 4)
+    xp = ops._pad_to(x, bg * 4, 1).contiguous()
+    pkp, wsp = ops._pad_packed(qw, xp.shape[1] // 4, bn)
+    _, splits, _ = dk.plan(m, pkp.shape[0], xp.shape[1] // 4, 4)
+    assert (splits == 1) == (n == 32000)
+    before = dk.launches
+    got = dk.dequant_mpgemm(xp, pkp, wsp, **pw)
+    again = dk.dequant_mpgemm(xp, pkp, wsp, **pw)
+    assert dk.launches == before + 2 and got.shape == (m, pkp.shape[0])
+    assert torch.equal(got, again)
+    want = dk.dequant_mpgemm_plain(xp, pkp, wsp, **pw)
+    _close(got, want, None)
+    assert _elementwise(got, want)
+
+
+def test_two_dequant_terms_miss_the_elementwise_bound(cuda, monkeypatch):
+    """Why the kernel takes three bf16 terms: a build with two
+    (-DDEQUANT_TERMS=2) misses the elementwise 1e-4 bound on some case of
+    CASES, where the three-term kernel meets it on every case."""
+    two = _build.launcher("dequant_mpgemm", ("-DDEQUANT_TERMS=2",))
+
+    def within(case):
+        m, k, n, bits, scheme, kg = case
+        rng = np.random.default_rng(m + k + n)
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                             ).to(cuda)
+        qw = quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+            np.float32)), bits, k_group=kg, scheme=scheme).to(cuda)
+        _, _, bn, bg = dk.tile_for(m, kg)
+        xp = ops._pad_to(x, bg * kg, 1).contiguous()
+        pkp, wsp = ops._pad_packed(qw, xp.shape[1] // kg, bn)
+        pw = dict(k_group=kg, planes=qw.num_planes,
+                  plane_scales=qw.plane_scales)
+        return _elementwise(dk.dequant_mpgemm(xp, pkp, wsp, **pw),
+                            dk.dequant_mpgemm_plain(xp, pkp, wsp, **pw))
+
+    assert all(within(case) for case in CASES)
+    with monkeypatch.context() as patch:
+        patch.setattr(_build, "launcher", lambda name: two)
+        misses = [case for case in CASES if not within(case)]
+    assert misses, "two bf16 terms met the elementwise bound on every case"
+
+
+def test_dequant_op_takes_empty_and_unaligned_inputs(cuda):
+    """No rows gives an empty product without a launch; activations that
+    start off a 16-byte boundary are copied by the op, not refused."""
+    rng = np.random.default_rng(7)
+    qw = _random_w2(rng, 256, 512, cuda)
+    before = dk.launches
+    assert ops.dequant_mpgemm(torch.zeros(0, 512, device=cuda),
+                              qw).shape == (0, 256)
+    assert dk.launches == before
+    x = torch.from_numpy(rng.normal(size=(4 * 512 + 1,)).astype(np.float32)
+                         ).to(cuda)[1:].view(4, 512)
+    assert x.data_ptr() % 16
+    got = ops.dequant_mpgemm(x, qw)
+    assert dk.launches == before + 1
+    _close(got, x @ dequantize(qw).T, None)

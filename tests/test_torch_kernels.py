@@ -28,6 +28,7 @@ from repro.core import quantize as JQ
 from repro.core import table as JT
 from repro.kernels import ops as jops
 from repro_torch.core import quantize as TQ
+from repro_torch.core import reinterpret as TR
 from repro_torch.core import table as TT
 from repro_torch.kernels import fused_lut_mpgemm as tfused
 from repro_torch.kernels import lut_mpgemm as tlut
@@ -386,6 +387,34 @@ def test_fused_split_tables_equal_the_unsplit_contraction(case):
         assert acc.abs().max().item() < 2 ** 31
         got = (acc.to(torch.float32) * rs) * ws[None, :]
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scales", [(1.0, 2.5), (0.5,), (1.0, float("nan")),
+                                    (1.0, float("inf"))], ids=str)
+def test_plane_args_refuses_non_integer_scales(scales):
+    """A plane scale that is not an integer is refused, not truncated: the
+    kernels take C ints and would compute another function."""
+    with pytest.raises(ValueError, match="integers"):
+        tlut.plane_args(len(scales), scales)
+
+
+def test_plane_args_refuses_sums_above_255():
+    """Σ|ps_b| <= 255 keeps every q' exact in dequant_mpgemm's bf16 tiles;
+    one more is refused, whatever the signs."""
+    assert list(tlut.plane_args(2, (127.0, 128.0))) == [127, 128]
+    for scales in ((128.0, 128.0), (-128.0, 128.0), (1.0,) * 256):
+        with pytest.raises(ValueError, match="exceeds 255"):
+            tlut.plane_args(len(scales), scales)
+
+
+@pytest.mark.parametrize("scheme", [(bits, False) for bits in range(1, 9)]
+                         + [(2, True)], ids=str)
+def test_plane_args_takes_every_schemes_scales(scheme):
+    """Every scheme's plane scales ([1, 2, 4, ...] for 1-8 bits, [1, 1] for
+    ternary) pass, as the same C ints."""
+    scales = TR.plane_scales_for(*scheme)
+    assert list(tlut.plane_args(len(scales), scales)) == [int(s)
+                                                          for s in scales]
 
 
 @pytest.fixture
