@@ -10,24 +10,26 @@ exit and no result line):
   2. build   — nvcc builds the four kernels from ``src/repro_torch/csrc``
      and prints the registers and spills (``-Xptxas -v``) of the
      tensor-core kernels (the int paths of ``lut_mpgemm`` and
-     ``fused_lut_mpgemm``, and ``dequant_mpgemm``) and their IMMA / HMMA
-     count in the SASS (cuobjdump, where the toolkit has it; none fails the
-     run);
+     ``fused_lut_mpgemm``, their float-table paths, and ``dequant_mpgemm``)
+     and their IMMA / HMMA count in the SASS (cuobjdump, where the toolkit
+     has it; a kernel with none fails the run);
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
-     projections and head), every table_quant mode: per_row bit-exact,
-     None / per_group within 1e-4 relative; dequant_mpgemm (bf16 tensor
-     cores, activations split into three bf16 terms, f32 sums; its plain
-     version's matmul in IEEE f32, TF32 off) within 1e-4 relative, and two
-     calls bit-equal. Then the dequant op path: ``ops.dequant_mpgemm``, the
-     kernel's only entry point (as in the reference, no serve step launches
-     it), at the same ten shapes with its launches counted. Operands are
-     padded as ``kernels.ops`` pads them: the per_row fused kernel's and
-     dequant_mpgemm's to their own tiles with x's rows as they are, the
-     others to the shared tile. The records of the tensor-core paths carry
-     their plan: tile, K-step, split-K count S, blocks, shared memory and
-     kernels per call (dequant_mpgemm's also its bf16 passes and max
-     relative error). Device times with CUDA events
+     projections and head), every table_quant mode: per_row bit-exact; the
+     bf16 tensor-core paths (the two LUT mpGEMMs' None / per_group tables,
+     and dequant_mpgemm: values split into three bf16 terms that sum to
+     them exactly, f32 sums; the plain versions' matmuls in IEEE f32, TF32
+     off) within 1e-4 of the largest output and within rtol = atol = 1e-4
+     of every output, and two calls bit-equal. Then the dequant op path:
+     ``ops.dequant_mpgemm``, the kernel's only entry point (as in the
+     reference, no serve step launches it), at the same ten shapes with its
+     launches counted. Operands are padded as ``kernels.ops`` pads them:
+     channels and K-groups to each kernel's own tile, rows only for the
+     staged per_row path. The records of the tensor-core paths carry their
+     plan: tile, K-step, split-K count S, blocks, shared memory and kernels
+     per call (the bf16 paths' also their passes, the ring's stages as the
+     library plans them, the max relative error and the elementwise and
+     two-call checks). Device times with CUDA events
      (``time_ms``: L2 flushed before every launch, the host's queueing
      hidden behind a spin on the card): kernel, plain version, a bf16
      ``torch.matmul`` yardstick, and the bound (``bound``), for every
@@ -37,14 +39,13 @@ exit and no result line):
        ops   = 2·M·N·K int8 for the two LUT mpGEMMs' per_row paths (the
                multiply-adds of the product; the one-hot T·CW contraction
                over G·E entries is the kernels' way of doing it, not work
-               the function needs), 2·M·N·K f32 for their None and
-               per_group paths (IEEE FMA), plus M·G·E·(K-1) f32 adds of
-               the table entries where the kernel builds them; for
-               dequant_mpgemm the bf16 tensor-core operations it issues,
-               3 passes x 2·M·N·K (its per-shape records in
-               chip_smoke.json keep the count of its first version,
-               2·M·N·K f32, as ``bound_f32_ms``; the kernels line does
-               not carry it);
+               the function needs); for the bf16 paths the tensor-core
+               operations they issue, 3 passes x 2·M·N·K bf16; plus
+               M·G·E·(K-1) f32 adds of the table entries where the kernel
+               builds them (the per-shape records in chip_smoke.json keep
+               the count of the paths' IEEE f32 first versions, 2·M·N·K f32
+               and the table adds, as ``bound_f32_ms``; the kernels line
+               does not carry it);
        bound_ms = max(bytes / 3.35 TB/s, ops / peak of their type);
   4. serve   — full-width tinyllama-1.1b, W2 symmetric K=4, random weights
      from a fixed seed made on the card, served through the port's engine
@@ -70,6 +71,22 @@ exit and no result line):
      own block refs left after the run, every LUT kernel launched, and a
      paged decode chunk free of host syncs.
 
+  7. float   — phase 4's model and engine with float tables
+     (``table_quant=None``; the per_group mode in the forward only): the
+     serve of phase 4 (4 requests, 16 greedy tokens each), which must
+     launch the f32 paths, the fused kernel in decode and the staged pair
+     in prefill, with <= 1/decode_chunk host syncs per token; one decode
+     step and one 128-token prefill chunk profiled as in phase 4, each with
+     the launch counts set to 0 just before and read just after; and a
+     teacher-forced 128-token forward through the kernels (lut_pallas) and
+     the plain LUT path (lut_xla), with tests/test_torch_model.py's bounds:
+     None within rtol = atol = 1e-3 of each logit; per_group with the
+     greedy token equal at >= 90% of the positions, and its rtol = atol =
+     5e-2 on each logit reported as met or missed beside a control (the
+     plain path against itself, its T·CW summed over K in two halves),
+     which misses it too at full width: INT8 codes flip at a last-bit
+     difference near a rounding boundary, and 22 layers carry the flips.
+
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record; the last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -79,10 +96,17 @@ before that the kernels' JSON record; the last line
     python3 chip_smoke.py --prefill-profile   # phases 1, 2 and the prefill
                                               # chunk's profile only
 
-profiles one prefill chunk of phase 4's model alone; it runs on any
-checkout of the port, so one call can profile an older one beside this.
+profiles one prefill chunk of phase 4's model alone, and
+
+    python3 chip_smoke.py --float-profile     # phases 1, 2 and phase 7's
+                                              # profiles and forward only
+
+phase 7's decode step and prefill chunk profiles and teacher-forced
+forward alone. Both use no entry point newer than the port's first slices,
+so one call can run them on an older checkout beside this one.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -130,20 +154,32 @@ def kernel_report(text):
 
 # the tensor-core kernels: the int paths' (csrc/lut_mpgemm.cu: lut_mma_kernel
 # per tile, splitk_epilogue_kernel; csrc/fused_lut_mpgemm.cu:
-# fused_mma_kernel per tile) and csrc/dequant_mpgemm.cu: dequant_mma_kernel
+# fused_mma_kernel per tile), the float-table paths' (lut_bf16_kernel,
+# fused_bf16_kernel, per tile and table mode) and csrc/dequant_mpgemm.cu:
+# dequant_mma_kernel
 MMA_KERNELS = ("lut_mma_kernel", "splitk_epilogue_kernel", "fused_mma_kernel",
-               "dequant_mma_kernel")
-# library -> the kernels whose SASS must hold tensor-core instructions
-MMA_LIBS = {"lut_mpgemm": ("lut_mma_kernel", "IMMA"),
-            "fused_lut_mpgemm": ("fused_mma_kernel", "IMMA"),
-            "dequant_mpgemm": ("dequant_mma_kernel", "HMMA")}
+               "lut_bf16_kernel", "fused_bf16_kernel", "dequant_mma_kernel")
+# (library, kernel, SASS opcode): each kernel must hold tensor-core
+# instructions of that kind
+MMA_CHECKS = (("lut_mpgemm", "lut_mma_kernel", "IMMA"),
+              ("lut_mpgemm", "lut_bf16_kernel", "HMMA"),
+              ("fused_lut_mpgemm", "fused_mma_kernel", "IMMA"),
+              ("fused_lut_mpgemm", "fused_bf16_kernel", "HMMA"),
+              ("dequant_mpgemm", "dequant_mma_kernel", "HMMA"))
+# the bf16 kernels' table mode template argument (csrc/lut_common.cuh: Mode)
+TABLE_MODE = {"0": "None", "2": "per_group"}
 
 
 def short_kernel_name(mangled):
+    """A kernel's base name, its tile's (BM, BN, WM, WN) and, for a
+    float-table kernel, its table mode."""
     for base in MMA_KERNELS:
-        if base in mangled:  # the tile's (BM, BN, WM, WN), if any
-            tile = re.findall(r"Li(\d+)E", mangled)
-            return base + (f"<{'x'.join(tile)}>" if tile else "")
+        if base in mangled:
+            ints = re.findall(r"Li(\d+)E", mangled)
+            name = base + (f"<{'x'.join(ints[:4])}>" if ints else "")
+            if len(ints) > 4 and ints[4] in TABLE_MODE:
+                name += f"/{TABLE_MODE[ints[4]]}"
+            return name
     return mangled[:48]
 
 
@@ -221,7 +257,13 @@ def check_kernels(flush):
     records, err = [], {"table_precompute": 0.0, "lut_mpgemm": 0.0,
                         "fused_lut_mpgemm": 0.0, "dequant_mpgemm": 0.0}
 
-    def compare(name, got, want, tq, what):
+    def compare(name, got, want, tq, what, f32_sums=False):
+        """Checks one output; returns its max error relative to the
+        largest output. ``f32_sums``: a bf16 tensor-core path, also held to
+        rtol = atol = 1e-4 at every output."""
+        if f32_sums and not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{name} {what}: not within rtol = atol = "
+                                 f"1e-4 of each output")
         got, want = got.to(torch.float64), want.to(torch.float64)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} {what}: non-finite output")
@@ -233,6 +275,11 @@ def check_kernels(flush):
         rel = diff / max(want.abs().max().item(), 1e-30)
         if rel > 1e-4:
             raise AssertionError(f"{name} {what}: rel err {rel:.3g} > 1e-4")
+        return rel
+
+    def same_bits(name, kern, got, what):
+        if not torch.equal(kern(), got):
+            raise AssertionError(f"{name} {what}: two calls differ")
 
     for m in ROWS:
         for n, k in SHAPES:
@@ -253,14 +300,9 @@ def check_kernels(flush):
             pkd, wsd = ops._pad_packed(qw, xd.shape[1] // KG, dbn)
             kern = lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw)
             got, want = kern(), dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw)
-            compare("dequant_mpgemm", got, want, None, f"M={m} N={n} K={k}")
-            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
-                raise AssertionError(f"dequant_mpgemm M={m} N={n} K={k}: "
-                                     f"not within rtol = atol = 1e-4 of "
-                                     f"each output")
-            if not torch.equal(kern(), got):
-                raise AssertionError(f"dequant_mpgemm M={m} N={n} K={k}: two "
-                                     f"calls differ")
+            rel = compare("dequant_mpgemm", got, want, None,
+                          f"M={m} N={n} K={k}", f32_sums=True)
+            same_bits("dequant_mpgemm", kern, got, f"M={m} N={n} K={k}")
             nbytes = qw.packed.numel() + 4 * n + 4 * m * k + 4 * m * n
             b_ms, b_by = bound(nbytes, {"bf16": dk.PASSES * 2 * m * n * k})
             records.append({
@@ -273,8 +315,7 @@ def check_kernels(flush):
                 "library_ms": time_ms(library_mm, 10, flush),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bound_f32_ms": bound(nbytes, {"f32": 2 * m * n * k})[0],
-                "max_rel_err": ((got.double() - want.double()).abs().max()
-                                / want.double().abs().max()).item(),
+                "max_rel_err": rel, "elementwise": True, "bit_equal": True,
                 **dequant_plan(m, pkd.shape[0], xd.shape[1] // KG)})
             for tq in MODES:
                 what = f"M={m} N={n} K={k} table_quant={tq}"
@@ -293,14 +334,24 @@ def check_kernels(flush):
                     tv.reshape(m, g, e),
                     None if ts is None else ts.reshape(m, -1, 1), None, KG),
                     qw)
-                got = lk.lut_mpgemm(*staged, **pw)
-                want = lk.lut_mpgemm_plain(*staged, **pw)
-                compare("lut_mpgemm", got, want, tq, what)
+                f32 = tq != "per_row"  # the bf16 tensor-core paths
+                staged_call = lambda: lk.lut_mpgemm(*staged, **pw)
+                got = staged_call()
+                rels = {"lut_mpgemm": compare(
+                    "lut_mpgemm", got, lk.lut_mpgemm_plain(*staged, **pw), tq,
+                    what, f32)}
+                if f32:
+                    same_bits("lut_mpgemm", staged_call, got, what)
                 # fused
                 fw = dict(pw, table_quant=tq)
-                got = fk.fused_lut_mpgemm(xp, rs, pkp, wsp, **fw)
-                want = fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp, **fw)
-                compare("fused_lut_mpgemm", got, want, tq, what)
+                fused_call = lambda: fk.fused_lut_mpgemm(xp, rs, pkp, wsp, **fw)
+                got = fused_call()
+                rels["fused_lut_mpgemm"] = compare(
+                    "fused_lut_mpgemm", got,
+                    fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp, **fw), tq,
+                    what, f32)
+                if f32:
+                    same_bits("fused_lut_mpgemm", fused_call, got, what)
                 # times and bounds: every mode of the two LUT mpGEMMs (the
                 # main path runs per_row), table_precompute on per_row
                 pk_bytes = qw.packed.numel() + 4 * n
@@ -310,32 +361,34 @@ def check_kernels(flush):
                     lut_ops = {"int8": 2 * m * n * k}
                     table_bytes = m * g * e + 4 * m
                 else:
-                    lut_ops = {"f32": 2 * m * n * k}
+                    lut_ops = {"bf16": lk.F32_PASSES * 2 * m * n * k}
                     table_bytes = (4 * m * g * e if tq is None
                                    else m * g * e + 4 * m * g)
-                fused_ops = dict(lut_ops)
-                fused_ops["f32"] = fused_ops.get("f32", 0) + entry_ops["f32"]
+                fused_ops = dict(lut_ops, **entry_ops)
+                first_ops = {"f32": 2 * m * n * k}  # the IEEE f32 first version
                 recs = {
                     "lut_mpgemm": (
-                        lambda: lk.lut_mpgemm(*staged, **pw),
+                        staged_call,
                         lambda: lk.lut_mpgemm_plain(*staged, **pw),
                         library_mm, table_bytes + pk_bytes + out_bytes,
-                        lut_ops),
+                        lut_ops, first_ops),
                     "fused_lut_mpgemm": (
-                        lambda: fk.fused_lut_mpgemm(xp, rs, pkp, wsp, **fw),
+                        fused_call,
                         lambda: fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp,
                                                           **fw),
                         library_mm, 4 * m * k + (4 * m if rs is not None
                                                  else 0)
-                        + pk_bytes + out_bytes, fused_ops),
+                        + pk_bytes + out_bytes, fused_ops,
+                        {"f32": first_ops["f32"] + entry_ops["f32"]}),
                 }
                 if tq == "per_row":
                     recs["table_precompute"] = (
                         lambda: tk.table_precompute(x, KG, tq, rs),
                         lambda: tk.table_precompute_plain(x, KG, tq, rs),
                         lambda: torch.matmul(groups, basis),
-                        4 * m * k + 4 * m + m * g * e, entry_ops)
-                for name, (kern, plain, lib, nbytes, nops) in recs.items():
+                        4 * m * k + 4 * m + m * g * e, entry_ops, None)
+                for name, (kern, plain, lib, nbytes, nops, f32_ops) in (
+                        recs.items()):
                     b_ms, b_by = bound(nbytes, nops)
                     records.append({
                         "kernel": name, "m": m, "n": n, "k": k,
@@ -344,13 +397,22 @@ def check_kernels(flush):
                         "plain_ms": time_ms(plain, 3, flush),
                         "library_ms": time_ms(lib, 10, flush),
                         "bound_ms": b_ms, "bound_by": b_by})
-                    if tq != "per_row":
+                    if name == "table_precompute":
                         continue
-                    if name == "lut_mpgemm":
+                    if f32:
+                        records[-1].update(
+                            bound_f32_ms=bound(nbytes, f32_ops)[0],
+                            max_rel_err=rels[name], elementwise=True,
+                            bit_equal=True, **f32_plan(
+                                name, m, pkp.shape[0] if name ==
+                                "fused_lut_mpgemm" else staged[2].shape[0],
+                                xp.shape[1] // KG if name == "fused_lut_mpgemm"
+                                else staged[0].shape[1] // e, tq))
+                    elif name == "lut_mpgemm":
                         records[-1].update(int_plan(
                             m, staged[0].shape[0], staged[2].shape[0],
                             staged[0].shape[1] // e))
-                    if name == "fused_lut_mpgemm":
+                    else:
                         records[-1].update(int_plan(
                             m, m, pkp.shape[0], xp.shape[1] // KG,
                             fused=True))
@@ -359,8 +421,8 @@ def check_kernels(flush):
 
 def fused_operands(x, qw, tq):
     """(x, row scale, packed, wscale) of the fused kernel, padded as
-    ``ops.fused_lut_mpgemm`` pads them: per_row to the int path's tile with
-    x's rows as they are, None and per_group to the shared tile."""
+    ``ops.fused_lut_mpgemm`` pads them, x's rows as they are: per_row to
+    the int path's tile, None and per_group to the f32 paths'."""
     from repro_torch.kernels import fused_lut_mpgemm as fk
     from repro_torch.kernels import lut_mpgemm as lk
     from repro_torch.kernels import ops
@@ -369,11 +431,10 @@ def fused_operands(x, qw, tq):
     if tq == "per_row":
         _, _, bn, bg = fk.int_tile(m, KG, BITS)
         rs = ops._closed_form_row_scale(x, g, KG).contiguous()
-        xp = ops._pad_to(x, bg * KG, 1).contiguous()
     else:
-        _, bm, bn, bg = lk.tile_for(m, KG)
+        _, _, bn, bg = lk.f32_tile_for(m, KG, BITS)
         rs = None
-        xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * KG, 1).contiguous()
+    xp = ops._pad_to(x, bg * KG, 1).contiguous()
     return (xp, rs) + ops._pad_packed(qw, xp.shape[1] // KG, bn)
 
 
@@ -417,6 +478,19 @@ def dequant_plan(m, np_, gp):
             "kernels_per_call": 1}
 
 
+def f32_plan(kernel, m, np_, gp, tq):
+    """A LUT kernel's float-table plan for one shape (M rows, as they are;
+    np_ channels; gp K-groups): tile, K-step, bf16 passes, split-K count S,
+    blocks, the ring's stages and dynamic shared memory as the kernel's
+    launch plans them (``lut_mpgemm.f32_ring``), and kernels per call."""
+    from repro_torch.kernels import lut_mpgemm as lk
+    (_, bm, bn, bg), splits, tiles = lk.f32_plan(m, np_, gp, KG, BITS)
+    stages, smem = lk.f32_ring(kernel, m, KG, BITS, tq)
+    return {"tile": [bm, bn, bg << (KG - 1)], "passes": lk.F32_PASSES,
+            "splits": splits, "blocks": tiles * splits, "stages": stages,
+            "smem_bytes": smem, "kernels_per_call": 1}
+
+
 def record_line(r):
     """One phase-3 record as text: times, bound and, for a tensor-core
     path, its plan."""
@@ -429,13 +503,16 @@ def record_line(r):
             f"matmul, {r['kernel_ms'] / r['bound_ms']:.1f}x the bound)")
     if "tile" not in r:
         return line
-    step = (f"K-step {r['tile'][2]} weights, {r['passes']} bf16 passes"
-            if "passes" in r else f"K-step {r['tile'][2]} entries")
+    step = f"K-step {r['tile'][2]} " + (
+        "weights" if r["kernel"] == "dequant_mpgemm" else "entries")
+    if "passes" in r:
+        step += f", {r['passes']} bf16 passes"
     return line + (
         f" [tile {r['tile'][0]}x{r['tile'][1]}, {step}, S={r['splits']}, "
         f"{r['blocks']} blocks, {r['smem_bytes']} B smem, "
         f"{r['kernels_per_call']} kernel(s) per call"
-        + (f"; max rel err {r['max_rel_err']:.3g}" if "passes" in r else "")
+        + (f"; max rel err {r['max_rel_err']:.3g}, each output within "
+           f"1e-4, two calls bit-equal" if "max_rel_err" in r else "")
         + "]")
 
 
@@ -690,17 +767,26 @@ def decode_step_profile(eng):
             "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
             "fused_ms": fused[0] / 1e3 / n if per_name else None,
             "fused_kernels": fused[1] / n,
+            "lookup_kernels": lookup_names(per_name, FUSED_KERNELS),
             "top": [(name[:60], t / 1e3 / n) for name, t in top]}
 
 
-# fused_lut_mpgemm's kernels by name (csrc/fused_lut_mpgemm.cu)
-FUSED_KERNELS = ("fused_mma_kernel", "fused_f32_kernel")
+def lookup_names(per_name, bases):
+    """The base names of the lookup kernels (``bases``) the profiler saw."""
+    return sorted({b for b in bases for name in per_name if b in name})
 
 
-# lut_mpgemm's kernels by name; lut_mpgemm_kernel is the port's first
-# version, which ``--prefill-profile`` meets in an older checkout
+# fused_lut_mpgemm's kernels by name (csrc/fused_lut_mpgemm.cu);
+# fused_f32_kernel is the float-table paths' first version, which
+# ``--float-profile`` meets in an older checkout
+FUSED_KERNELS = ("fused_mma_kernel", "fused_bf16_kernel", "fused_f32_kernel")
+
+
+# lut_mpgemm's kernels by name; lut_f32_kernel and lut_mpgemm_kernel are
+# first versions, which ``--float-profile`` and ``--prefill-profile`` meet in
+# an older checkout
 STAGED_KERNELS = ("lut_mma_kernel", "splitk_epilogue_kernel",
-                  "lut_f32_kernel", "lut_mpgemm_kernel")
+                  "lut_bf16_kernel", "lut_f32_kernel", "lut_mpgemm_kernel")
 
 
 def prefill_chunk_profile(eng):
@@ -740,6 +826,7 @@ def prefill_chunk_profile(eng):
             "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
             "staged_lookup_ms": staged[0] / 1e3 if per_name else None,
             "staged_lookup_kernels": staged[1],
+            "lookup_kernels": lookup_names(per_name, STAGED_KERNELS),
             "top": [(name[:60], t / 1e3) for name, t in top]}
 
 
@@ -754,6 +841,155 @@ def prefill_line(rec):
             + ", ".join(f"{n} {t:.2f} ms" for n, t in rec["top"]))
 
 
+def float_profile(cfg, params, eng):
+    """Phase 7's measurements on a float-table engine: one decode step and
+    one 128-token prefill chunk profiled, each with the launch counts set
+    to 0 just before and read just after, and the teacher-forced forward
+    (``float_forward``). Uses only entry points of the port's first
+    slices, so ``--float-profile`` runs it on an older checkout too."""
+    mods = kernel_modules()
+    out = {}
+    for what, run in (("decode_step", decode_step_profile),
+                      ("prefill_chunk", prefill_chunk_profile)):
+        for mod in mods.values():
+            mod.launches = 0
+        out[what] = run(eng)
+        out[what]["launches"] = {name: mod.launches
+                                 for name, mod in mods.items()}
+    out["forward"] = float_forward(cfg, params)
+    return out
+
+
+def float_forward(cfg, params):
+    """A teacher-forced 128-token forward through the kernels (lut_pallas)
+    and the plain LUT path (lut_xla), for None and per_group tables: max
+    |logit diff|, max |logit|, whether every logit is within rtol = atol =
+    the mode's bound (tests/test_torch_model.py: 1e-3 for None, 5e-2 for
+    per_group), and the share of positions whose greedy token agrees. The
+    control: the same of the plain path against itself with its T·CW
+    summed over K in two halves (``contraction_in_halves``), the same
+    function in another f32 order, as the kernels' order differs."""
+    from repro_torch.models import api
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+
+    def logits(mode, tq):
+        out = api.forward(params, {"tokens": toks},
+                          cfg.with_quant(mpgemm_mode=mode,
+                                         table_quant=tq))[0]
+        if tuple(out.shape) != (1, 128, cfg.vocab_size) or not (
+                torch.isfinite(out).all()):
+            raise AssertionError(f"float: bad logits {tuple(out.shape)}")
+        return out
+
+    def versus(a, b, tol):
+        return {"max_abs_diff": (a - b).abs().max().item(),
+                "max_abs_logit": a.abs().max().item(), "tol": tol,
+                "within": bool(torch.allclose(a, b, rtol=tol, atol=tol)),
+                "greedy_agree": (a.argmax(-1) == b.argmax(-1)).float()
+                .mean().item()}
+
+    out = {}
+    for tq, tol in ((None, 1e-3), ("per_group", 5e-2)):
+        plain = logits("lut_xla", tq)
+        with contraction_in_halves():
+            halves = logits("lut_xla", tq)
+        out[str(tq)] = dict(versus(logits("lut_pallas", tq), plain, tol),
+                            control=versus(halves, plain, tol))
+    return out
+
+
+@contextlib.contextmanager
+def contraction_in_halves():
+    """Within it, the plain LUT path (``kernels.ref.lut_contract``) sums a
+    float table's T·CW over K in two halves, then adds them."""
+    from repro_torch.kernels import ref
+    orig = ref.lut_contract
+
+    def halves(t, qw):
+        if t.scale is not None and t.scale.shape[1] == 1:
+            return orig(t, qw)  # per_row: exact integer sums
+        m = t.values.shape[0]
+        tv = (t.values if t.scale is None
+              else t.values.to(torch.float32) * t.scale).reshape(m, -1)
+        cw, h = ref.build_cw(qw, torch.float32), tv.shape[1] // 2
+        return (tv[:, :h] @ cw[:h] + tv[:, h:] @ cw[h:]) * qw.scale[None]
+
+    ref.lut_contract = halves
+    try:
+        yield
+    finally:
+        ref.lut_contract = orig
+
+
+def float_line(rec):
+    """Phase 7's profiles and forward as text."""
+    step, chunk = rec["decode_step"], rec["prefill_chunk"]
+    busy = ("device busy not measured" if step["busy_ms"] is None else
+            f"device busy {step['busy_ms']:.2f} ms (idle share "
+            f"{step['idle_share']:.3f}); fused_lut_mpgemm "
+            f"{step['fused_ms']:.3f} ms in {step['fused_kernels']:g} kernels "
+            f"{step['lookup_kernels']}")
+    fwd = "; ".join(
+        f"{tq}: max |logit diff| {r['max_abs_diff']:.3g} (max |logit| "
+        f"{r['max_abs_logit']:.4g}, rtol = atol = {r['tol']:g} "
+        f"{'met' if r['within'] else 'missed'}), greedy token equal at "
+        f"{100 * r['greedy_agree']:.1f}% of positions (control, the plain "
+        f"path summed in two K halves: {r['control']['max_abs_diff']:.3g}, "
+        f"{'met' if r['control']['within'] else 'missed'}, "
+        f"{100 * r['control']['greedy_agree']:.1f}%)"
+        for tq, r in rec["forward"].items())
+    return (f"one decode step: wall {step['wall_ms']:.2f} ms, {busy}, "
+            f"launches {step['launches']}; one 128-token prefill chunk: "
+            + prefill_line(chunk) + f" {chunk['lookup_kernels']}, launches "
+            f"{chunk['launches']}; teacher-forced 128-token forward, "
+            f"lut_pallas vs lut_xla: {fwd}")
+
+
+def float_tables(cfg, params):
+    """Phase 7: phase 4's serve with float tables, then ``float_profile``.
+    Raises where the f32 paths did not launch (the fused kernel in decode,
+    the staged pair in prefill), on more than 1/decode_chunk host syncs a
+    token, or where the forward misses its bounds. Returns (stats, launches
+    of the serve, the profile record)."""
+    cfg = cfg.with_quant(table_quant=None)
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    eng, reqs = serve(cfg, params, seed=2)
+    launches = {name: mod.launches for name, mod in mods.items()}
+    st = eng.stats()
+    if not all(r.done and len(r.output) == 16 for r in reqs):
+        raise AssertionError("float: not every request finished 16 tokens")
+    if min(launches[n] for n in MAIN_M) <= 0:
+        raise AssertionError(f"float: a LUT kernel never ran: {launches}")
+    if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
+        raise AssertionError(f"float: {st['host_syncs_per_token']} host "
+                             f"syncs per token > 1/{eng.decode_chunk}")
+    rec = float_profile(cfg, params, eng)
+    step, chunk = rec["decode_step"], rec["prefill_chunk"]
+    if step["launches"]["fused_lut_mpgemm"] <= 0 or (
+            chunk["launches"]["lut_mpgemm"] <= 0):
+        raise AssertionError(f"float: decode {step['launches']}, prefill "
+                             f"{chunk['launches']}")
+    # where the profiler saw the device: the f32 paths' kernels ran
+    if step["busy_ms"] is not None and (
+            "fused_bf16_kernel" not in step["lookup_kernels"]
+            or "lut_bf16_kernel" not in chunk["lookup_kernels"]):
+        raise AssertionError(f"float: lookup kernels {step['lookup_kernels']}"
+                             f" in decode, {chunk['lookup_kernels']} in "
+                             f"prefill")
+    # None: every logit within 1e-3; per_group: the greedy token of >= 90%
+    # of the positions. per_group's 5e-2 on each logit is recorded, not
+    # required: INT8 codes flip wherever an entry sits within a last-bit
+    # difference of a rounding boundary, and over 22 layers the plain path
+    # summed in another order misses it against itself (the control)
+    fwd = rec["forward"]
+    if not fwd["None"]["within"] or fwd["per_group"]["greedy_agree"] < 0.9:
+        raise AssertionError(f"float: the forward misses its bound: {fwd}")
+    return st, launches, rec
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -761,22 +997,30 @@ def main_config():
                                                    fusion="auto")
 
 
-def prefill_only(card) -> int:
+def profile_only(card, flag) -> int:
     """``--prefill-profile``: phase 4's model and engine, then only the
-    profile of one prefill chunk (one line of JSON). It uses no entry
-    point newer than the port's first slice, so it also profiles an
-    older checkout of the port."""
+    profile of one prefill chunk; ``--float-profile``: the same with float
+    tables, then only ``float_profile`` (no bound is checked). One line of
+    JSON. They use no entry point newer than the port's first slices, so
+    they also run on an older checkout of the port."""
     from repro_torch.models import api
     from repro_torch.serving.engine import ServingEngine
     cfg = main_config()
+    if flag == "--float-profile":
+        cfg = cfg.with_quant(table_quant=None)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = api.init_params(gen, cfg, "cuda")
     eng = ServingEngine(cfg, params, max_batch=4, max_seq=256,
                         decode_chunk=8, prefill_chunk=128)
-    rec = prefill_chunk_profile(eng)
-    print("prefill chunk: " + prefill_line(rec), flush=True)
-    print(json.dumps({"prefill_chunk": rec, "card": card}))
+    if flag == "--float-profile":
+        rec = float_profile(cfg, params, eng)
+        print("float tables: " + float_line(rec), flush=True)
+        print(json.dumps({"float_tables": rec, "card": card}))
+    else:
+        rec = prefill_chunk_profile(eng)
+        print("prefill chunk: " + prefill_line(rec), flush=True)
+        print(json.dumps({"prefill_chunk": rec, "card": card}))
     return 0
 
 
@@ -800,22 +1044,26 @@ def main() -> int:
              for n in paths if (_build.BUILD_DIR / f"{n}.ptxas.txt").exists()}
     print(f"build: {len(paths)} kernels in {_build.build_seconds:.1f} s "
           f"(nvcc {_build.nvcc_path()})", flush=True)
-    if len(sys.argv) > 1 and sys.argv[1] == "--prefill-profile":
-        return prefill_only(card)
-    mma_report, mma = {}, {}
-    for lib, (kernel, op) in MMA_LIBS.items():
-        mma_report[lib] = kernel_report(
-            (_build.BUILD_DIR / f"{lib}.ptxas.txt").read_text())
-        mma[lib] = mma_counts(paths[lib], _build.nvcc_path(), op)
-        print(f"build: {lib} tensor-core kernels (ptxas -v): " + "; ".join(
-            f"{k}: {', '.join(v)}" for k, v in mma_report[lib].items())
-            + f"; {op} instructions in SASS: " + (
-                "not counted (no cuobjdump)" if mma[lib] is None else
-                ", ".join(f"{k} {v}" for k, v in mma[lib].items() if v)),
-            flush=True)
-        if mma[lib] is not None and not any(
-                v for k, v in mma[lib].items() if k.startswith(kernel)):
-            raise AssertionError(f"build: {lib}'s {kernel} has no {op}")
+    if len(sys.argv) > 1 and sys.argv[1] in ("--prefill-profile",
+                                             "--float-profile"):
+        return profile_only(card, sys.argv[1])
+    mma_report = {lib: kernel_report(
+        (_build.BUILD_DIR / f"{lib}.ptxas.txt").read_text())
+        for lib, _, _ in MMA_CHECKS}
+    mma = {}
+    for lib, kernel, op in MMA_CHECKS:
+        counts = mma_counts(paths[lib], _build.nvcc_path(), op)
+        mma[f"{kernel} {op}"] = counts
+        print(f"build: {kernel} (ptxas -v): " + "; ".join(
+            f"{k}: {', '.join(v)}" for k, v in mma_report[lib].items()
+            if k.startswith(kernel)) + f"; {op} instructions in SASS: " + (
+                "not counted (no cuobjdump)" if counts is None else
+                ", ".join(f"{k} {v}" for k, v in counts.items()
+                          if v and k.startswith(kernel))), flush=True)
+        found = [v for k, v in (counts or {}).items() if k.startswith(kernel)]
+        if counts is not None and not (found and all(found)):
+            raise AssertionError(f"build: {lib}'s {kernel} has no {op} in "
+                                 f"some instance: {counts}")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     records, err = check_kernels(flush)
@@ -823,8 +1071,8 @@ def main() -> int:
           flush=True)
     print("kernels vs plain: max |diff| " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
-        + " (per_row bit-exact; None/per_group and dequant <= 1e-4 "
-        "relative)", flush=True)
+        + " (per_row bit-exact; None / per_group and dequant within rtol = "
+        "atol = 1e-4 of each output, two calls bit-equal)", flush=True)
     dq_launches, dq_err = dequant_op_path()
     err["dequant_mpgemm"] = max(err["dequant_mpgemm"], dq_err)
     print(f"kernels: dequant op path (ops.dequant_mpgemm, 10 shapes): "
@@ -929,6 +1177,16 @@ def main() -> int:
               + ", ".join(f"{n} {t:.2f} ms" for n, t in pstep["top"])),
           flush=True)
 
+    # phase 7: float tables, at full width
+    t0 = time.perf_counter()
+    fst, float_launches, float_rec = float_tables(cfg, params)
+    print(f"float: table_quant=None serve, 4 requests, "
+          f"{fst['decode_tokens']} tokens in {time.perf_counter() - t0:.1f} "
+          f"s with the profiles; decode {fst['decode_tok_s']:.1f} tok/s, "
+          f"host syncs/token {fst['host_syncs_per_token']:.4f}; launches "
+          f"{float_launches}", flush=True)
+    print("float: " + float_line(float_rec), flush=True)
+
     main_recs = [r for r in records if r["m"] == MAIN_M.get(r["kernel"])
                  and r["table_quant"] == "per_row"
                  and (r["kernel"] != "table_precompute"
@@ -954,6 +1212,7 @@ def main() -> int:
             "launches": path_launches[name], "max_abs_err": err[name],
             "serve_launches": launches[name],
             "paged_launches": paged_launches[name],
+            "float_launches": float_launches[name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
@@ -966,6 +1225,8 @@ def main() -> int:
                    "prefill_chunk": prefill, "launches": launches,
                    "dequant_op_launches": dq_launches, "paged": pst,
                    "paged_launches": paged_launches, "paged_check": paged_rec,
+                   "float_serve": fst, "float_launches": float_launches,
+                   "float_tables": float_rec,
                    "ptxas": ptxas, "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "parity_max_abs_diff": diff,

@@ -36,12 +36,27 @@
 //    the sum (and zeroes the workspace tile and the count for the next
 //    call) and writes the epilogue (float(acc) · rs[m]) · ws[n]. Integer
 //    addition is exact in any order, so the split changes no bit.
-// The f32 paths (None and per_group tables; no serve step runs them) keep
-// the first version: IEEE fp32 FMA from shared memory, one block per 8 x 32
-// or 64 x 64 tile walking all of K.
+// The f32 paths (None tables, and per_group quantize -> dequantize) replace
+// the TPU kernel's _kernel_f32 (IEEE f32 sums, each output within rtol =
+// atol = 1e-4 of the reference). They run the bf16 main loop of
+// bf16_mma.cuh, as lut_mpgemm.cu's f32 paths do, with the table built in
+// shared memory as A: each K-step's activation tile [rows < M, bg·K]
+// streams in through the cp.async ring, and the block computes its entries
+// (half_table_entry, and per_group quantize_entry(entry, s) · s, as
+// table_precompute does, so the values equal the staged table's) and
+// splits each into three bf16 terms as it builds it. What bounds them: at
+// decode the packed weight bytes and the latency of a block's few K-steps
+// (an IEEE FMA first version, one block per 8 x 32 tile walking all of K,
+// took 0.12-1.03 ms at M = 4, 10-17x a bf16 torch.matmul); the table build
+// is repeated by the block of every N-tile, but it is a few adds per entry
+// beside the three MMA passes. x's rows are not padded: rows >= M are zero
+// rows in shared memory. Split-K (kernels/lut_mpgemm.py: f32_plan) fills
+// one wave of two blocks an SM; the f32 partials meet in a workspace and
+// the last block of a tile adds them in split order, in the same launch,
+// so two calls give the same bits.
 #include <algorithm>
 
-#include "lut_mma.cuh"
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -133,81 +148,78 @@ int launch_int(const float* x, const float* rs, const uint8_t* packed,
 
 // ---------------------------------------------------------------- f32 path
 
-template <class C>
-__global__ void __launch_bounds__(lut::kThreads)
-fused_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ ws, float* __restrict__ out,
-                 int n_total, int gp, int k_group, int planes, int bg, int mode,
-                 lut::PlaneScales ps) {
-  const int e_count = 1 << (k_group - 1);
-  const int kt = bg * e_count;
-  const int ld = lut::tile_ld<float>(kt);
-  const long long kp = static_cast<long long>(gp) * k_group;   // activation row
-  const int pb = gp * planes * k_group / 8;                    // packed row
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + C::BM * ld;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  const int ty = threadIdx.x / C::TX, tx = threadIdx.x % C::TX;
+// bf16 terms per table value (kernels/lut_mpgemm.py: F32_PASSES). A build
+// with -DLUT_TERMS=2 exists only for the card test of the term count
+// (tests/test_torch_cuda.py).
+#ifndef LUT_TERMS
+#define LUT_TERMS 3
+#endif
+constexpr int kTerms = LUT_TERMS;
 
-  float acc[C::TM][C::TN];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0;
-
-  for (int g0 = 0; g0 < gp; g0 += bg) {
-    // table block [BM, bg*E], rebuilt from the activation block
-    for (int p = threadIdx.x; p < C::BM * bg; p += lut::kThreads) {
-      const int r = p / bg, gl = p % bg;
-      float a[lut::kMaxKGroup];
-      lut::load_group(x + (m0 + r) * kp + static_cast<long long>(g0 + gl) * k_group,
-                      k_group, a);
-      float* dst = As + r * ld + gl * e_count;
-      if (mode == lut::kPerGroup) {
-        const float s = lut::per_group_scale(lut::group_abs_sum(a, k_group));
-        for (int e = 0; e < e_count; ++e)
-          dst[e] = __fmul_rn(lut::quantize_entry(lut::half_table_entry(a, k_group, e), s), s);
-      } else {
-        for (int e = 0; e < e_count; ++e) dst[e] = lut::half_table_entry(a, k_group, e);
-      }
-    }
-    lut::unpack_cw_tile<float, C>(packed, pb, n0, g0, bg, planes, k_group, ps, Bs);
-    __syncthreads();
-    lut::contract_f32<C>(As, Bs, kt, ty, tx, acc);
-    __syncthreads();
-  }
-  lut::store_f32<C>(acc, ws, out, n_total, m0, n0, ty, tx);
+// The float-table paths on the bf16 main loop of bf16_mma.cuh: A is the
+// table built from x in shared memory (BuiltTable: f32 entries, or per_group
+// quantize -> dequantize), B the CW entries.
+template <class C, int kMode>
+__global__ void __launch_bounds__(lut::kThreads, 2)
+fused_bf16_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+                  const float* __restrict__ ws, float* __restrict__ out,
+                  float* __restrict__ work, int* __restrict__ arrivals, int m,
+                  int np, int gp, int k_group, int planes, int bg, int splits,
+                  int stages, int pchunk, lut::PlaneScales ps) {
+  lut::bf16_block<C, kTerms>(
+      lut::BuiltTable<C, kMode == lut::kPerGroup>{
+          x, static_cast<long long>(gp) * k_group, m, k_group},
+      lut::CwB{planes, k_group, ps}, packed, ws, out, work, arrivals, m, np, gp, bg,
+      bg << (k_group - 1), bg * planes * k_group / 8, splits, stages, pchunk);
 }
 
-template <class C>
+// The ring's stages and the dynamic shared memory of an f32 launch.
+template <class C, int kMode>
+lut::RingPlan f32_ring(int m, int k_group, int planes, int bg) {
+  const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
+  return lut::bf16_ring<C>(
+      lut::BuiltTable<C, kMode == lut::kPerGroup>::stage_bytes(m, kt, k_group), kt,
+      pbs, kTerms, lut::CwB::kTableBytes);
+}
+
+template <class C, int kMode>
 int launch_f32(const float* x, const uint8_t* packed, const float* ws, float* out,
-               int mp, int np, int gp, int k_group, int planes, int bg, int mode,
-               const lut::PlaneScales& ps, cudaStream_t stream) {
-  if (mp % C::BM || np % C::BN) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = lut::tile_smem_bytes<float, C>(bg << (k_group - 1));
-  auto kernel = fused_f32_kernel<C>;
-  cudaError_t err = lut::allow_smem(kernel, smem);
+               float* work, int* arrivals, int m, int np, int gp, int k_group,
+               int planes, int bg, int splits, const lut::PlaneScales& ps,
+               cudaStream_t stream) {
+  const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
+  const long long pb = static_cast<long long>(gp / bg) * pbs;
+  const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
+  if (np % C::BN || kt % 16 || pbs % 4 || (bg * k_group) % 4 || (bg & (bg - 1)) ||
+      splits < 1 || splits > gp / bg ||
+      (splits > 1) != (work != nullptr && arrivals != nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || pk % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const lut::RingPlan plan = f32_ring<C, kMode>(m, k_group, planes, bg);
+  if (plan.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fused_bf16_kernel<C, kMode>;
+  cudaError_t err = lut::allow_smem(kernel, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(np / C::BN, mp / C::BM);
-  kernel<<<grid, lut::kThreads, smem, stream>>>(x, packed, ws, out, np, gp, k_group,
-                                                planes, bg, mode, ps);
+  const dim3 grid(np / C::BN, (m + C::BM - 1) / C::BM, splits);
+  kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
+      x, packed, ws, out, work, arrivals, m, np, gp, k_group, planes, bg, splits,
+      plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // mode: 0 f32 table, 1 per_row INT8 (row_scale [m]), 2 per_group
-// quantize->dequantize. m: rows of x and out. config: the tile; for mode 1
-// MmaSmall (0), MmaMid (1), MmaLarge (2), any m, with `splits` K-ranges
-// and, when splits > 1, an int32 workspace [m, np] and arrival counts
-// [ceil(m / BM) * np / BN], both zero on entry and left zero; for modes 0
-// and 2 SmallTile (0) or LargeTile (1), m padded to the tile, splits 1 and
-// no workspace. bg: groups per K-step (gp % bg == 0). plane_scales: host
-// array of `planes` ints.
+// quantize->dequantize. m: rows of x and out (any number). config: the
+// tile, MmaSmall (0), MmaMid (1), MmaLarge (2). bg: groups per K-step
+// (gp % bg == 0, a power of two). splits: K-ranges; when > 1, a workspace
+// and arrival counts [ceil(m / BM) * np / BN], zero on entry and left
+// zero: for mode 1 int32 [m, np] (the splits add into it), for modes 0 and
+// 2 f32 [splits, m, np] (a slot a split). plane_scales: host array of
+// `planes` ints.
 extern "C" int fused_lut_mpgemm_launch(const float* x, const float* row_scale,
                                        const uint8_t* packed, const float* ws,
-                                       float* out, int* workspace, int* arrivals,
+                                       float* out, void* workspace, int* arrivals,
                                        int m, int np, int gp, int k_group,
                                        int planes, const int* plane_scales,
                                        int mode, int config, int bg, int splits,
@@ -220,30 +232,55 @@ extern "C" int fused_lut_mpgemm_launch(const float* x, const float* row_scale,
   lut::PlaneScales ps{};
   for (int b = 0; b < planes; ++b) ps.v[b] = plane_scales[b];
   if (mode == lut::kPerRow) {
+    int* work = static_cast<int*>(workspace);
     switch (config) {
       case 0:
-        return launch_int<lut::MmaSmall>(x, row_scale, packed, ws, out, workspace,
+        return launch_int<lut::MmaSmall>(x, row_scale, packed, ws, out, work,
                                          arrivals, m, np, gp, k_group, planes, bg,
                                          splits, ps, stream);
       case 1:
-        return launch_int<lut::MmaMid>(x, row_scale, packed, ws, out, workspace,
+        return launch_int<lut::MmaMid>(x, row_scale, packed, ws, out, work,
                                        arrivals, m, np, gp, k_group, planes, bg,
                                        splits, ps, stream);
       case 2:
-        return launch_int<lut::MmaLarge>(x, row_scale, packed, ws, out, workspace,
+        return launch_int<lut::MmaLarge>(x, row_scale, packed, ws, out, work,
                                          arrivals, m, np, gp, k_group, planes, bg,
                                          splits, ps, stream);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (splits != 1 || workspace != nullptr || arrivals != nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (config == 0)
-    return launch_f32<lut::SmallTile>(x, packed, ws, out, m, np, gp, k_group, planes,
-                                      bg, mode, ps, stream);
-  if (config == 1)
-    return launch_f32<lut::LargeTile>(x, packed, ws, out, m, np, gp, k_group, planes,
-                                      bg, mode, ps, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* work = static_cast<float*>(workspace);
+  return lut::with_tile(config, static_cast<int>(cudaErrorInvalidValue), [&](auto tile) {
+    using C = decltype(tile);
+    return mode == lut::kFloat
+               ? launch_f32<C, lut::kFloat>(x, packed, ws, out, work, arrivals, m, np,
+                                            gp, k_group, planes, bg, splits, ps,
+                                            stream)
+               : launch_f32<C, lut::kPerGroup>(x, packed, ws, out, work, arrivals, m,
+                                               np, gp, k_group, planes, bg, splits,
+                                               ps, stream);
+  });
+}
+
+// The ring plan fused_lut_mpgemm_launch takes for an f32 path (mode 0 or 2)
+// with these arguments: returns its dynamic shared memory in bytes and
+// writes its stages (0: does not fit), or returns -1 for arguments it
+// refuses.
+extern "C" long long fused_lut_mpgemm_ring(int m, int k_group, int planes,
+                                           int mode, int config, int bg,
+                                           int* stages) {
+  if (m < 1 || !lut::valid_k_group(k_group) || planes < 1 ||
+      planes > lut::kMaxPlanes || bg < 1 || (bg * planes * k_group) % 8 ||
+      (mode != lut::kFloat && mode != lut::kPerGroup))
+    return -1;
+  const lut::RingPlan plan = lut::with_tile(
+      config, lut::RingPlan{-1, 0}, [&](auto tile) {
+        using C = decltype(tile);
+        return mode == lut::kFloat ? f32_ring<C, lut::kFloat>(m, k_group, planes, bg)
+                                   : f32_ring<C, lut::kPerGroup>(m, k_group, planes, bg);
+      });
+  if (plan.stages < 0) return -1;
+  *stages = plan.stages;
+  return static_cast<long long>(plan.smem);
 }

@@ -1,8 +1,8 @@
 // Device code shared by the mpGEMM kernels (table_precompute.cu,
 // lut_mpgemm.cu, fused_lut_mpgemm.cu, dequant_mpgemm.cu): the half-table
-// entry, INT8 table quantization, the packed-code unpack into CW entries or
-// reinterpreted weights, and the f32 paths' tiled contraction (the int
-// paths' tensor-core main loop is in lut_mma.cuh).
+// entry, INT8 table quantization, and the packed-code unpack into CW entries
+// or reinterpreted weights (the tensor-core main loops are in lut_mma.cuh,
+// int8, and bf16_mma.cuh, bf16).
 //
 // Numerics are fixed to match core/table.py bit for bit: a group's entry
 // sums k = 0..K-1 in order (the ±1 products are exact), the INT8 code is
@@ -123,90 +123,6 @@ __device__ __forceinline__ void qprime_group(const uint8_t* __restrict__ row, in
           q[i] += ps.v[b] * (2 * bit - 1);
         }
       }
-    }
-  }
-}
-
-// Output tile BM x BN; each of the 256 threads owns TM x TN outputs at rows
-// ty + i*TY and columns tx + j*TX (strided, so a warp reads neighbouring
-// shared-memory rows). KT_MIN is the least number of table entries per
-// K-step; a K-step holds bg = max(1, KT_MIN / E) whole groups.
-template <int BM_, int BN_, int TM_, int TN_, int KT_MIN_>
-struct TileCfg {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, KT_MIN = KT_MIN_;
-  static constexpr int TY = BM / TM, TX = BN / TN;
-  static_assert(TY * TX == kThreads, "one micro-tile per thread");
-};
-
-// The f32 paths' tiles (None and per_group tables in lut_mpgemm.cu and
-// fused_lut_mpgemm.cu), for M <= 8 rows and for more; the int paths and
-// dequant_mpgemm.cu have their own (lut_mma.cuh: MmaTile). The Python
-// wrappers (kernels/lut_mpgemm.py: TILES) carry the same numbers. The small
-// tile takes long K-steps (1024 entries, 128 groups at K=4): fewer, wider
-// steps put more loads in flight per barrier.
-using SmallTile = TileCfg<8, 32, 1, 1, 1024>;
-using LargeTile = TileCfg<64, 64, 4, 4, 128>;
-
-// Row stride of a shared-memory tile: one spare 4-byte word per row keeps a
-// warp's reads of neighbouring rows in distinct banks.
-template <typename T>
-__host__ __device__ constexpr int tile_ld(int kt) {
-  return sizeof(T) == 1 ? kt + 4 : kt + 1;
-}
-
-template <typename T, class C>
-size_t tile_smem_bytes(int kt) {
-  return static_cast<size_t>(C::BM + C::BN) * tile_ld<T>(kt) * sizeof(T);
-}
-
-// acc[i][j] += Σ_k As[row i][k] · Bs[col j][k] over one K-step in IEEE fp32
-// (fused multiply-add, no TF32).
-template <class C>
-__device__ __forceinline__ void contract_f32(const float* As, const float* Bs,
-                                             int kt, int ty, int tx,
-                                             float (&acc)[C::TM][C::TN]) {
-  const int ld = tile_ld<float>(kt);
-  for (int kk = 0; kk < kt; ++kk) {
-    float a[C::TM], b[C::TN];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i) a[i] = As[(ty + i * C::TY) * ld + kk];
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) b[j] = Bs[(tx + j * C::TX) * ld + kk];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Unpack the CW tile of channels n0.. n0+BN, groups g0 .. g0+bg into Bs.
-template <typename T, class C>
-__device__ __forceinline__ void unpack_cw_tile(const uint8_t* __restrict__ packed,
-                                               int pb, int n0, int g0, int bg,
-                                               int planes, int k_group,
-                                               const PlaneScales& ps, T* Bs) {
-  const int e_count = 1 << (k_group - 1);
-  const int ld = tile_ld<T>(bg * e_count);
-  for (int p = threadIdx.x; p < C::BN * bg; p += kThreads) {
-    const int nl = p / bg, gl = p % bg;
-    unpack_cw_group<T>(packed + static_cast<size_t>(n0 + nl) * pb, g0 + gl,
-                       planes, k_group, ps, Bs + nl * ld + gl * e_count);
-  }
-}
-
-// Epilogue of the f32 paths: acc · ws[n].
-template <class C>
-__device__ __forceinline__ void store_f32(const float (&acc)[C::TM][C::TN],
-                                          const float* __restrict__ ws,
-                                          float* __restrict__ out, int n_total,
-                                          int m0, int n0, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int m = m0 + ty + i * C::TY;
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      const int n = n0 + tx + j * C::TX;
-      out[static_cast<size_t>(m) * n_total + n] = __fmul_rn(acc[i][j], ws[n]);
     }
   }
 }

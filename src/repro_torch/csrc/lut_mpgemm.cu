@@ -33,11 +33,33 @@
 //    of cp.async copies (3 stages, 2 where 3 do not fit) while the current
 //    one is decoded and contracted.
 // The epilogue is (float(acc) · ts[m]) · ws[n] in IEEE fp32, as the plain
-// version's. The f32 path (None and per_group tables) runs IEEE fp32 FMA
-// from shared memory, one block per 8 x 32 or 64 x 64 tile walking all of K.
+// version's.
+//
+// The f32 paths (None tables, f32 [M, G·E]; per_group tables, INT8 codes
+// with scales [M, G]) replace the TPU kernel's _kernel_f32 (IEEE f32 sums,
+// each output within rtol = atol = 1e-4 of the reference). What bounds
+// them on the H100 at a 128-token chunk: the contraction over G·E = 2K
+// table entries per weight at W2 K=4, twice dequant_mpgemm's MMA work, on
+// the bf16 tensor cores (IEEE f32 FMA, as a first version ran it from
+// shared memory, one block per 8 x 32 or 64 x 64 tile walking all of K,
+// took 36-83x a bf16 torch.matmul). They run the bf16 main loop of
+// bf16_mma.cuh with dequant_mpgemm's tiles and split-K:
+//  * A: the table values (None: as they are; per_group: float(code) ·
+//    scale, one IEEE product, as the plain version dequantizes), each split
+//    into three bf16 terms that sum to it exactly; B: the CW entries,
+//    integers |CW| <= 255, exact in bf16 (at W2 K=4 one read of a 256-entry
+//    byte table per group). Every product is exact; only the f32 sums
+//    round. The rows of the table are not padded: rows >= M are zero rows
+//    in shared memory, never loaded;
+//  * a 3-deep cp.async ring for the table tile (the codes and their group
+//    scales for per_group) and the packed tile;
+//  * split-K (kernels/lut_mpgemm.py: f32_plan) to one wave of two blocks an
+//    SM; the f32 partial tiles meet in a workspace [S, M, Np] and the last
+//    block of a tile adds them in split order, in the same launch, without
+//    atomics on the sums: two calls give the same bits.
 #include <algorithm>
 
-#include "lut_mma.cuh"
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -136,76 +158,90 @@ int launch_int(const int8_t* tv, const float* ts, const uint8_t* packed,
 
 // ---------------------------------------------------------------- f32 path
 
-template <class C>
-__global__ void __launch_bounds__(lut::kThreads)
-lut_f32_kernel(const void* __restrict__ tv, const float* __restrict__ ts,
-               const uint8_t* __restrict__ packed, const float* __restrict__ ws,
-               float* __restrict__ out, int n_total, int gp, int k_group,
-               int planes, int bg, int mode, lut::PlaneScales ps) {
-  const int e_count = 1 << (k_group - 1);
-  const int kt = bg * e_count;
-  const int ld = lut::tile_ld<float>(kt);
-  const long long ge = static_cast<long long>(gp) * e_count;   // table row
-  const int pb = gp * planes * k_group / 8;                    // packed row
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + C::BM * ld;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  const int ty = threadIdx.x / C::TX, tx = threadIdx.x % C::TX;
+// bf16 terms per table value (kernels/lut_mpgemm.py: F32_PASSES). A build
+// with -DLUT_TERMS=2 exists only for the card test of the term count
+// (tests/test_torch_cuda.py).
+#ifndef LUT_TERMS
+#define LUT_TERMS 3
+#endif
+constexpr int kTerms = LUT_TERMS;
 
-  float acc[C::TM][C::TN];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0;
-
-  for (int g0 = 0; g0 < gp; g0 += bg) {
-    const long long col0 = static_cast<long long>(g0) * e_count;
-    for (int p = threadIdx.x; p < C::BM * kt; p += lut::kThreads) {
-      const int r = p / kt, k = p % kt;
-      const long long at = (m0 + r) * ge + col0 + k;
-      As[r * ld + k] =
-          mode == lut::kPerGroup
-              ? __fmul_rn(static_cast<float>(static_cast<const int8_t*>(tv)[at]),
-                          ts[static_cast<long long>(m0 + r) * gp + g0 + k / e_count])
-              : static_cast<const float*>(tv)[at];
-    }
-    lut::unpack_cw_tile<float, C>(packed, pb, n0, g0, bg, planes, k_group, ps, Bs);
-    __syncthreads();
-    lut::contract_f32<C>(As, Bs, kt, ty, tx, acc);
-    __syncthreads();
-  }
-  lut::store_f32<C>(acc, ws, out, n_total, m0, n0, ty, tx);
+// The float-table paths on the bf16 main loop of bf16_mma.cuh: A is the
+// None table as it is (F32Rows) or the per_group table's codes times their
+// group scales (ScaledCodes), B the CW entries.
+template <class C, int kMode>
+__global__ void __launch_bounds__(lut::kThreads, 2)
+lut_bf16_kernel(const void* __restrict__ tv, const float* __restrict__ ts,
+                const uint8_t* __restrict__ packed, const float* __restrict__ ws,
+                float* __restrict__ out, float* __restrict__ work,
+                int* __restrict__ arrivals, int m, int np, int gp, int k_group,
+                int planes, int bg, int splits, int stages, int pchunk,
+                lut::PlaneScales ps) {
+  const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
+  const lut::CwB b{planes, k_group, ps};
+  if constexpr (kMode == lut::kFloat)
+    lut::bf16_block<C, kTerms>(
+        lut::F32Rows<C>{static_cast<const float*>(tv),
+                        static_cast<long long>(gp) << (k_group - 1), m},
+        b, packed, ws, out, work, arrivals, m, np, gp, bg, kt, pbs, splits, stages,
+        pchunk);
+  else
+    lut::bf16_block<C, kTerms>(
+        lut::ScaledCodes<C>{static_cast<const int8_t*>(tv), ts, gp, m, k_group}, b,
+        packed, ws, out, work, arrivals, m, np, gp, bg, kt, pbs, splits, stages,
+        pchunk);
 }
 
-template <class C>
+// The ring's stages and the dynamic shared memory of an f32 launch.
+template <class C, int kMode>
+lut::RingPlan f32_ring(int m, int k_group, int planes, int bg) {
+  const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
+  const int a_bytes = kMode == lut::kFloat
+                          ? lut::F32Rows<C>::stage_bytes(m, kt, k_group)
+                          : lut::ScaledCodes<C>::stage_bytes(m, kt, k_group);
+  return lut::bf16_ring<C>(a_bytes, kt, pbs, kTerms, lut::CwB::kTableBytes);
+}
+
+template <class C, int kMode>
 int launch_f32(const void* tv, const float* ts, const uint8_t* packed,
-               const float* ws, float* out, int mp, int np, int gp, int k_group,
-               int planes, int bg, int mode, const lut::PlaneScales& ps,
-               cudaStream_t stream) {
-  if (mp % C::BM || np % C::BN) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = lut::tile_smem_bytes<float, C>(bg << (k_group - 1));
-  auto kernel = lut_f32_kernel<C>;
-  cudaError_t err = lut::allow_smem(kernel, smem);
+               const float* ws, float* out, float* work, int* arrivals, int m,
+               int np, int gp, int k_group, int planes, int bg, int splits,
+               const lut::PlaneScales& ps, cudaStream_t stream) {
+  const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
+  const long long pb = static_cast<long long>(gp / bg) * pbs;
+  const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
+  if (np % C::BN || kt % 16 || pbs % 4 || (bg & (bg - 1)) || splits < 1 ||
+      splits > gp / bg || (splits > 1) != (work != nullptr && arrivals != nullptr) ||
+      (kMode == lut::kPerGroup && ts == nullptr) ||
+      reinterpret_cast<uintptr_t>(tv) % 16 || pk % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const lut::RingPlan plan = f32_ring<C, kMode>(m, k_group, planes, bg);
+  if (plan.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lut_bf16_kernel<C, kMode>;
+  cudaError_t err = lut::allow_smem(kernel, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(np / C::BN, mp / C::BM);
-  kernel<<<grid, lut::kThreads, smem, stream>>>(tv, ts, packed, ws, out, np, gp,
-                                                k_group, planes, bg, mode, ps);
+  const dim3 grid(np / C::BN, (m + C::BM - 1) / C::BM, splits);
+  kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
+      tv, ts, packed, ws, out, work, arrivals, m, np, gp, k_group, planes, bg,
+      splits, plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // mode: 0 f32 table, 1 int8 table + per-row scale ts [mp], 2 int8 table +
-// per-group scale ts [mp, gp]. config: the tile; for mode 1 MmaSmall (0),
-// MmaMid (1), MmaLarge (2), with `splits` K-ranges and, when splits > 1, an
-// int32 workspace [splits, mp, np]; for modes 0 and 2 SmallTile (0) or
-// LargeTile (1), splits 1 and no workspace. bg: groups per K-step
-// (gp % bg == 0). plane_scales: host array of `planes` ints.
+// per-group scale ts [mp, gp]. config: the tile, MmaSmall (0), MmaMid (1),
+// MmaLarge (2). bg: groups per K-step (gp % bg == 0, a power of two).
+// splits: K-ranges. Mode 1 (the int path): mp rows padded to the tile;
+// when splits > 1 an int32 workspace [splits, mp, np] summed by a second
+// kernel, and no arrival counts. Modes 0 and 2 (the f32 paths): any mp;
+// when splits > 1 an f32 workspace [splits, mp, np] and arrival counts
+// [ceil(mp / BM) * np / BN], zero on entry and left zero. plane_scales:
+// host array of `planes` ints.
 extern "C" int lut_mpgemm_launch(const void* tv, const float* ts,
                                  const uint8_t* packed, const float* ws,
-                                 float* out, int* workspace, int mp, int np,
-                                 int gp, int k_group, int planes,
+                                 float* out, void* workspace, int* arrivals,
+                                 int mp, int np, int gp, int k_group, int planes,
                                  const int* plane_scales, int mode, int config,
                                  int bg, int splits, cudaStream_t stream) {
   if (!lut::valid_k_group(k_group) || planes < 1 || planes > lut::kMaxPlanes ||
@@ -217,27 +253,51 @@ extern "C" int lut_mpgemm_launch(const void* tv, const float* ts,
   for (int b = 0; b < planes; ++b) ps.v[b] = plane_scales[b];
   if (mode == lut::kPerRow) {
     const int8_t* t8 = static_cast<const int8_t*>(tv);
+    int* work = static_cast<int*>(workspace);
+    if (arrivals != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     switch (config) {
       case 0:
-        return launch_int<lut::MmaSmall>(t8, ts, packed, ws, out, workspace, mp, np, gp,
+        return launch_int<lut::MmaSmall>(t8, ts, packed, ws, out, work, mp, np, gp,
                                     k_group, planes, bg, splits, ps, stream);
       case 1:
-        return launch_int<lut::MmaMid>(t8, ts, packed, ws, out, workspace, mp, np, gp,
+        return launch_int<lut::MmaMid>(t8, ts, packed, ws, out, work, mp, np, gp,
                                   k_group, planes, bg, splits, ps, stream);
       case 2:
-        return launch_int<lut::MmaLarge>(t8, ts, packed, ws, out, workspace, mp, np, gp,
+        return launch_int<lut::MmaLarge>(t8, ts, packed, ws, out, work, mp, np, gp,
                                     k_group, planes, bg, splits, ps, stream);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (splits != 1 || workspace != nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (config == 0)
-    return launch_f32<lut::SmallTile>(tv, ts, packed, ws, out, mp, np, gp, k_group,
-                                      planes, bg, mode, ps, stream);
-  if (config == 1)
-    return launch_f32<lut::LargeTile>(tv, ts, packed, ws, out, mp, np, gp, k_group,
-                                      planes, bg, mode, ps, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* work = static_cast<float*>(workspace);
+  return lut::with_tile(config, static_cast<int>(cudaErrorInvalidValue), [&](auto tile) {
+    using C = decltype(tile);
+    return mode == lut::kFloat
+               ? launch_f32<C, lut::kFloat>(tv, ts, packed, ws, out, work, arrivals,
+                                            mp, np, gp, k_group, planes, bg, splits,
+                                            ps, stream)
+               : launch_f32<C, lut::kPerGroup>(tv, ts, packed, ws, out, work,
+                                               arrivals, mp, np, gp, k_group, planes,
+                                               bg, splits, ps, stream);
+  });
+}
+
+// The ring plan lut_mpgemm_launch takes for an f32 path (mode 0 or 2) with
+// these arguments: returns its dynamic shared memory in bytes and writes
+// its stages (0: does not fit), or returns -1 for arguments it refuses.
+extern "C" long long lut_mpgemm_ring(int m, int k_group, int planes, int mode,
+                                     int config, int bg, int* stages) {
+  if (m < 1 || !lut::valid_k_group(k_group) || planes < 1 ||
+      planes > lut::kMaxPlanes || bg < 1 || (bg * planes * k_group) % 8 ||
+      (mode != lut::kFloat && mode != lut::kPerGroup))
+    return -1;
+  const lut::RingPlan plan = lut::with_tile(
+      config, lut::RingPlan{-1, 0}, [&](auto tile) {
+        using C = decltype(tile);
+        return mode == lut::kFloat ? f32_ring<C, lut::kFloat>(m, k_group, planes, bg)
+                                   : f32_ring<C, lut::kPerGroup>(m, k_group, planes, bg);
+      });
+  if (plan.stages < 0) return -1;
+  *stages = plan.stages;
+  return static_cast<long long>(plan.smem);
 }

@@ -34,8 +34,8 @@ _SIGNATURES = {
     "table_precompute": ("table_precompute_launch",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "lut_mpgemm": ("lut_mpgemm_launch",
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
-                    _I, _I, _P]),
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                    _I, _I, _I, _P]),
     "fused_lut_mpgemm": ("fused_lut_mpgemm_launch",
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                           _I, _I, _I, _I, _P]),

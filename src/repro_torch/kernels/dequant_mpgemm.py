@@ -13,8 +13,10 @@ f32 activation is split into PASSES = 3 bf16 terms that sum to it exactly
 (``t_j`` = the remainder ``a − t_0 − … − t_{j−1}`` with its low 16 bits
 cleared), each contracted into the same f32 sums. The result is within
 1e-4 of the IEEE f32 product. The row and channel tiles are the int
-paths' (16 × 128, 64 × 64, 128 × 128; ``TILES``), and the K-steps split
-into contiguous ranges (``plan``) so that enough blocks fill the card;
+paths' (16 × 128, 64 × 64, 128 × 128; ``TILES``, the bf16 main loop's
+``lut_mpgemm.BF16_TILES``, shared with the LUT kernels' f32 paths), and
+the K-steps split into contiguous ranges (``plan``) so that enough blocks
+fill the card;
 the f32 partial sums meet in a per-device workspace and the last block of
 a tile adds them in split order inside the one launch, so two calls on
 the same inputs give the same bits.
@@ -23,39 +25,34 @@ Inputs are pre-padded to the kernel's tile (``tile_for``: channels and
 K-groups; x's rows as they are), done by ``kernels.ops``. The wrapper
 launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors; ``launches`` counts kernel launches. The workspace and the tiles'
-arrival counts are allocated once per device, grown when a call needs
-more, and the counts are left zeroed by every launch, so calls on one
-device must share one stream.
+arrival counts (``lut_mpgemm.f32_workspace``, shared with the LUT
+kernels' f32 paths) are allocated once per device, grown when a call
+needs more, and the counts are left zeroed by every launch, so calls on
+one device must share one stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.core.quantize import QuantizedWeight, plane_codes
 from repro_torch.kernels import _build
-from repro_torch.kernels.lut_mpgemm import (MIN_STEPS, SMS, check_operands,
-                                            device_workspace, plane_args)
+from repro_torch.kernels.lut_mpgemm import (BF16_TILES, BLOCKS_PER_SM,
+                                            check_operands, f32_workspace,
+                                            plane_args, wave_splits)
 
 __all__ = ["dequant_mpgemm", "dequant_mpgemm_plain", "tile_for", "plan",
-           "ring", "TILES", "PASSES"]
+           "ring", "TILES", "BLOCKS_PER_SM", "PASSES"]
 
 # (BM, BN, KT) of the kernel's configs 0, 1, 2 (csrc/lut_mma.cuh: MmaSmall,
-# MmaMid, MmaLarge): a K-step holds KT weights. Each keeps the ring, the
-# q' tile and the three activation term tiles within half an SM's shared
-# memory, so BLOCKS_PER_SM blocks share an SM (the kernel's launch bounds
-# hold its registers to that too). On an H100 at M = 128, K-steps of 64
-# (one block an SM) lost to 32 wherever the grid had more than 132 blocks.
-TILES = ((16, 128, 128), (64, 64, 64), (128, 128, 32))
-BLOCKS_PER_SM = 2
+# MmaMid, MmaLarge): a K-step holds KT weights; BLOCKS_PER_SM blocks share
+# an SM (lut_mpgemm.BF16_TILES says why these)
+TILES = BF16_TILES
 PASSES = 3  # bf16 terms per activation (csrc/dequant_mpgemm.cu: kTerms)
 launches = 0
-# device index -> (f32 split-K partials, int32 tile arrival counts, zero
-# between launches)
-_workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def tile_for(m: int, k_group: int) -> Tuple[int, int, int, int]:
@@ -71,18 +68,15 @@ def tile_for(m: int, k_group: int) -> Tuple[int, int, int, int]:
 def plan(m: int, n: int, gp: int, k_group: int):
     """Launch plan for M rows, N channels and Gp K-groups: ((config, BM, BN,
     bg), S, grid tiles). The K-steps split into S ranges (``k_ranges``), S
-    the most that keeps tiles·S within one wave of BLOCKS_PER_SM blocks on
-    each SM (a partial second wave cost more on an H100 than the longer
-    ranges), and at least MIN_STEPS steps a range. Raises where N or Gp is not padded to the
-    tile."""
+    from ``lut_mpgemm.wave_splits``. Raises where N or Gp is not padded to
+    the tile."""
     tile = tile_for(m, k_group)
     _, bm, bn, bg = tile
     if n % bn or gp % bg:
         raise ValueError(f"dequant_mpgemm: shape (N={n}, G={gp}) is not "
                          f"padded to the tile (BN={bn}, bg={bg})")
     tiles = -(-m // bm) * (n // bn)
-    splits = max(1, min(SMS * BLOCKS_PER_SM // tiles, gp // bg // MIN_STEPS))
-    return tile, splits, tiles
+    return tile, wave_splits(tiles, gp // bg), tiles
 
 
 def ring(m: int, k_group: int, planes: int) -> Tuple[int, int]:
@@ -139,8 +133,7 @@ def dequant_mpgemm(a: torch.Tensor, packed: torch.Tensor,
                          "aligned operands")
     (config, _, _, bg), splits, tiles = plan(m, np_, gp, k_group)
     ps = plane_args(planes, plane_scales)
-    work, arrivals = (device_workspace(_workspaces, a.device, splits * m * np_,
-                                       tiles, torch.float32)
+    work, arrivals = (f32_workspace(a.device, splits * m * np_, tiles)
                       if splits > 1 else (None, None))
     out = torch.empty((m, np_), device=a.device, dtype=torch.float32)
     fn = _build.launcher("dequant_mpgemm")

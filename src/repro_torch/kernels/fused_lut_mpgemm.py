@@ -17,8 +17,15 @@ row scale need no row padding, and the output has x's rows. Its split
 sums meet in an int32 workspace inside the one launch; the workspace and
 the tiles' arrival counts are allocated once per device, grown when a call
 needs more, and left zeroed by every launch, so calls on one device must
-share one stream. None and per_group keep the shared tiles
-(``lut_mpgemm.tile_for``), rows padded too.
+share one stream.
+
+None and per_group run on the bf16 tensor cores (``csrc/bf16_mma.cuh``)
+with the staged kernel's f32 tile and split plan (``lut_mpgemm.f32_plan``)
+and its f32 workspace (``lut_mpgemm.f32_workspace``): each block builds its
+table tile from x in shared memory, splits each entry into bf16 terms that
+sum to it exactly, and sums in f32; each output within rtol = atol = 1e-4
+of the plain version, and two calls give the same bits. They too take x's
+rows as they are.
 
 Channels and K-groups are pre-padded to the tile (done by ``kernels.ops``).
 The wrapper launches the kernel for CUDA tensors and runs the plain version
@@ -34,8 +41,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import lut_mpgemm as lut_kernel
 from repro_torch.kernels.lut_mpgemm import (check_operands, device_workspace,
-                                            launch_args, lut_mpgemm_plain,
-                                            plane_args, split_for)
+                                            f32_plan, f32_workspace,
+                                            lut_mpgemm_plain, plane_args,
+                                            split_for)
 from repro_torch.kernels.table_precompute import (MODES, check_activations,
                                                   table_precompute_plain)
 
@@ -100,22 +108,24 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
             table_quant=table_quant, planes=planes, plane_scales=plane_scales)
     if x.device.type != "cuda":
         raise ValueError(f"fused_lut_mpgemm: unsupported device {x.device}")
+    if x.data_ptr() % 16 or packed.data_ptr() % 4:
+        raise ValueError("fused_lut_mpgemm: the kernel copies x in 16-byte "
+                         "and the codes in 4-byte pieces; pass aligned "
+                         "operands")
     np_ = packed.shape[0]
-    splits, work, arrivals = 1, None, None
+    ps = plane_args(planes, plane_scales)
+    work, arrivals = None, None
     if table_quant == "per_row":
-        if x.data_ptr() % 16 or packed.data_ptr() % 4:
-            raise ValueError("fused_lut_mpgemm: the per_row path copies x "
-                             "in 16-byte and the codes in 4-byte pieces; "
-                             "pass aligned operands")
         (config, _, _, bg), splits, tiles = int_plan(m, np_, gp, k_group,
                                                      planes)
-        ps = plane_args(planes, plane_scales)
         if splits > 1:
             work, arrivals = device_workspace(_workspaces, x.device, m * np_,
                                               tiles, torch.int32)
     else:
-        config, bg, ps = launch_args(k_group, planes, plane_scales, m, np_,
-                                     gp)
+        (config, _, _, bg), splits, tiles = f32_plan(m, np_, gp, k_group,
+                                                     planes)
+        if splits > 1:
+            work, arrivals = f32_workspace(x.device, splits * m * np_, tiles)
     out = torch.empty((m, np_), device=x.device, dtype=torch.float32)
     fn = _build.launcher("fused_lut_mpgemm")
     with torch.cuda.device(x.device):

@@ -11,18 +11,29 @@ The int path runs on the int8 tensor cores with its own tile
 (``int_tile_for``) and splits the K-steps into contiguous ranges
 (``split_for``) so that enough blocks fill the card; its partial int32 sums
 go to a workspace the wrapper allocates, summed in order by a second
-kernel of the same launch. The f32 path keeps the shared tiles
-(``tile_for``).
+kernel of the same launch. Its table rows are padded to the tile.
 
-Inputs are pre-padded to the kernel's tile (done by ``kernels.ops``). The
-wrapper launches the kernel for CUDA tensors and runs the plain version for
-CPU tensors; ``launches`` counts wrapper calls that launched the kernel.
+The f32 paths run on the bf16 tensor cores (``csrc/bf16_mma.cuh``, shared
+with ``dequant_mpgemm``): each table value split into F32_PASSES bf16
+terms that sum to it exactly, the CW entries exact in bf16, f32 sums; each
+output within rtol = atol = 1e-4 of the IEEE f32 plain version. Their tile
+(``f32_tile_for``) and split plan (``f32_plan``: one wave of two blocks an
+SM) are shared with ``fused_lut_mpgemm``'s f32 paths; the table's rows are
+not padded. The f32 partial sums meet in a per-device workspace
+(``f32_workspace``) and the last block of a tile adds them in split order
+inside the one launch, so two calls give the same bits; calls on one
+device must share one stream.
+
+Channels and K-groups (and the int path's rows) are pre-padded to the
+kernel's tile (done by ``kernels.ops``). The wrapper launches the kernel
+for CUDA tensors and runs the plain version for CPU tensors; ``launches``
+counts wrapper calls that launched the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,26 +41,32 @@ from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.core.table import Table
 from repro_torch.kernels import _build, ref
 
-__all__ = ["lut_mpgemm", "lut_mpgemm_plain", "tile_for", "int_tile_for",
-           "split_for", "k_ranges", "TILES", "INT_TILES"]
+__all__ = ["lut_mpgemm", "lut_mpgemm_plain", "int_tile_for", "split_for",
+           "k_ranges", "f32_tile_for", "f32_plan", "f32_ring", "wave_splits",
+           "INT_TILES", "BF16_TILES", "F32_PASSES"]
 
-# (BM, BN, KT_MIN) of csrc/lut_common.cuh: SmallTile (config 0), LargeTile (1)
-TILES = ((8, 32, 1024), (64, 64, 128))
 # (BM, BN) of the int path's tensor-core tiles (csrc/lut_mpgemm.cu: MmaSmall,
 # MmaMid, MmaLarge = configs 0, 1, 2); a K-step holds INT_KT table entries
 INT_TILES = ((16, 128), (64, 64), (128, 128))
 INT_KT = 128
+# (BM, BN, KT) of the bf16 tensor-core main loop (csrc/bf16_mma.cuh; the
+# same MmaSmall, MmaMid, MmaLarge = configs 0, 1, 2): a K-step holds KT
+# values of the contraction (weights for dequant_mpgemm, table entries for
+# the LUT kernels' f32 paths). Each keeps the ring, the B tile and the
+# three A term tiles within half an SM's shared memory, so BLOCKS_PER_SM
+# blocks share an SM (the kernels' launch bounds hold their registers to
+# that too). On an H100 at M = 128, dequant_mpgemm's K-steps of 64 (one
+# block an SM) lost to 32 wherever the grid had more than 132 blocks.
+BF16_TILES = ((16, 128, 128), (64, 64, 64), (128, 128, 32))
+BLOCKS_PER_SM = 2
+F32_PASSES = 3     # bf16 terms per table value (csrc/lut_mpgemm.cu: kTerms)
 SMS = 132          # streaming multiprocessors of an H100 SXM
 MIN_STEPS = 2      # least K-steps in one split
 launches = 0
-
-
-def tile_for(m: int, k_group: int) -> Tuple[int, int, int, int]:
-    """(config, BM, BN, bg) of the kernels' tile for M rows: rows pad to BM,
-    channels to BN, K-groups to bg (groups per K-step)."""
-    config = 0 if m <= TILES[0][0] else 1
-    bm, bn, kt_min = TILES[config]
-    return config, bm, bn, max(1, kt_min >> (k_group - 1))
+# device index -> (f32 split-K partials, int32 tile arrival counts, zero
+# between launches), shared by the bf16 kernels: both LUT kernels' f32
+# paths and dequant_mpgemm
+_f32_workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def int_tile_for(m: int, k_group: int, planes: int, kt: int = INT_KT
@@ -86,6 +103,69 @@ def k_ranges(gp: int, bg: int, s: int) -> List[Tuple[int, int]]:
     q, r = divmod(gp // bg, s)
     starts = [z * q + min(z, r) for z in range(s + 1)]
     return [(a * bg, b * bg) for a, b in zip(starts, starts[1:])]
+
+
+def wave_splits(tiles: int, steps: int) -> int:
+    """Split-K count of the bf16 kernels: the most that keeps tiles·S
+    within one wave of BLOCKS_PER_SM blocks on each SM (a partial second
+    wave cost more on an H100 than longer ranges), with at least MIN_STEPS
+    of the K-steps a range."""
+    return max(1, min(SMS * BLOCKS_PER_SM // tiles, steps // MIN_STEPS))
+
+
+def f32_tile_for(m: int, k_group: int, planes: int
+                 ) -> Tuple[int, int, int, int]:
+    """(config, BM, BN, bg) of the LUT kernels' f32 paths for M rows: the
+    smallest row tile of BF16_TILES that holds M (the largest for more
+    rows), and bg groups per K-step: KT table entries, more where the
+    step's packed bytes per channel (bg·B·K/8) would not fill whole 4-byte
+    words."""
+    config = next((i for i, (bm, _, _) in enumerate(BF16_TILES) if m <= bm),
+                  len(BF16_TILES) - 1)
+    bm, bn, kt = BF16_TILES[config]
+    bg = max(1, kt >> (k_group - 1))
+    while (bg * planes * k_group) % 32:
+        bg *= 2
+    return config, bm, bn, bg
+
+
+def f32_plan(m: int, n: int, gp: int, k_group: int, planes: int):
+    """Launch plan of the LUT kernels' f32 paths for M rows (as they are),
+    N channels and Gp K-groups: ((config, BM, BN, bg), S, grid tiles), S
+    from ``wave_splits``. Raises where N or Gp is not padded to the tile."""
+    tile = f32_tile_for(m, k_group, planes)
+    _, bm, bn, bg = tile
+    if n % bn or gp % bg:
+        raise ValueError(f"shape (N={n}, G={gp}) is not padded to the tile "
+                         f"(BN={bn}, bg={bg})")
+    tiles = -(-m // bm) * (n // bn)
+    return tile, wave_splits(tiles, gp // bg), tiles
+
+
+def f32_ring(kernel: str, m: int, k_group: int, planes: int,
+             table_quant: Optional[str]) -> Tuple[int, int]:
+    """(stages, dynamic shared memory bytes) of ``kernel``'s ("lut_mpgemm"
+    or "fused_lut_mpgemm") f32 path for M rows, as its launch plans them
+    (``<kernel>_ring`` of the card's library, built on first use)."""
+    config, _, _, bg = f32_tile_for(m, k_group, planes)
+    fn = getattr(_build.library(kernel), f"{kernel}_ring")
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    stages = ctypes.c_int()
+    smem = fn(m, k_group, planes, 0 if table_quant is None else 2, config, bg,
+              ctypes.byref(stages))
+    if smem < 0:
+        raise ValueError(f"{kernel}: no ring for M={m}, k_group={k_group}, "
+                         f"planes={planes}, table_quant={table_quant}")
+    return stages.value, smem
+
+
+def f32_workspace(device: torch.device, words: int, tiles: int):
+    """The bf16 kernels' split-K workspace and arrival counts on
+    ``device`` (``device_workspace``), shared by both LUT kernels' f32
+    paths and dequant_mpgemm."""
+    return device_workspace(_f32_workspaces, device, words, tiles,
+                            torch.float32)
 
 
 def device_workspace(cache, device: torch.device, words: int, tiles: int,
@@ -171,10 +251,10 @@ def plane_args(planes, plane_scales):
     return (ctypes.c_int * planes)(*[int(s) for s in scales])
 
 
-def launch_args(k_group, planes, plane_scales, m, n, gp, tile=None):
-    """Shared ctypes arguments: validated tile config (``tile``, by default
-    the shared ``tile_for``) and plane scales."""
-    config, bm, bn, bg = tile or tile_for(m, k_group)
+def launch_args(k_group, planes, plane_scales, m, n, gp, tile):
+    """The int path's ctypes arguments: the validated tile config and the
+    plane scales."""
+    config, bm, bn, bg = tile
     if m % bm or n % bn or gp % bg:
         raise ValueError(f"shape (M={m}, N={n}, G={gp}) is not padded to the "
                          f"tile (BM={bm}, BN={bn}, bg={bg})")
@@ -184,8 +264,8 @@ def launch_args(k_group, planes, plane_scales, m, n, gp, tile=None):
 def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
                packed: torch.Tensor, wscale: torch.Tensor, *, k_group: int,
                planes: int, plane_scales: Sequence[float]) -> torch.Tensor:
-    """tv [Mp, Gp*E] int8|f32; ts None | [Mp, 1] | [Mp, Gp] f32; packed
-    uint8 [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [Mp, Np]."""
+    """tv [M, Gp*E] int8|f32; ts None | [M, 1] | [M, Gp] f32; packed
+    uint8 [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]."""
     global launches
     e = 1 << (k_group - 1)
     mp, ge = tv.shape
@@ -197,8 +277,8 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
                            or not ts.is_contiguous() or ts.shape[0] != mp):
         raise ValueError("lut_mpgemm: table scales must be contiguous f32 "
                          "[M, *] on the table's device")
-    if mode == 1 and (tv.data_ptr() % 16 or packed.data_ptr() % 4):
-        raise ValueError("lut_mpgemm: the int path copies the table in "
+    if tv.data_ptr() % 16 or packed.data_ptr() % 4:
+        raise ValueError("lut_mpgemm: the kernel copies the table in "
                          "16-byte and the codes in 4-byte pieces; pass "
                          "aligned operands")
     if tv.device.type == "cpu":
@@ -207,7 +287,7 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
     if tv.device.type != "cuda":
         raise ValueError(f"lut_mpgemm: unsupported device {tv.device}")
     np_ = packed.shape[0]
-    splits, work = 1, None
+    work, arrivals = None, None
     if mode == 1:
         tile = int_tile_for(mp, k_group, planes)
         config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_,
@@ -217,15 +297,20 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
             work = torch.empty((splits, mp, np_), device=tv.device,
                                dtype=torch.int32)
     else:
-        config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_,
-                                     gp)
+        (config, _, _, bg), splits, tiles = f32_plan(mp, np_, gp, k_group,
+                                                     planes)
+        ps = plane_args(planes, plane_scales)
+        if splits > 1:
+            work, arrivals = f32_workspace(tv.device, splits * mp * np_,
+                                           tiles)
     out = torch.empty((mp, np_), device=tv.device, dtype=torch.float32)
     fn = _build.launcher("lut_mpgemm")
     with torch.cuda.device(tv.device):
         rc = fn(tv.data_ptr(), None if ts is None else ts.data_ptr(),
                 packed.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-                None if work is None else work.data_ptr(), mp, np_, gp,
-                k_group, planes, ps, mode, config, bg, splits,
+                None if work is None else work.data_ptr(),
+                None if arrivals is None else arrivals.data_ptr(), mp, np_,
+                gp, k_group, planes, ps, mode, config, bg, splits,
                 torch.cuda.current_stream(tv.device).cuda_stream)
     _build.check("lut_mpgemm", rc)
     launches += 1

@@ -76,8 +76,9 @@ def auto_fusion(m, n, g, k_group, planes) -> str:
 def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto") -> str:
     """The pipeline for one shape: "fused"/"staged" as forced, "auto" by
     ``auto_fusion``. (The CUDA kernels' tiles: ``lut_mpgemm.int_tile_for``
-    and ``fused_lut_mpgemm.int_tile`` on per_row tables,
-    ``lut_mpgemm.tile_for`` otherwise.)"""
+    and ``fused_lut_mpgemm.int_tile`` on per_row tables, the staged one
+    with rows padded; ``lut_mpgemm.f32_tile_for`` on None and per_group
+    tables, shared by both kernels, rows as they are.)"""
     if fusion not in FUSION_MODES:
         raise ValueError(f"fusion {fusion!r} not in {FUSION_MODES}")
     return auto_fusion(m, n, g, k_group, planes) if fusion == "auto" else fusion
@@ -114,6 +115,12 @@ def _pad_packed(qw: QuantizedWeight, gp: int, bn: int):
     return pkp.contiguous(), wsp.contiguous()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where it starts off a 16-byte boundary: the
+    kernels copy rows of activations and tables in 16-byte pieces."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _rowsum(x, qw):
     """Σ_k x (f32), needed only by the zero-point correction."""
     return None if qw.zero_prime is None else x.to(torch.float32).sum(-1)
@@ -144,15 +151,14 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     m = x.shape[0]
     g, kg, planes = qw.g, qw.k_group, qw.num_planes
     xp = x.to(torch.float32)
+    # the kernel takes x's rows as they are
     if table_quant == "per_row":
-        # the int path's tile; the kernel takes x's rows as they are
         _, _, bn, bg = fused_kernel.int_tile(m, kg, planes)
         row_scale = _closed_form_row_scale(xp, g, kg).contiguous()
-        xp = _pad_to(xp, bg * kg, 1).contiguous()
     else:
-        _, bm, bn, bg = lut_kernel.tile_for(m, kg)
+        _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, planes)
         row_scale = None
-        xp = _pad_to(_pad_to(xp, bm, 0), bg * kg, 1).contiguous()
+    xp = _aligned(_pad_to(xp, bg * kg, 1).contiguous())
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = fused_kernel.fused_lut_mpgemm(
         xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,
@@ -163,14 +169,18 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
 def staged_operands(table: Table, qw: QuantizedWeight):
     """(tv, ts, packed, wscale) of the staged kernel, padded to its tile:
     the int path's (``lut_mpgemm.int_tile_for``) for a per_row INT8 table,
-    the shared ``tile_for`` otherwise. Padded rows and groups get a scale
-    of 1 and zero entries."""
+    rows padded too; the f32 paths' (``lut_mpgemm.f32_tile_for``) for None
+    and per_group tables, rows as they are. Padded rows and groups get a
+    scale of 1 and zero entries."""
     m, g, e = table.values.shape
     kg = qw.k_group
     per_row = (table.values.dtype == torch.int8 and table.scale is not None
                and table.scale.shape[1] == 1)
-    _, bm, bn, bg = (lut_kernel.int_tile_for(m, kg, qw.num_planes) if per_row
-                     else lut_kernel.tile_for(m, kg))
+    if per_row:
+        _, bm, bn, bg = lut_kernel.int_tile_for(m, kg, qw.num_planes)
+    else:
+        _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, qw.num_planes)
+        bm = 1
     tv = _pad_to(_pad_to(table.values.reshape(m, g * e), bm, 0), bg * e, 1)
     gp = tv.shape[1] // e
     ts = None
@@ -179,7 +189,7 @@ def staged_operands(table: Table, qw: QuantizedWeight):
         if ts.shape[1] != 1:  # per_group
             ts = _pad_to(ts, bg, 1, value=1.0)
         ts = ts.contiguous()
-    return (tv.contiguous(), ts) + _pad_packed(qw, gp, bn)
+    return (_aligned(tv.contiguous()), ts) + _pad_packed(qw, gp, bn)
 
 
 def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
@@ -211,9 +221,7 @@ def dequant_mpgemm(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     m, kg = x.shape[0], qw.k_group
     # the kernel takes x's rows as they are
     _, _, bn, bg = dequant_kernel.tile_for(m, kg)
-    xp = _pad_to(x.to(torch.float32), bg * kg, 1).contiguous()
-    if xp.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
-        xp = xp.clone()
+    xp = _aligned(_pad_to(x.to(torch.float32), bg * kg, 1).contiguous())
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = dequant_kernel.dequant_mpgemm(
         xp, pkp, wsp, k_group=kg, planes=qw.num_planes,

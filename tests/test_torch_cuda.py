@@ -5,10 +5,12 @@ Run on a machine with a CUDA card (this file imports no JAX):
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Without a card every test skips. Tolerances as in chip_smoke.py: per_row
-bit-exact (exact int32 sums, same codes and epilogue), None / per_group
-within 1e-4 relative (fp32 sums in another order), dequant_mpgemm (bf16
-tensor cores, activations split into three bf16 terms, f32 sums) within
-1e-4 relative; the plain versions' matmuls run with TF32 off.
+bit-exact (exact int32 sums, same codes and epilogue); the bf16
+tensor-core paths (the LUT kernels' None / per_group tables and
+dequant_mpgemm: values split into three bf16 terms that sum to them
+exactly, f32 sums) within 1e-4 of the largest output and within rtol =
+atol = 1e-4 of every output, the reference kernels' contract; the plain
+versions' matmuls run with TF32 off.
 """
 
 import numpy as np
@@ -47,11 +49,12 @@ def _close(got, want, tq):
     else:
         scale = want.abs().max().clamp_min(1e-30)
         assert ((got - want).abs().max() / scale).item() <= 1e-4
+        assert _elementwise(got, want)
 
 
 def _elementwise(got, want):
-    """The reference's dequant contract: each output within rtol = atol =
-    1e-4 (repro/kernels/dequant_mpgemm.py's tests)."""
+    """The reference kernels' contract for f32 sums: each output within
+    rtol = atol = 1e-4 (tests/test_kernels.py)."""
     return torch.allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -79,30 +82,32 @@ def test_kernels_match_plain_versions(cuda, case, tq):
                                             **pw), tq)
     if tq == "per_row":  # fused == staged, bit for bit
         assert torch.equal(fused[:m, :n], got[:m, :n])
+    else:  # the f32 paths take the rows as they are
+        assert got.shape[0] == fused.shape[0] == m
 
 
 def _fused_operands(x, qw, tq):
     """(x, row scale, packed, wscale) of the fused kernel, padded as
-    ``ops.fused_lut_mpgemm`` pads them: per_row to the int path's tile
-    (``fused_lut_mpgemm.int_tile``; x's rows as they are), None and
-    per_group to the shared ``tile_for`` (rows padded too)."""
+    ``ops.fused_lut_mpgemm`` pads them, x's rows as they are: per_row to
+    the int path's tile (``fused_lut_mpgemm.int_tile``), None and per_group
+    to the f32 paths' (``lut_mpgemm.f32_tile_for``)."""
     m, k = x.shape
     kg = qw.k_group
     g = k // kg
     if tq == "per_row":
         _, _, bn, bg = fk.int_tile(m, kg, qw.num_planes)
         rs = ops._closed_form_row_scale(x, g, kg).contiguous()
-        xp = ops._pad_to(x, bg * kg, 1).contiguous()
     else:
-        _, bm, bn, bg = lk.tile_for(m, kg)
+        _, _, bn, bg = lk.f32_tile_for(m, kg, qw.num_planes)
         rs = None
-        xp = ops._pad_to(ops._pad_to(x, bm, 0), bg * kg, 1).contiguous()
+    xp = ops._pad_to(x, bg * kg, 1).contiguous()
     return (xp, rs) + ops._pad_packed(qw, xp.shape[1] // kg, bn)
 
 
 def _staged_operands(x, qw, tq):
     """The plain table of x, padded with the weights to the staged kernel's
-    own tile (``ops.staged_operands``: the int path's for per_row)."""
+    own tile (``ops.staged_operands``: the int path's for per_row, rows
+    padded; the f32 paths' otherwise, rows as they are)."""
     m, k = x.shape
     kg = qw.k_group
     g, e = k // kg, 1 << (kg - 1)
@@ -213,6 +218,75 @@ def test_launch_counts_and_no_fallback(cuda):
                       torch.zeros(32, 16, dtype=torch.uint8, device=cuda),
                       torch.ones(32, device=cuda), k_group=4, planes=2,
                       plane_scales=(1.0, 2.0))
+
+
+def _f32_call(kernel, x, qw, tq):
+    """(call, plain call) of one LUT kernel's f32 path on operands padded
+    as ops pads them."""
+    pw = dict(k_group=qw.k_group, planes=qw.num_planes,
+              plane_scales=qw.plane_scales)
+    if kernel == "staged":
+        staged = _staged_operands(x, qw, tq)
+        return (lambda: lk.lut_mpgemm(*staged, **pw),
+                lambda: lk.lut_mpgemm_plain(*staged, **pw))
+    xp, rs, pkp, wsp = _fused_operands(x, qw, tq)
+    pw["table_quant"] = tq
+    return (lambda: fk.fused_lut_mpgemm(xp, rs, pkp, wsp, **pw),
+            lambda: fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp, **pw))
+
+
+@pytest.mark.parametrize("nk", SERVE_SHAPES, ids=str)
+@pytest.mark.parametrize("m", (1, 3, 4, 16, 17, 64, 128))
+@pytest.mark.parametrize("tq", (None, "per_group"))
+@pytest.mark.parametrize("kernel", ("staged", "fused"))
+def test_f32_paths_at_the_serve_shapes(cuda, kernel, tq, m, nk):
+    """Both LUT kernels' float-table paths (bf16 tensor cores, three terms,
+    split-K summed in split order inside the one launch) at tinyllama's
+    shapes, across the row tiles' edges: every output within rtol = atol =
+    1e-4 of the plain version, one launch a call, two calls the same bits,
+    and the arrival counts left zero."""
+    n, k = nk
+    rng = np.random.default_rng(m * 3 + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    qw = _random_w2(rng, n, k, cuda)
+    call, plain = _f32_call(kernel, x, qw, tq)
+    mod = lk if kernel == "staged" else fk
+    before = mod.launches
+    got, again = call(), call()
+    assert mod.launches == before + 2 and got.shape[0] == m
+    assert torch.equal(got, again)
+    _close(got, plain(), tq)
+    workspace = lk._f32_workspaces.get(torch.cuda.current_device())
+    assert workspace is None or not workspace[1].any()
+
+
+def test_two_lut_terms_miss_the_elementwise_bound(cuda, monkeypatch):
+    """Why the f32 paths take three bf16 terms: builds with two
+    (-DLUT_TERMS=2) miss the elementwise 1e-4 bound on some case of CASES
+    (as tests/test_torch_lut_f32.py's CPU emulation shows they should),
+    where the three-term kernels meet it on every case."""
+    two = {name: _build.launcher(name, ("-DLUT_TERMS=2",))
+           for name in ("lut_mpgemm", "fused_lut_mpgemm")}
+
+    def within(case, kernel, tq):
+        m, k, n, bits, scheme, kg = case
+        rng = np.random.default_rng(m + k + n)
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                             ).to(cuda)
+        qw = quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+            np.float32)), bits, k_group=kg, scheme=scheme).to(cuda)
+        call, plain = _f32_call(kernel, x, qw, tq)
+        return _elementwise(call(), plain())
+
+    runs = [(case, kernel, tq) for case in CASES
+            for kernel in ("staged", "fused") for tq in (None, "per_group")]
+    assert all(within(*run) for run in runs)
+    with monkeypatch.context() as patch:
+        patch.setattr(_build, "launcher", lambda name: two[name])
+        misses = {kernel for case, kernel, tq in runs
+                  if not within(case, kernel, tq)}
+    assert misses == {"staged", "fused"}, (
+        "two bf16 terms met the elementwise bound on every case of a kernel")
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)

@@ -169,13 +169,13 @@ def test_fusion_rule_on_the_h100_budget():
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
     """ops pads K-groups to bg and channels to BN of each kernel's own
-    tile, and rows to BM where the kernel needs it: the int paths (per_row)
-    (``lut_mpgemm.int_tile_for``; ``fused_lut_mpgemm.int_tile``, its
-    K-steps twice as wide) — the staged one with rows padded, the fused one
-    with x's rows as they are — and the f32 paths (None, per_group) of both
-    kernels to ``tile_for``. Every shape it hands a kernel wrapper passes
-    the card path's launch checks and is padded no further than the tile
-    needs."""
+    tile, and rows to BM only where the kernel needs it: the int paths
+    (per_row) (``lut_mpgemm.int_tile_for``; ``fused_lut_mpgemm.int_tile``,
+    its K-steps twice as wide) — the staged one with rows padded, the fused
+    one with x's rows as they are — and the f32 paths (None, per_group) of
+    both kernels to ``lut_mpgemm.f32_tile_for``, rows as they are. Every
+    shape it hands a kernel wrapper passes the card path's launch checks
+    and is padded no further than the tile needs."""
     m, k, n, bits, scheme, k_group = case
     g = k // k_group
     rng = np.random.default_rng(m + k)
@@ -192,11 +192,15 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
             rows, scale, packed = args[:3]
             gp = packed.shape[1] * 8 // (kw["planes"] * kw["k_group"])
             int_path = scale is not None and scale.shape[1] == 1
-            tile = (tlut.tile_for(m, k_group) if not int_path
+            tile = (tlut.f32_tile_for(m, k_group, bits) if not int_path
                     else tfused.int_tile(m, k_group, bits) if name == "fused"
                     else tlut.int_tile_for(m, k_group, bits))
             _, bm, bn, bg = tile
-            if name == "fused" and int_path:
+            if not int_path:
+                assert tlut.f32_plan(rows.shape[0], packed.shape[0], gp,
+                                     kw["k_group"], kw["planes"])[0] == tile
+                bm = 1  # the f32 paths take the rows as they are
+            elif name == "fused":
                 assert tfused.int_plan(rows.shape[0], packed.shape[0], gp,
                                        kw["k_group"], kw["planes"])[0] == tile
                 bm = 1  # the fused int path takes x's rows as they are
@@ -207,7 +211,7 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
             assert (rows.shape[0], packed.shape[0], gp) == (
                 up(m, bm), up(n, bn), up(g, bg))
             assert rows_of(rows, kw["k_group"]) == gp
-            seen.append((name, int_path))
+            seen.append((name, int_path, rows.shape[0]))
             return plain(*args, **kw)
         return run
 
@@ -221,14 +225,17 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
     for fusion in ("staged", "fused"):
         for tq in MODES:
             tops.lut_mpgemm(x, tq_w, table_quant=tq, fusion=fusion)
-    assert seen == [(name, tq == "per_row") for name in ("staged", "fused")
-                    for tq in MODES]
-    assert tlut.int_tile_for(m, k_group, bits)[1:] != tlut.tile_for(
-        m, k_group)[1:]
+    int_rows = up(m, tlut.int_tile_for(m, k_group, bits)[1])
+    assert seen == [(name, tq == "per_row",
+                     int_rows if (name, tq) == ("staged", "per_row") else m)
+                    for name in ("staged", "fused") for tq in MODES]
     assert tfused.int_tile(m, k_group, bits)[3] > tlut.int_tile_for(
         m, k_group, bits)[3]
     with pytest.raises(ValueError, match="padded"):
-        tlut.launch_args(4, 2, (1.0, 2.0), 5, 64, 32)
+        tlut.launch_args(4, 2, (1.0, 2.0), 5, 64, 32,
+                         tlut.int_tile_for(5, 4, 2))
+    with pytest.raises(ValueError, match="padded"):
+        tlut.f32_plan(5, 64, 32, 4, 2)
 
 
 # tinyllama-1.1b's projections and head, (N, K), at W2 K=4
