@@ -12,7 +12,9 @@ exit and no result line):
      tensor-core kernels (the int paths of ``lut_mpgemm`` and
      ``fused_lut_mpgemm``, their float-table paths, and ``dequant_mpgemm``)
      and their IMMA / HMMA count in the SASS (cuobjdump, where the toolkit
-     has it; a kernel with none fails the run);
+     has it; a kernel with none fails the run), and those of
+     ``table_precompute``'s kernels (the K = 4 vector path per groups a
+     thread, the scalar path);
   3. kernels — each kernel against its plain torch version on the card, at
      the main path's shapes (M ∈ {4, 128}; (N, K) of tinyllama-1.1b's
      projections and head), every table_quant mode: per_row bit-exact; the
@@ -32,8 +34,16 @@ exit and no result line):
      two-call checks). Device times with CUDA events
      (``time_ms``: L2 flushed before every launch, the host's queueing
      hidden behind a spin on the card): kernel, plain version, a bf16
-     ``torch.matmul`` yardstick, and the bound (``bound``), for every
-     kernel at both M; the two LUT mpGEMMs in all three table modes:
+     ``torch.matmul`` yardstick, and the bound (``bound``), for the
+     mpGEMMs at both M, the two LUT mpGEMMs in all three table modes.
+     ``table_precompute`` (``precompute_checks``) at M ∈ {4, 128}, K ∈
+     {2048, 5632}: None, per_group, and per_row with the row scale given
+     or computed in the same launch, values and scale bit-equal to the
+     plain version, timed beside the closed-form row scale's torch kernels
+     (``ops._closed_form_row_scale``), an f32 ``torch.matmul`` against the
+     ±1 basis and the bound; its row-scale entry (``row_scale``) bit-equal
+     to the closed form at M ∈ {1, 4, 16, 128}, timed beside it; and a
+     4-byte torch kernel under the same timer (``launch_floor_ms``). Bounds:
        bytes = each input read once + each output written once (packed
                weights and their scales, activations or table, output);
        ops   = 2·M·N·K int8 for the two LUT mpGEMMs' per_row paths (the
@@ -54,8 +64,10 @@ exit and no result line):
      8, greedy). Every kernel's launch count must be > 0 and host syncs per
      token <= 1/decode_chunk. After the timed serve, one decode step and
      one 128-token prefill chunk are profiled (torch.profiler): wall,
-     device busy, idle share, device time by kernel, and the decode step's
-     ``fused_lut_mpgemm`` time and kernels;
+     device busy, idle share, CUDA kernels, device time by kernel, and the
+     decode step's ``fused_lut_mpgemm`` time and kernels; launches are
+     counted per wrapper, ``row_scale`` (the fused per_row path's row
+     scale) beside the four kernels;
   5. parity  — a teacher-forced 128-token forward through the kernels
      (lut_pallas) and through the plain torch LUT path (lut_xla), both with
      per_row tables: the logits must be equal bit for bit, because every
@@ -76,8 +88,9 @@ exit and no result line):
      serve of phase 4 (4 requests, 16 greedy tokens each), which must
      launch the f32 paths, the fused kernel in decode and the staged pair
      in prefill, with <= 1/decode_chunk host syncs per token; one decode
-     step and one 128-token prefill chunk profiled as in phase 4, each with
-     the launch counts set to 0 just before and read just after; and a
+     step and one 128-token prefill chunk profiled as in phase 4 (CUDA
+     kernels per step and per chunk among them), each with the launch
+     counts set to 0 just before and read just after; and a
      teacher-forced 128-token forward through the kernels (lut_pallas) and
      the plain LUT path (lut_xla), with tests/test_torch_model.py's bounds:
      None within rtol = atol = 1e-3 of each logit; per_group with the
@@ -102,7 +115,21 @@ profiles one prefill chunk of phase 4's model alone, and
                                               # profiles and forward only
 
 phase 7's decode step and prefill chunk profiles and teacher-forced
-forward alone. Both use no entry point newer than the port's first slices,
+forward alone, and
+
+    python3 chip_smoke.py --decode-profile    # phases 1, 2, then per_row
+                                              # profiles and precompute times
+
+phase 4's model with per_row tables: one decode step and one 128-token
+prefill chunk profiled (CUDA kernels, device busy, wall, launches), and
+the per_row precompute timed at M ∈ {4, 128}, K ∈ {2048, 5632}: the op
+(``ops.table_precompute``), the kernel with a given row scale, the
+closed-form row scale's torch kernels, and, where the checkout has them,
+the one-launch precompute and ``row_scale``; then a 4-byte torch
+kernel's time under the same timer, and hashes of the mpGEMM ops' outputs
+on seeded inputs (``output_hashes``: equal hashes on two checkouts, equal
+bits). All three use no entry point
+newer than the port's first slices (the newer ones are looked up first),
 so one call can run them on an older checkout beside this one.
 """
 
@@ -128,6 +155,14 @@ SHAPES = ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (32000, 2048))
 ROWS = (4, 128)            # decode batch, prefill chunk
 KG, BITS = 4, 2
 MAIN_M = {"fused_lut_mpgemm": 4, "lut_mpgemm": 128, "table_precompute": 128}
+# the per_row serve path's launches: the three LUT kernels and the fused
+# path's row scale
+PER_ROW_PATH = tuple(MAIN_M) + ("row_scale",)
+PRECOMPUTE_K = (2048, 5632)   # tinyllama-1.1b's K: d_model, d_ff
+ROW_SCALE_M = (1, 4, 16, 128)
+# table_precompute's kernels (csrc/table_precompute.cu): the K = 4 vector
+# path per groups a thread, and the scalar path
+PRECOMPUTE_KERNELS = ("precompute_k4_kernel", "precompute_scalar_kernel")
 # a near tie: top-2 logit margin, as in tests/test_torch_serving.py
 MARGIN = 0.15
 
@@ -139,17 +174,19 @@ def device_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def kernel_report(text):
-    """{kernel: [registers line, spill line]} of the tensor-core kernels
-    (``MMA_KERNELS``) from nvcc's ``-Xptxas -v`` log."""
+def kernel_report(text, bases=None):
+    """{kernel: [registers line, spill line]} of the kernels named in
+    ``bases`` (the tensor-core kernels, ``MMA_KERNELS``, by default) from
+    nvcc's ``-Xptxas -v`` log."""
+    bases = bases or MMA_KERNELS
     out, fn = {}, None
     for ln in text.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", ln)
         if found:
-            fn = short_kernel_name(found.group(1))
+            fn = short_kernel_name(found.group(1), bases)
         elif fn and ("registers" in ln or "spill" in ln):
             out.setdefault(fn, []).append(ln.split(": ", 1)[-1].strip())
-    return {k: v for k, v in out.items() if k.startswith(MMA_KERNELS)}
+    return {k: v for k, v in out.items() if k.startswith(bases)}
 
 
 # the tensor-core kernels: the int paths' (csrc/lut_mpgemm.cu: lut_mma_kernel
@@ -170,10 +207,11 @@ MMA_CHECKS = (("lut_mpgemm", "lut_mma_kernel", "IMMA"),
 TABLE_MODE = {"0": "None", "2": "per_group"}
 
 
-def short_kernel_name(mangled):
-    """A kernel's base name, its tile's (BM, BN, WM, WN) and, for a
+def short_kernel_name(mangled, bases=None):
+    """A kernel's base name (of ``bases``, ``MMA_KERNELS`` by default), its
+    tile's (BM, BN, WM, WN) or other integer template arguments and, for a
     float-table kernel, its table mode."""
-    for base in MMA_KERNELS:
+    for base in bases or MMA_KERNELS:
         if base in mangled:
             ints = re.findall(r"Li(\d+)E", mangled)
             name = base + (f"<{'x'.join(ints[:4])}>" if ints else "")
@@ -289,8 +327,6 @@ def check_kernels(flush):
             w_bf16 = dequantize(qw).to(torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
             library_mm = lambda: torch.matmul(x_bf16, w_bf16.T)
-            basis = T.sign_basis(KG, "cuda")
-            groups = x.reshape(m * g, KG)
             pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
             # dequant_mpgemm (bf16 tensor cores; the plain matmul runs in
             # IEEE f32 with TF32 off, set in main) on operands padded as
@@ -321,12 +357,12 @@ def check_kernels(flush):
                 what = f"M={m} N={n} K={k} table_quant={tq}"
                 # the fused kernel's operands, padded as ops pads them
                 xp, rs, pkp, wsp = fused_operands(x, qw, tq)
-                # table precompute
-                got = tk.table_precompute(x, KG, tq, rs)
-                want = tk.table_precompute_plain(x, KG, tq, rs)
-                for gv, wv in zip(got, want):
-                    if wv is not None:
-                        compare("table_precompute", gv, wv, tq, what)
+                # table precompute, bit-equal in every mode (timed in
+                # precompute_checks)
+                if not tables_equal(tk.table_precompute(x, KG, tq, rs),
+                                    tk.table_precompute_plain(x, KG, tq, rs)):
+                    raise AssertionError(f"table_precompute {what}: not "
+                                         f"bit-equal to the plain version")
                 # staged lookup on the table padded to the kernel's own
                 # tile (the int path's for per_row)
                 tv, ts = tk.table_precompute_plain(x, KG, tq, rs)
@@ -353,7 +389,7 @@ def check_kernels(flush):
                 if f32:
                     same_bits("fused_lut_mpgemm", fused_call, got, what)
                 # times and bounds: every mode of the two LUT mpGEMMs (the
-                # main path runs per_row), table_precompute on per_row
+                # main path runs per_row)
                 pk_bytes = qw.packed.numel() + 4 * n
                 out_bytes = 4 * m * n
                 entry_ops = {"f32": m * g * e * (KG - 1)}
@@ -381,12 +417,6 @@ def check_kernels(flush):
                         + pk_bytes + out_bytes, fused_ops,
                         {"f32": first_ops["f32"] + entry_ops["f32"]}),
                 }
-                if tq == "per_row":
-                    recs["table_precompute"] = (
-                        lambda: tk.table_precompute(x, KG, tq, rs),
-                        lambda: tk.table_precompute_plain(x, KG, tq, rs),
-                        lambda: torch.matmul(groups, basis),
-                        4 * m * k + 4 * m + m * g * e, entry_ops, None)
                 for name, (kern, plain, lib, nbytes, nops, f32_ops) in (
                         recs.items()):
                     b_ms, b_by = bound(nbytes, nops)
@@ -397,8 +427,6 @@ def check_kernels(flush):
                         "plain_ms": time_ms(plain, 3, flush),
                         "library_ms": time_ms(lib, 10, flush),
                         "bound_ms": b_ms, "bound_by": b_by})
-                    if name == "table_precompute":
-                        continue
                     if f32:
                         records[-1].update(
                             bound_f32_ms=bound(nbytes, f32_ops)[0],
@@ -417,6 +445,160 @@ def check_kernels(flush):
                             m, m, pkp.shape[0], xp.shape[1] // KG,
                             fused=True))
     return records, err
+
+
+def tables_equal(got, want):
+    """Two (values, scale) pairs of table_precompute with the same bits."""
+    (gv, gs), (wv, ws) = got, want
+    if not torch.equal(gv, wv) or (gs is None) != (ws is None):
+        return False
+    return gs is None or (gs.shape == ws.shape and torch.equal(
+        gs.contiguous().view(torch.int32), ws.contiguous().view(torch.int32)))
+
+
+def precompute_checks(flush):
+    """Phase 3, ``table_precompute`` and its row-scale entry at tinyllama's
+    K. The precompute at M ∈ {4, 128}: None, per_group, and per_row with
+    the row scale given or computed in the same launch; the row scale alone
+    at M ∈ {1, 4, 16, 128}. Each call is held to its plain version bit for
+    bit (values and scale) and must add one launch to its own counter only.
+    Times (``time_ms``): the kernel, the plain version, the library
+    yardstick (for the precompute an f32 ``torch.matmul`` against the ±1
+    basis, for the row scale ``torch.linalg.matrix_norm(ord=inf)`` of the
+    [M, G, K] groups: max over groups of Σ|a|, without the clamp and the
+    division) and for a computed row scale the closed form's torch kernels
+    (``ops._closed_form_row_scale``, the parent's way to it; for the
+    row-scale entry that is its plain version). Bounds: bytes = the
+    activations (and a given row scale) read once + the codes or entries
+    and the scales written once; f32 operations = the entries' K-1 adds, a
+    division a code, and Σ|a| (K adds and maxes a group) where a scale is
+    computed."""
+    from repro_torch.core import table as T
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import table_precompute as tk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    e = 1 << (KG - 1)
+    basis = T.sign_basis(KG, "cuda")
+    records = []
+
+    def counted(call, counter):
+        before = (tk.launches, tk.row_scale_launches)
+        out = call()
+        after = (tk.launches, tk.row_scale_launches)
+        want = (before[0] + (counter == "launches"),
+                before[1] + (counter == "row_scale_launches"))
+        if after != want:
+            raise AssertionError(f"{counter}: {before} -> {after}, one launch "
+                                 f"on its own counter expected")
+        return out
+
+    for m in ROWS:
+        for k in PRECOMPUTE_K:
+            g = k // KG
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            groups = x.reshape(m * g, KG)
+            closed = lambda: ops._closed_form_row_scale(x, g, KG)
+            rs = closed().contiguous()
+            for tq, given in ((None, False), ("per_row", True),
+                              ("per_row", False), ("per_group", False)):
+                scale_in = rs if given else None
+                kern = lambda: tk.table_precompute(x, KG, tq, scale_in)
+                plain = lambda: tk.table_precompute_plain(x, KG, tq, scale_in)
+                if not tables_equal(counted(kern, "launches"), plain()):
+                    raise AssertionError(
+                        f"table_precompute M={m} K={k} {tq} (row scale "
+                        f"given: {given}): not bit-equal to the plain version")
+                computed = tq == "per_group" or (tq == "per_row" and not given)
+                out_bytes = (4 * m * g * e if tq is None else m * g * e + (
+                    4 * m * g if tq == "per_group" else 0 if given else 4 * m))
+                nops = {"f32": m * g * e * (KG - 1) + (0 if tq is None else
+                                                       m * g * e)
+                        + (m * k if computed else 0)}
+                b_ms, b_by = bound(4 * m * k + (4 * m if given else 0)
+                                   + out_bytes, nops)
+                records.append({
+                    "kernel": "table_precompute", "m": m, "n": None, "k": k,
+                    "table_quant": tq,
+                    "row_scale": ("given" if given else "computed"
+                                  if tq == "per_row" else None),
+                    "kernel_ms": time_ms(kern, 10, flush),
+                    "plain_ms": time_ms(plain, 3, flush),
+                    "library_ms": time_ms(lambda: torch.matmul(groups, basis),
+                                          10, flush),
+                    "closed_form_ms": (time_ms(closed, 10, flush)
+                                       if tq == "per_row" and not given
+                                       else None),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    for m in ROW_SCALE_M:
+        for k in PRECOMPUTE_K:
+            g = k // KG
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            kern = lambda: tk.row_scale(x, KG)
+            closed = lambda: ops._closed_form_row_scale(x, g, KG)
+            got = counted(kern, "row_scale_launches")
+            if not tables_equal((got, got), (closed(), closed())):
+                raise AssertionError(f"row_scale M={m} K={k}: not bit-equal "
+                                     f"to the closed form")
+            b_ms, b_by = bound(4 * m * k + 4 * m, {"f32": m * k})
+            records.append({
+                "kernel": "row_scale", "m": m, "n": None, "k": k,
+                "table_quant": "per_row", "row_scale": "computed",
+                "kernel_ms": time_ms(kern, 10, flush),
+                "plain_ms": time_ms(closed, 10, flush),
+                "library_ms": time_ms(lambda: torch.linalg.matrix_norm(
+                    x.view(m, g, KG), ord=float("inf")), 10, flush),
+                "bound_ms": b_ms, "bound_by": b_by})
+    return records
+
+
+def launch_floor_ms(flush):
+    """``time_ms`` of one torch kernel on 4 bytes: what a launch, an event
+    pair and the cold cache cost under that timer, whatever the work."""
+    tiny = torch.zeros(1, device="cuda")
+    return time_ms(lambda: tiny.add_(1.0), 10, flush)
+
+
+def output_hashes():
+    """The mpGEMM ops' outputs on seeded inputs at the main path's shapes,
+    hashed per kernel path (sha256 of the f32 bytes): the staged and fused
+    LUT paths in every table mode, and dequant_mpgemm. Two checkouts with
+    equal hashes gave equal bits."""
+    import hashlib
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    hashes = {}
+    for m in ROWS:
+        for n, k in SHAPES:
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            qw = random_weight(gen, n, k)
+            outs = {"dequant_mpgemm": ops.dequant_mpgemm(x, qw)}
+            for fusion in ("staged", "fused"):
+                for tq in MODES:
+                    outs[f"{fusion} {tq}"] = ops.lut_mpgemm(
+                        x, qw, table_quant=tq, fusion=fusion)
+            for name, out in outs.items():
+                h = hashes.setdefault(name, hashlib.sha256())
+                h.update(out.contiguous().cpu().numpy().tobytes())
+    return {name: h.hexdigest()[:16] for name, h in hashes.items()}
+
+
+def precompute_line(r):
+    """One ``precompute_checks`` record as text."""
+    what = f"{r['kernel']} M={r['m']} K={r['k']}"
+    if r["kernel"] == "table_precompute":
+        what += f" {r['table_quant']}" + (
+            f" (row scale {r['row_scale']})" if r["row_scale"] else "")
+    extra = (", f32 matmul against the ±1 basis" if r["kernel"] ==
+             "table_precompute" else ", matrix_norm(ord=inf)") + (
+                 f" {r['library_ms']:.4f}")
+    if r.get("closed_form_ms") is not None:
+        extra += (f", the closed-form row scale's torch kernels "
+                  f"{r['closed_form_ms']:.4f}")
+    return (f"{what}: {r['kernel_ms']:.4f} ms (plain {r['plain_ms']:.4f}"
+            f"{extra}, bound {r['bound_ms']:.5f} by {r['bound_by']}; "
+            f"{r['kernel_ms'] / r['bound_ms']:.1f}x the bound)")
 
 
 def fused_operands(x, qw, tq):
@@ -527,12 +709,10 @@ def dequant_op_path():
     gen.manual_seed(1)
     cases = [(torch.randn(m, k, generator=gen, device="cuda"),
               random_weight(gen, n, k)) for m in ROWS for n, k in SHAPES]
-    mods = kernel_modules()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts()
     outs = [ops.dequant_mpgemm(x, qw) for x, qw in cases]
     torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = read_counts()
     err = 0.0
     for (x, qw), out in zip(cases, outs):
         want = x @ dequantize(qw).T
@@ -543,7 +723,7 @@ def dequant_op_path():
                 or diff > 1e-4 * want.abs().max().item()):
             raise AssertionError(f"dequant op M={x.shape[0]} N={qw.n}: "
                                  f"max |diff| {diff}")
-    if launches != {**{n: 0 for n in mods}, "dequant_mpgemm": len(cases)}:
+    if launches != {**{n: 0 for n in launches}, "dequant_mpgemm": len(cases)}:
         raise AssertionError(f"dequant op path: launches {launches}")
     return launches["dequant_mpgemm"], err
 
@@ -555,6 +735,26 @@ def kernel_modules():
     from repro_torch.kernels import table_precompute as tk
     return {"table_precompute": tk, "lut_mpgemm": lk,
             "fused_lut_mpgemm": fk, "dequant_mpgemm": dk}
+
+
+def reset_counts():
+    """Sets every wrapper's launch count to 0, the row scale's too where
+    the checkout has that entry."""
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    if hasattr(mods["table_precompute"], "row_scale_launches"):
+        mods["table_precompute"].row_scale_launches = 0
+
+
+def read_counts():
+    """{kernel: launches} of the four wrappers and of ``row_scale`` (None
+    where the checkout has no row-scale entry)."""
+    mods = kernel_modules()
+    out = {name: mod.launches for name, mod in mods.items()}
+    out["row_scale"] = getattr(mods["table_precompute"], "row_scale_launches",
+                               None)
+    return out
 
 
 def serve(cfg, params, seed):
@@ -650,7 +850,6 @@ def paged(cfg, params):
                              f"tokens, not 5*144 + 159")
     kw = dict(max_batch=4, max_seq=256, decode_chunk=8, prefill_chunk=128)
     paged_kw = dict(kw, cache_block_size=bs, num_cache_blocks=96)
-    mods = kernel_modules()
 
     def run(**engine_kw):
         eng = ServingEngine(cfg, params, **engine_kw)
@@ -669,10 +868,9 @@ def paged(cfg, params):
     if unshared != dense:
         raise AssertionError("paged: without prefix sharing the streams "
                              "differ from the dense engine's")
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts()
     eng, shared = run(**paged_kw, prefix_cache=True)
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = read_counts()
 
     # (a) streams: equal, or diverging at a near tie (then stop comparing)
     divergences = []
@@ -701,8 +899,8 @@ def paged(cfg, params):
     if st["blocks_in_use"] != pc["entries"]:
         raise AssertionError(f"paged: {st['blocks_in_use']} blocks in use, "
                              f"{pc['entries']} prefix entries")
-    # (d) the LUT kernels ran
-    if min(launches[n] for n in MAIN_M) <= 0:
+    # (d) the LUT kernels and the row scale ran
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
         raise AssertionError(f"paged: a LUT kernel never ran: {launches}")
     # (e) a paged decode chunk makes the host wait nowhere
     torch.cuda.synchronize()
@@ -752,10 +950,11 @@ def decode_step_profile(eng):
                              ProfilerActivity.CUDA]) as prof:
         eng._decode_chunk(sampling=False)
         torch.cuda.synchronize()
-    per_name, fused = {}, [0.0, 0]
+    per_name, fused, kernels = {}, [0.0, 0], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
             if any(k in e.name for k in FUSED_KERNELS):
                 fused[0] += e.device_time_total
                 fused[1] += 1
@@ -767,6 +966,8 @@ def decode_step_profile(eng):
             "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
             "fused_ms": fused[0] / 1e3 / n if per_name else None,
             "fused_kernels": fused[1] / n,
+            # CUDA kernels the profiler saw per step (copies and fills apart)
+            "kernels": kernels / n,
             "lookup_kernels": lookup_names(per_name, FUSED_KERNELS),
             "top": [(name[:60], t / 1e3 / n) for name, t in top]}
 
@@ -811,10 +1012,11 @@ def prefill_chunk_profile(eng):
                              ProfilerActivity.CUDA]) as prof:
         eng._prefill(prompt, 0, cache)
         torch.cuda.synchronize()
-    per_name, staged = {}, [0.0, 0]
+    per_name, staged, kernels = {}, [0.0, 0], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
             if any(k in e.name for k in STAGED_KERNELS):
                 staged[0] += e.device_time_total
                 staged[1] += 1
@@ -826,6 +1028,7 @@ def prefill_chunk_profile(eng):
             "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
             "staged_lookup_ms": staged[0] / 1e3 if per_name else None,
             "staged_lookup_kernels": staged[1],
+            "kernels": kernels,
             "lookup_kernels": lookup_names(per_name, STAGED_KERNELS),
             "top": [(name[:60], t / 1e3) for name, t in top]}
 
@@ -835,7 +1038,8 @@ def prefill_line(rec):
         return (f"wall {rec['wall_ms']:.2f} ms, device busy not measured "
                 f"(the profiler saw no device events)")
     return (f"wall {rec['wall_ms']:.2f} ms, device busy {rec['busy_ms']:.2f} "
-            f"ms (idle share {rec['idle_share']:.3f}); lut_mpgemm "
+            f"ms (idle share {rec['idle_share']:.3f}) in {rec['kernels']} "
+            f"CUDA kernels; lut_mpgemm "
             f"{rec['staged_lookup_ms']:.2f} ms in "
             f"{rec['staged_lookup_kernels']} kernels; device time by kernel: "
             + ", ".join(f"{n} {t:.2f} ms" for n, t in rec["top"]))
@@ -847,16 +1051,20 @@ def float_profile(cfg, params, eng):
     to 0 just before and read just after, and the teacher-forced forward
     (``float_forward``). Uses only entry points of the port's first
     slices, so ``--float-profile`` runs it on an older checkout too."""
-    mods = kernel_modules()
+    out = step_and_chunk(eng)
+    out["forward"] = float_forward(cfg, params)
+    return out
+
+
+def step_and_chunk(eng):
+    """One decode step and one 128-token prefill chunk profiled, each with
+    the launch counts set to 0 just before and read just after."""
     out = {}
     for what, run in (("decode_step", decode_step_profile),
                       ("prefill_chunk", prefill_chunk_profile)):
-        for mod in mods.values():
-            mod.launches = 0
+        reset_counts()
         out[what] = run(eng)
-        out[what]["launches"] = {name: mod.launches
-                                 for name, mod in mods.items()}
-    out["forward"] = float_forward(cfg, params)
+        out[what]["launches"] = read_counts()
     return out
 
 
@@ -927,9 +1135,9 @@ def float_line(rec):
     step, chunk = rec["decode_step"], rec["prefill_chunk"]
     busy = ("device busy not measured" if step["busy_ms"] is None else
             f"device busy {step['busy_ms']:.2f} ms (idle share "
-            f"{step['idle_share']:.3f}); fused_lut_mpgemm "
-            f"{step['fused_ms']:.3f} ms in {step['fused_kernels']:g} kernels "
-            f"{step['lookup_kernels']}")
+            f"{step['idle_share']:.3f}) in {step['kernels']:g} CUDA kernels; "
+            f"fused_lut_mpgemm {step['fused_ms']:.3f} ms in "
+            f"{step['fused_kernels']:g} kernels {step['lookup_kernels']}")
     fwd = "; ".join(
         f"{tq}: max |logit diff| {r['max_abs_diff']:.3g} (max |logit| "
         f"{r['max_abs_logit']:.4g}, rtol = atol = {r['tol']:g} "
@@ -953,11 +1161,9 @@ def float_tables(cfg, params):
     token, or where the forward misses its bounds. Returns (stats, launches
     of the serve, the profile record)."""
     cfg = cfg.with_quant(table_quant=None)
-    mods = kernel_modules()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts()
     eng, reqs = serve(cfg, params, seed=2)
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = read_counts()
     st = eng.stats()
     if not all(r.done and len(r.output) == 16 for r in reqs):
         raise AssertionError("float: not every request finished 16 tokens")
@@ -997,12 +1203,70 @@ def main_config():
                                                    fusion="auto")
 
 
+def decode_profile(eng):
+    """``--decode-profile``: on a per_row engine, one decode step and one
+    128-token prefill chunk profiled (``step_and_chunk``), then the per_row
+    precompute timed at M ∈ {4, 128}, K ∈ {2048, 5632} (``time_ms``): the op
+    ``ops.table_precompute`` (rowsum's sum included), the kernel with a
+    given row scale, the closed-form row scale's torch kernels and, where
+    the checkout has them, the one-launch precompute and ``row_scale``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import table_precompute as tk
+    eng._decode_chunk(sampling=False)  # warm-up: lazy CUDA/cuBLAS state
+    torch.cuda.synchronize()
+    out = step_and_chunk(eng)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    out["precompute_ms"] = []
+    for m in ROWS:
+        for k in PRECOMPUTE_K:
+            g = k // KG
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            rs = ops._closed_form_row_scale(x, g, KG).contiguous()
+            calls = {
+                "op": lambda: ops.table_precompute(x, KG, "per_row"),
+                "kernel_given_scale": lambda: tk.table_precompute(
+                    x, KG, "per_row", rs),
+                "closed_form_row_scale": lambda: ops._closed_form_row_scale(
+                    x, g, KG)}
+            if hasattr(tk, "row_scale"):
+                calls["one_launch"] = lambda: tk.table_precompute(
+                    x, KG, "per_row")
+                calls["row_scale"] = lambda: tk.row_scale(x, KG)
+            out["precompute_ms"].append(dict(
+                m=m, k=k, **{name: time_ms(fn, 10, flush)
+                             for name, fn in calls.items()}))
+    out["launch_floor_ms"] = launch_floor_ms(flush)
+    out["output_hashes"] = output_hashes()
+    return out
+
+
+def decode_profile_line(rec):
+    step, chunk = rec["decode_step"], rec["prefill_chunk"]
+    busy = ("device busy not measured" if step["busy_ms"] is None else
+            f"device busy {step['busy_ms']:.2f} ms (idle share "
+            f"{step['idle_share']:.3f}) in {step['kernels']:g} CUDA kernels")
+    times = "; ".join(
+        f"M={t['m']} K={t['k']}: " + ", ".join(
+            f"{name} {v:.4f} ms" for name, v in t.items()
+            if name not in ("m", "k")) for t in rec["precompute_ms"])
+    return (f"one decode step: wall {step['wall_ms']:.2f} ms, {busy}, "
+            f"launches {step['launches']}; one 128-token prefill chunk: "
+            + prefill_line(chunk) + f", launches {chunk['launches']}; "
+            f"per_row precompute: {times}; a 4-byte torch kernel "
+            f"{rec['launch_floor_ms']:.4f} ms; output hashes "
+            f"{rec['output_hashes']}")
+
+
 def profile_only(card, flag) -> int:
     """``--prefill-profile``: phase 4's model and engine, then only the
     profile of one prefill chunk; ``--float-profile``: the same with float
-    tables, then only ``float_profile`` (no bound is checked). One line of
-    JSON. They use no entry point newer than the port's first slices, so
-    they also run on an older checkout of the port."""
+    tables, then only ``float_profile`` (no bound is checked);
+    ``--decode-profile``: per_row tables, then only ``decode_profile``. One
+    line of JSON. They use no entry point newer than the port's first
+    slices (``decode_profile`` looks the newer ones up first), so they also
+    run on an older checkout of the port."""
     from repro_torch.models import api
     from repro_torch.serving.engine import ServingEngine
     cfg = main_config()
@@ -1017,6 +1281,10 @@ def profile_only(card, flag) -> int:
         rec = float_profile(cfg, params, eng)
         print("float tables: " + float_line(rec), flush=True)
         print(json.dumps({"float_tables": rec, "card": card}))
+    elif flag == "--decode-profile":
+        rec = decode_profile(eng)
+        print("per_row tables: " + decode_profile_line(rec), flush=True)
+        print(json.dumps({"decode_profile": rec, "card": card}))
     else:
         rec = prefill_chunk_profile(eng)
         print("prefill chunk: " + prefill_line(rec), flush=True)
@@ -1044,8 +1312,8 @@ def main() -> int:
              for n in paths if (_build.BUILD_DIR / f"{n}.ptxas.txt").exists()}
     print(f"build: {len(paths)} kernels in {_build.build_seconds:.1f} s "
           f"(nvcc {_build.nvcc_path()})", flush=True)
-    if len(sys.argv) > 1 and sys.argv[1] in ("--prefill-profile",
-                                             "--float-profile"):
+    if len(sys.argv) > 1 and sys.argv[1] in (
+            "--prefill-profile", "--float-profile", "--decode-profile"):
         return profile_only(card, sys.argv[1])
     mma_report = {lib: kernel_report(
         (_build.BUILD_DIR / f"{lib}.ptxas.txt").read_text())
@@ -1065,14 +1333,27 @@ def main() -> int:
             raise AssertionError(f"build: {lib}'s {kernel} has no {op} in "
                                  f"some instance: {counts}")
 
+    tp_report = kernel_report((_build.BUILD_DIR / "table_precompute.ptxas.txt")
+                              .read_text(), PRECOMPUTE_KERNELS)
+    print("build: table_precompute (ptxas -v): " + "; ".join(
+        f"{k}: {', '.join(v)}" for k, v in tp_report.items()), flush=True)
+
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     records, err = check_kernels(flush)
+    pre_records = precompute_checks(flush)
+    err["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
+    floor_ms = launch_floor_ms(flush)
+    print("kernels: table_precompute and row_scale, bit-equal to the plain "
+          "versions: " + "; ".join(precompute_line(r) for r in pre_records)
+          + f"; a 4-byte torch kernel {floor_ms:.4f} ms under the same "
+          f"timer", flush=True)
     print("kernels: " + "; ".join(record_line(r) for r in records),
           flush=True)
     print("kernels vs plain: max |diff| " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
-        + " (per_row bit-exact; None / per_group and dequant within rtol = "
-        "atol = 1e-4 of each output, two calls bit-equal)", flush=True)
+        + " (table_precompute and row_scale bit-exact in every mode; the "
+        "mpGEMMs per_row bit-exact, None / per_group and dequant within rtol "
+        "= atol = 1e-4 of each output, two calls bit-equal)", flush=True)
     dq_launches, dq_err = dequant_op_path()
     err["dequant_mpgemm"] = max(err["dequant_mpgemm"], dq_err)
     print(f"kernels: dequant op path (ops.dequant_mpgemm, 10 shapes): "
@@ -1089,15 +1370,13 @@ def main() -> int:
     print(f"serve: tinyllama-1.1b W2 params made on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state, kernels
-    kernels = kernel_modules()
-    for mod in kernels.values():
-        mod.launches = 0
+    reset_counts()
     eng, reqs = serve(cfg, params, seed=2)
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    launches = read_counts()
     st = eng.stats()
     if not all(r.done and len(r.output) == 16 for r in reqs):
         raise AssertionError("serve: not every request finished with 16 tokens")
-    if min(launches[n] for n in MAIN_M) <= 0:
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
         raise AssertionError(f"serve: a kernel never ran: {launches}")
     if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
         raise AssertionError(f"serve: {st['host_syncs_per_token']} host syncs "
@@ -1110,7 +1389,8 @@ def main() -> int:
         eng._decode_chunk(sampling=False)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    step = decode_step_profile(eng)
+    per_row = step_and_chunk(eng)
+    step, prefill = per_row["decode_step"], per_row["prefill_chunk"]
     print(f"serve: {len(reqs)} requests, prompts "
           f"{[len(r.prompt) for r in reqs]}, {st['decode_tokens']} tokens; "
           f"decode {st['decode_tok_s']:.1f} tok/s, chunk p50 "
@@ -1122,15 +1402,16 @@ def main() -> int:
     busy = ("device busy not measured (the profiler saw no device events)"
             if step["busy_ms"] is None else
             f"device busy {step['busy_ms']:.2f} ms (idle share "
-            f"{step['idle_share']:.3f}); fused_lut_mpgemm "
-            f"{step['fused_ms']:.3f} ms in {step['fused_kernels']:g} kernels; "
-            "device time by kernel: " + ", ".join(
-                f"{n} {t:.2f} ms" for n, t in step["top"]))
+            f"{step['idle_share']:.3f}) in {step['kernels']:g} CUDA kernels; "
+            f"fused_lut_mpgemm {step['fused_ms']:.3f} ms in "
+            f"{step['fused_kernels']:g} kernels; device time by kernel: "
+            + ", ".join(f"{n} {t:.2f} ms" for n, t in step["top"]))
     print(f"serve: one decode step (4 slots, 22 layers): wall "
-          f"{step['wall_ms']:.2f} ms, {busy}", flush=True)
-    prefill = prefill_chunk_profile(eng)
+          f"{step['wall_ms']:.2f} ms, {busy}; launches {step['launches']}",
+          flush=True)
     print("serve: one 128-token prefill chunk (22 layers): "
-          + prefill_line(prefill), flush=True)
+          + prefill_line(prefill) + f"; launches {prefill['launches']}",
+          flush=True)
 
     # phase 5: kernels vs plain LUT path through the whole model
     toks = torch.as_tensor(np.random.default_rng(3).integers(
@@ -1187,21 +1468,32 @@ def main() -> int:
           f"{float_launches}", flush=True)
     print("float: " + float_line(float_rec), flush=True)
 
-    main_recs = [r for r in records if r["m"] == MAIN_M.get(r["kernel"])
-                 and r["table_quant"] == "per_row"
-                 and (r["kernel"] != "table_precompute"
-                      or (r["n"], r["k"]) in ((2048, 2048), (2048, 5632)))]
+    def on_path(r):
+        """The records at the shapes the main path gives each kernel:
+        dequant_mpgemm's op path at all ten; the per_row precompute, row
+        scale computed, at M = 128 (the staged prefill); the row scale at
+        M = 4 (the fused decode); the LUT mpGEMMs per_row at their M."""
+        if r["kernel"] == "dequant_mpgemm":
+            return True
+        if r["kernel"] == "table_precompute":
+            return r["m"] == 128 and r["row_scale"] == "computed"
+        if r["kernel"] == "row_scale":
+            return r["m"] == 4
+        return r["m"] == MAIN_M[r["kernel"]] and r["table_quant"] == "per_row"
+
+    main_recs = [r for r in records + pre_records if on_path(r)]
     sources = {"table_precompute": ("src/repro_torch/csrc/table_precompute.cu",
                                     "src/repro/kernels/table_precompute.py:62"),
+               "row_scale": ("src/repro_torch/csrc/table_precompute.cu",
+                             "src/repro/kernels/ops.py:58"),
                "lut_mpgemm": ("src/repro_torch/csrc/lut_mpgemm.cu",
                               "src/repro/kernels/lut_mpgemm.py:119"),
                "fused_lut_mpgemm": ("src/repro_torch/csrc/fused_lut_mpgemm.cu",
                                     "src/repro/kernels/fused_lut_mpgemm.py:126"),
                "dequant_mpgemm": ("src/repro_torch/csrc/dequant_mpgemm.cu",
                                   "src/repro/kernels/dequant_mpgemm.py:76")}
-    # dequant_mpgemm's path is its op entry (phase 3's op run, all ten
-    # shapes); a serve step launches it 0 times, as in the reference
-    main_recs += [r for r in records if r["kernel"] == "dequant_mpgemm"]
+    # dequant_mpgemm's path is its op entry (phase 3's op run); a serve
+    # step launches it 0 times, as in the reference
     path_launches = dict(launches, dequant_mpgemm=dq_launches)
     summary = []
     for name, (src, replaces) in sources.items():
@@ -1220,7 +1512,9 @@ def main() -> int:
             "library_ms": tot("library_ms"),
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs]})
     with open(_build.BUILD_DIR / "chip_smoke.json", "w") as f:
-        json.dump({"card": card, "records": records, "summary": summary,
+        json.dump({"card": card, "records": records,
+                   "precompute_records": pre_records,
+                   "launch_floor_ms": floor_ms, "summary": summary,
                    "serve": st, "decode_step": step,
                    "prefill_chunk": prefill, "launches": launches,
                    "dequant_op_launches": dq_launches, "paged": pst,

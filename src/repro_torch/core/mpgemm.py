@@ -42,10 +42,16 @@ def resolve_table_quant(table_quant: Optional[str],
 
 
 def precompute_tables(x: torch.Tensor, k_group: int = 4,
-                      table_quant: Optional[str] = "per_row") -> Table:
-    """Independent table-precompute operator, shared by every consumer of x."""
+                      table_quant: Optional[str] = "per_row",
+                      mode: str = "lut_xla") -> Table:
+    """Independent table-precompute operator, shared by every consumer of x:
+    plain torch ops, or the precompute kernel under ``lut_pallas``."""
     table_quant = resolve_table_quant(table_quant, x.device)
-    return precompute_table(x.reshape(-1, x.shape[-1]), k_group, table_quant)
+    x2d = x.reshape(-1, x.shape[-1])
+    if mode == "lut_pallas":
+        from repro_torch.kernels import ops
+        return ops.table_precompute(x2d, k_group, table_quant)
+    return precompute_table(x2d, k_group, table_quant)
 
 
 def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",

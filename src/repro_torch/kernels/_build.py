@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each library's launch function (see csrc/*.cu)
+# C signature of each launch function (see csrc/*.cu), by entry name: a
+# library's own launch function, or a second entry of a library (``_LIBRARY``)
 _SIGNATURES = {
     "table_precompute": ("table_precompute_launch",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -42,7 +43,10 @@ _SIGNATURES = {
     "dequant_mpgemm": ("dequant_mpgemm_launch",
                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                         _I, _P]),
+    "row_scale": ("row_scale_launch", [_P, _P, _I, _I, _I, _P]),
 }
+# entry name -> the library that holds it, where the two names differ
+_LIBRARY = {"row_scale": "table_precompute"}
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}  # (name, defines)
 _loaded: Dict[str, object] = {}  # name -> ctypes launch function
@@ -125,12 +129,13 @@ def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
 
 
 def launcher(name: str, defines: Sequence[str] = ()):
-    """The ctypes launch function of kernel library ``name`` (built on first
-    use). It returns the launch's ``cudaGetLastError()`` as an int."""
+    """The ctypes launch function of entry ``name`` (``_SIGNATURES``; its
+    library built on first use). It returns the launch's
+    ``cudaGetLastError()`` as an int."""
     fn = None if defines else _loaded.get(name)
     if fn is None:
         symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(library(name, defines), symbol)
+        fn = getattr(library(_LIBRARY.get(name, name), defines), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         if not defines:

@@ -15,7 +15,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import table as table_mod
 from repro_torch.core.lmma import (LMMADescriptor, TileSchedule,
                                    schedule_tiles, select_fusion)
 from repro_torch.core.mpgemm import FUSION_MODES
@@ -96,12 +95,11 @@ def _check_not_plane_sliced(qw: QuantizedWeight, opname: str):
 
 
 def _closed_form_row_scale(a: torch.Tensor, g: int, k_group: int):
-    """[M, 1] per-row INT8 table scale from A alone (table.group_absmax);
-    the staged and fused paths quantize with this same scale."""
-    am = table_mod.group_absmax(a.to(torch.float32).reshape(a.shape[0], g,
-                                                             k_group))
-    return table_mod.true_divide(am.amax(dim=-1).clamp_min(1e-30),
-                                 127.0)[:, None]
+    """[M, 1] per-row INT8 table scale from A alone (table.group_absmax),
+    in plain torch ops: the plain version of ``table_precompute.row_scale``,
+    with whose bits the staged and fused paths quantize."""
+    return tp_kernel.row_scale_plain(a.reshape(a.shape[0], g * k_group),
+                                     k_group)
 
 
 def _pad_packed(qw: QuantizedWeight, gp: int, bn: int):
@@ -128,20 +126,18 @@ def _rowsum(x, qw):
 
 def table_precompute(a: torch.Tensor, k_group: int = 4,
                      table_quant: Optional[str] = "per_row") -> Table:
-    """Kernel-backed independent precompute operator (§3.1.1)."""
+    """Kernel-backed independent precompute operator (§3.1.1): one launch,
+    the per_row row scale included, and ``rowsum``'s sum."""
     m, k_total = a.shape
     g = k_total // k_group
     e = 1 << (k_group - 1)
     af = a.to(torch.float32).contiguous()
-    row_scale = (_closed_form_row_scale(af, g, k_group).contiguous()
-                 if table_quant == "per_row" else None)
-    values, scale = tp_kernel.table_precompute(af, k_group, table_quant,
-                                               row_scale)
+    values, scale = tp_kernel.table_precompute(af, k_group, table_quant)
     rowsum = af.sum(-1)
     values = values.reshape(m, g, e)
     if table_quant is None:
         return Table(values, None, rowsum, k_group)
-    return Table(values, scale.reshape(m, -1, 1), rowsum, k_group)
+    return Table(values, scale.reshape(m, scale.shape[1], 1), rowsum, k_group)
 
 
 def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
@@ -149,16 +145,17 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     """Single-kernel precompute→lookup mpGEMM (the table stays on chip)."""
     _check_not_plane_sliced(qw, "fused_lut_mpgemm")
     m = x.shape[0]
-    g, kg, planes = qw.g, qw.k_group, qw.num_planes
+    kg, planes = qw.k_group, qw.num_planes
     xp = x.to(torch.float32)
     # the kernel takes x's rows as they are
     if table_quant == "per_row":
         _, _, bn, bg = fused_kernel.int_tile(m, kg, planes)
-        row_scale = _closed_form_row_scale(xp, g, kg).contiguous()
     else:
         _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, planes)
-        row_scale = None
     xp = _aligned(_pad_to(xp, bg * kg, 1).contiguous())
+    # padded groups are zeros: they leave the row scale's max as it is
+    row_scale = (tp_kernel.row_scale(xp, kg) if table_quant == "per_row"
+                 else None)
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = fused_kernel.fused_lut_mpgemm(
         xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,

@@ -103,7 +103,8 @@ def make_table(x: torch.Tensor, quant: Optional[dict]):
         if resolve_fusion(m, x.shape[-1], quant) == "fused":
             return None
     return mp.precompute_tables(x, quant.get("k_group", 4),
-                                quant.get("table_quant", "per_row"))
+                                quant.get("table_quant", "per_row"),
+                                quant["mpgemm_mode"])
 
 
 # ---------------------------------------------------------------------------

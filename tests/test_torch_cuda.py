@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import mpgemm as mp
 from repro_torch.core.quantize import QuantizedWeight, dequantize, quantize
 from repro_torch.core.table import Table
 from repro_torch.kernels import _build
@@ -25,6 +26,7 @@ from repro_torch.kernels import fused_lut_mpgemm as fk
 from repro_torch.kernels import lut_mpgemm as lk
 from repro_torch.kernels import ops
 from repro_torch.kernels import table_precompute as tk
+from repro_torch.models import layers
 
 MODES = [None, "per_row", "per_group"]
 # (M, K, N, bits, scheme, k_group): decode and prefill rows, unaligned
@@ -385,3 +387,181 @@ def test_dequant_op_takes_empty_and_unaligned_inputs(cuda):
     got = ops.dequant_mpgemm(x, qw)
     assert dk.launches == before + 1
     _close(got, x @ dequantize(qw).T, None)
+
+
+# table_precompute's variants: (table_quant, row scale given)
+PRECOMPUTE = [(None, False), ("per_row", True), ("per_row", False),
+              ("per_group", False)]
+PRECOMPUTE_ROWS = (1, 3, 4, 16, 17, 64, 128, 130)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _precompute_equal(a, kg, tq, given):
+    """One table_precompute call on the card against the plain version,
+    values and scale bit for bit, one launch counted on its counter only."""
+    g = a.shape[1] // kg
+    rs = ops._closed_form_row_scale(a, g, kg).contiguous() if given else None
+    before = (tk.launches, tk.row_scale_launches)
+    values, scale = tk.table_precompute(a, kg, tq, rs)
+    assert (tk.launches, tk.row_scale_launches) == (before[0] + 1, before[1])
+    want_v, want_s = tk.table_precompute_plain(a, kg, tq, rs)
+    assert torch.equal(values, want_v)
+    assert (scale is None) == (want_s is None)
+    if want_s is not None:
+        assert scale.shape == want_s.shape
+        assert torch.equal(_bits(scale), _bits(want_s))
+    if given:
+        assert scale is rs
+
+
+@pytest.mark.parametrize("variant", PRECOMPUTE, ids=str)
+@pytest.mark.parametrize("m", PRECOMPUTE_ROWS)
+@pytest.mark.parametrize("k", (2048, 5632))
+def test_table_precompute_is_bit_equal_at_the_serve_shapes(cuda, k, m,
+                                                           variant):
+    """The precompute kernel at the K of SERVE_SHAPES, across one block a
+    row at few and many rows: values and scales bit-equal to the plain
+    version in every mode, per_row with its scale given or computed in the
+    same launch; one launch a call."""
+    rng = np.random.default_rng(m * 11 + k)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    _precompute_equal(a, 4, *variant)
+
+
+@pytest.mark.parametrize("m", PRECOMPUTE_ROWS)
+@pytest.mark.parametrize("k", (2048, 5632))
+def test_row_scale_is_bit_equal_at_the_serve_shapes(cuda, k, m):
+    """The row-scale entry equals the closed form's eight torch kernels on
+    the card, bit for bit, in one launch on its own counter."""
+    rng = np.random.default_rng(m * 13 + k)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    before = (tk.launches, tk.row_scale_launches)
+    got = tk.row_scale(a, 4)
+    assert (tk.launches, tk.row_scale_launches) == (before[0], before[1] + 1)
+    assert got.shape == (m, 1)
+    assert torch.equal(_bits(got), _bits(ops._closed_form_row_scale(
+        a, k // 4, 4)))
+
+
+@pytest.mark.parametrize("case", [(5, 2048, 4), (4, 4000, 4), (6, 64, 2),
+                                  (7, 64, 8), (3, 24, 1), (3, 12000, 4),
+                                  (3, 20000, 4)], ids=str)
+def test_precompute_edge_rows_and_unaligned_activations(cuda, case):
+    """An all-zero row (the 1e-30 clamp) and a row whose groups tie, on the
+    vector path (one and two groups a thread) and on the scalar path
+    (k_group 1, 2 and 8, more than 4 groups a thread), from aligned
+    activations and from a pointer 4 bytes
+    off a 16-byte boundary: every variant and the row scale bit-equal to
+    the plain versions."""
+    m, k, kg = case
+    rng = np.random.default_rng(m + k + kg)
+    host = rng.normal(size=(m * k + 1,)).astype(np.float32)
+    flat = torch.from_numpy(host).to(cuda)
+    for a in (flat[:m * k].view(m, k), flat[1:].view(m, k)):
+        a = a.clone() if a.data_ptr() % 16 == 0 else a
+        a[0] = 0.0
+        a[1] = a[1, :kg].repeat(k // kg)
+        for variant in PRECOMPUTE:
+            _precompute_equal(a, kg, *variant)
+        assert torch.equal(_bits(tk.row_scale(a, kg)), _bits(
+            ops._closed_form_row_scale(a, k // kg, kg)))
+    assert flat[1:].data_ptr() % 16
+
+
+def test_precompute_takes_zero_rows(cuda):
+    """An activation of no rows (a null data pointer on the card): every
+    mode and the row scale return empty results of the right widths with
+    no launch counted, and both C entries accept null pointers when there
+    is nothing to compute."""
+    a = torch.zeros(0, 2048, device=cuda)
+    before = (tk.launches, tk.row_scale_launches)
+    assert tk.row_scale(a, 4).shape == (0, 1)
+    for tq, given in PRECOMPUTE:
+        rs = torch.zeros(0, 1, device=cuda) if given else None
+        values, scale = tk.table_precompute(a, 4, tq, rs)
+        want_v, want_s = tk.table_precompute_plain(a, 4, tq, rs)
+        assert values.shape == want_v.shape == (0, 512 * 8)
+        assert (scale is None) == (want_s is None)
+        if want_s is not None:
+            assert scale.shape == want_s.shape
+        table = ops.table_precompute(a, 4, tq)
+        assert table.values.shape == (0, 512, 8)
+    assert (tk.launches, tk.row_scale_launches) == before
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for mode in tk.MODES.values():
+        assert _build.launcher("table_precompute")(
+            None, None, None, None, 0, 512, 4, mode, stream) == 0
+    assert _build.launcher("row_scale")(None, None, 0, 512, 4, stream) == 0
+
+
+@pytest.mark.parametrize("kg", (2, 4))
+def test_precompute_non_finite_rows(cuda, kg):
+    """A row holding a NaN gets a NaN scale, one holding an inf (and no
+    NaN) an inf scale, from the kernel as from the plain version; the
+    finite rows keep their bits and codes."""
+    rng = np.random.default_rng(kg)
+    a = torch.from_numpy(rng.normal(size=(5, 16 * kg)).astype(np.float32))
+    a[1, 3], a[2, 5] = float("nan"), float("inf")
+    a[3, 0], a[3, 7] = float("-inf"), float("nan")
+    a = a.to(cuda)
+    finite = [0, 4]
+    want_v, want_s = tk.table_precompute_plain(a, kg, "per_row")
+    for rs in (tk.row_scale(a, kg), tk.table_precompute(a, kg, "per_row")[1]):
+        assert torch.isnan(rs[1, 0]) and torch.isnan(rs[3, 0])
+        assert torch.isinf(rs[2, 0]) and rs[2, 0] > 0
+        assert torch.equal(_bits(rs[finite]), _bits(want_s[finite]))
+    values = tk.table_precompute(a, kg, "per_row")[0]
+    assert torch.equal(values[finite], want_v[finite])
+    sg = tk.table_precompute(a, kg, "per_group")[1]
+    want_g = tk.table_precompute_plain(a, kg, "per_group")[1]
+    assert torch.equal(torch.isnan(sg), torch.isnan(want_g))
+    assert torch.equal(torch.isinf(sg), torch.isinf(want_g))
+    fin = torch.isfinite(want_g)
+    assert torch.equal(sg[fin], want_g[fin])
+
+
+def test_ops_precompute_and_fused_row_scale_launch_once(cuda):
+    """``ops.table_precompute`` per_row is one table launch (the scale
+    inside it) plus rowsum's sum; the fused per_row op is one row-scale
+    launch and one fused launch; both give the plain paths' bits."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.normal(size=(4, 2048)).astype(np.float32)
+                         ).to(cuda)
+    qw = _random_w2(rng, 256, 2048, cuda)
+    before = (tk.launches, tk.row_scale_launches, fk.launches)
+    table = ops.table_precompute(x, 4, "per_row")
+    assert (tk.launches, tk.row_scale_launches, fk.launches) == (
+        before[0] + 1, before[1], before[2])
+    want = mp.precompute_tables(x, 4, "per_row")
+    assert torch.equal(table.values, want.values)
+    assert torch.equal(_bits(table.scale), _bits(want.scale))
+    out = ops.fused_lut_mpgemm(x, qw)
+    assert (tk.launches, tk.row_scale_launches, fk.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    xp, rs, pkp, wsp = _fused_operands(x, qw, "per_row")
+    assert torch.equal(out, fk.fused_lut_mpgemm_plain(
+        xp, rs, pkp, wsp, table_quant="per_row", k_group=4, planes=2,
+        plane_scales=qw.plane_scales)[:, :256])
+
+
+@pytest.mark.parametrize("tq", ("auto", None, "per_row", "per_group"))
+def test_make_table_launches_the_kernel(cuda, tq):
+    """A shared table of the serve path (staged, "auto" resolved to
+    per_row on the card) is one precompute launch with the plain path's
+    bits: values, scale and rowsum."""
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(1, 128, 2048)).astype(np.float32)).to(cuda)
+    quant = dict(mpgemm_mode="lut_pallas", table_quant=tq, fusion="staged",
+                 k_group=4)
+    before = tk.launches
+    got = layers.make_table(x, quant)
+    assert tk.launches == before + 1
+    want = mp.precompute_tables(x, 4, tq)
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.rowsum, want.rowsum)
+    assert (got.scale is None) == (want.scale is None)
+    if want.scale is not None:
+        assert torch.equal(_bits(got.scale), _bits(want.scale))
