@@ -67,11 +67,15 @@ exit and no result line):
      device busy, idle share, CUDA kernels, device time by kernel, and the
      decode step's ``fused_lut_mpgemm`` time and kernels; launches are
      counted per wrapper, ``row_scale`` (the fused per_row path's row
-     scale) beside the four kernels;
+     scale) beside the four kernels. One more decode chunk runs under
+     torch's sync check and must launch exactly one fused kernel and one
+     row scale per projection a step;
   5. parity  — a teacher-forced 128-token forward through the kernels
      (lut_pallas) and through the plain torch LUT path (lut_xla), both with
      per_row tables: the logits must be equal bit for bit, because every
-     per_row projection is exact integer arithmetic with the same epilogue;
+     per_row projection is exact integer arithmetic with the same epilogue
+     (phases 4 and 5 are one function, ``serve_and_parity``, which phase 8
+     calls too; both print as ``serve:``);
   6. paged   — phase 4's model through the block-paged KV pool (block 16,
      96 blocks, 4 slots, max_seq 256): six requests sharing a 144-token
      system prompt, then two identical 160-token prompts (copy-on-write),
@@ -99,12 +103,27 @@ exit and no result line):
      plain path against itself, its T·CW summed over K in two halves),
      which misses it too at full width: INT8 codes flip at a last-bit
      difference near a rounding boundary, and 22 layers carry the flips.
+  8. bitnet  — the paper's own model, full-width paper-bitnet-3b (26
+     layers, d_model 3200, MHA 32/32 of head_dim 100, d_ff 8640, vocab
+     32000), ternary weights (BitNet b1.58 absmean), per_row tables,
+     lut_pallas, fusion auto, random weights from seed 0 made on the card
+     layer by layer: (a) phase 3's checks and times of the per_row path
+     at its shapes ((N, K) = (3200, 3200), (8640, 3200), (3200, 8640),
+     (32000, 3200); ternary weights; K 8640 ends on a padded K-step), and
+     of ``table_precompute`` and ``row_scale`` at its K (3200, 8640); (b)
+     the fused/staged choice (``ops.resolve_dispatch``) of each projection
+     at M = 4 and 128, and of the shared tables; (c), (d) phases 4 and 5
+     on its model (``serve_and_parity``).
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record; the last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
 (``src/repro_torch/build/``).
+
+    python3 chip_smoke.py --bitnet            # phases 1, 2 and 8 only
+
+runs phase 8 alone (its record as one line of JSON), and
 
     python3 chip_smoke.py --prefill-profile   # phases 1, 2 and the prefill
                                               # chunk's profile only
@@ -165,6 +184,8 @@ ROW_SCALE_M = (1, 4, 16, 128)
 PRECOMPUTE_KERNELS = ("precompute_k4_kernel", "precompute_scalar_kernel")
 # a near tie: top-2 logit margin, as in tests/test_torch_serving.py
 MARGIN = 0.15
+# phase 8: the paper's own model at full width
+BITNET = "paper-bitnet-3b"
 
 
 def device_line() -> str:
@@ -279,8 +300,21 @@ def random_weight(gen, n, k):
                            k_group=KG, k_total=k, n=n)
 
 
-def check_kernels(flush):
-    """Phase 3. Returns (per-shape records, per-kernel max_abs_err)."""
+def ternary_weight(gen, n, k):
+    """BitNet b1.58's absmean ternary weight of random normal values: two
+    sign planes, plane scales [1, 1]."""
+    from repro_torch.core.quantize import quantize
+    return quantize(torch.randn(n, k, generator=gen, device="cuda"), BITS,
+                    k_group=KG, scheme="ternary")
+
+
+def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
+                  paths=("dequant",) + MODES):
+    """Phase 3 at ``shapes`` ((N, K) pairs) with weights from
+    ``make_weight``, on ``paths``: ``dequant_mpgemm`` and the two LUT
+    mpGEMMs in each table mode (phase 8: paper-bitnet-3b's shapes, ternary
+    weights, the per_row path its serve runs). Returns (per-shape records,
+    per-kernel max_abs_err)."""
     from repro_torch.core.quantize import dequantize
     from repro_torch.kernels import dequant_mpgemm as dk
     from repro_torch.kernels import fused_lut_mpgemm as fk
@@ -320,40 +354,42 @@ def check_kernels(flush):
             raise AssertionError(f"{name} {what}: two calls differ")
 
     for m in ROWS:
-        for n, k in SHAPES:
+        for n, k in shapes:
             g = k // KG
             x = torch.randn(m, k, generator=gen, device="cuda")
-            qw = random_weight(gen, n, k)
+            qw = make_weight(gen, n, k)
             w_bf16 = dequantize(qw).to(torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
             library_mm = lambda: torch.matmul(x_bf16, w_bf16.T)
-            pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
-            # dequant_mpgemm (bf16 tensor cores; the plain matmul runs in
-            # IEEE f32 with TF32 off, set in main) on operands padded as
-            # ops pads them: x's rows as they are
-            _, _, dbn, dbg = dk.tile_for(m, KG)
-            xd = ops._pad_to(x, dbg * KG, 1).contiguous()
-            pkd, wsd = ops._pad_packed(qw, xd.shape[1] // KG, dbn)
-            kern = lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw)
-            got, want = kern(), dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw)
-            rel = compare("dequant_mpgemm", got, want, None,
-                          f"M={m} N={n} K={k}", f32_sums=True)
-            same_bits("dequant_mpgemm", kern, got, f"M={m} N={n} K={k}")
-            nbytes = qw.packed.numel() + 4 * n + 4 * m * k + 4 * m * n
-            b_ms, b_by = bound(nbytes, {"bf16": dk.PASSES * 2 * m * n * k})
-            records.append({
-                "kernel": "dequant_mpgemm", "m": m, "n": n, "k": k,
-                "table_quant": None,
-                "kernel_ms": time_ms(kern, 10, flush),
-                "plain_ms": time_ms(
-                    lambda: dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw), 3,
-                    flush),
-                "library_ms": time_ms(library_mm, 10, flush),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "bound_f32_ms": bound(nbytes, {"f32": 2 * m * n * k})[0],
-                "max_rel_err": rel, "elementwise": True, "bit_equal": True,
-                **dequant_plan(m, pkd.shape[0], xd.shape[1] // KG)})
-            for tq in MODES:
+            pw = dict(k_group=KG, planes=qw.num_planes,
+                      plane_scales=qw.plane_scales)
+            if "dequant" in paths:
+                # dequant_mpgemm (bf16 tensor cores; the plain matmul runs in
+                # IEEE f32 with TF32 off, set in main) on operands padded as
+                # ops pads them: x's rows as they are
+                _, _, dbn, dbg = dk.tile_for(m, KG)
+                xd = ops._pad_to(x, dbg * KG, 1).contiguous()
+                pkd, wsd = ops._pad_packed(qw, xd.shape[1] // KG, dbn)
+                kern = lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw)
+                got, want = kern(), dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw)
+                rel = compare("dequant_mpgemm", got, want, None,
+                              f"M={m} N={n} K={k}", f32_sums=True)
+                same_bits("dequant_mpgemm", kern, got, f"M={m} N={n} K={k}")
+                nbytes = qw.packed.numel() + 4 * n + 4 * m * k + 4 * m * n
+                b_ms, b_by = bound(nbytes, {"bf16": dk.PASSES * 2 * m * n * k})
+                records.append({
+                    "kernel": "dequant_mpgemm", "m": m, "n": n, "k": k,
+                    "table_quant": None,
+                    "kernel_ms": time_ms(kern, 10, flush),
+                    "plain_ms": time_ms(
+                        lambda: dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw), 3,
+                        flush),
+                    "library_ms": time_ms(library_mm, 10, flush),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_f32_ms": bound(nbytes, {"f32": 2 * m * n * k})[0],
+                    "max_rel_err": rel, "elementwise": True, "bit_equal": True,
+                    **dequant_plan(m, pkd.shape[0], xd.shape[1] // KG)})
+            for tq in (p for p in paths if p != "dequant"):
                 what = f"M={m} N={n} K={k} table_quant={tq}"
                 # the fused kernel's operands, padded as ops pads them
                 xp, rs, pkp, wsp = fused_operands(x, qw, tq)
@@ -456,10 +492,11 @@ def tables_equal(got, want):
         gs.contiguous().view(torch.int32), ws.contiguous().view(torch.int32)))
 
 
-def precompute_checks(flush):
-    """Phase 3, ``table_precompute`` and its row-scale entry at tinyllama's
-    K. The precompute at M ∈ {4, 128}: None, per_group, and per_row with
-    the row scale given or computed in the same launch; the row scale alone
+def precompute_checks(flush, ks=PRECOMPUTE_K):
+    """Phase 3, ``table_precompute`` and its row-scale entry at ``ks``
+    (tinyllama's K; phase 8: paper-bitnet-3b's). The precompute at M ∈ {4,
+    128}: None, per_group, and per_row with the row scale given or
+    computed in the same launch; the row scale alone
     at M ∈ {1, 4, 16, 128}. Each call is held to its plain version bit for
     bit (values and scale) and must add one launch to its own counter only.
     Times (``time_ms``): the kernel, the plain version, the library
@@ -494,7 +531,7 @@ def precompute_checks(flush):
         return out
 
     for m in ROWS:
-        for k in PRECOMPUTE_K:
+        for k in ks:
             g = k // KG
             x = torch.randn(m, k, generator=gen, device="cuda")
             groups = x.reshape(m * g, KG)
@@ -531,7 +568,7 @@ def precompute_checks(flush):
                                        else None),
                     "bound_ms": b_ms, "bound_by": b_by})
     for m in ROW_SCALE_M:
-        for k in PRECOMPUTE_K:
+        for k in ks:
             g = k // KG
             x = torch.randn(m, k, generator=gen, device="cuda")
             kern = lambda: tk.row_scale(x, KG)
@@ -1196,6 +1233,188 @@ def float_tables(cfg, params):
     return st, launches, rec
 
 
+def bitnet_config():
+    from repro_torch.configs import registry
+    return registry.get_config(BITNET).replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
+                                                   fusion="auto")
+
+
+def projection_shapes(cfg):
+    """{projection: (N, K)} of a dense arch's layer and its head."""
+    d, q, kv = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                cfg.n_kv_heads * cfg.head_dim)
+    return {"wq": (q, d), "wk": (kv, d), "wv": (kv, d), "wo": (d, q),
+            "gate": (cfg.d_ff, d), "up": (cfg.d_ff, d), "down": (d, cfg.d_ff),
+            "lm_head": (cfg.vocab_size, d)}
+
+
+def serve_and_parity(tag, cfg, params):
+    """Phases 4 and 5 for one model (phase 8 (c) and (d) for
+    paper-bitnet-3b): a warm-up serve, then ``serve`` with the launch
+    counts set to 0 just before and read just after, which must finish
+    every request, launch every kernel of the per_row path and make at most
+    1/decode_chunk host syncs a token; one decode chunk under torch's sync
+    check, its launches counted: exactly one fused launch and one row scale
+    per projection a step (the layers' and the head's) and nothing else;
+    one decode step and one 128-token prefill chunk profiled
+    (``step_and_chunk``); a teacher-forced 128-token forward through the
+    kernels (lut_pallas) and the plain LUT path (lut_xla), per_row: logits
+    equal bit for bit, because every per_row projection is exact integer
+    arithmetic with the same epilogue. Returns (engine, record)."""
+    from repro_torch.models import api
+    serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state, kernels
+    reset_counts()
+    eng, reqs = serve(cfg, params, seed=2)
+    launches = read_counts()
+    st = eng.stats()
+    if not all(r.done and len(r.output) == 16 for r in reqs):
+        raise AssertionError(f"{tag}: not every request finished 16 tokens")
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"{tag}: a kernel never ran: {launches}")
+    if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
+        raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
+                             f"syncs per token > 1/{eng.decode_chunk}")
+    # one more decode chunk with torch's sync check armed: any call in the
+    # chunk that makes the host wait for the card raises here
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_chunk(sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk_launches = read_counts()
+    per_step = (len(projection_shapes(cfg)) - 1) * cfg.n_layers + 1
+    want = dict({n: 0 for n in chunk_launches},
+                fused_lut_mpgemm=per_step * eng.decode_chunk,
+                row_scale=per_step * eng.decode_chunk)
+    if chunk_launches != want:
+        raise AssertionError(f"{tag}: a decode chunk launched "
+                             f"{chunk_launches}, not {want}")
+    rec = dict(prompts=[len(r.prompt) for r in reqs], serve=st,
+               launches=launches, decode_chunk_launches=chunk_launches,
+               **step_and_chunk(eng))
+
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    logits = {mode: api.forward(params, {"tokens": toks}, cfg.with_quant(
+        mpgemm_mode=mode, table_quant="per_row"))[0]
+        for mode in ("lut_pallas", "lut_xla")}
+    a, b = logits["lut_pallas"], logits["lut_xla"]
+    if (tuple(a.shape) != (1, 128, cfg.vocab_size)
+            or not torch.isfinite(a).all()):
+        raise AssertionError(f"{tag}: bad logits {tuple(a.shape)}")
+    rec["parity_max_abs_diff"] = (a - b).abs().max().item()
+    rec["parity_max_abs_logit"] = a.abs().max().item()
+    if rec["parity_max_abs_diff"] != 0.0:
+        raise AssertionError(f"{tag}: kernels and plain path disagree, max "
+                             f"|logit diff| {rec['parity_max_abs_diff']}")
+    return eng, rec
+
+
+def serve_lines(tag, cfg, eng, rec):
+    """``serve_and_parity``'s record as text, one line a part."""
+    st, step, chunk = rec["serve"], rec["decode_step"], rec["prefill_chunk"]
+    busy = ("device busy not measured (the profiler saw no device events)"
+            if step["busy_ms"] is None else
+            f"device busy {step['busy_ms']:.2f} ms (idle share "
+            f"{step['idle_share']:.3f}) in {step['kernels']:g} CUDA kernels; "
+            f"fused_lut_mpgemm {step['fused_ms']:.3f} ms in "
+            f"{step['fused_kernels']:g} kernels; device time by kernel: "
+            + ", ".join(f"{n} {t:.2f} ms" for n, t in step["top"]))
+    return [
+        f"{tag}: {len(rec['prompts'])} requests, prompts {rec['prompts']}, "
+        f"{st['decode_tokens']} tokens; decode {st['decode_tok_s']:.1f} "
+        f"tok/s, chunk p50 {st['p50_chunk_ms']:.1f} ms / p95 "
+        f"{st['p95_chunk_ms']:.1f} ms, host syncs/token "
+        f"{st['host_syncs_per_token']:.4f}; launches {rec['launches']}; a "
+        f"decode chunk of {eng.decode_chunk} steps under torch's sync check: "
+        f"no hidden sync, launches {rec['decode_chunk_launches']}",
+        f"{tag}: one decode step ({eng.max_batch} slots, {cfg.n_layers} "
+        f"layers): wall {step['wall_ms']:.2f} ms, {busy}; launches "
+        f"{step['launches']}",
+        f"{tag}: one {eng.prefill_chunk}-token prefill chunk ({cfg.n_layers} "
+        f"layers): " + prefill_line(chunk) + f"; launches {chunk['launches']}",
+        f"{tag}: parity, 128-token forward, lut_pallas vs lut_xla (per_row), "
+        f"max |logit diff| {rec['parity_max_abs_diff']} (tolerance 0: exact),"
+        f" max |logit| {rec['parity_max_abs_logit']:.4g}"]
+
+
+def bitnet(flush):
+    """Phase 8: full-width paper-bitnet-3b (ternary, per_row INT8 tables,
+    lut_pallas, fusion auto), random weights from seed 0 made on the card
+    layer by layer. (a) phase 3's checks at its shapes: ``check_kernels``
+    on the per_row path at the (N, K) of its projections and head with
+    ternary weights, ``precompute_checks`` at its K; (b)
+    ``resolve_dispatch`` for each projection at M = 4 and 128, and the
+    shared tables' choice (``layers.resolve_fusion``); (c) and (d)
+    ``serve_and_parity``. Returns (config, engine, record)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import scheme_name
+    from repro_torch.models import api, layers
+    from repro_torch.models.quantized import quantized_bytes
+    cfg = bitnet_config()
+    shapes = projection_shapes(cfg)
+    rec = {"arch": BITNET, "scheme": scheme_name(cfg.quant)}
+    rec["records"], rec["err"] = check_kernels(
+        flush, sorted(set(shapes.values())), ternary_weight, ("per_row",))
+    rec["precompute_records"] = precompute_checks(
+        flush, sorted({k for _, k in shapes.values()}))
+    rec["err"]["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
+
+    # (b) the pipeline each projection takes at decode and prefill rows
+    rec["dispatch"] = {f"M={m}": {
+        name: ops.resolve_dispatch(m, n, k // KG, KG, BITS)
+        for name, (n, k) in shapes.items()} for m in ROWS}
+    rec["shared_tables"] = {f"M={m}": {
+        name: layers.resolve_fusion(m, k, cfg.quant)
+        for name, k in (("qkv", cfg.d_model), ("gate+up", cfg.d_model))}
+        for m in ROWS}
+
+    # (c), (d): serve and parity at full width
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["param_bytes"] = quantized_bytes(params)
+    rec["layer_bytes"] = quantized_bytes(params["layers"])
+    rec["lm_head_bytes"] = quantized_bytes({"lm_head": params["lm_head"]})
+    eng, served = serve_and_parity("bitnet", cfg, params)
+    rec.update(served)
+    return cfg, eng, rec
+
+
+def bitnet_lines(cfg, eng, rec):
+    """Phase 8's record as text, one line a part."""
+    disp = rec["dispatch"]
+    decode_fused = all(v == "fused" for v in disp["M=4"].values())
+    prefill_staged = all(v == "staged" for v in disp["M=128"].values())
+    return [
+        f"bitnet: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{rec['scheme']}, per_row tables, lut_pallas, fusion auto): params "
+        f"made on the card in {rec['init_s']:.1f} s, "
+        f"{rec['param_bytes'] / 1e6:.1f} MB on the card, of which packed "
+        f"layers and norms {rec['layer_bytes'] / 1e6:.1f} MB, lm_head "
+        f"{rec['lm_head_bytes'] / 1e6:.1f} MB",
+        "bitnet: table_precompute and row_scale at its K, bit-equal to the "
+        "plain versions: " + "; ".join(
+            precompute_line(r) for r in rec["precompute_records"]),
+        "bitnet: kernels at its shapes, ternary weights, per_row, bit-exact "
+        "against the plain versions: " + "; ".join(
+            record_line(r) for r in rec["records"]),
+        f"bitnet: resolve_dispatch {json.dumps(disp)}; shared tables "
+        f"{json.dumps(rec['shared_tables'])}; decode "
+        + ("fused" if decode_fused else "NOT fused at every projection")
+        + ", prefill " + ("staged" if prefill_staged
+                          else "NOT staged at every projection"),
+    ] + serve_lines("bitnet", cfg, eng, rec)
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -1299,6 +1518,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
+    from repro_torch.launch.serve import scheme_name
     from repro_torch.models import api
 
     t_start = time.perf_counter()
@@ -1315,6 +1535,14 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] in (
             "--prefill-profile", "--float-profile", "--decode-profile"):
         return profile_only(card, sys.argv[1])
+    if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        cfg, eng, rec = bitnet(flush)
+        for line in bitnet_lines(cfg, eng, rec):
+            print(line, flush=True)
+        print(json.dumps({"bitnet": rec, "card": card}))
+        return 0
     mma_report = {lib: kernel_report(
         (_build.BUILD_DIR / f"{lib}.ptxas.txt").read_text())
         for lib, _, _ in MMA_CHECKS}
@@ -1367,68 +1595,14 @@ def main() -> int:
     t0 = time.perf_counter()
     params = api.init_params(gen, cfg, "cuda")
     torch.cuda.synchronize()
-    print(f"serve: tinyllama-1.1b W2 params made on the card in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state, kernels
-    reset_counts()
-    eng, reqs = serve(cfg, params, seed=2)
-    launches = read_counts()
-    st = eng.stats()
-    if not all(r.done and len(r.output) == 16 for r in reqs):
-        raise AssertionError("serve: not every request finished with 16 tokens")
-    if min(launches[n] for n in PER_ROW_PATH) <= 0:
-        raise AssertionError(f"serve: a kernel never ran: {launches}")
-    if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
-        raise AssertionError(f"serve: {st['host_syncs_per_token']} host syncs "
-                             f"per token > 1/{eng.decode_chunk}")
-    # one more decode chunk with torch's sync check armed: any call in the
-    # chunk that makes the host wait for the card raises here
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._decode_chunk(sampling=False)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    per_row = step_and_chunk(eng)
-    step, prefill = per_row["decode_step"], per_row["prefill_chunk"]
-    print(f"serve: {len(reqs)} requests, prompts "
-          f"{[len(r.prompt) for r in reqs]}, {st['decode_tokens']} tokens; "
-          f"decode {st['decode_tok_s']:.1f} tok/s, chunk p50 "
-          f"{st['p50_chunk_ms']:.1f} ms / p95 {st['p95_chunk_ms']:.1f} ms, "
-          f"host syncs/token {st['host_syncs_per_token']:.4f} (a decode chunk "
-          f"under torch's sync check: no hidden sync); launches "
-          f"{launches}", flush=True)
-
-    busy = ("device busy not measured (the profiler saw no device events)"
-            if step["busy_ms"] is None else
-            f"device busy {step['busy_ms']:.2f} ms (idle share "
-            f"{step['idle_share']:.3f}) in {step['kernels']:g} CUDA kernels; "
-            f"fused_lut_mpgemm {step['fused_ms']:.3f} ms in "
-            f"{step['fused_kernels']:g} kernels; device time by kernel: "
-            + ", ".join(f"{n} {t:.2f} ms" for n, t in step["top"]))
-    print(f"serve: one decode step (4 slots, 22 layers): wall "
-          f"{step['wall_ms']:.2f} ms, {busy}; launches {step['launches']}",
-          flush=True)
-    print("serve: one 128-token prefill chunk (22 layers): "
-          + prefill_line(prefill) + f"; launches {prefill['launches']}",
-          flush=True)
-
-    # phase 5: kernels vs plain LUT path through the whole model
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (1, 128)), device="cuda")
-    logits = {}
-    for mode in ("lut_pallas", "lut_xla"):
-        c = cfg.with_quant(mpgemm_mode=mode, table_quant="per_row")
-        logits[mode] = api.forward(params, {"tokens": toks}, c)[0]
-    a, b = logits["lut_pallas"], logits["lut_xla"]
-    if tuple(a.shape) != (1, 128, cfg.vocab_size) or not torch.isfinite(a).all():
-        raise AssertionError(f"parity: bad logits {tuple(a.shape)}")
-    diff = (a - b).abs().max().item()
-    print(f"parity: 128-token forward, lut_pallas vs lut_xla (per_row), max "
-          f"|logit diff| {diff} (tolerance 0: exact), max |logit| "
-          f"{a.abs().max().item():.4g}", flush=True)
-    if diff != 0.0:
-        raise AssertionError("parity: kernels and plain path disagree")
+    print(f"serve: {cfg.arch_id} {scheme_name(cfg.quant)} params made on "
+          f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    # phases 4 and 5: serve, then kernels vs plain LUT path through the
+    # whole model
+    eng, main_rec = serve_and_parity("serve", cfg, params)
+    for line in serve_lines("serve", cfg, eng, main_rec):
+        print(line, flush=True)
+    launches = main_rec["launches"]
 
     # phase 6: the block-paged pool with prefix sharing, at full width
     t0 = time.perf_counter()
@@ -1468,6 +1642,13 @@ def main() -> int:
           f"{float_launches}", flush=True)
     print("float: " + float_line(float_rec), flush=True)
 
+    # phase 8: the paper's own model, paper-bitnet-3b, at full width
+    t0 = time.perf_counter()
+    bcfg, beng, bitnet_rec = bitnet(flush)
+    for line in bitnet_lines(bcfg, beng, bitnet_rec):
+        print(line, flush=True)
+    print(f"bitnet: phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -1498,7 +1679,20 @@ def main() -> int:
     summary = []
     for name, (src, replaces) in sources.items():
         rs = [r for r in main_recs if r["kernel"] == name]
-        tot = lambda key: float(sum(r[key] for r in rs))
+        tot = lambda key, rs=rs: float(sum(r[key] for r in rs))
+        brs = [r for r in bitnet_rec["records"]
+               + bitnet_rec["precompute_records"]
+               if r["kernel"] == name and on_path(r)]
+        # phase 8's serve, its kernel times at paper-bitnet-3b's shapes
+        bit = {"launches": bitnet_rec["launches"][name]}
+        if brs:
+            bit.update(max_abs_err=bitnet_rec["err"][name], **{
+                out: float(sum(r[key] for r in brs)) for out, key in (
+                    ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                    ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
+                bound_by=max(("bytes", "operations"), key=lambda by: sum(
+                    r["bound_ms"] for r in brs if r["bound_by"] == by)),
+                shapes=[[r["m"], r["n"], r["k"]] for r in brs])
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": path_launches[name], "max_abs_err": err[name],
@@ -1510,20 +1704,19 @@ def main() -> int:
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
                 r["bound_ms"] for r in rs if r["bound_by"] == by)),
             "library_ms": tot("library_ms"),
-            "shapes": [[r["m"], r["n"], r["k"]] for r in rs]})
+            "shapes": [[r["m"], r["n"], r["k"]] for r in rs],
+            "bitnet": bit})
     with open(_build.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "records": records,
                    "precompute_records": pre_records,
                    "launch_floor_ms": floor_ms, "summary": summary,
-                   "serve": st, "decode_step": step,
-                   "prefill_chunk": prefill, "launches": launches,
+                   "serve": main_rec,
                    "dequant_op_launches": dq_launches, "paged": pst,
                    "paged_launches": paged_launches, "paged_check": paged_rec,
                    "float_serve": fst, "float_launches": float_launches,
-                   "float_tables": float_rec,
+                   "float_tables": float_rec, "bitnet": bitnet_rec,
                    "ptxas": ptxas, "mma_ptxas": mma_report,
                    "mma_instructions": mma,
-                   "parity_max_abs_diff": diff,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -55,6 +55,10 @@ class ArchConfig:
 
 _REGISTRY: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "paper-bitnet-3b": "repro_torch.configs.paper_bitnet_3b",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+    "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
 }
 
 

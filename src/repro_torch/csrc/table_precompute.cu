@@ -22,9 +22,9 @@
 // scale (warp shuffles, then shared memory), then builds and quantizes the
 // entries from the registers, storing a group's 8 codes as one 8-byte store
 // (32 bytes as two float4 for None). Other k_groups, activations off a
-// 16-byte boundary and rows of more than 4 groups a thread take a scalar
-// path with the same reduction (it reads a row twice when it computes the
-// scale; the second read hits the cache).
+// 16-byte boundary and rows of more than kMaxPer groups a thread take a
+// scalar path with the same reduction (it reads a row twice when it
+// computes the scale; the second read hits the cache).
 //
 // Numerics equal core/table.py bit for bit: a group's sum runs over k in
 // order, a max is exact in any order, the division is IEEE (no fast math).
@@ -38,9 +38,10 @@ namespace {
 
 constexpr int kRowThreads = 512;
 constexpr int kWarps = kRowThreads / 32;
-// K = 4 groups a thread on the vector path: 1 (K <= 2048) or up to 4
-// (K <= 8192, tinyllama's K = 5632 has 2.75)
-constexpr int kMaxPer = 4;
+// K = 4 groups a thread on the vector path: 1 (K <= 2048) or up to 8
+// (K <= 16384: tinyllama's K = 5632 has 2.75, paper-bitnet-3b's K = 8640
+// 4.2)
+constexpr int kMaxPer = 8;
 
 // max that keeps a NaN from either side, as torch.amax does
 __device__ __forceinline__ float max_nan(float a, float b) {

@@ -5,6 +5,10 @@ through the continuous-batching engine.
         --requests 8 --max-new 16 --mode lut_pallas --prefill-chunk 128 \\
         [--cache-block-size 16 --prefix-cache]
 
+``--arch`` is any of ``configs.registry.list_archs()``; each serves its
+own weight scheme (``paper-bitnet-3b``: ternary, ``--weight-bits`` refused;
+the others W2 symmetric unless ``--weight-bits`` says otherwise).
+
 Runs on the CUDA card; ``--device cpu`` runs every kernel's plain version
 on the CPU instead (the tests do this, at ``--reduced`` size). Without a
 card and without ``--device cpu`` it stops with an error.
@@ -22,6 +26,14 @@ from repro_torch.configs import registry
 from repro_torch.core.mpgemm import FUSION_MODES, MPGEMM_MODES
 from repro_torch.models import api
 from repro_torch.serving.engine import Request, ServingEngine
+
+
+def scheme_name(quant: dict) -> str:
+    """The weight scheme as text: "ternary", or the bits and the scheme
+    (e.g. "W2 symmetric")."""
+    if quant["scheme"] == "ternary":
+        return "ternary"
+    return f"W{quant['weight_bits']} {quant['scheme']}"
 
 
 def main(argv=None):
@@ -55,7 +67,9 @@ def main(argv=None):
                     help="hash-based shared-prefix block reuse (requires "
                          "--cache-block-size; identical prefixes prefill "
                          "once and fan out by block reference)")
-    ap.add_argument("--weight-bits", type=int, default=2)
+    ap.add_argument("--weight-bits", type=int, default=None,
+                    help="bits of a symmetric or asymmetric scheme (default: "
+                         "the arch's); the ternary scheme has no such choice")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -67,10 +81,14 @@ def main(argv=None):
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
     cfg = cfg.replace(activation_dtype=torch.float32)
-    cfg = cfg.with_quant(mpgemm_mode=args.mode, weight_bits=args.weight_bits,
-                         fusion=args.fusion)
+    if args.weight_bits is not None:
+        if cfg.quant["scheme"] == "ternary":
+            ap.error(f"--weight-bits: {args.arch} has ternary weights")
+        cfg = cfg.with_quant(weight_bits=args.weight_bits)
+    cfg = cfg.with_quant(mpgemm_mode=args.mode, fusion=args.fusion)
 
-    print(f"init + quantize ({args.mode}, W{args.weight_bits}) on {device} ...")
+    print(f"init + quantize ({args.mode}, {scheme_name(cfg.quant)}) on "
+          f"{device} ...")
     quantized = args.mode != "fp16"
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

@@ -29,7 +29,12 @@ def _is_qw(node) -> bool:
 def _tensor(a, device) -> Optional[torch.Tensor]:
     if a is None:
         return None
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch has no numpy
+        # bridge for it, so its bits travel as int16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def _qw(node, device, index=None) -> QuantizedWeight:

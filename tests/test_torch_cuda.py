@@ -451,8 +451,8 @@ def test_row_scale_is_bit_equal_at_the_serve_shapes(cuda, k, m):
                                   (3, 20000, 4)], ids=str)
 def test_precompute_edge_rows_and_unaligned_activations(cuda, case):
     """An all-zero row (the 1e-30 clamp) and a row whose groups tie, on the
-    vector path (one and two groups a thread) and on the scalar path
-    (k_group 1, 2 and 8, more than 4 groups a thread), from aligned
+    vector path (one, two and six groups a thread) and on the scalar path
+    (k_group 1, 2 and 8, more than 8 groups a thread), from aligned
     activations and from a pointer 4 bytes
     off a 16-byte boundary: every variant and the row scale bit-equal to
     the plain versions."""
@@ -565,3 +565,68 @@ def test_make_table_launches_the_kernel(cuda, tq):
     assert (got.scale is None) == (want.scale is None)
     if want.scale is not None:
         assert torch.equal(_bits(got.scale), _bits(want.scale))
+
+
+# paper-bitnet-3b's projections and head (N, K): wq/wk/wv/wo, gate/up, down,
+# lm_head. K = 8640 is 2160 K-groups: 67.5 of the fused kernel's K-steps of
+# 32 groups (padded to 68), 135 of the staged kernel's 16; N = 8640 is 67.5
+# tiles of 128 channels (padded to 68)
+BITNET_SHAPES = [(3200, 3200), (8640, 3200), (3200, 8640), (32000, 3200)]
+
+
+@pytest.mark.parametrize("nk", BITNET_SHAPES, ids=str)
+@pytest.mark.parametrize("m", (1, 4, 128))
+def test_ternary_int_paths_are_bit_exact_at_bitnet_shapes(cuda, m, nk):
+    """Ternary weights (BitNet b1.58 absmean, plane scales [1, 1], the
+    byte-table CW decode) on both int paths, per_row tables: the fused and
+    the staged kernel each equal their plain version and each other bit for
+    bit, and the op path (``ops.lut_mpgemm``, fusion auto) gives the same
+    bits with one launch of the kernel the fusion rule picks."""
+    n, k = nk
+    rng = np.random.default_rng(m * 5 + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    qw = quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+        np.float32)).to(cuda), 2, scheme="ternary")
+    assert tuple(float(s) for s in qw.plane_scales) == (1.0, 1.0)
+    pw = dict(k_group=4, planes=2, plane_scales=qw.plane_scales)
+    xp, rs, pkp, wsp = _fused_operands(x, qw, "per_row")
+    fused = fk.fused_lut_mpgemm(xp, rs, pkp, wsp, table_quant="per_row", **pw)
+    assert torch.equal(fused, fk.fused_lut_mpgemm_plain(
+        xp, rs, pkp, wsp, table_quant="per_row", **pw))
+    staged_ops = _staged_operands(x, qw, "per_row")
+    staged = lk.lut_mpgemm(*staged_ops, **pw)
+    assert torch.equal(staged, lk.lut_mpgemm_plain(*staged_ops, **pw))
+    assert torch.equal(fused[:m, :n], staged[:m, :n])
+    before = (fk.launches, lk.launches)
+    out = ops.lut_mpgemm(x, qw, table_quant="per_row")
+    fused_rule = ops.resolve_dispatch(m, n, k // 4, 4, 2) == "fused"
+    assert (fk.launches, lk.launches) == (before[0] + fused_rule,
+                                          before[1] + (not fused_rule))
+    assert torch.equal(out, fused[:m, :n])
+
+
+@pytest.mark.parametrize("variant", PRECOMPUTE, ids=str)
+@pytest.mark.parametrize("m", (1, 4, 128, 130))
+@pytest.mark.parametrize("k", (3200, 8640))
+def test_table_precompute_is_bit_equal_at_bitnet_k(cuda, k, m, variant):
+    """The precompute kernel at paper-bitnet-3b's K: 800 and 2160 groups
+    (the float4 path's <8> instance, 1.6 and 4.2 groups a thread), values and scales bit-equal to the plain version in every mode; one
+    launch a call."""
+    rng = np.random.default_rng(m * 17 + k)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    _precompute_equal(a, 4, *variant)
+
+
+@pytest.mark.parametrize("m", (1, 4, 128, 130))
+@pytest.mark.parametrize("k", (3200, 8640))
+def test_row_scale_is_bit_equal_at_bitnet_k(cuda, k, m):
+    """The row-scale entry at paper-bitnet-3b's K equals the closed form bit
+    for bit, in one launch on its own counter."""
+    rng = np.random.default_rng(m * 19 + k)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    before = (tk.launches, tk.row_scale_launches)
+    got = tk.row_scale(a, 4)
+    assert (tk.launches, tk.row_scale_launches) == (before[0], before[1] + 1)
+    assert torch.equal(_bits(got), _bits(ops._closed_form_row_scale(
+        a, k // 4, 4)))
+
