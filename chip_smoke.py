@@ -107,13 +107,37 @@ exit and no result line):
      layers, d_model 3200, MHA 32/32 of head_dim 100, d_ff 8640, vocab
      32000), ternary weights (BitNet b1.58 absmean), per_row tables,
      lut_pallas, fusion auto, random weights from seed 0 made on the card
-     layer by layer: (a) phase 3's checks and times of the per_row path
-     at its shapes ((N, K) = (3200, 3200), (8640, 3200), (3200, 8640),
-     (32000, 3200); ternary weights; K 8640 ends on a padded K-step), and
-     of ``table_precompute`` and ``row_scale`` at its K (3200, 8640); (b)
-     the fused/staged choice (``ops.resolve_dispatch``) of each projection
-     at M = 4 and 128, and of the shared tables; (c), (d) phases 4 and 5
-     on its model (``serve_and_parity``).
+     layer by layer: (a) phase 3's checks and times at its shapes ((N, K)
+     = (3200, 3200), (8640, 3200), (3200, 8640), (32000, 3200); ternary
+     weights; K 8640 ends on a padded K-step) in every table mode and of
+     ``dequant_mpgemm``: per_row bit-exact, the bf16 paths within
+     1e-5 · Σ_k |a_k · w_k| + 1e-6 of each output (the sum over the plain
+     version's operands: what reordering f32 sums can move at any output
+     magnitude; the largest ratio to it is printed beside a control's, the
+     plain product with each operand rounded once to bf16), and of
+     ``table_precompute`` and ``row_scale`` at its K (3200, 8640); (b) the fused/staged choice (``ops.resolve_dispatch``)
+     of each projection at M = 4 and 128, and of the shared tables; (c),
+     (d) phases 4 and 5 on its model (``serve_and_parity``).
+  9. decoding — the decoding modes on phase 4's model and prompts
+     (``decoding_phase``; 16 new tokens a request): (a) one lut_pallas
+     engine (dense, 4 slots) serves a beam:2 request and two greedy ones,
+     with the launch counts set to 0 just before and read just after
+     (every kernel of the per_row path must run), then one general decode
+     chunk under torch's sync check must launch exactly one fused kernel
+     and one row scale per projection a step; every output and every
+     hypothesis (tokens and scores) must equal the same pool served under
+     lut_xla, and a beam:1 request phase 4's greedy stream for its prompt;
+     (b) the beam request through the block-paged pool (block 16) with
+     prefix caching, twice: its hypotheses equal (a)'s, and after each
+     retirement only the prefix cache's blocks are in use, as many as
+     before the second admission; (c) self-speculation under lut_xla, spec
+     k 4: a one-plane draft's greedy streams equal phase 4's, and the
+     two-plane draft (every plane: the target) accepts >= 3 drafts a round
+     with 0 extra weight bytes; the largest |diff| between the verify
+     forward's position-0 logits and an s = 1 forward's is printed; (d)
+     under lut_pallas a spec request raises the kernels' NotImplementedError
+     (they refuse plane-sliced views, as the reference's do). Decode tok/s
+     and host syncs per token (<= 1/decode_chunk) of each leg.
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record; the last line
@@ -123,7 +147,17 @@ before that the kernels' JSON record; the last line
 
     python3 chip_smoke.py --bitnet            # phases 1, 2 and 8 only
 
-runs phase 8 alone (its record as one line of JSON), and
+runs phase 8 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --decoding          # phases 1, 2 and 9 only
+
+phase 9 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
+                                              # bf16 checks for 3 seeds
+
+the largest ratio to phase 8 (a)'s bound of each bf16 path and of its
+one-term control over three seeds (``bound_seeds``), and
 
     python3 chip_smoke.py --prefill-profile   # phases 1, 2 and the prefill
                                               # chunk's profile only
@@ -186,6 +220,9 @@ PRECOMPUTE_KERNELS = ("precompute_k4_kernel", "precompute_scalar_kernel")
 MARGIN = 0.15
 # phase 8: the paper's own model at full width
 BITNET = "paper-bitnet-3b"
+# phase 8 (a)'s bound on the bf16 paths: |kernel - plain| <= BOUND_REL ·
+# Σ_k |a_k · w_k| + 1e-6 at each output
+BOUND_REL = 1e-5
 
 
 def device_line() -> str:
@@ -308,13 +345,57 @@ def ternary_weight(gen, n, k):
                     k_group=KG, scheme="ternary")
 
 
+def lut_sums(tv, ts, packed, wscale, *, k_group, planes, plane_scales,
+             control=False):
+    """Per output of a LUT mpGEMM's plain version, from its table entries a
+    (codes times scales for per_group) and CW matrix w, times the weight
+    scale: Σ_k |a_k · w_k|, or with ``control`` the product with each entry
+    rounded once to bf16 (what a one-term bf16 kernel would give; the
+    bound must reject it)."""
+    from repro_torch.core.quantize import QuantizedWeight
+    from repro_torch.kernels import ref
+    e = 1 << (k_group - 1)
+    m, gp = tv.shape[0], tv.shape[1] // e
+    t = tv.to(torch.float32)
+    if ts is not None:
+        t = (t.view(m, gp, e) * ts.reshape(m, -1, 1)).view(m, gp * e)
+    qw = QuantizedWeight(packed, wscale, None, plane_scales, bits=planes,
+                         k_group=k_group, k_total=gp * k_group,
+                         n=packed.shape[0])
+    cw = ref.build_cw(qw, torch.float32)
+    if control:
+        return (t.to(torch.bfloat16).to(torch.float32) @ cw) * wscale
+    return (t.abs() @ cw.abs()) * wscale.abs()
+
+
+def dequant_sums(a, packed, wscale, *, k_group, planes, plane_scales,
+                 control=False):
+    """``lut_sums`` for ``dequant_mpgemm``'s plain version: the activations
+    against q', times the weight scale."""
+    from repro_torch.core.quantize import QuantizedWeight, plane_codes
+    gp = packed.shape[1] * 8 // (planes * k_group)
+    qw = QuantizedWeight(packed, wscale, None, plane_scales, bits=planes,
+                         k_group=k_group, k_total=gp * k_group,
+                         n=packed.shape[0])
+    q = plane_codes(qw).T
+    if control:
+        return (a.to(torch.bfloat16).to(torch.float32) @ q) * wscale
+    return (a.abs() @ q.abs()) * wscale.abs()
+
+
 def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
-                  paths=("dequant",) + MODES):
+                  paths=("dequant",) + MODES, scaled_bound=False, seed=0):
     """Phase 3 at ``shapes`` ((N, K) pairs) with weights from
     ``make_weight``, on ``paths``: ``dequant_mpgemm`` and the two LUT
     mpGEMMs in each table mode (phase 8: paper-bitnet-3b's shapes, ternary
-    weights, the per_row path its serve runs). Returns (per-shape records,
-    per-kernel max_abs_err)."""
+    weights). ``scaled_bound``: the bf16 tensor-core paths are held to
+    ``|kernel - plain| <= BOUND_REL · Σ_k |a_k · w_k| + 1e-6`` at every
+    output, the sum taken over the plain version's operands (``lut_sums``,
+    ``dequant_sums``): what reordering f32 sums can move, at any output
+    magnitude (phase 8), beside a control with one bf16 term per operand
+    (its ratio to the bound is recorded, not checked); otherwise to
+    rtol = atol = 1e-4 at every output and 1e-4 of the largest (phase 3). per_row is bit-exact either way.
+    Returns (per-shape records, per-kernel max_abs_err)."""
     from repro_torch.core.quantize import dequantize
     from repro_torch.kernels import dequant_mpgemm as dk
     from repro_torch.kernels import fused_lut_mpgemm as fk
@@ -324,16 +405,28 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
     from repro_torch.core import table as T
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     e = 1 << (KG - 1)
     records, err = [], {"table_precompute": 0.0, "lut_mpgemm": 0.0,
                         "fused_lut_mpgemm": 0.0, "dequant_mpgemm": 0.0}
 
-    def compare(name, got, want, tq, what, f32_sums=False):
+    def compare(name, got, want, tq, what, f32_sums=False, sums=None):
         """Checks one output; returns its max error relative to the
-        largest output. ``f32_sums``: a bf16 tensor-core path, also held to
-        rtol = atol = 1e-4 at every output."""
-        if f32_sums and not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        largest output, and with ``scaled_bound`` the largest
+        |diff| / (BOUND_REL · sums() + 1e-6) (<= 1 holds) and the
+        control's (``sums(control=True)``). ``f32_sums``: a bf16
+        tensor-core path (bound in the docstring above)."""
+        ratio = None
+        if f32_sums and scaled_bound:
+            tol = BOUND_REL * sums() + 1e-6
+            ratio = ((got - want).abs() / tol).max().item()
+            control = ((sums(control=True) - want).abs() / tol).max().item()
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"{name} {what}: |diff| exceeds {BOUND_REL} · Σ|a·w| + "
+                    f"1e-6 at some output (max ratio {ratio:.3g})")
+        elif f32_sums and not torch.allclose(got, want, rtol=1e-4,
+                                             atol=1e-4):
             raise AssertionError(f"{name} {what}: not within rtol = atol = "
                                  f"1e-4 of each output")
         got, want = got.to(torch.float64), want.to(torch.float64)
@@ -345,9 +438,11 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
             raise AssertionError(f"{name} {what}: per_row must be bit-exact, "
                                  f"max |diff| {diff}")
         rel = diff / max(want.abs().max().item(), 1e-30)
-        if rel > 1e-4:
+        if not scaled_bound and rel > 1e-4:
             raise AssertionError(f"{name} {what}: rel err {rel:.3g} > 1e-4")
-        return rel
+        return {"max_rel_err": rel} if ratio is None else {
+            "max_rel_err": rel, "bound_ratio": ratio,
+            "control_ratio": control}
 
     def same_bits(name, kern, got, what):
         if not torch.equal(kern(), got):
@@ -373,7 +468,9 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                 kern = lambda: dk.dequant_mpgemm(xd, pkd, wsd, **pw)
                 got, want = kern(), dk.dequant_mpgemm_plain(xd, pkd, wsd, **pw)
                 rel = compare("dequant_mpgemm", got, want, None,
-                              f"M={m} N={n} K={k}", f32_sums=True)
+                              f"M={m} N={n} K={k}", f32_sums=True,
+                              sums=lambda **c: dequant_sums(
+                                  xd, pkd, wsd, **pw, **c))
                 same_bits("dequant_mpgemm", kern, got, f"M={m} N={n} K={k}")
                 nbytes = qw.packed.numel() + 4 * n + 4 * m * k + 4 * m * n
                 b_ms, b_by = bound(nbytes, {"bf16": dk.PASSES * 2 * m * n * k})
@@ -387,7 +484,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                     "library_ms": time_ms(library_mm, 10, flush),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "bound_f32_ms": bound(nbytes, {"f32": 2 * m * n * k})[0],
-                    "max_rel_err": rel, "elementwise": True, "bit_equal": True,
+                    **rel, "elementwise": True, "bit_equal": True,
                     **dequant_plan(m, pkd.shape[0], xd.shape[1] // KG)})
             for tq in (p for p in paths if p != "dequant"):
                 what = f"M={m} N={n} K={k} table_quant={tq}"
@@ -411,7 +508,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                 got = staged_call()
                 rels = {"lut_mpgemm": compare(
                     "lut_mpgemm", got, lk.lut_mpgemm_plain(*staged, **pw), tq,
-                    what, f32)}
+                    what, f32, lambda **c: lut_sums(*staged, **pw, **c))}
                 if f32:
                     same_bits("lut_mpgemm", staged_call, got, what)
                 # fused
@@ -421,7 +518,9 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                 rels["fused_lut_mpgemm"] = compare(
                     "fused_lut_mpgemm", got,
                     fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp, **fw), tq,
-                    what, f32)
+                    what, f32, lambda **c: lut_sums(
+                        *tk.table_precompute_plain(xp, KG, tq, rs), pkp, wsp,
+                        **pw, **c))
                 if f32:
                     same_bits("fused_lut_mpgemm", fused_call, got, what)
                 # times and bounds: every mode of the two LUT mpGEMMs (the
@@ -466,7 +565,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                     if f32:
                         records[-1].update(
                             bound_f32_ms=bound(nbytes, f32_ops)[0],
-                            max_rel_err=rels[name], elementwise=True,
+                            **rels[name], elementwise=True,
                             bit_equal=True, **f32_plan(
                                 name, m, pkp.shape[0] if name ==
                                 "fused_lut_mpgemm" else staged[2].shape[0],
@@ -730,8 +829,12 @@ def record_line(r):
         f" [tile {r['tile'][0]}x{r['tile'][1]}, {step}, S={r['splits']}, "
         f"{r['blocks']} blocks, {r['smem_bytes']} B smem, "
         f"{r['kernels_per_call']} kernel(s) per call"
-        + (f"; max rel err {r['max_rel_err']:.3g}, each output within "
-           f"1e-4, two calls bit-equal" if "max_rel_err" in r else "")
+        + ("" if "max_rel_err" not in r else
+           f"; max rel err {r['max_rel_err']:.3g}, " + (
+               f"each output within {BOUND_REL} · Σ|a·w| + 1e-6 (max ratio "
+               f"{r['bound_ratio']:.3g}; one bf16 term: "
+               f"{r['control_ratio']:.3g})" if "bound_ratio" in r else
+               "each output within 1e-4") + ", two calls bit-equal")
         + "]")
 
 
@@ -794,15 +897,23 @@ def read_counts():
     return out
 
 
+# phase 4's engine: 4 slots, max_seq 256, decode chunk 8, prefill chunk 128
+SERVE_KW = dict(max_batch=4, max_seq=256, decode_chunk=8, prefill_chunk=128)
+
+
+def serve_prompts(vocab, seed):
+    """Phase 4's four prompts of 130-200 tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(130, 201)))
+            for _ in range(4)]
+
+
 def serve(cfg, params, seed):
     """Phase 4: 4 requests through the engine; returns (engine, requests)."""
     from repro_torch.serving.engine import Request, ServingEngine
-    eng = ServingEngine(cfg, params, max_batch=4, max_seq=256,
-                        decode_chunk=8, prefill_chunk=128)
-    rng = np.random.default_rng(seed)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               int(rng.integers(130, 201))),
-                    max_new_tokens=16) for i in range(4)]
+    eng = ServingEngine(cfg, params, **SERVE_KW)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(serve_prompts(cfg.vocab_size, seed))]
     for r in reqs:
         eng.submit(r)
     eng.run_to_completion()
@@ -1293,8 +1404,8 @@ def serve_and_parity(tag, cfg, params):
         raise AssertionError(f"{tag}: a decode chunk launched "
                              f"{chunk_launches}, not {want}")
     rec = dict(prompts=[len(r.prompt) for r in reqs], serve=st,
-               launches=launches, decode_chunk_launches=chunk_launches,
-               **step_and_chunk(eng))
+               outputs=[r.output for r in reqs], launches=launches,
+               decode_chunk_launches=chunk_launches, **step_and_chunk(eng))
 
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (1, 128)), device="cuda")
@@ -1345,8 +1456,12 @@ def bitnet(flush):
     """Phase 8: full-width paper-bitnet-3b (ternary, per_row INT8 tables,
     lut_pallas, fusion auto), random weights from seed 0 made on the card
     layer by layer. (a) phase 3's checks at its shapes: ``check_kernels``
-    on the per_row path at the (N, K) of its projections and head with
-    ternary weights, ``precompute_checks`` at its K; (b)
+    in every table mode and on ``dequant_mpgemm`` at the (N, K) of its
+    projections and head with ternary weights (per_row bit-exact, the bf16
+    paths within BOUND_REL · Σ|a·w| + 1e-6 of each output: ternary outputs
+    are ~100x phase 3's, beyond a fixed atol), ``precompute_checks`` at its
+    K;
+    (b)
     ``resolve_dispatch`` for each projection at M = 4 and 128, and the
     shared tables' choice (``layers.resolve_fusion``); (c) and (d)
     ``serve_and_parity``. Returns (config, engine, record)."""
@@ -1358,7 +1473,8 @@ def bitnet(flush):
     shapes = projection_shapes(cfg)
     rec = {"arch": BITNET, "scheme": scheme_name(cfg.quant)}
     rec["records"], rec["err"] = check_kernels(
-        flush, sorted(set(shapes.values())), ternary_weight, ("per_row",))
+        flush, sorted(set(shapes.values())), ternary_weight,
+        scaled_bound=True)
     rec["precompute_records"] = precompute_checks(
         flush, sorted({k for _, k in shapes.values()}))
     rec["err"]["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
@@ -1387,6 +1503,31 @@ def bitnet(flush):
     return cfg, eng, rec
 
 
+def bound_seeds(card) -> int:
+    """``--bound-seeds``: phase 8 (a)'s checks of the bf16 paths at
+    paper-bitnet-3b's shapes, ternary weights, for seeds 0, 1 and 2: the
+    largest ratio of |kernel - plain| to the bound, and of the one-term
+    bf16 control, per kernel and table mode and over every shape and M.
+    One line of JSON."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    shapes = sorted(set(projection_shapes(bitnet_config()).values()))
+    out = {}
+    for seed in (0, 1, 2):
+        records, _ = check_kernels(flush, shapes, ternary_weight,
+                                   paths=("dequant", None, "per_group"),
+                                   scaled_bound=True, seed=seed)
+        for r in records:
+            if "bound_ratio" in r:
+                got = out.setdefault(f"seed {seed}", {}).setdefault(
+                    f"{r['kernel']} {r['table_quant']}", [0.0, 0.0])
+                got[0] = max(got[0], r["bound_ratio"])
+                got[1] = max(got[1], r["control_ratio"])
+    print("bound seeds: largest (kernel, one bf16 term) ratio to "
+          f"{BOUND_REL} · Σ|a·w| + 1e-6: {json.dumps(out)}", flush=True)
+    print(json.dumps({"bound_seeds": out, "card": card}))
+    return 0
+
+
 def bitnet_lines(cfg, eng, rec):
     """Phase 8's record as text, one line a part."""
     disp = rec["dispatch"]
@@ -1404,8 +1545,9 @@ def bitnet_lines(cfg, eng, rec):
         "bitnet: table_precompute and row_scale at its K, bit-equal to the "
         "plain versions: " + "; ".join(
             precompute_line(r) for r in rec["precompute_records"]),
-        "bitnet: kernels at its shapes, ternary weights, per_row, bit-exact "
-        "against the plain versions: " + "; ".join(
+        "bitnet: kernels at its shapes, ternary weights, against the plain "
+        "versions (per_row bit-exact; None, per_group and dequant_mpgemm "
+        f"within {BOUND_REL} · Σ|a·w| + 1e-6 of each output): " + "; ".join(
             record_line(r) for r in rec["records"]),
         f"bitnet: resolve_dispatch {json.dumps(disp)}; shared tables "
         f"{json.dumps(rec['shared_tables'])}; decode "
@@ -1413,6 +1555,176 @@ def bitnet_lines(cfg, eng, rec):
         + ", prefill " + ("staged" if prefill_staged
                           else "NOT staged at every projection"),
     ] + serve_lines("bitnet", cfg, eng, rec)
+
+
+def decoding_phase(cfg, params, greedy=None):
+    """Phase 9 (module docstring) on phase 4's model and prompts;
+    ``greedy``: phase 4's greedy lut_pallas streams (served here when not
+    given). Returns the record."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    t_start = time.perf_counter()
+    xla = cfg.with_quant(mpgemm_mode="lut_xla", table_quant="per_row")
+    prompts = serve_prompts(cfg.vocab_size, seed=2)
+    if greedy is None:
+        greedy = [r.output for r in serve(cfg, params, seed=2)[1]]
+    rec, legs = {}, {}
+
+    def run(tag, c, pool, eng=None, **engine_kw):
+        """Serves ``pool`` ((prompt index, decoding) pairs, 16 new tokens
+        each) on a new engine (or ``eng``); records the leg's decode tok/s
+        and host syncs per token, which must be <= 1/decode_chunk."""
+        eng = eng or ServingEngine(c, params, **SERVE_KW, **engine_kw)
+        reqs = [Request(uid=i, prompt=prompts[p], max_new_tokens=16,
+                        decoding=d) for i, (p, d) in enumerate(pool)]
+        syncs, toks, chunks = (eng.decode_syncs, eng.decode_tokens,
+                               len(eng._chunk_s))
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        n_tok = eng.decode_tokens - toks
+        per_tok = (eng.decode_syncs - syncs) / max(1, n_tok)
+        legs[tag] = {"decode_tok_s": n_tok / sum(eng._chunk_s[chunks:]),
+                     "host_syncs_per_token": per_tok,
+                     "seconds": time.perf_counter() - t0}
+        if not all(r.done for r in reqs) or per_tok > 1 / eng.decode_chunk:
+            raise AssertionError(f"decoding {tag}: {legs[tag]}, done "
+                                 f"{[r.done for r in reqs]}")
+        return eng, reqs
+
+    def hyps(req):
+        return [(list(t), sc) for t, sc in req.beams]
+
+    # (a) beam and greedy in one pool, through the kernels vs lut_xla
+    pool = [(0, "beam:2"), (1, "greedy"), (2, "greedy")]
+    reset_counts()
+    eng_a, reqs_a = run("a_lut_pallas", cfg, pool)
+    rec["launches"] = read_counts()
+    if min(rec["launches"][n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"decoding (a): a kernel never ran: "
+                             f"{rec['launches']}")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng_a._decode_general(has_beam=True, has_spec=False, sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk = read_counts()
+    per_step = (len(projection_shapes(cfg)) - 1) * cfg.n_layers + 1
+    want = dict({n: 0 for n in chunk},
+                fused_lut_mpgemm=per_step * eng_a.decode_chunk,
+                row_scale=per_step * eng_a.decode_chunk)
+    if chunk != want:
+        raise AssertionError(f"decoding (a): a beam decode chunk launched "
+                             f"{chunk}, not {want}")
+    rec["beam_chunk_launches"] = chunk
+    _, reqs_x = run("a_lut_xla", xla, pool)
+    if ([r.output for r in reqs_a] != [r.output for r in reqs_x]
+            or hyps(reqs_a[0]) != hyps(reqs_x[0])):
+        raise AssertionError("decoding (a): lut_pallas and lut_xla serve the "
+                             "mixed pool differently")
+    if len(reqs_a[0].beams) != 2:
+        raise AssertionError(f"decoding (a): {len(reqs_a[0].beams)} beams")
+    rec["beams"] = hyps(reqs_a[0])
+    _, (beam1,) = run("a_beam1", cfg, [(0, "beam:1")])
+    if beam1.output != greedy[0]:
+        raise AssertionError("decoding (a): beam:1 differs from greedy")
+
+    # (b) the beam request through the paged pool with prefix caching
+    eng_b = ServingEngine(cfg, params, **SERVE_KW, cache_block_size=16,
+                          prefix_cache=True)
+    rec["paged_blocks"] = []
+    for rep in range(2):
+        before = eng_b.stats()["blocks_in_use"]
+        _, (req,) = run(f"b_paged_{rep}", cfg, [(0, "beam:2")], eng=eng_b)
+        st = eng_b.stats()
+        rec["paged_blocks"].append((before, st["blocks_in_use"],
+                                    st["prefix_cache"]["entries"]))
+        if hyps(req) != rec["beams"]:
+            raise AssertionError("decoding (b): paged beams differ from (a)")
+        if (st["blocks_in_use"] != st["prefix_cache"]["entries"]
+                or (rep and st["blocks_in_use"] != before)):
+            raise AssertionError(f"decoding (b): blocks in use "
+                                 f"{rec['paged_blocks']}")
+    rec["paged_reused"] = eng_b.stats()["prefill_tokens_reused"]
+
+    # (c) self-speculation under lut_xla. First, position 0 of the verify
+    # forward against an s = 1 forward on the same caches (each slot at its
+    # prompt's end)
+    eng = ServingEngine(xla, params, **SERVE_KW)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    eng._admit()
+    drafts = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 4)), device=eng.device)
+    one = eng._forward(params, eng.last_tok[:, None], eng.pos)[:, 0]
+    burst = eng._forward(params, torch.cat([eng.last_tok[:, None], drafts],
+                                           dim=1), eng.pos)
+    rec["verify_pos0_max_abs_diff"] = (one - burst[:, 0]).abs().max().item()
+    rec["spec"] = {}
+    for planes in (1, 2):
+        eng_c, reqs_c = run(f"c_spec_draft{planes}b", xla,
+                            [(i, f"spec:draft{planes}b") for i in range(4)],
+                            spec_k=4, spec_draft_planes=planes)
+        sp = eng_c.stats()["spec"]
+        rec["spec"][planes] = sp
+        if [r.output for r in reqs_c] != greedy:
+            raise AssertionError(
+                f"decoding (c): greedy spec with a {planes}-plane draft "
+                f"differs from phase 4's greedy streams (verify position 0 "
+                f"vs s = 1: max |logit diff| "
+                f"{rec['verify_pos0_max_abs_diff']})")
+        if sp["draft_extra_hbm_bytes"] != 0 or (
+                planes == 2 and sp["mean_accepted_per_step"] < 3.0):
+            raise AssertionError(f"decoding (c): spec stats {sp}")
+
+    # (d) no fallback: the kernels refuse the plane-sliced draft
+    eng_d = ServingEngine(cfg, params, **SERVE_KW, spec_k=4,
+                          spec_draft_planes=1)
+    eng_d.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=4,
+                         decoding="spec:draft1b"))
+    try:
+        eng_d.run_to_completion()
+    except NotImplementedError as e:
+        rec["lut_pallas_spec_raises"] = str(e)
+    else:
+        raise AssertionError("decoding (d): spec under lut_pallas ran")
+    torch.cuda.synchronize()
+    rec["legs"] = legs
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def decoding_lines(rec):
+    """Phase 9's record as text, one line a part."""
+    legs = "; ".join(f"{k} {v['decode_tok_s']:.1f} tok/s, host syncs/token "
+                     f"{v['host_syncs_per_token']:.4f}, {v['seconds']:.1f} s"
+                     for k, v in rec["legs"].items())
+    spec = "; ".join(
+        f"{p}-plane draft: {sp['verify_steps']} verify rounds, "
+        f"{sp['accepted_draft_tokens']} drafts accepted, "
+        f"{sp['mean_accepted_per_step']:.3f} accepted and "
+        f"{sp['mean_emitted_per_step']:.3f} emitted a round, "
+        f"{sp['draft_extra_hbm_bytes']} extra weight bytes"
+        for p, sp in rec["spec"].items())
+    return [
+        f"decoding: (a) beam:2 + 2 greedy under lut_pallas equal lut_xla "
+        f"(outputs, hypotheses, scores), beam:1 equals phase 4's greedy "
+        f"stream; launches {rec['launches']}; a beam decode chunk under "
+        f"torch's sync check: no hidden sync, launches "
+        f"{rec['beam_chunk_launches']}; hypotheses (tokens, score) "
+        f"{rec['beams']}",
+        f"decoding: (b) paged (block 16, prefix cache) beams equal (a)'s; "
+        f"(blocks in use before, after, prefix entries) per run "
+        f"{rec['paged_blocks']}, {rec['paged_reused']} prompt tokens reused",
+        f"decoding: (c) greedy spec under lut_xla, k 4, equals phase 4's "
+        f"greedy streams: {spec}; verify position 0 vs an s = 1 forward, max "
+        f"|logit diff| {rec['verify_pos0_max_abs_diff']}",
+        f"decoding: (d) spec under lut_pallas raises NotImplementedError: "
+        f"{rec['lut_pallas_spec_raises']}",
+        f"decoding: legs: {legs}; phase 9 in {rec['seconds']:.1f} s"]
 
 
 def main_config():
@@ -1535,6 +1847,18 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] in (
             "--prefill-profile", "--float-profile", "--decode-profile"):
         return profile_only(card, sys.argv[1])
+    if len(sys.argv) > 1 and sys.argv[1] == "--decoding":
+        cfg = main_config()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = api.init_params(gen, cfg, "cuda")
+        rec = decoding_phase(cfg, params)
+        for line in decoding_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"decoding": rec, "card": card}))
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--bound-seeds":
+        return bound_seeds(card)
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -1649,6 +1973,11 @@ def main() -> int:
         print(line, flush=True)
     print(f"bitnet: phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 9: decoding modes on phase 4's model and prompts
+    decoding_rec = decoding_phase(cfg, params, main_rec["outputs"])
+    for line in decoding_lines(decoding_rec):
+        print(line, flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -1699,6 +2028,7 @@ def main() -> int:
             "serve_launches": launches[name],
             "paged_launches": paged_launches[name],
             "float_launches": float_launches[name],
+            "decoding_launches": decoding_rec["launches"][name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
@@ -1715,6 +2045,7 @@ def main() -> int:
                    "paged_launches": paged_launches, "paged_check": paged_rec,
                    "float_serve": fst, "float_launches": float_launches,
                    "float_tables": float_rec, "bitnet": bitnet_rec,
+                   "decoding": decoding_rec,
                    "ptxas": ptxas, "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -3,7 +3,14 @@ through the continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --requests 8 --max-new 16 --mode lut_pallas --prefill-chunk 128 \\
-        [--cache-block-size 16 --prefix-cache]
+        [--cache-block-size 16 --prefix-cache] [--decoding beam:2]
+
+``--decoding`` is every request's mode: ``greedy``, ``sample``, ``beam:W``
+(W pool slots a request) or ``spec:draftNb`` (self-speculation drafting
+with the top N bit-planes of the same packed weights, ``--spec-k`` tokens a
+round). The kernels refuse plane-sliced views, so ``spec`` runs under
+``--mode lut_xla`` (``lut_pallas`` raises NotImplementedError at the first
+draft) and is refused under ``fp16``.
 
 ``--arch`` is any of ``configs.registry.list_archs()``; each serves its
 own weight scheme (``paper-bitnet-3b``: ternary, ``--weight-bits`` refused;
@@ -25,6 +32,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.mpgemm import FUSION_MODES, MPGEMM_MODES
 from repro_torch.models import api
+from repro_torch.serving import decoding
 from repro_torch.serving.engine import Request, ServingEngine
 
 
@@ -53,6 +61,14 @@ def main(argv=None):
                     help="per-request sampling temperature (<=0 greedy)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop a slot when it samples this token id")
+    ap.add_argument("--decoding", default="greedy",
+                    help="per-request decoding mode: greedy | sample | "
+                         "beam:W (width-W beam search, W pool slots per "
+                         "request) | spec:draftNb (bit-plane self-"
+                         "speculation drafting with the top N planes of "
+                         "the same packed weights)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens per speculative verify round")
     ap.add_argument("--mode", default="lut_xla", choices=list(MPGEMM_MODES))
     ap.add_argument("--fusion", default="auto", choices=list(FUSION_MODES),
                     help="lut_pallas precompute placement: fused keeps the "
@@ -75,6 +91,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.prefix_cache and args.cache_block_size is None:
         ap.error("--prefix-cache requires --cache-block-size")
+    try:
+        dm = decoding.parse(args.decoding)
+    except ValueError as e:
+        ap.error(str(e))
+    spec_draft_planes = dm.draft_planes if dm.kind == decoding.SPEC else None
+    if spec_draft_planes is not None and args.mode == "fp16":
+        ap.error("--decoding spec needs a quantized mode: the draft is a "
+                 "bit-plane slice of the packed weights")
 
     device = api.resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,13 +125,15 @@ def main(argv=None):
                         prefill_chunk=args.prefill_chunk, eos_id=args.eos_id,
                         cache_block_size=args.cache_block_size,
                         num_cache_blocks=args.num_cache_blocks,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+                        spec_draft_planes=spec_draft_planes)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 24))
         eng.submit(Request(
             uid=i, prompt=rng.integers(0, cfg.vocab_size, plen),
-            max_new_tokens=args.max_new, temperature=args.temperature))
+            max_new_tokens=args.max_new, temperature=args.temperature,
+            decoding=args.decoding))
     t0 = time.time()
     chunks = eng.run_to_completion()
     dt = time.time() - t0
@@ -125,6 +151,16 @@ def main(argv=None):
               f"{st['admit_blocked']} of {st['admit_attempts']} admissions "
               f"blocked, {st['prefill_tokens_reused']} prompt tokens reused, "
               f"prefix cache {st.get('prefix_cache')}")
+    if "spec" in st:
+        sp = st["spec"]
+        print(f"spec: {sp['draft_planes']}-plane draft, k={sp['spec_k']}, "
+              f"{sp['verify_steps']} verify rounds, "
+              f"{sp['accepted_draft_tokens']} drafts accepted, "
+              f"{sp['mean_emitted_per_step']:.2f} tokens a round, "
+              f"{sp['draft_extra_hbm_bytes']} extra weight bytes")
+    if dm.kind == decoding.BEAM:
+        print(f"beam: width {dm.beam_width}, length alpha "
+              f"{eng.beam_length_alpha}")
     return 0
 
 

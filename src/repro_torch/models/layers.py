@@ -143,11 +143,24 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
     """q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd].
 
     Online softmax over KV chunks in f32; never builds the [Sq, Skv] score
-    matrix. GQA by head grouping. ``kv_valid_len`` ([B] or scalar) masks
-    cache positions at or beyond each row's valid length; masked scores
-    get exactly zero weight.
+    matrix. GQA by head grouping. ``kv_valid_len`` masks cache positions at
+    or beyond a valid length: an int, [B] (one per row), or [B, Sq] (one per
+    query: per-slot decode and the speculative burst, where query j reads
+    the positions up to its own write). Masked scores get exactly zero
+    weight.
+
+    With per-query valid lengths and Sq > 1 each query runs alone, as a
+    decode step's single query does: the batched GEMMs' kernels, and so
+    their summation order, change with the number of queries, so query j of
+    a speculative verify burst gets the bits of an s = 1 step at its
+    position.
     """
     b, sq, h, hd = q.shape
+    if torch.is_tensor(kv_valid_len) and kv_valid_len.dim() == 2 and sq > 1:
+        return torch.cat([chunked_attention(
+            q[:, j:j + 1].contiguous(), k, v, q_offset=q_offset + j,
+            causal=causal, kv_valid_len=kv_valid_len[:, j], chunk=chunk)
+            for j in range(sq)], dim=1)
     skv, kv = k.shape[1], k.shape[2]
     rep = h // kv
     scale = hd ** -0.5
@@ -156,7 +169,7 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
     neg = torch.finfo(torch.float32).min
-    vl = kv_valid_len  # an int, or a [B] tensor -> [B, 1]
+    vl = kv_valid_len  # an int, or a [B] / [B, 1] tensor -> [B, 1]
     if torch.is_tensor(vl):
         vl = vl.reshape(-1, 1)
     m = torch.full((b, sq, kv, rep), neg, dtype=torch.float32, device=dev)
@@ -193,18 +206,22 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                     window: Optional[int] = None):
     """Returns (out, kv_cache); the cache is updated in place.
 
-    * ``cache_pos`` a [B] tensor (per-slot decode, s == 1): each slot writes
-      its token at its own position and attends to its valid prefix;
+    * ``cache_pos`` a [B] tensor (per-slot decode): slot b writes its s
+      tokens at positions cache_pos[b] .. cache_pos[b] + s - 1 and query j
+      attends to the positions up to its own (s > 1 is the speculative
+      verify burst). A burst's writes past the cache are dropped, as the
+      reference drops them; an s = 1 write must lie inside the cache (the
+      engine keeps it there);
     * ``cache_pos`` an int with a cache (a prefill chunk at that offset):
       writes the chunk at the offset and attends causally over the cache;
     * no cache: causal attention over the sequence itself.
 
     With ``page_table`` ([B, nb] int64) the cache leaves are pool-shaped
     [num_blocks, block_size, KV, hd]: the fresh k/v scatter through the
-    table, the slot's blocks gather into a [B, nb*bs] view, and the same
-    ``chunked_attention`` call as the dense branch runs on it (bit-exact
-    with dense when nb*bs == max_seq; see ``kvcache``). Sliding-window
-    attention is not ported.
+    table (positions past its reach go to the null block), the slot's
+    blocks gather into a [B, nb*bs] view, and the same ``chunked_attention``
+    call as the dense branch runs on it (bit-exact with dense when nb*bs ==
+    max_seq; see ``kvcache``). Sliding-window attention is not ported.
     """
     if window is not None:
         raise NotImplementedError(
@@ -223,22 +240,18 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if per_slot and s != 1:
-        raise NotImplementedError("per-slot decode writes one token per "
-                                  "slot (speculative bursts not ported)")
     if kv_cache is None:
         out = chunked_attention(q, k, v, q_offset=cache_pos, causal=True,
                                 chunk=cfg.attn_chunk)
     elif page_table is not None:
-        base = (cache_pos if per_slot else torch.full(
-            (b,), cache_pos, dtype=torch.int64, device=x.device))
-        pos2d = base[:, None] + steps[None, :]
+        pos2d = positions if per_slot else torch.full(
+            (b, 1), cache_pos, dtype=torch.int64, device=x.device) + steps
         for leaf, vals in zip(kv_cache, (k, v)):
             kvcache.paged_scatter(leaf, vals, page_table, pos2d)
         kg, vg = (kvcache.paged_gather(leaf, page_table) for leaf in kv_cache)
         if per_slot:
             out = chunked_attention(q, kg.to(q.dtype), vg.to(q.dtype),
-                                    causal=False, kv_valid_len=cache_pos + 1,
+                                    causal=False, kv_valid_len=pos2d + 1,
                                     chunk=cfg.attn_chunk)
         else:
             out = chunked_attention(q, kg, vg, q_offset=cache_pos,
@@ -246,11 +259,20 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                                     chunk=cfg.attn_chunk)
     elif per_slot:
         ck, cv = kv_cache
-        bi = torch.arange(b, device=x.device)
-        ck[bi, cache_pos] = k[:, 0].to(ck.dtype)
-        cv[bi, cache_pos] = v[:, 0].to(cv.dtype)
+        wpos = positions
+        if s > 1:
+            # an entry past the cache repeats the slot's last in-range entry
+            # (its position and its value), so it writes nothing new: the
+            # write is dropped without touching a live position
+            jj = torch.minimum(steps, ck.shape[1] - 1 - cache_pos[:, None])
+            wpos = cache_pos[:, None] + jj
+            idx = jj[:, :, None, None].expand_as(k)
+            k, v = k.gather(1, idx), v.gather(1, idx)
+        bi = torch.arange(b, device=x.device)[:, None]
+        ck[bi, wpos] = k.to(ck.dtype)
+        cv[bi, wpos] = v.to(cv.dtype)
         out = chunked_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                causal=False, kv_valid_len=cache_pos + 1,
+                                causal=False, kv_valid_len=positions + 1,
                                 chunk=cfg.attn_chunk)
     else:
         ck, cv = kv_cache

@@ -4,7 +4,8 @@ Every quantizable projection ``{"w": [in, out]}`` becomes
 ``{"qw": QuantizedWeight}`` (bias kept). The layer stack is a list of
 per-layer dicts, walked like any other node. Never quantized: the
 embedding, norms. ``quant["skip"]`` is a path regex of projections that
-stay float.
+stay float. ``plane_sliced_params`` reads a packed tree at fewer
+bit-planes (the self-speculative draft).
 """
 
 from __future__ import annotations
@@ -68,6 +69,34 @@ def _tensors(params):
                                 params.zero_prime) if t is not None)
     elif torch.is_tensor(params):
         yield params
+
+
+def plane_sliced_params(params, keep_planes: int):
+    """Plane-sliced view of a packed param tree (§3.1.2): every
+    ``QuantizedWeight`` becomes its top-``keep_planes`` view
+    (``QuantizedWeight.plane_slice``), the same buffers read at fewer
+    planes, so the tree is a coarser draft model at no extra weight bytes
+    (self-speculative decoding's draft). Float leaves (norms, embedding,
+    skipped projections) are shared as they are, so draft and target read
+    one embedding and one float LM head."""
+    if isinstance(params, dict):
+        return {k: plane_sliced_params(v, keep_planes)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [plane_sliced_params(v, keep_planes) for v in params]
+    if isinstance(params, Q.QuantizedWeight):
+        return params.plane_slice(keep_planes)
+    return params
+
+
+def extra_hbm_bytes(view_params, base_params) -> int:
+    """Bytes of ``view_params`` whose storage ``base_params`` does not hold
+    (by storage identity): 0 when the view is zero-copy."""
+    def key(t):
+        return t.device, t.untyped_storage().data_ptr()
+    base = {key(t) for t in _tensors(base_params)}
+    return sum(t.numel() * t.element_size() for t in _tensors(view_params)
+               if key(t) not in base)
 
 
 def quantized_bytes(params) -> int:

@@ -41,15 +41,25 @@ def block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
     }
 
 
+def _norm(p: Params, h: torch.Tensor, cfg, cache_pos) -> torch.Tensor:
+    """RMS norm; a per-slot burst (the speculative verify forward) is
+    normalised one position at a time, so each call holds a decode step's
+    rows: a GPU reduction's summation order follows the row count."""
+    if torch.is_tensor(cache_pos) and h.shape[1] > 1:
+        return torch.cat([L.rms_norm(p, h[:, j:j + 1].contiguous(),
+                                     cfg.norm_eps)
+                          for j in range(h.shape[1])], dim=1)
+    return L.rms_norm(p, h, cfg.norm_eps)
+
+
 def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
                 quant=None, page_table=None):
     a, cache = L.attention_apply(
-        p["attn"], L.rms_norm(p["attn_norm"], h, cfg.norm_eps), cfg,
+        p["attn"], _norm(p["attn_norm"], h, cfg, cache_pos), cfg,
         kv_cache=cache, cache_pos=cache_pos, quant=quant,
         page_table=page_table)
     h = h + a
-    m = L.mlp_apply(p["mlp"], L.rms_norm(p["mlp_norm"], h, cfg.norm_eps),
-                    quant)
+    m = L.mlp_apply(p["mlp"], _norm(p["mlp_norm"], h, cfg, cache_pos), quant)
     return h + m, cache
 
 
@@ -77,7 +87,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
                             page_table=page_table)
     if not head:
         return None, caches, {}
-    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    h = _norm(params["final_norm"], h, cfg, cache_pos)
     return head_apply(params["lm_head"], h, cfg.quant), caches, {}
 
 

@@ -33,6 +33,17 @@ and only the unshared suffix is prefilled. Retirement drops the slot's
 block refs and points its row at the null block. Page-table rows are
 written at chunk boundaries with asynchronous copies, so the host never
 waits for the card outside the one sync per decode chunk.
+
+Decoding modes (``serving/decoding.py``) are per-slot state: a request's
+``decoding`` is ``greedy``/``sample``, ``beam:W`` (W slots of one group,
+forked every step) or ``spec:draftNb`` (self-speculation: K tokens drafted
+with the top N bit-planes of the same packed weights, verified by one
+s = K + 1 forward). A pool of NORMAL slots runs ``_decode_chunk``; a pool
+holding beam or spec slots runs ``_decode_general``, the reference's
+``_decode_general_impl``. Both sync once per chunk. Beam members of a paged
+pool share the prompt blocks below ``plen - 1`` by reference and own
+private copies of the rest; a group retires when all its members are
+done, its hypotheses ranked by ``rank_hypotheses``.
 """
 
 from __future__ import annotations
@@ -40,15 +51,16 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.models import api, kvcache
-from repro_torch.serving import blockpool
-from repro_torch.serving.sampler import sample
+from repro_torch.models import quantized as qz
+from repro_torch.serving import blockpool, decoding
+from repro_torch.serving.sampler import categorical, mask_logits, sample
 
 
 @dataclasses.dataclass
@@ -59,8 +71,14 @@ class Request:
     temperature: float = 0.0           # <= 0 -> greedy
     top_k: int = 0                     # 0 -> disabled
     top_p: float = 1.0                 # >= 1 -> disabled
+    decoding: str = "greedy"           # greedy | sample | beam[:W] | spec
     done: bool = False
     output: Optional[List[int]] = None
+    # beam mode: every hypothesis as (tokens, length-normalized score), best
+    # first
+    beams: Optional[List[Tuple[List[int], float]]] = None
+    # spec mode: verify_steps / accepted_draft_tokens of this request
+    spec_stats: Optional[Dict[str, int]] = None
 
 
 class ServingEngine:
@@ -69,10 +87,24 @@ class ServingEngine:
                  prefill_chunk: int = 32, eos_id: Optional[int] = None,
                  cache_block_size: Optional[int] = None,
                  num_cache_blocks: Optional[int] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, spec_k: int = 4,
+                 spec_draft_planes: Optional[int] = None,
+                 beam_length_alpha: float = 0.6):
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["table"].device
+        # decoding modes: the spec draft is a plane-sliced view of the same
+        # packed buffers (zero extra weight bytes, checked by identity)
+        self.spec_k = max(1, int(spec_k))
+        self.spec_draft_planes = spec_draft_planes
+        self.beam_length_alpha = float(beam_length_alpha)
+        self.draft_params = None
+        self.draft_extra_hbm_bytes = 0
+        if spec_draft_planes is not None:
+            self.draft_params = qz.plane_sliced_params(params,
+                                                       int(spec_draft_planes))
+            self.draft_extra_hbm_bytes = qz.extra_hbm_bytes(
+                self.draft_params, params)
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.decode_chunk = max(1, decode_chunk)
@@ -135,9 +167,20 @@ class ServingEngine:
         self.temperature = zeros(torch.float32)
         self.top_k = zeros(torch.int64)
         self.top_p = torch.ones(b, dtype=torch.float32, device=dev)
+        self.mode = zeros(torch.int64)       # decoding kind per slot
+        self.beam_group = torch.full((b,), -1, dtype=torch.int64, device=dev)
+        self.beam_score = zeros(torch.float32)  # cumulative log-prob
+        self.spec_steps = zeros(torch.int64)    # verify rounds run
+        self.spec_accepted = zeros(torch.int64)  # drafts accepted, emitted
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(seed)
         self._sampling = [False] * b         # host mirror: temperature > 0
+        # host mirrors of the decoding state
+        self._slot_kind = [decoding.NORMAL] * b
+        self._beam_hist: List[List[int]] = [[] for _ in range(b)]
+        self._beam_groups: Dict[int, Dict[str, Any]] = {}  # leader -> group
+        self.spec_verify_steps = 0      # totals of retired spec requests
+        self.spec_accepted_tokens = 0
         self.decode_syncs = 0
         self.decode_tokens = 0
         self.prefill_dispatches = 0
@@ -207,8 +250,168 @@ class ServingEngine:
             valid[step] = can
         return toks, valid
 
+    def _forward(self, params, tokens, cache_pos):
+        """A per-slot forward over the pool's caches; logits [B, s, V]."""
+        return api.forward(params, {"tokens": tokens}, self.cfg,
+                           caches=self.caches, cache_pos=cache_pos,
+                           page_table=self.page_table)[0]
+
+    def _beam_fork_caches(self, parent: torch.Tensor, do_copy: torch.Tensor):
+        """Beam reassignment after a step's forward: slot b takes slot
+        parent[b]'s cache, the parent's fresh position included. Dense: a
+        batch gather (identity rows for slots that keep their own). Paged:
+        block content from the parent's row into the slot's row, and slots
+        that do not fork write to the null block 0. Duplicate destinations
+        are harmless: group members share the same prefix blocks (a block
+        copied onto itself) and own every later block."""
+        for leaf in self.caches:
+            if self.paged:
+                src = self.page_table[parent].reshape(-1)
+                dst = torch.where(do_copy[:, None], self.page_table,
+                                  0).reshape(-1)
+                leaf[:, dst] = leaf[:, src]
+            else:
+                leaf.copy_(leaf[:, parent])
+
+    def _decode_general(self, has_beam: bool, has_spec: bool,
+                        sampling: bool):
+        """``decode_chunk`` steps of a pool holding beam or spec slots (the
+        reference's ``_decode_general_impl``), all on the device. Returns
+        device tensors toks / valid [N, B, S_e] (S_e = spec_k + 1 when the
+        pool holds spec slots, else 1) and the beam parent map [N, B].
+
+        A spec slot's step: (1) draft K tokens one at a time with the
+        plane-sliced view, writing provisional KV at pos .. pos+K-1; (2) one
+        s = K+1 forward of the full model over [last_tok, d_0 .. d_{K-1}]
+        rewrites pos .. pos+K; (3) accept the longest agreeing prefix (argmax
+        agreement for greedy slots, so their tokens are plain greedy
+        decoding's), emit it and the replacement or bonus token, and advance
+        pos by the count emitted. Other slots ride along and emit at most
+        their position-0 token; beam slots take theirs from
+        ``beam_select``, and the caches fork to match. ``sampling`` (the
+        host mirror: any slot samples) decides the sampler's and
+        ``speculative_accept``'s greedy shortcut without a device sync."""
+        n, b, dev = self.decode_chunk, self.max_batch, self.device
+        k_spec = self.spec_k
+        s_e = k_spec + 1 if has_spec else 1
+        toks = torch.empty((n, b, s_e), dtype=torch.int64, device=dev)
+        valid = torch.empty((n, b, s_e), dtype=torch.bool, device=dev)
+        parents = torch.empty((n, b), dtype=torch.int64, device=dev)
+        self_idx = torch.arange(b, device=dev)
+        kw = (dict(temperature=self.temperature, top_k=self.top_k,
+                   top_p=self.top_p) if sampling else {})
+        for step in range(n):
+            greedy = self.temperature <= 0.0
+            is_spec = self.mode == decoding.SPEC
+            if has_spec:
+                # a draft past the cache runs at max_seq - 1 instead (an s = 1
+                # write must stay in range). No emitted token reads that
+                # position: token j is emitted only while pos + 1 + j <
+                # max_seq, so its logits read positions below max_seq - 1,
+                # and the verify burst rewrites max_seq - 1 before reading it
+                last, dpos = self.last_tok, self.pos
+                d_toks, q_logits = [], []
+                for _ in range(k_spec):
+                    dl = self._forward(
+                        self.draft_params, last[:, None],
+                        dpos.clamp(max=self.max_seq - 1))[:, -1]
+                    d = torch.argmax(dl, dim=-1)
+                    if sampling:
+                        ml = mask_logits(dl, **kw)
+                        d = torch.where(greedy, d, categorical(self.gen, ml))
+                        q_logits.append(ml)
+                    d_toks.append(d)
+                    last, dpos = d, dpos + 1
+                d_toks = torch.stack(d_toks, dim=1)            # [B, K]
+                vlogits = self._forward(
+                    self.params, torch.cat([self.last_tok[:, None], d_toks],
+                                           dim=1), self.pos)   # [B, K+1, V]
+                logits1 = vlogits[:, 0]  # the s = 1 forward's logits
+                q = p = None
+                if sampling:
+                    q = torch.stack(q_logits, dim=1)
+                    p = torch.stack([mask_logits(vlogits[:, j], **kw)
+                                     for j in range(k_spec + 1)], dim=1)
+                accept, repl, bonus = decoding.speculative_accept(
+                    self.gen, d_toks, q, p, torch.argmax(vlogits, dim=-1),
+                    greedy, sampling=sampling)
+            else:
+                logits1 = self._forward(self.params, self.last_tok[:, None],
+                                        self.pos)[:, -1]
+
+            # position-0 token per mode
+            tok0 = sample(self.gen, logits1, **kw)
+            parent, beam_score = self_idx, self.beam_score
+            if has_beam:
+                is_beam = self.mode == decoding.BEAM
+                live_beam = is_beam & self.active
+                parent, btok, beam_score = decoding.beam_select(
+                    self.beam_score,
+                    torch.log_softmax(logits1.to(torch.float32), dim=-1),
+                    live_beam, self.beam_group)
+                self._beam_fork_caches(parent, live_beam)
+                tok0 = torch.where(is_beam, btok, tok0)
+
+            # emission chain: token j is emitted while every earlier draft
+            # was accepted, the slot is live, the cache has room, the budget
+            # lasts and no EOS came before it
+            cum = torch.ones(b, dtype=torch.bool, device=dev)
+            prior_eos = torch.zeros_like(cum)
+            n_emit = torch.zeros(b, dtype=torch.int64, device=dev)
+            acc_emitted = torch.zeros_like(n_emit)
+            for j in range(s_e):
+                tok_j = tok0
+                if has_spec:
+                    tok_j = (torch.where(accept[:, j], d_toks[:, j], repl[:, j])
+                             if j < k_spec else bonus)
+                    if j == 0:
+                        tok_j = torch.where(is_spec, tok_j, tok0)
+                allow = (cum & self.active & (self.pos + 1 + j < self.max_seq)
+                         & (self.budget > j) & ~prior_eos)
+                if j > 0:
+                    allow &= is_spec
+                if self.eos_id is not None:
+                    prior_eos = prior_eos | (allow & (tok_j == self.eos_id))
+                toks[step, :, j] = tok_j
+                valid[step, :, j] = allow
+                n_emit = n_emit + allow.to(torch.int64)
+                if has_spec and j < k_spec:
+                    acc_emitted = acc_emitted + (
+                        allow & accept[:, j] & is_spec).to(torch.int64)
+                    cum = cum & accept[:, j]
+
+            # slot state
+            emitted = n_emit > 0
+            last_emitted = torch.gather(
+                toks[step], 1, (n_emit - 1).clamp(0, s_e - 1)[:, None])[:, 0]
+            hit_cap = self.active & (self.pos + 1 >= self.max_seq)
+            ran_spec = is_spec & self.active & emitted
+            self.last_tok = torch.where(emitted, last_emitted, self.last_tok)
+            self.pos = self.pos + n_emit
+            self.budget = torch.where(hit_cap, torch.zeros_like(self.budget),
+                                      self.budget - n_emit)
+            self.active = (self.active & emitted & (self.budget > 0)
+                           & ~prior_eos)
+            self.beam_score = beam_score
+            self.spec_steps = self.spec_steps + ran_spec.to(torch.int64)
+            self.spec_accepted = self.spec_accepted + torch.where(
+                ran_spec, acc_emitted, 0)
+            parents[step] = parent
+        return toks, valid, parents
+
     # -- host loop (chunk boundaries only) ----------------------------------
     def submit(self, req: Request):
+        # parse now, so a bad decoding string or an unservable mode fails
+        # here and not at admission
+        dm = decoding.parse(req.decoding)
+        if dm.kind == decoding.SPEC and self.draft_params is None:
+            raise ValueError(
+                "spec decoding needs a draft view: construct the engine "
+                "with spec_draft_planes=<planes> (and packed weights)")
+        if dm.kind == decoding.BEAM and dm.beam_width > self.max_batch:
+            raise ValueError(
+                f"beam width {dm.beam_width} exceeds max_batch "
+                f"{self.max_batch}: the W hypotheses are W pool slots")
         req.output = []
         self.queue.append(req)
 
@@ -230,11 +433,16 @@ class ServingEngine:
         kvcache.merge_batch(self.caches, slot_caches, i)
         self._set_slot(i, req, prompt)
 
-    def _set_slot(self, i: int, req: Request, prompt: np.ndarray) -> bool:
+    def _set_slot(self, i: int, req: Request, prompt: np.ndarray, *,
+                  leader: Optional[int] = None) -> bool:
         """Per-slot control state of an admitted request; returns whether it
-        has anything to generate."""
+        has anything to generate. A beam request's leader has group id i and
+        score 0; a member (``leader`` given) gets the leader's id and score
+        ``NEG``, so the first expansion fans the leader out to the full
+        width."""
         plen = int(prompt.size)
         live = req.max_new_tokens > 0
+        kind = decoding.parse(req.decoding).kind
         self.pos[i] = plen - 1
         self.budget[i] = req.max_new_tokens
         self.last_tok[i] = int(prompt[-1])
@@ -242,7 +450,15 @@ class ServingEngine:
         self.temperature[i] = float(req.temperature)
         self.top_k[i] = int(req.top_k)
         self.top_p[i] = float(req.top_p)
+        self.mode[i] = kind
+        self.beam_group[i] = (-1 if kind != decoding.BEAM
+                              else i if leader is None else leader)
+        self.beam_score[i] = 0.0 if leader is None else decoding.NEG
+        self.spec_steps[i] = 0
+        self.spec_accepted[i] = 0
         self._sampling[i] = req.temperature > 0
+        self._slot_kind[i] = kind
+        self._beam_hist[i] = []
         if live:
             self.slots[i] = req
         else:
@@ -343,21 +559,92 @@ class ServingEngine:
             self._release(i)
         return True
 
+    def _evict_slot(self, i: int):
+        """Beam admission rollback: give back slot ``i``'s blocks and
+        deactivate it."""
+        if self.paged:
+            self._release(i)
+        self.active[i] = False
+        self.slots[i] = None
+        self._slot_kind[i] = decoding.NORMAL
+        self._beam_hist[i] = []
+
+    def _admit_beam(self, slots_w: List[int], req: Request) -> bool:
+        """Admit a beam request into ``len(slots_w)`` slots: the leader
+        through the ordinary admission (one prefill), the members as forks
+        of it. Dense: the leader's cache row copied into each member's.
+        Paged: the leader's blocks below ``plen - 1`` shared by reference
+        (immutable for the group's life), the rest copied into private
+        blocks. Returns False, the request left queued and every slot rolled
+        back, when the pool cannot grant every member's blocks."""
+        lead = slots_w[0]
+        if self.paged:
+            if not self._admit_one_paged(lead, req):
+                return False
+        else:
+            self._admit_one(lead, req)
+        prompt = self._truncate(req)
+        stamped = [lead]
+        for m in slots_w[1:]:
+            if self.paged:
+                lead_row = self._slot_blocks[lead]
+                m_share = min((int(prompt.size) - 1) // self.cache_block_size,
+                              len(lead_row))
+                n_priv = len(lead_row) - m_share
+                blocks = self._alloc.alloc(n_priv)
+                if blocks is None and self._prefix is not None:
+                    self._prefix.evict_until(n_priv)
+                    blocks = self._alloc.alloc(n_priv)
+                if blocks is None:
+                    # the eviction above stops early only once the free list
+                    # suffices, so a failed allocation has emptied any prefix
+                    # cache: no entry the leader registered survives, its
+                    # pending divergence entry (position plen-1 unwritten)
+                    # included
+                    for i in stamped:
+                        self._evict_slot(i)
+                    return False
+                for bid in lead_row[:m_share]:
+                    self._alloc.incref(bid)
+                for src, dst in zip(lead_row[m_share:], blocks):
+                    for leaf in self.caches:
+                        leaf[:, dst].copy_(leaf[:, src])
+                row = lead_row[:m_share] + blocks
+                self._slot_blocks[m] = list(row)
+                self._set_page_row(m, row)
+            else:
+                kvcache.merge_batch(self.caches,
+                                    kvcache.slice_batch(self.caches, lead), m)
+            self._set_slot(m, req, prompt, leader=lead)
+            stamped.append(m)
+        self._beam_groups[lead] = {"req": req, "slots": list(slots_w),
+                                   "live": set(slots_w), "finished": []}
+        return True
+
     def _admit(self) -> int:
-        """FIFO admission into free slots; a paged request the pool cannot
-        hold yet blocks the queue until blocks free up."""
+        """FIFO admission into free slots; a request waits at the head of
+        the queue until its width (beam: W slots) is free and, paged, until
+        the pool can hold it."""
         n = 0
         while self.queue:
+            req = self.queue[0]
+            dm = decoding.parse(req.decoding)
+            beam = dm.kind == decoding.BEAM and req.max_new_tokens > 0
+            width = dm.beam_width if beam else 1
             free = [i for i, r in enumerate(self.slots) if r is None]
-            if not free:
+            if len(free) < width:
                 break
             self.admit_attempts += 1
-            if self.paged:
-                if not self._admit_one_paged(free[0], self.queue[0]):
-                    self.admit_blocked += 1
-                    break
+            if beam:
+                ok = self._admit_beam(free[:width], req)
+            elif self.paged:
+                ok = self._admit_one_paged(free[0], req)
             else:
-                self._admit_one(free[0], self.queue[0])
+                self._admit_one(free[0], req)
+                ok = True
+            if not ok:
+                self.admit_blocked += 1
+                break
             self.queue.popleft()
             n += 1
         return n
@@ -377,32 +664,111 @@ class ServingEngine:
                     f"{self.num_cache_blocks}, block={self.cache_block_size})")
             return admitted > 0
         sampling = any(self._sampling[i] for i in occupied)
+        # a pool of NORMAL slots runs the one-token program; beam or spec
+        # slots the general one
+        has_beam = any(self._slot_kind[i] == decoding.BEAM for i in occupied)
+        has_spec = any(self._slot_kind[i] == decoding.SPEC for i in occupied)
         t0 = time.perf_counter()
-        toks, valid = self._decode_chunk(sampling)
-        n, b = toks.shape
-        # THE once-per-chunk sync: tokens, validity and liveness in one copy
-        host = torch.cat([toks.reshape(-1), valid.reshape(-1).to(torch.int64),
-                          self.active.to(torch.int64)]).cpu().numpy()
+        if not (has_beam or has_spec):
+            toks, valid = self._decode_chunk(sampling)
+            n, b = toks.shape
+            # THE once-per-chunk sync: tokens, validity and liveness in one
+            # copy
+            host = torch.cat([toks.reshape(-1),
+                              valid.reshape(-1).to(torch.int64),
+                              self.active.to(torch.int64)]).cpu().numpy()
+            toks = host[:n * b].reshape(n, b, 1)
+            valid = host[n * b:2 * n * b].reshape(n, b, 1).astype(bool)
+            alive = host[2 * n * b:].astype(bool)
+        else:
+            toks, valid, parent = self._decode_general(has_beam, has_spec,
+                                                       sampling)
+            n, b, s_e = toks.shape
+            # still one sync: the parent map, the beam scores and the spec
+            # counters ride in the same copy (float64 holds them exactly)
+            parts = (toks, valid, parent, self.active, self.beam_score,
+                     self.spec_steps, self.spec_accepted)
+            host = torch.cat([t.reshape(-1).to(torch.float64)
+                              for t in parts]).cpu().numpy()
+            sizes = np.cumsum([t.numel() for t in parts])[:-1]
+            toks, valid, parent, alive, scores, sst, sacc = np.split(
+                host, sizes)
+            toks = toks.astype(np.int64).reshape(n, b, s_e)
+            valid = valid.astype(bool).reshape(n, b, s_e)
+            parent = parent.astype(np.int64).reshape(n, b)
+            alive = alive.astype(bool)
         self._chunk_s.append(time.perf_counter() - t0)
         self.decode_syncs += 1
         if self.paged:
             # each pending divergence entry's origin slot has now written
             # the entry's last position: fully shareable from here on
             self._pending_keys.clear()
-        toks = host[:n * b].reshape(n, b)
-        valid = host[n * b:2 * n * b].reshape(n, b).astype(bool)
-        alive = host[2 * n * b:].astype(bool)
         for step in range(n):
-            for i in occupied:
-                if valid[step, i]:
-                    self.slots[i].output.append(int(toks[step, i]))
+            if has_beam:
+                # hypothesis histories fork as the caches do: read every
+                # parent's history before committing any
+                moved = {i: list(self._beam_hist[parent[step, i]])
+                         for i in occupied
+                         if self._slot_kind[i] == decoding.BEAM
+                         and valid[step, i, 0]}
+                for i, hist in moved.items():
+                    hist.append(int(toks[step, i, 0]))
+                    self._beam_hist[i] = hist
                     self.decode_tokens += 1
+            for i in occupied:
+                if self._slot_kind[i] == decoding.BEAM:
+                    continue  # recorded above
+                for j in range(toks.shape[2]):
+                    if valid[step, i, j]:
+                        self.slots[i].output.append(int(toks[step, i, j]))
+                        self.decode_tokens += 1
+        retired = []
         for i in occupied:
-            if not alive[i]:
-                self.slots[i].done = True
-                self.slots[i] = None  # refillable at the next boundary
-                if self.paged:
-                    self._release(i)
+            if alive[i]:
+                continue
+            kind = self._slot_kind[i]
+            if kind == decoding.BEAM:
+                # freeze the finished hypothesis; the slot stays reserved
+                # until every member of its group is done, so the group id
+                # (the leader's slot) stays unambiguous
+                g = next(g for g in self._beam_groups.values()
+                         if i in g["slots"])
+                if i in g["live"]:
+                    g["live"].discard(i)
+                    g["finished"].append((list(self._beam_hist[i]),
+                                          float(scores[i])))
+                continue
+            req = self.slots[i]
+            if kind == decoding.SPEC:
+                vs, at = int(sst[i]), int(sacc[i])
+                req.spec_stats = {"verify_steps": vs,
+                                  "accepted_draft_tokens": at}
+                self.spec_verify_steps += vs
+                self.spec_accepted_tokens += at
+            req.done = True
+            self.slots[i] = None  # refillable at the next boundary
+            retired.append(i)
+        # beam groups with no live hypothesis left: rank and retire together
+        for lead in [ld for ld, g in self._beam_groups.items()
+                     if not g["live"]]:
+            g = self._beam_groups.pop(lead)
+            hyps = g["finished"]
+            norm = decoding.rank_hypotheses(
+                [sc for _, sc in hyps], [len(t) for t, _ in hyps],
+                self.beam_length_alpha)
+            order = np.argsort(-norm, kind="stable")
+            req = g["req"]
+            req.beams = [(hyps[o][0], float(norm[o])) for o in order]
+            req.output = list(req.beams[0][0]) if req.beams else []
+            req.done = True
+            for m in g["slots"]:
+                self.slots[m] = None
+                self._slot_kind[m] = decoding.NORMAL
+                self._beam_hist[m] = []
+                retired.append(m)
+        if self.paged:
+            for i in retired:
+                self._release(i)
         return True
 
     def run_to_completion(self, max_ticks: int = 10000) -> int:
@@ -444,6 +810,29 @@ class ServingEngine:
                                        / max(1, self.admit_attempts)),
             "prefill_tokens_reused": self.prefill_tokens_reused,
         }
+        if self.draft_params is not None:
+            # retired totals plus the occupied spec slots' live counters
+            # (a rare observability call: its sync is not the decode loop's)
+            live = [i for i in range(self.max_batch)
+                    if self.slots[i] is not None
+                    and self._slot_kind[i] == decoding.SPEC]
+            sst = self.spec_steps.cpu().numpy()
+            sacc = self.spec_accepted.cpu().numpy()
+            vs = self.spec_verify_steps + int(sum(sst[i] for i in live))
+            at = self.spec_accepted_tokens + int(sum(sacc[i] for i in live))
+            out["spec"] = {
+                "spec_k": self.spec_k,
+                "draft_planes": int(self.spec_draft_planes),
+                "draft_extra_hbm_bytes": int(self.draft_extra_hbm_bytes),
+                "verify_steps": vs,
+                "accepted_draft_tokens": at,
+                # +1: the verify forward's own token (replacement or bonus)
+                "mean_emitted_per_step": (at + vs) / max(1, vs),
+                "mean_accepted_per_step": at / max(1, vs),
+            }
+        if self._beam_groups or decoding.BEAM in self._slot_kind:
+            out["beam"] = {"active_groups": len(self._beam_groups),
+                           "length_alpha": self.beam_length_alpha}
         if self.paged:
             out["cache_block_size"] = self.cache_block_size
             out["num_cache_blocks"] = self.num_cache_blocks

@@ -48,6 +48,13 @@ def mask_logits(logits, *, temperature=0.0, top_k=0, top_p=1.0):
     return torch.where((xm < cutoff) & (tp[:, None] < 1.0), -torch.inf, xm)
 
 
+def categorical(gen: torch.Generator, logits):
+    """One draw per row from softmax(logits) over the last axis
+    (Gumbel-max)."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
 def sample(gen: torch.Generator, logits, *, temperature=0.0, top_k=0,
            top_p=1.0):
     """logits [B, V] -> tokens [B] (int64)."""
@@ -56,7 +63,6 @@ def sample(gen: torch.Generator, logits, *, temperature=0.0, top_k=0,
     if _static_scalars(temperature, top_k, top_p) and temperature <= 0.0:
         return greedy
     x = mask_logits(lf, temperature=temperature, top_k=top_k, top_p=top_p)
-    u = torch.rand(x.shape, generator=gen, device=x.device)
-    sampled = torch.argmax(x - torch.log(-torch.log(u)), dim=-1)
+    sampled = categorical(gen, x)
     temp = _per_row(temperature, lf.shape[0], torch.float32, lf.device)
     return torch.where(temp <= 0.0, greedy, sampled)

@@ -630,3 +630,120 @@ def test_row_scale_is_bit_equal_at_bitnet_k(cuda, k, m):
     assert torch.equal(_bits(got), _bits(ops._closed_form_row_scale(
         a, k // 4, 4)))
 
+
+
+def _reduced_engine(cuda, mode, **kw):
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine
+    cfg = registry.get_reduced("tinyllama-1.1b").replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode=mode,
+                                                   table_quant="per_row")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, cuda)
+    return cfg, params, ServingEngine(cfg, params, max_batch=4, max_seq=64,
+                                      decode_chunk=4, prefill_chunk=16, **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_mixed_beam_pool_through_the_kernels_equals_lut_xla(cuda, paged):
+    """A beam:2 request and two greedy ones in one pool, through the kernels
+    (lut_pallas) and through the plain LUT path (lut_xla), per_row: every
+    output, hypothesis and score equal (per_row logits of the two paths are
+    bit-equal)."""
+    from repro_torch.serving.engine import Request
+    kw = dict(cache_block_size=16, prefix_cache=True) if paged else {}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n) for n in (9, 21, 16)]
+    out = []
+    for mode in ("lut_pallas", "lut_xla"):
+        _, _, eng = _reduced_engine(cuda, mode, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=10, decoding=d)
+                for i, (p, d) in enumerate(zip(prompts, ("beam:2", "greedy",
+                                                         "greedy")))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert eng.stats()["host_syncs_per_token"] <= 1 / eng.decode_chunk
+        out.append(([r.output for r in reqs], reqs[0].beams))
+    assert out[0] == out[1]
+    assert len(out[0][1]) == 2
+
+
+def test_burst_at_the_cache_end_stays_in_range(cuda):
+    """A speculative burst of 5 at positions max_seq - 2 and max_seq - 5 on
+    the card: no device-side assert, the live prefix untouched, and the
+    in-range positions written."""
+    from repro_torch.models import layers
+    cfg, params, eng = _reduced_engine(cuda, "lut_xla")
+    lp = params["layers"][0]["attn"]
+    s_cache = eng.max_seq
+    leaves = tuple(leaf[0] for leaf in eng.caches)
+    for leaf in leaves:
+        leaf.normal_()
+    before = [leaf.clone() for leaf in leaves]
+    cp = torch.tensor([s_cache - 2, s_cache - 5, 3, 0], device=cuda)
+    x = torch.randn(4, 5, cfg.d_model, device=cuda)
+    layers.attention_apply(lp, x, cfg, kv_cache=leaves, cache_pos=cp,
+                           quant=cfg.quant)
+    torch.cuda.synchronize()
+    for leaf, old in zip(leaves, before):
+        for i, c in enumerate(cp.tolist()):
+            assert torch.equal(leaf[i, :c], old[i, :c])
+            end = min(c + 5, s_cache)
+            assert not torch.equal(leaf[i, c:end], old[i, c:end])
+            assert torch.equal(leaf[i, end:], old[i, end:])
+
+
+def test_spec_request_at_the_cache_end_equals_greedy(cuda):
+    """plen + max_new_tokens = max_seq under lut_xla on the card: the last
+    rounds draft past the cache (no device-side assert), the slot retires
+    at max_seq - 1 while a longer spec request drafts over it, and a third
+    spec request follows on the same engine; every stream is plain
+    greedy's."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg, params, plain = _reduced_engine(cuda, "lut_xla")
+    max_seq = plain.max_seq
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (50, 9, 13)]
+    n_new = [max_seq - 50, 24, 12]
+    want = []
+    for p, n in zip(prompts, n_new):
+        r = Request(uid=0, prompt=p, max_new_tokens=n)
+        plain.submit(r)
+        plain.run_to_completion()
+        want.append(r.output)
+    eng = ServingEngine(cfg, params, max_batch=4, max_seq=max_seq,
+                        decode_chunk=4, prefill_chunk=16, spec_k=4,
+                        spec_draft_planes=2)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n,
+                    decoding="spec:draft2b")
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    for r in reqs[:2]:
+        eng.submit(r)
+    eng.run_to_completion()
+    assert int(eng.pos[0]) == max_seq - 1
+    eng.submit(reqs[2])
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    assert [r.output for r in reqs] == want
+    assert eng.stats()["host_syncs_per_token"] <= 1 / eng.decode_chunk
+
+
+def test_verify_burst_position_zero_has_the_decode_steps_bits(cuda):
+    """Under lut_xla on the card, position 0 of a per-slot s = 5 forward
+    (the speculative verify burst) gives the logits of an s = 1 forward
+    bit for bit: greedy speculation is plain greedy decoding only so."""
+    from repro_torch.serving.engine import Request
+    cfg, params, eng = _reduced_engine(cuda, "lut_xla")
+    rng = np.random.default_rng(2)
+    for i, n in enumerate((9, 21, 16, 30)):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, 512, n),
+                           max_new_tokens=8))
+    eng._admit()
+    drafts = torch.as_tensor(rng.integers(0, 512, (4, 4)), device=cuda)
+    one = eng._forward(params, eng.last_tok[:, None], eng.pos)[:, 0]
+    burst = eng._forward(params, torch.cat([eng.last_tok[:, None], drafts],
+                                           dim=1), eng.pos)
+    assert torch.equal(one, burst[:, 0])
