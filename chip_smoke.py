@@ -138,6 +138,22 @@ exit and no result line):
      under lut_pallas a spec request raises the kernels' NotImplementedError
      (they refuse plane-sliced views, as the reference's do). Decode tok/s
      and host syncs per token (<= 1/decode_chunk) of each leg.
+ 10. telemetry — the engine's telemetry and the measured autotuner on
+     phase 4's model, engine and requests (``telemetry_phase``): (a) phase
+     4's serve with a ``Tracer`` (its torch.profiler annotation on) and a
+     dispatch recorder, in turns with untraced serves (off, on, on, off):
+     tokens and decode syncs equal phase 4's, the trace valid
+     (``validate_chrome_trace``) with one ``decode_chunk`` span a sync and
+     balanced request spans, every dispatch heuristic; the decode step's
+     wall (the chunk histogram) with the tracer off and on; (b)
+     ``pretune()`` of every projection shape at M = 4 and 128 (at most 4
+     candidates, device time over 5 repeats), the winner's and the
+     heuristic's time a shape, then the serve with ``fusion="tuned"`` from
+     the saved cache: every dispatch tuned, tokens equal phase 4's; a
+     decode step and a prefill chunk profiled auto / tuned / tuned / auto;
+     (c) every per_row candidate bit-equal to the heuristic plan on the
+     same operands, every float-table candidate within rtol = atol = 1e-4
+     and 1e-4 of the largest output of the plain path.
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record; the last line
@@ -152,6 +168,10 @@ runs phase 8 alone (its record as one line of JSON),
     python3 chip_smoke.py --decoding          # phases 1, 2 and 9 only
 
 phase 9 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --telemetry         # phases 1, 2 and 10 only
+
+phase 10 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -908,10 +928,11 @@ def serve_prompts(vocab, seed):
             for _ in range(4)]
 
 
-def serve(cfg, params, seed):
-    """Phase 4: 4 requests through the engine; returns (engine, requests)."""
+def serve(cfg, params, seed, **engine_kw):
+    """Phase 4: 4 requests through the engine (``engine_kw`` added to
+    SERVE_KW); returns (engine, requests)."""
     from repro_torch.serving.engine import Request, ServingEngine
-    eng = ServingEngine(cfg, params, **SERVE_KW)
+    eng = ServingEngine(cfg, params, **SERVE_KW, **engine_kw)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(serve_prompts(cfg.vocab_size, seed))]
     for r in reqs:
@@ -1481,7 +1502,7 @@ def bitnet(flush):
 
     # (b) the pipeline each projection takes at decode and prefill rows
     rec["dispatch"] = {f"M={m}": {
-        name: ops.resolve_dispatch(m, n, k // KG, KG, BITS)
+        name: ops.resolve_dispatch(m, n, k // KG, KG, BITS).fusion
         for name, (n, k) in shapes.items()} for m in ROWS}
     rec["shared_tables"] = {f"M={m}": {
         name: layers.resolve_fusion(m, k, cfg.quant)
@@ -1576,8 +1597,8 @@ def decoding_phase(cfg, params, greedy=None):
         eng = eng or ServingEngine(c, params, **SERVE_KW, **engine_kw)
         reqs = [Request(uid=i, prompt=prompts[p], max_new_tokens=16,
                         decoding=d) for i, (p, d) in enumerate(pool)]
-        syncs, toks, chunks = (eng.decode_syncs, eng.decode_tokens,
-                               len(eng._chunk_s))
+        syncs, toks, chunk_s = (eng.decode_syncs, eng.decode_tokens,
+                                eng._h_chunk_s.total)
         t0 = time.perf_counter()
         for r in reqs:
             eng.submit(r)
@@ -1585,7 +1606,8 @@ def decoding_phase(cfg, params, greedy=None):
         torch.cuda.synchronize()
         n_tok = eng.decode_tokens - toks
         per_tok = (eng.decode_syncs - syncs) / max(1, n_tok)
-        legs[tag] = {"decode_tok_s": n_tok / sum(eng._chunk_s[chunks:]),
+        legs[tag] = {"decode_tok_s": n_tok / (eng._h_chunk_s.total
+                                              - chunk_s),
                      "host_syncs_per_token": per_tok,
                      "seconds": time.perf_counter() - t0}
         if not all(r.done for r in reqs) or per_tok > 1 / eng.decode_chunk:
@@ -1727,6 +1749,228 @@ def decoding_lines(rec):
         f"decoding: legs: {legs}; phase 9 in {rec['seconds']:.1f} s"]
 
 
+# phase 10: the tuner's candidates and timed repeats a shape
+TUNE_CANDIDATES = 4
+TUNE_REPEATS = 5
+
+
+def step_wall_ms(eng):
+    """Mean host wall of a decode step over the engine's decode chunks (its
+    chunk histogram: dispatch to the chunk's one sync)."""
+    h = eng._h_chunk_s
+    return h.total / max(1, h.count) / eng.decode_chunk * 1e3
+
+
+def traced_step_walls(eng, tracer, rounds=4):
+    """Median host wall (ms) of a decode step, a decode chunk at a time
+    ending in one sync as in ``step``, with what the tracer adds to a chunk
+    (its torch.profiler annotation around the chunk, the span recorded
+    after the sync) and without, in turns (off, on, on, off) ``rounds``
+    times."""
+    walls = {"off": [], "on": []}
+    for _ in range(rounds):
+        for on in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            with (tracer.annotation("decode_chunk") if on
+                  else contextlib.nullcontext()):
+                eng._decode_chunk(sampling=False)
+                torch.cuda.synchronize()
+            t1 = time.perf_counter_ns()
+            if on:
+                tracer.complete("decode_chunk", t0, t1, cat="decode")
+            walls["on" if on else "off"].append(
+                (t1 - t0) / 1e6 / eng.decode_chunk)
+    return {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def telemetry_phase(cfg, params, phase4=None):
+    """Phase 10 (module docstring) on phase 4's model, engine and requests;
+    ``phase4``: phase 4's (greedy streams, decode syncs), served here when
+    not given. Returns the record."""
+    from repro_torch.core import autotune
+    from repro_torch.core import mpgemm as mp
+    from repro_torch.kernels import _build, ops
+    from repro_torch.obs import dispatch as dispatch_obs
+    from repro_torch.obs.trace import Tracer, validate_chrome_trace
+    from repro_torch.serving.engine import ServingEngine
+    t_start = time.perf_counter()
+    if phase4 is None:
+        eng, reqs = serve(cfg, params, seed=2)
+        phase4 = ([r.output for r in reqs], eng.decode_syncs)
+    greedy, syncs = phase4
+    rec = {}
+
+    def summary(drec):
+        out = {k: v for k, v in drec.summary().items() if k != "records"}
+        out["dispatches"] = sum(r.count for r in drec.records("dispatch"))
+        return out
+
+    # (a) traced serves (tracer with its torch.profiler annotation, and a
+    # dispatch recorder) in turns with untraced ones: tokens and syncs of
+    # phase 4, a valid trace
+    walls = []
+    for on in (False, True, True, False):
+        tracer = Tracer() if on else None
+        with dispatch_obs.recording() as drec:
+            eng, reqs = serve(cfg, params, seed=2, tracer=tracer)
+        walls.append(step_wall_ms(eng))
+        if [r.output for r in reqs] != greedy or eng.decode_syncs != syncs:
+            raise AssertionError(
+                f"telemetry (a): tracer {'on' if on else 'off'}: tokens or "
+                f"decode syncs ({eng.decode_syncs}; phase 4: {syncs}) differ "
+                f"from phase 4's")
+        if on and "trace" not in rec:
+            evs = tracer.chrome_trace()["traceEvents"]
+            check = validate_chrome_trace(evs)
+            spans = sum(e["name"] == "decode_chunk" for e in evs)
+            ph = check["by_phase"]
+            disp = summary(drec)
+            if (spans != eng.decode_syncs or ph.get("b") != len(reqs)
+                    or ph.get("e") != len(reqs)
+                    or disp["heuristic"] != disp["decisions"]):
+                raise AssertionError(f"telemetry (a): trace {check}, "
+                                     f"{spans} decode_chunk spans, "
+                                     f"dispatch {disp}")
+            rec["trace"] = dict(check, decode_chunk_spans=spans,
+                                dispatch=disp, stats=eng.stats())
+            rec["step_wall_ms_chunks"] = traced_step_walls(eng, tracer)
+    rec["step_wall_ms_tracer_off_on_on_off"] = walls
+
+    # (b) pretune every dispatched shape at M = 4 and 128, then the same
+    # serve with fusion="tuned" from the saved cache
+    path = _build.BUILD_DIR / "tuning_cache.json"
+    if path.exists():
+        path.unlink()
+    tcfg = cfg.with_quant(fusion="tuned")
+    teng = ServingEngine(tcfg, params, **SERVE_KW, tuning_cache=str(path))
+    t0 = time.perf_counter()
+    n_tuned = teng.pretune(repeats=TUNE_REPEATS,
+                           max_candidates=TUNE_CANDIDATES)
+    rec["pretune_seconds"] = time.perf_counter() - t0
+    qws = autotune.collect_qw_shapes(params)
+    ms = (SERVE_KW["max_batch"], SERVE_KW["prefill_chunk"])
+    dev = params["embed"]["table"].device
+    tq = mp.resolve_table_quant(cfg.quant["table_quant"], dev)
+    if n_tuned != len(ms) * len(qws):
+        raise AssertionError(f"telemetry (b): pretuned {n_tuned} shapes, "
+                             f"not {len(ms) * len(qws)}")
+    rec["tuned"] = []
+    for qw in qws:
+        for m in ms:
+            key = autotune.shape_key(m, qw.n, qw.g, qw.k_group,
+                                     qw.num_planes, table_quant=tq)
+            best = teng.tuning_cache.entries[key]
+            rec["tuned"].append(dict(
+                key=key, m=m, n=qw.n, k=qw.k_total, winner=best.knobs,
+                winner_ms=best.steady_ms, heuristic_ms=best.heuristic_ms,
+                first_call_ms=best.compile_ms))
+    reset_counts()
+    with dispatch_obs.recording() as drec:
+        eng, reqs = serve(tcfg, params, seed=2, tuning_cache=str(path))
+        st = eng.stats()
+    launches = read_counts()
+    disp = summary(drec)
+    if disp["decisions"] == 0 or disp["tuned"] != disp["decisions"]:
+        raise AssertionError(f"telemetry (b): not every dispatch tuned: "
+                             f"{disp}")
+    if [r.output for r in reqs] != greedy:
+        raise AssertionError("telemetry (b): the tuned serve's tokens "
+                             "differ from phase 4's")
+    rec["tuned_serve"] = dict(dispatch=disp, launches=launches,
+                              tuning_cache=st["tuning_cache"],
+                              decode_tok_s=st["decode_tok_s"],
+                              host_syncs_per_token=st["host_syncs_per_token"])
+    # a decode step and a prefill chunk, auto and tuned in turns
+    auto_eng = ServingEngine(cfg, params, **SERVE_KW)
+    rec["auto_tuned_tuned_auto"] = [step_and_chunk(e) for e in (
+        auto_eng, eng, eng, auto_eng)]
+
+    # (c) every candidate against the heuristic plan on the same operands:
+    # per_row bit-equal; float tables within phase 3's bound of the plain
+    # path
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    n_int = n_f32 = 0
+    f32_err = 0.0
+    for qw in qws:
+        for m in ms:
+            args = (m, qw.n, qw.g, qw.k_group, qw.num_planes)
+            x = torch.randn(m, qw.k_total, generator=gen, device=dev)
+            want = ops.lut_mpgemm(x, qw, table_quant="per_row")
+            for c in autotune.candidate_configs(
+                    *args, max_candidates=TUNE_CANDIDATES):
+                got = ops.lut_mpgemm(x, qw, table_quant="per_row",
+                                     fusion=c.fusion, tile=c.tile,
+                                     splits=c.splits)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"telemetry (c): per_row {args} "
+                                         f"{c.knobs} differs from the "
+                                         f"heuristic plan")
+                n_int += 1
+            plain = mp.mpgemm(x, qw, mode="lut_xla", table_quant=None)
+            big = plain.abs().max().item()
+            for c in autotune.candidate_configs(
+                    *args, table_quant=None, max_candidates=TUNE_CANDIDATES):
+                got = ops.lut_mpgemm(x, qw, table_quant=None,
+                                     fusion=c.fusion, tile=c.tile,
+                                     splits=c.splits)
+                diff = (got - plain).abs().max().item()
+                f32_err = max(f32_err, diff / big)
+                if diff > 1e-4 * big or not torch.allclose(
+                        got, plain, rtol=1e-4, atol=1e-4):
+                    raise AssertionError(f"telemetry (c): None {args} "
+                                         f"{c.knobs}: max |diff| {diff}")
+                n_f32 += 1
+    autotune.deactivate()
+    rec.update(per_row_candidates=n_int, f32_candidates=n_f32,
+               f32_max_rel_err=f32_err,
+               seconds=time.perf_counter() - t_start)
+    return rec
+
+
+def telemetry_lines(rec):
+    """Phase 10's record as text, one line a part."""
+    tr = rec["trace"]
+    tuned = "; ".join(
+        f"M={t['m']} (N, K)=({t['n']}, {t['k']}): {t['winner']} "
+        f"{t['winner_ms']:.4f} ms vs heuristic {t['heuristic_ms']:.4f} ms"
+        for t in rec["tuned"])
+    turns = "; ".join(
+        f"{tag} decode step wall {r['decode_step']['wall_ms']:.2f} ms busy "
+        + ("not measured" if r["decode_step"]["busy_ms"] is None else
+           f"{r['decode_step']['busy_ms']:.2f} ms")
+        + f", prefill chunk wall {r['prefill_chunk']['wall_ms']:.2f} ms busy "
+        + ("not measured" if r["prefill_chunk"]["busy_ms"] is None else
+           f"{r['prefill_chunk']['busy_ms']:.2f} ms")
+        for tag, r in zip(("auto", "tuned", "tuned", "auto"),
+                          rec["auto_tuned_tuned_auto"]))
+    ts = rec["tuned_serve"]
+    return [
+        f"telemetry: (a) traced serves: tokens and decode syncs equal "
+        f"phase 4's; trace valid, {tr['events']} events {tr['by_phase']}, "
+        f"{tr['decode_chunk_spans']} decode_chunk spans = syncs; dispatch "
+        f"{tr['dispatch']}; decode step wall, serves with the tracer off, "
+        f"on, on, off: " + ", ".join(
+            f"{w:.2f}" for w in rec["step_wall_ms_tracer_off_on_on_off"])
+        + " ms; chunks in turns, median: off "
+        f"{rec['step_wall_ms_chunks']['off']:.2f} ms, on "
+        f"{rec['step_wall_ms_chunks']['on']:.2f} ms",
+        f"telemetry: (b) pretuned {len(rec['tuned'])} shapes in "
+        f"{rec['pretune_seconds']:.1f} s ({TUNE_CANDIDATES} candidates, "
+        f"{TUNE_REPEATS} repeats, device time): {tuned}",
+        f"telemetry: (b) fusion=tuned serve from the saved cache: tokens "
+        f"equal phase 4's, dispatch {ts['dispatch']}, cache "
+        f"{ts['tuning_cache']}, decode {ts['decode_tok_s']:.1f} tok/s, host "
+        f"syncs/token {ts['host_syncs_per_token']:.4f}, launches "
+        f"{ts['launches']}; in turns: {turns}",
+        f"telemetry: (c) {rec['per_row_candidates']} per_row candidates "
+        f"bit-equal to the heuristic plan; {rec['f32_candidates']} "
+        f"float-table candidates within rtol = atol = 1e-4 of the plain "
+        f"path (max |diff| / max |out| {rec['f32_max_rel_err']:.3g}); "
+        f"phase 10 in {rec['seconds']:.1f} s"]
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -1859,6 +2103,17 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bound-seeds":
         return bound_seeds(card)
+    if len(sys.argv) > 1 and sys.argv[1] == "--telemetry":
+        cfg = main_config()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = api.init_params(gen, cfg, "cuda")
+        serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state
+        rec = telemetry_phase(cfg, params)
+        for line in telemetry_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"telemetry": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -1978,6 +2233,12 @@ def main() -> int:
     for line in decoding_lines(decoding_rec):
         print(line, flush=True)
 
+    # phase 10: telemetry and the measured autotuner on phase 4's model
+    telemetry_rec = telemetry_phase(cfg, params, (
+        main_rec["outputs"], main_rec["serve"]["decode_syncs"]))
+    for line in telemetry_lines(telemetry_rec):
+        print(line, flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -2029,6 +2290,8 @@ def main() -> int:
             "paged_launches": paged_launches[name],
             "float_launches": float_launches[name],
             "decoding_launches": decoding_rec["launches"][name],
+            "tuned_serve_launches": telemetry_rec["tuned_serve"][
+                "launches"][name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
@@ -2045,7 +2308,7 @@ def main() -> int:
                    "paged_launches": paged_launches, "paged_check": paged_rec,
                    "float_serve": fst, "float_launches": float_launches,
                    "float_tables": float_rec, "bitnet": bitnet_rec,
-                   "decoding": decoding_rec,
+                   "decoding": decoding_rec, "telemetry": telemetry_rec,
                    "ptxas": ptxas, "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

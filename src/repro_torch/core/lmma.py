@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from repro_torch.obs import dispatch as dispatch_obs
+
 __all__ = ["LMMADescriptor", "TileSchedule", "schedule_tiles",
            "fused_tile_bytes", "select_fusion", "SMEM_BYTES"]
 
@@ -119,8 +121,13 @@ def fused_tile_bytes(bm: int, bn: int, bg: int, desc: LMMADescriptor) -> int:
 def select_fusion(desc: LMMADescriptor,
                   ts: Optional[TileSchedule] = None) -> str:
     """§3.1.1 fusion decision: 'fused' iff the fused working set of the
-    tile fits one H100 thread block's shared memory, else 'staged'."""
+    tile fits one H100 thread block's shared memory, else 'staged';
+    recorded on the active ``obs.dispatch`` recorder."""
     if ts is None:
         ts = schedule_tiles(desc)
     fits = fused_tile_bytes(ts.bm, ts.bn, ts.bg, desc) <= SMEM_BYTES
-    return "fused" if fits else "staged"
+    fusion = "fused" if fits else "staged"
+    if dispatch_obs.get_active() is not None:
+        dispatch_obs.record("select_fusion", desc.name(), fusion, "auto",
+                            "heuristic", (ts.bm, ts.bn, ts.bg))
+    return fusion

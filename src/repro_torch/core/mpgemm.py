@@ -8,8 +8,9 @@ Modes (the reference's names):
                        ``T @ CW`` GEMM (``kernels.ref``), also the oracle;
   * ``"lut_pallas"`` — the hand-written CUDA kernels (``kernels.ops``);
                        ``fusion`` picks fused precompute→lookup or the
-                       staged pair. On a CPU tensor each kernel wrapper runs
-                       its plain version.
+                       staged pair ("tuned": the measured plan of the
+                       active tuning cache, ``core.autotune``). On a CPU
+                       tensor each kernel wrapper runs its plain version.
 
 ``mpgemm`` takes any leading batch dims; the contraction is the last axis.
 """
@@ -27,8 +28,7 @@ __all__ = ["mpgemm", "precompute_tables", "resolve_table_quant",
            "MPGEMM_MODES", "FUSION_MODES"]
 
 MPGEMM_MODES = ("fp16", "dequant", "lut_xla", "lut_pallas")
-# "tuned" (the reference's autotune cache) is not ported yet
-FUSION_MODES = ("auto", "fused", "staged")
+FUSION_MODES = ("auto", "fused", "staged", "tuned")
 
 
 def resolve_table_quant(table_quant: Optional[str],

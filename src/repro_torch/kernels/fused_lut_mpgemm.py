@@ -70,39 +70,50 @@ def fused_lut_mpgemm_plain(x, row_scale, packed, wscale, *, k_group: int,
                             planes=planes, plane_scales=plane_scales)
 
 
-def int_tile(m: int, k_group: int, planes: int):
+def int_tile(m: int, k_group: int, planes: int, tile: Optional[int] = None):
     """(config, BM, BN, bg) of the per_row path for M rows: the staged int
-    path's tile (``lut_mpgemm.int_tile_for``) with INT_KT entries a step."""
-    return lut_kernel.int_tile_for(m, k_group, planes, INT_KT)
+    path's tile (``lut_mpgemm.int_tile_for``, INT_TILES[tile] when given)
+    with INT_KT entries a step."""
+    return lut_kernel.int_tile_for(m, k_group, planes, INT_KT, tile)
 
 
-def int_plan(m: int, n: int, gp: int, k_group: int, planes: int):
+def int_plan(m: int, n: int, gp: int, k_group: int, planes: int,
+             tile: Optional[int] = None, splits: Optional[int] = None):
     """Launch plan of the per_row path for M rows, N channels and Gp
-    K-groups: ((config, BM, BN, bg), S, grid tiles). Raises where N or Gp
-    is not padded to the tile."""
-    tile = int_tile(m, k_group, planes)
+    K-groups: ((config, BM, BN, bg), S, grid tiles), ``tile`` and
+    ``splits`` as ``lut_mpgemm.int_tile_for`` and ``split_for`` take them.
+    Raises where N or Gp is not padded to the tile."""
+    tile = int_tile(m, k_group, planes, tile)
     _, bm, bn, bg = tile
     if n % bn or gp % bg:
         raise ValueError(f"shape (N={n}, G={gp}) is not padded to the tile "
                          f"(BN={bn}, bg={bg})")
     mp = -(-m // bm) * bm
-    splits, _ = split_for(mp, n, gp, bm, bn, bg)
+    splits, _ = split_for(mp, n, gp, bm, bn, bg, splits)
     return tile, splits, (mp // bm) * (n // bn)
 
 
 def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                      packed: torch.Tensor, wscale: torch.Tensor, *,
                      k_group: int, table_quant: Optional[str], planes: int,
-                     plane_scales: Sequence[float]) -> torch.Tensor:
+                     plane_scales: Sequence[float],
+                     tile: Optional[int] = None,
+                     splits: Optional[int] = None) -> torch.Tensor:
     """x f32 [M, Gp*K]; row_scale f32 [M, 1] (per_row); packed uint8
-    [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]."""
+    [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]. ``tile`` (an index into
+    INT_TILES on per_row, BF16_TILES on float tables) and ``splits`` (S)
+    replace the plan's own; None keeps it."""
     global launches
     check_activations(x, k_group, table_quant, row_scale)
     m = x.shape[0]
     gp = x.shape[1] // k_group
     check_operands("fused_lut_mpgemm", x, packed, wscale, k_group, planes,
                    gp, x.device)
+    np_ = packed.shape[0]
+    plan = int_plan if table_quant == "per_row" else f32_plan
     if x.device.type == "cpu":
+        if tile is not None or splits is not None:
+            plan(m, np_, gp, k_group, planes, tile, splits)
         return fused_lut_mpgemm_plain(
             x, row_scale, packed, wscale, k_group=k_group,
             table_quant=table_quant, planes=planes, plane_scales=plane_scales)
@@ -112,20 +123,15 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
         raise ValueError("fused_lut_mpgemm: the kernel copies x in 16-byte "
                          "and the codes in 4-byte pieces; pass aligned "
                          "operands")
-    np_ = packed.shape[0]
     ps = plane_args(planes, plane_scales)
+    (config, _, _, bg), splits, tiles = plan(m, np_, gp, k_group, planes,
+                                             tile, splits)
     work, arrivals = None, None
-    if table_quant == "per_row":
-        (config, _, _, bg), splits, tiles = int_plan(m, np_, gp, k_group,
-                                                     planes)
-        if splits > 1:
-            work, arrivals = device_workspace(_workspaces, x.device, m * np_,
-                                              tiles, torch.int32)
-    else:
-        (config, _, _, bg), splits, tiles = f32_plan(m, np_, gp, k_group,
-                                                     planes)
-        if splits > 1:
-            work, arrivals = f32_workspace(x.device, splits * m * np_, tiles)
+    if table_quant == "per_row" and splits > 1:
+        work, arrivals = device_workspace(_workspaces, x.device, m * np_,
+                                          tiles, torch.int32)
+    elif splits > 1:
+        work, arrivals = f32_workspace(x.device, splits * m * np_, tiles)
     out = torch.empty((m, np_), device=x.device, dtype=torch.float32)
     fn = _build.launcher("fused_lut_mpgemm")
     with torch.cuda.device(x.device):

@@ -43,7 +43,8 @@ from repro_torch.kernels import _build, ref
 
 __all__ = ["lut_mpgemm", "lut_mpgemm_plain", "int_tile_for", "split_for",
            "k_ranges", "f32_tile_for", "f32_plan", "f32_ring", "wave_splits",
-           "INT_TILES", "BF16_TILES", "F32_PASSES"]
+           "max_splits", "check_splits", "INT_TILES", "BF16_TILES",
+           "F32_PASSES"]
 
 # (BM, BN) of the int path's tensor-core tiles (csrc/lut_mpgemm.cu: MmaSmall,
 # MmaMid, MmaLarge = configs 0, 1, 2); a K-step holds INT_KT table entries
@@ -69,32 +70,66 @@ launches = 0
 _f32_workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def int_tile_for(m: int, k_group: int, planes: int, kt: int = INT_KT
-                 ) -> Tuple[int, int, int, int]:
-    """(config, BM, BN, bg) of the int path's tile for M rows: the smallest
-    row tile that holds M (the largest for more rows), and bg groups per
-    K-step: kt table entries, more where the step's packed bytes per
-    channel (bg·B·K/8) would not fill whole 4-byte words."""
-    config = next((i for i, (bm, _) in enumerate(INT_TILES) if m <= bm),
-                  len(INT_TILES) - 1)
-    bm, bn = INT_TILES[config]
+def _tile_config(m: int, rows, tile: Optional[int]) -> int:
+    """``tile`` (an index into a tile table whose row counts are ``rows``)
+    when given, else the smallest row tile that holds M (the largest for
+    more rows)."""
+    if tile is not None:
+        if not 0 <= tile < len(rows):
+            raise ValueError(f"tile {tile} not in 0..{len(rows) - 1}")
+        return tile
+    return next((i for i, bm in enumerate(rows) if m <= bm), len(rows) - 1)
+
+
+def _step_groups(kt: int, k_group: int, planes: int) -> int:
+    """bg groups per K-step: kt table entries, more where the step's packed
+    bytes per channel (bg·B·K/8) would not fill whole 4-byte words."""
     bg = max(1, kt >> (k_group - 1))
     while (bg * planes * k_group) % 32:
         bg *= 2
-    return config, bm, bn, bg
+    return bg
 
 
-def split_for(mp: int, np_: int, gp: int, bm: int, bn: int, bg: int
+def int_tile_for(m: int, k_group: int, planes: int, kt: int = INT_KT,
+                 tile: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(config, BM, BN, bg) of the int path's tile for M rows: INT_TILES
+    [tile] when given, else the smallest row tile that holds M (the largest
+    for more rows), and bg groups per K-step of kt table entries."""
+    config = _tile_config(m, [bm for bm, _ in INT_TILES], tile)
+    bm, bn = INT_TILES[config]
+    return config, bm, bn, _step_groups(kt, k_group, planes)
+
+
+def split_for(mp: int, np_: int, gp: int, bm: int, bn: int, bg: int,
+              splits: Optional[int] = None
               ) -> Tuple[int, List[Tuple[int, int]]]:
     """Split-K plan of the int path: (S, ranges of K-groups). The Gp/bg
     K-steps split into S contiguous ranges, the first steps % S of them one
-    step longer, as the kernel computes them. S is the least count that
-    gives tiles·S >= SMS blocks, cut to keep MIN_STEPS steps per range."""
+    step longer, as the kernel computes them. S is ``splits`` when given
+    (``check_splits``), else the least count that gives tiles·S >= SMS
+    blocks, cut to keep MIN_STEPS steps per range."""
     steps = gp // bg
-    tiles = (mp // bm) * (np_ // bn)
-    want = -(-SMS // tiles)
-    s = max(1, min(want, steps // MIN_STEPS))
+    if splits is not None:
+        s = check_splits(splits, steps)
+    else:
+        tiles = (mp // bm) * (np_ // bn)
+        want = -(-SMS // tiles)
+        s = max(1, min(want, steps // MIN_STEPS))
     return s, k_ranges(gp, bg, s)
+
+
+def max_splits(steps: int) -> int:
+    """The most split-K ranges a plan gives ``steps`` K-steps: MIN_STEPS
+    steps a range, and at least one range."""
+    return max(1, steps // MIN_STEPS)
+
+
+def check_splits(splits: int, steps: int) -> int:
+    """A caller's split-K count, if 1 <= S <= ``max_splits(steps)``."""
+    if not 1 <= splits <= max_splits(steps):
+        raise ValueError(f"splits {splits} not in 1..{max_splits(steps)} "
+                         f"for {steps} K-steps")
+    return splits
 
 
 def k_ranges(gp: int, bg: int, s: int) -> List[Tuple[int, int]]:
@@ -113,33 +148,33 @@ def wave_splits(tiles: int, steps: int) -> int:
     return max(1, min(SMS * BLOCKS_PER_SM // tiles, steps // MIN_STEPS))
 
 
-def f32_tile_for(m: int, k_group: int, planes: int
-                 ) -> Tuple[int, int, int, int]:
-    """(config, BM, BN, bg) of the LUT kernels' f32 paths for M rows: the
-    smallest row tile of BF16_TILES that holds M (the largest for more
-    rows), and bg groups per K-step: KT table entries, more where the
-    step's packed bytes per channel (bg·B·K/8) would not fill whole 4-byte
-    words."""
-    config = next((i for i, (bm, _, _) in enumerate(BF16_TILES) if m <= bm),
-                  len(BF16_TILES) - 1)
+def f32_tile_for(m: int, k_group: int, planes: int,
+                 tile: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(config, BM, BN, bg) of the LUT kernels' f32 paths for M rows:
+    BF16_TILES[tile] when given, else the smallest row tile that holds M
+    (the largest for more rows), and bg groups per K-step of the tile's KT
+    table entries."""
+    config = _tile_config(m, [bm for bm, _, _ in BF16_TILES], tile)
     bm, bn, kt = BF16_TILES[config]
-    bg = max(1, kt >> (k_group - 1))
-    while (bg * planes * k_group) % 32:
-        bg *= 2
-    return config, bm, bn, bg
+    return config, bm, bn, _step_groups(kt, k_group, planes)
 
 
-def f32_plan(m: int, n: int, gp: int, k_group: int, planes: int):
+def f32_plan(m: int, n: int, gp: int, k_group: int, planes: int,
+             tile: Optional[int] = None, splits: Optional[int] = None):
     """Launch plan of the LUT kernels' f32 paths for M rows (as they are),
-    N channels and Gp K-groups: ((config, BM, BN, bg), S, grid tiles), S
-    from ``wave_splits``. Raises where N or Gp is not padded to the tile."""
-    tile = f32_tile_for(m, k_group, planes)
+    N channels and Gp K-groups: ((config, BM, BN, bg), S, grid tiles); the
+    tile ``f32_tile_for``'s, S ``splits`` when given (``check_splits``),
+    else ``wave_splits``'s. Raises where N or Gp is not padded to the
+    tile."""
+    tile = f32_tile_for(m, k_group, planes, tile)
     _, bm, bn, bg = tile
     if n % bn or gp % bg:
         raise ValueError(f"shape (N={n}, G={gp}) is not padded to the tile "
                          f"(BN={bn}, bg={bg})")
     tiles = -(-m // bm) * (n // bn)
-    return tile, wave_splits(tiles, gp // bg), tiles
+    s = (wave_splits(tiles, gp // bg) if splits is None
+         else check_splits(splits, gp // bg))
+    return tile, s, tiles
 
 
 def f32_ring(kernel: str, m: int, k_group: int, planes: int,
@@ -251,21 +286,34 @@ def plane_args(planes, plane_scales):
     return (ctypes.c_int * planes)(*[int(s) for s in scales])
 
 
-def launch_args(k_group, planes, plane_scales, m, n, gp, tile):
-    """The int path's ctypes arguments: the validated tile config and the
-    plane scales."""
-    config, bm, bn, bg = tile
-    if m % bm or n % bn or gp % bg:
-        raise ValueError(f"shape (M={m}, N={n}, G={gp}) is not padded to the "
-                         f"tile (BM={bm}, BN={bn}, bg={bg})")
-    return config, bg, plane_args(planes, plane_scales)
+def staged_plan(mode: int, mp: int, np_: int, gp: int, k_group: int,
+                planes: int, tile: Optional[int] = None,
+                splits: Optional[int] = None):
+    """Launch plan of the staged kernel in ``mode`` (``_mode``) for Mp
+    rows, Np channels and Gp K-groups: ((config, BM, BN, bg), S, grid
+    tiles). The int path's tile (``int_tile_for``) with its rows padded and
+    ``split_for``'s S; the f32 paths' ``f32_plan``. Raises where the
+    operands are not padded to the tile or S is out of range."""
+    if mode != 1:
+        return f32_plan(mp, np_, gp, k_group, planes, tile, splits)
+    tile = int_tile_for(mp, k_group, planes, tile=tile)
+    _, bm, bn, bg = tile
+    if mp % bm or np_ % bn or gp % bg:
+        raise ValueError(f"shape (M={mp}, N={np_}, G={gp}) is not padded to "
+                         f"the tile (BM={bm}, BN={bn}, bg={bg})")
+    splits, _ = split_for(mp, np_, gp, bm, bn, bg, splits)
+    return tile, splits, (mp // bm) * (np_ // bn)
 
 
 def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
                packed: torch.Tensor, wscale: torch.Tensor, *, k_group: int,
-               planes: int, plane_scales: Sequence[float]) -> torch.Tensor:
+               planes: int, plane_scales: Sequence[float],
+               tile: Optional[int] = None,
+               splits: Optional[int] = None) -> torch.Tensor:
     """tv [M, Gp*E] int8|f32; ts None | [M, 1] | [M, Gp] f32; packed
-    uint8 [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]."""
+    uint8 [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]. ``tile`` (an
+    index into INT_TILES on the int path, BF16_TILES on the f32 paths) and
+    ``splits`` (S) replace the plan's own; None keeps it."""
     global launches
     e = 1 << (k_group - 1)
     mp, ge = tv.shape
@@ -281,28 +329,23 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
         raise ValueError("lut_mpgemm: the kernel copies the table in "
                          "16-byte and the codes in 4-byte pieces; pass "
                          "aligned operands")
+    np_ = packed.shape[0]
     if tv.device.type == "cpu":
+        if tile is not None or splits is not None:
+            staged_plan(mode, mp, np_, gp, k_group, planes, tile, splits)
         return lut_mpgemm_plain(tv, ts, packed, wscale, k_group=k_group,
                                 planes=planes, plane_scales=plane_scales)
     if tv.device.type != "cuda":
         raise ValueError(f"lut_mpgemm: unsupported device {tv.device}")
-    np_ = packed.shape[0]
+    (config, _, _, bg), splits, tiles = staged_plan(
+        mode, mp, np_, gp, k_group, planes, tile, splits)
+    ps = plane_args(planes, plane_scales)
     work, arrivals = None, None
-    if mode == 1:
-        tile = int_tile_for(mp, k_group, planes)
-        config, bg, ps = launch_args(k_group, planes, plane_scales, mp, np_,
-                                     gp, tile)
-        splits, _ = split_for(mp, np_, gp, tile[1], tile[2], bg)
-        if splits > 1:
-            work = torch.empty((splits, mp, np_), device=tv.device,
-                               dtype=torch.int32)
-    else:
-        (config, _, _, bg), splits, tiles = f32_plan(mp, np_, gp, k_group,
-                                                     planes)
-        ps = plane_args(planes, plane_scales)
-        if splits > 1:
-            work, arrivals = f32_workspace(tv.device, splits * mp * np_,
-                                           tiles)
+    if mode == 1 and splits > 1:
+        work = torch.empty((splits, mp, np_), device=tv.device,
+                           dtype=torch.int32)
+    elif splits > 1:
+        work, arrivals = f32_workspace(tv.device, splits * mp * np_, tiles)
     out = torch.empty((mp, np_), device=tv.device, dtype=torch.float32)
     fn = _build.launcher("lut_mpgemm")
     with torch.cuda.device(tv.device):

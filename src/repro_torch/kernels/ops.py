@@ -11,10 +11,11 @@ and padded channels are sliced off.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.lmma import (LMMADescriptor, TileSchedule,
                                    schedule_tiles, select_fusion)
 from repro_torch.core.mpgemm import FUSION_MODES
@@ -25,10 +26,11 @@ from repro_torch.kernels import fused_lut_mpgemm as fused_kernel
 from repro_torch.kernels import lut_mpgemm as lut_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import table_precompute as tp_kernel
+from repro_torch.obs import dispatch as dispatch_obs
 
 __all__ = ["table_precompute", "lut_mpgemm", "fused_lut_mpgemm",
            "dequant_mpgemm", "staged_operands", "pick_blocks", "auto_fusion",
-           "resolve_dispatch", "FUSION_MODES"]
+           "resolve_dispatch", "kernel_plan", "Plan", "FUSION_MODES"]
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int,
@@ -72,15 +74,76 @@ def auto_fusion(m, n, g, k_group, planes) -> str:
     return select_fusion(desc, TileSchedule(bm, bn, bg, 0, 0, 0, 0))
 
 
-def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto") -> str:
-    """The pipeline for one shape: "fused"/"staged" as forced, "auto" by
-    ``auto_fusion``. (The CUDA kernels' tiles: ``lut_mpgemm.int_tile_for``
-    and ``fused_lut_mpgemm.int_tile`` on per_row tables, the staged one
-    with rows padded; ``lut_mpgemm.f32_tile_for`` on None and per_group
-    tables, shared by both kernels, rows as they are.)"""
+class Plan(NamedTuple):
+    """One dispatch decision: the fusion, and the tile and split-K count S
+    the kernel runs (None: the kernel's own plan), and where it came from:
+    "tuned" (a cache hit), "heuristic" (``auto_fusion``) or "forced"."""
+
+    fusion: str
+    tile: Optional[int]
+    splits: Optional[int]
+    source: str
+
+
+def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto",
+                     table_quant: Optional[str] = "per_row") -> Plan:
+    """The dispatch decision for one shape, the single source the LUT
+    wrappers follow. "fused"/"staged": forced, the kernels' own tile and S;
+    "auto": ``auto_fusion``; "tuned": the active tuning cache's plan
+    (``autotune.lookup_tuned``, memoized per shape), else "auto". Records
+    the decision on the active ``obs.dispatch`` recorder, keyed by
+    ``autotune.shape_key``; with none, that costs one check. (The CUDA
+    kernels' tiles: ``lut_mpgemm.int_tile_for`` and
+    ``fused_lut_mpgemm.int_tile`` on per_row tables, the staged one with
+    rows padded; ``lut_mpgemm.f32_tile_for`` on None and per_group tables,
+    shared by both kernels, rows as they are.)"""
     if fusion not in FUSION_MODES:
         raise ValueError(f"fusion {fusion!r} not in {FUSION_MODES}")
-    return auto_fusion(m, n, g, k_group, planes) if fusion == "auto" else fusion
+    tuned = (autotune.lookup_tuned(m, n, g, k_group, planes,
+                                   table_quant=table_quant)
+             if fusion == "tuned" else None)
+    if tuned is not None:
+        plan = Plan(tuned.fusion, tuned.tile, tuned.splits, "tuned")
+    elif fusion in ("auto", "tuned"):
+        plan = Plan(auto_fusion(m, n, g, k_group, planes), None, None,
+                    "heuristic")
+    else:
+        plan = Plan(fusion, None, None, "forced")
+    if dispatch_obs.get_active() is not None:
+        _, bm, bn, bg, s = kernel_plan(m, n, g, k_group, planes, table_quant,
+                                       plan.fusion, plan.tile, plan.splits)
+        dispatch_obs.record(
+            "dispatch", autotune.shape_key(m, n, g, k_group, planes,
+                                           table_quant=table_quant),
+            plan.fusion, fusion, plan.source, (bm, bn, bg), s)
+    return plan
+
+
+def _up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def kernel_plan(m, n, g, k_group, planes, table_quant: Optional[str],
+                fusion: str, tile: Optional[int] = None,
+                splits: Optional[int] = None):
+    """(config, BM, BN, bg, S) the kernel runs for an [m, G·K] × [n, G·K]
+    mpGEMM, padded as this module pads it: per_row fused
+    (``fused_lut_mpgemm.int_plan``), per_row staged (``lut_mpgemm.
+    staged_plan``, rows padded) or the float tables' ``lut_mpgemm.
+    f32_plan``; ``tile`` and ``splits`` as the wrappers take them."""
+    mp = m
+    if table_quant != "per_row":
+        _, _, bn, bg = lut_kernel.f32_tile_for(m, k_group, planes, tile)
+        plan = lut_kernel.f32_plan
+    elif fusion == "fused":
+        _, _, bn, bg = fused_kernel.int_tile(m, k_group, planes, tile)
+        plan = fused_kernel.int_plan
+    else:
+        _, bm, bn, bg = lut_kernel.int_tile_for(m, k_group, planes, tile=tile)
+        plan, mp = functools.partial(lut_kernel.staged_plan, 1), _up(m, bm)
+    (config, bm, bn, bg), s, _ = plan(mp, _up(n, bn), _up(g, bg), k_group,
+                                      planes, tile, splits)
+    return config, bm, bn, bg, s
 
 
 def _check_not_plane_sliced(qw: QuantizedWeight, opname: str):
@@ -141,17 +204,21 @@ def table_precompute(a: torch.Tensor, k_group: int = 4,
 
 
 def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
-                     table_quant: Optional[str] = "per_row") -> torch.Tensor:
-    """Single-kernel precompute→lookup mpGEMM (the table stays on chip)."""
+                     table_quant: Optional[str] = "per_row",
+                     tile: Optional[int] = None,
+                     splits: Optional[int] = None) -> torch.Tensor:
+    """Single-kernel precompute→lookup mpGEMM (the table stays on chip);
+    ``tile`` and ``splits`` replace the kernel's own plan (None keeps
+    it)."""
     _check_not_plane_sliced(qw, "fused_lut_mpgemm")
     m = x.shape[0]
     kg, planes = qw.k_group, qw.num_planes
     xp = x.to(torch.float32)
     # the kernel takes x's rows as they are
     if table_quant == "per_row":
-        _, _, bn, bg = fused_kernel.int_tile(m, kg, planes)
+        _, _, bn, bg = fused_kernel.int_tile(m, kg, planes, tile)
     else:
-        _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, planes)
+        _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, planes, tile)
     xp = _aligned(_pad_to(xp, bg * kg, 1).contiguous())
     # padded groups are zeros: they leave the row scale's max as it is
     row_scale = (tp_kernel.row_scale(xp, kg) if table_quant == "per_row"
@@ -159,24 +226,28 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = fused_kernel.fused_lut_mpgemm(
         xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,
-        planes=planes, plane_scales=qw.plane_scales)[:m, :qw.n]
+        planes=planes, plane_scales=qw.plane_scales, tile=tile,
+        splits=splits)[:m, :qw.n]
     return ref.zero_point_correction(out, qw, _rowsum(x, qw))
 
 
-def staged_operands(table: Table, qw: QuantizedWeight):
-    """(tv, ts, packed, wscale) of the staged kernel, padded to its tile:
-    the int path's (``lut_mpgemm.int_tile_for``) for a per_row INT8 table,
-    rows padded too; the f32 paths' (``lut_mpgemm.f32_tile_for``) for None
-    and per_group tables, rows as they are. Padded rows and groups get a
-    scale of 1 and zero entries."""
+def staged_operands(table: Table, qw: QuantizedWeight,
+                    tile: Optional[int] = None):
+    """(tv, ts, packed, wscale) of the staged kernel, padded to its tile
+    (``tile`` when given, else the kernel's own): the int path's
+    (``lut_mpgemm.int_tile_for``) for a per_row INT8 table, rows padded
+    too; the f32 paths' (``lut_mpgemm.f32_tile_for``) for None and
+    per_group tables, rows as they are. Padded rows and groups get a scale
+    of 1 and zero entries."""
     m, g, e = table.values.shape
     kg = qw.k_group
     per_row = (table.values.dtype == torch.int8 and table.scale is not None
                and table.scale.shape[1] == 1)
     if per_row:
-        _, bm, bn, bg = lut_kernel.int_tile_for(m, kg, qw.num_planes)
+        _, bm, bn, bg = lut_kernel.int_tile_for(m, kg, qw.num_planes,
+                                                tile=tile)
     else:
-        _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, qw.num_planes)
+        _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, qw.num_planes, tile)
         bm = 1
     tv = _pad_to(_pad_to(table.values.reshape(m, g * e), bm, 0), bg * e, 1)
     gp = tv.shape[1] // e
@@ -192,22 +263,29 @@ def staged_operands(table: Table, qw: QuantizedWeight):
 def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
                table_quant: Optional[str] = "per_row",
                table: Optional[Table] = None,
-               fusion: str = "auto") -> torch.Tensor:
+               fusion: str = "auto", tile: Optional[int] = None,
+               splits: Optional[int] = None) -> torch.Tensor:
     """LUT mpGEMM through the kernels. ``fusion`` picks the single fused
-    kernel or the staged ``table_precompute`` + ``lut_mpgemm`` pair; "auto"
-    asks the LMMA rule. A supplied ``table`` (shared across consumers)
-    always runs staged."""
+    kernel or the staged ``table_precompute`` + ``lut_mpgemm`` pair;
+    "auto" asks the LMMA rule, "tuned" the tuning cache
+    (``resolve_dispatch``). ``tile`` and ``splits`` replace the plan's. A
+    supplied ``table`` (shared across consumers) always runs staged, with
+    the plan's tile and S."""
     _check_not_plane_sliced(qw, "lut_mpgemm")
     m = x.shape[0]
     g, kg, planes = qw.g, qw.k_group, qw.num_planes
-    fusion = resolve_dispatch(m, qw.n, g, kg, planes, fusion=fusion)
-    if table is None and fusion == "fused":
-        return fused_lut_mpgemm(x, qw, table_quant=table_quant)
+    plan = resolve_dispatch(m, qw.n, g, kg, planes, fusion=fusion,
+                        table_quant=table_quant)
+    tile = plan.tile if tile is None else tile
+    splits = plan.splits if splits is None else splits
+    if table is None and plan.fusion == "fused":
+        return fused_lut_mpgemm(x, qw, table_quant=table_quant, tile=tile,
+                                splits=splits)
     if table is None:
         table = table_precompute(x, kg, table_quant)
     out = lut_kernel.lut_mpgemm(
-        *staged_operands(table, qw), k_group=kg, planes=planes,
-        plane_scales=qw.plane_scales)[:m, :qw.n]
+        *staged_operands(table, qw, tile), k_group=kg, planes=planes,
+        plane_scales=qw.plane_scales, tile=tile, splits=splits)[:m, :qw.n]
     return ref.zero_point_correction(out, qw, table.rowsum)
 
 

@@ -16,6 +16,18 @@ draft) and is refused under ``fp16``.
 own weight scheme (``paper-bitnet-3b``: ternary, ``--weight-bits`` refused;
 the others W2 symmetric unless ``--weight-bits`` says otherwise).
 
+Telemetry and tuning: ``--fusion tuned`` dispatches each projection with
+the measured plan of the tuning cache (``--tuning-cache PATH``; the
+heuristic on a miss), ``--pretune`` measures every shape the engine
+dispatches first and saves the cache; ``--trace-out`` writes a
+Chrome-trace / Perfetto JSON of the request lifecycle, ``--metrics-out``
+the metrics snapshot (JSON, or Prometheus text for a ``.prom`` path), and
+``--dispatch-log`` every mpGEMM dispatch decision::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lut_pallas \
+        --prefill-chunk 128 --fusion tuned --tuning-cache tc.json \
+        --pretune --trace-out trace.json --dispatch-log dispatch.json
+
 Runs on the CUDA card; ``--device cpu`` runs every kernel's plain version
 on the CPU instead (the tests do this, at ``--reduced`` size). Without a
 card and without ``--device cpu`` it stops with an error.
@@ -24,6 +36,7 @@ card and without ``--device cpu`` it stops with an error.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -32,6 +45,8 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.mpgemm import FUSION_MODES, MPGEMM_MODES
 from repro_torch.models import api
+from repro_torch.obs import dispatch as dispatch_obs
+from repro_torch.obs.trace import Tracer
 from repro_torch.serving import decoding
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -72,7 +87,27 @@ def main(argv=None):
     ap.add_argument("--mode", default="lut_xla", choices=list(MPGEMM_MODES))
     ap.add_argument("--fusion", default="auto", choices=list(FUSION_MODES),
                     help="lut_pallas precompute placement: fused keeps the "
-                         "table on chip, staged writes it to device memory")
+                         "table on chip, staged writes it to device memory, "
+                         "tuned reads the measured tuning cache")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH",
+                    help="persistent kernel-tuning cache (JSON) that "
+                         "--fusion tuned reads; created or updated by "
+                         "--pretune")
+    ap.add_argument("--pretune", action="store_true",
+                    help="before serving, measure-tune every mpGEMM shape "
+                         "this engine dispatches and save the cache "
+                         "(lut_pallas only)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace / Perfetto JSON of the "
+                         "request lifecycle (admit, prefill and decode-chunk "
+                         "spans)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot as JSON (a "
+                         ".prom suffix writes Prometheus text instead)")
+    ap.add_argument("--dispatch-log", default=None, metavar="PATH",
+                    help="record every mpGEMM dispatch decision (shape key, "
+                         "fusion, tile, split-K count, tuned or heuristic) "
+                         "of this serve and write it as JSON")
     ap.add_argument("--cache-block-size", type=int, default=None,
                     help="enable the block-paged KV cache pool with this "
                          "many positions per block (must divide --max-seq)")
@@ -119,14 +154,31 @@ def main(argv=None):
     params = api.init_params(gen, cfg, device, serve_quantized=quantized)
     if not quantized:
         cfg = cfg.replace(quant=None)
+    if args.fusion == "tuned" and args.tuning_cache is None \
+            and not args.pretune:
+        print("note: --fusion tuned without --tuning-cache falls back to the "
+              "auto heuristic on every dispatch")
 
+    tracer = Tracer() if args.trace_out is not None else None
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
                         max_seq=args.max_seq, decode_chunk=args.decode_chunk,
                         prefill_chunk=args.prefill_chunk, eos_id=args.eos_id,
                         cache_block_size=args.cache_block_size,
                         num_cache_blocks=args.num_cache_blocks,
                         prefix_cache=args.prefix_cache, spec_k=args.spec_k,
-                        spec_draft_planes=spec_draft_planes)
+                        spec_draft_planes=spec_draft_planes,
+                        tuning_cache=args.tuning_cache, tracer=tracer)
+    if args.pretune:
+        if eng.tuning_cache is None:  # tune in memory for this process
+            from repro_torch.core import autotune
+            eng.tuning_cache = autotune.configure(None)
+        t0 = time.time()
+        n = eng.pretune(verbose=True)
+        print(f"pretuned {n} mpGEMM shapes in {time.time() - t0:.1f}s -> "
+              f"{args.tuning_cache or '(in memory only)'}")
+    # the serve's dispatches only, not the tuner's measurements
+    recorder = (dispatch_obs.enable(dispatch_obs.DispatchRecorder())
+                if args.dispatch_log is not None else None)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 24))
@@ -161,6 +213,25 @@ def main(argv=None):
     if dm.kind == decoding.BEAM:
         print(f"beam: width {dm.beam_width}, length alpha "
               f"{eng.beam_length_alpha}")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace: {len(tracer)} events -> {args.trace_out} (open at "
+              "ui.perfetto.dev)")
+    if args.metrics_out is not None:
+        with open(args.metrics_out, "w") as f:
+            if args.metrics_out.endswith(".prom"):
+                f.write(eng.prometheus_text())
+            else:
+                json.dump(eng.metrics_snapshot(), f, indent=2)
+        print(f"metrics -> {args.metrics_out}")
+    if recorder is not None:
+        dispatch_obs.disable()
+        s = recorder.summary()
+        with open(args.dispatch_log, "w") as f:
+            json.dump(s, f, indent=2)
+        print(f"dispatch log: {s['decisions']} mpGEMM decisions "
+              f"({s['tuned']} tuned, {s['heuristic']} heuristic, "
+              f"{s['forced']} forced) -> {args.dispatch_log}")
     return 0
 
 

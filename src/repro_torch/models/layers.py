@@ -80,16 +80,23 @@ def lut_dense(p: Params, x: torch.Tensor, quant: Optional[dict] = None,
 
 def resolve_fusion(m: int, k: int, quant: dict) -> str:
     """The lut_pallas ``fusion`` knob, resolved to "fused"/"staged" for a
-    table shared by the consumers of one [m, k] activation. The decision
-    uses the scheduler's widest N (2048): the fused working set only grows
-    with bn, so fused there is fused for every consumer."""
+    table shared by the consumers of one [m, k] activation. "auto" uses the
+    scheduler's widest N (2048): the fused working set only grows with bn,
+    so fused there is fused for every consumer. Under "tuned" the tuning
+    cache votes first (``autotune.lookup_fusion_any``: the largest-N entry
+    of this activation's shape); a miss falls back to "auto"."""
     fusion = quant.get("fusion", "auto")
-    if fusion != "auto":
+    if fusion not in ("auto", "tuned"):
         return fusion
-    from repro_torch.kernels.ops import auto_fusion
     kg = quant.get("k_group", 4)
-    return auto_fusion(m, 2048, max(1, k // kg), kg,
-                       quant.get("weight_bits", 2))
+    bits = quant.get("weight_bits", 2)
+    if fusion == "tuned":
+        from repro_torch.core.autotune import lookup_fusion_any
+        tuned = lookup_fusion_any(m, max(1, k // kg), kg, bits)
+        if tuned is not None:
+            return tuned
+    from repro_torch.kernels.ops import auto_fusion
+    return auto_fusion(m, 2048, max(1, k // kg), kg, bits)
 
 
 def make_table(x: torch.Tensor, quant: Optional[dict]):

@@ -26,8 +26,11 @@ private block, and the first decode step overwrites position ``plen-1`` in
 the copy.
 
 A copy of the reference's ``repro/serving/blockpool.py`` (pure Python and
-numpy), with the same refcount, LRU and chain-key semantics; the
-``hits`` / ``misses`` / ``evictions`` counters are plain attributes.
+numpy), with the same refcount, LRU and chain-key semantics. The
+``hits`` / ``misses`` / ``evictions`` counters are plain attributes; given a
+``repro_torch.obs.metrics.MetricsRegistry``, grants, denials, frees and
+the prefix cache's lookups also flow into ``blockpool_*`` and
+``prefix_cache_*`` series, scrapeable mid-run.
 """
 
 from __future__ import annotations
@@ -52,9 +55,11 @@ def chain_key(tokens) -> bytes:
 
 class BlockAllocator:
     """Refcounted free-list allocator over pool block ids (block 0 is the
-    null block and never allocated)."""
+    null block and never allocated). With ``metrics``, grants / denials /
+    frees count into ``blockpool_*`` counters and the in-use gauge follows
+    the free list."""
 
-    def __init__(self, num_blocks: int):
+    def __init__(self, num_blocks: int, metrics=None):
         if num_blocks < 2:
             raise ValueError(f"need >= 2 blocks (1 null + 1 usable), "
                              f"got {num_blocks}")
@@ -62,6 +67,20 @@ class BlockAllocator:
         # pop() hands out ascending ids, which keeps traces readable
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self.refs: Dict[int, int] = {}
+        self._m_granted = self._m_denied = self._m_freed = None
+        self._m_in_use = None
+        if metrics is not None:
+            self._m_granted = metrics.counter(
+                "blockpool_blocks_granted_total",
+                help="cache blocks handed out by alloc()")
+            self._m_denied = metrics.counter(
+                "blockpool_alloc_denied_total",
+                help="all-or-nothing alloc() calls denied for lack of blocks")
+            self._m_freed = metrics.counter(
+                "blockpool_blocks_freed_total",
+                help="blocks returned to the free list (last ref dropped)")
+            self._m_in_use = metrics.gauge(
+                "blockpool_blocks_in_use", help="pool blocks currently held")
 
     @property
     def num_free(self) -> int:
@@ -75,10 +94,15 @@ class BlockAllocator:
         """n fresh blocks at refcount 1, or None if the free list is short
         (all-or-nothing: a partial grant could deadlock admission)."""
         if n > len(self._free):
+            if self._m_denied is not None:
+                self._m_denied.inc()
             return None
         blocks = [self._free.pop() for _ in range(n)]
         for b in blocks:
             self.refs[b] = 1
+        if self._m_granted is not None:
+            self._m_granted.inc(n)
+            self._m_in_use.set(self.num_used)
         return blocks
 
     def incref(self, block: int) -> None:
@@ -94,6 +118,9 @@ class BlockAllocator:
         if r == 0:
             del self.refs[block]
             self._free.append(block)
+            if self._m_freed is not None:
+                self._m_freed.inc()
+                self._m_in_use.set(self.num_used)
         else:
             self.refs[block] = r
 
@@ -101,14 +128,24 @@ class BlockAllocator:
 class PrefixCache:
     """LRU chain-hash index ``chain_key -> block id``. Each entry holds one
     allocator ref, so a cached block survives its origin slot's retirement
-    and is reclaimed only by eviction."""
+    and is reclaimed only by eviction. With ``metrics``, the counters also
+    go to ``prefix_cache_*_total`` series."""
 
-    def __init__(self, allocator: BlockAllocator):
+    def __init__(self, allocator: BlockAllocator, metrics=None):
         self._alloc = allocator
         self._entries: "OrderedDict[bytes, int]" = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._m_hits = self._m_misses = self._m_evictions = None
+        if metrics is not None:
+            self._m_hits = metrics.counter(
+                "prefix_cache_hits_total",
+                help="prefix-block lookups served from the chain-hash index")
+            self._m_misses = metrics.counter("prefix_cache_misses_total")
+            self._m_evictions = metrics.counter(
+                "prefix_cache_evictions_total",
+                help="LRU entries dropped to refill the free list")
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -119,9 +156,13 @@ class PrefixCache:
         bid = self._entries.get(key)
         if bid is None:
             self.misses += 1
+            if self._m_misses is not None:
+                self._m_misses.inc()
             return None
         self._entries.move_to_end(key)
         self.hits += 1
+        if self._m_hits is not None:
+            self._m_hits.inc()
         return bid
 
     def put(self, key: bytes, block: int) -> None:
@@ -140,5 +181,7 @@ class PrefixCache:
             _, bid = self._entries.popitem(last=False)
             self._alloc.decref(bid)
             self.evictions += 1
+            if self._m_evictions is not None:
+                self._m_evictions.inc()
             dropped += 1
         return dropped

@@ -34,6 +34,19 @@ block refs and points its row at the null block. Page-table rows are
 written at chunk boundaries with asynchronous copies, so the host never
 waits for the card outside the one sync per decode chunk.
 
+Telemetry (``repro_torch.obs``): the engine's metrics registry always
+exists, and its bounded-reservoir histograms are the engine's storage of
+decode-chunk and prefill-chunk latencies and slot occupancy (O(reservoir)
+however long it serves). A ``tracer`` records the reference's span
+taxonomy: ``admit`` and ``prefill_chunk`` spans, a ``prefix_hit`` instant,
+one ``decode_chunk`` span a chunk, and an async ``request`` span from
+admission to retirement. Timestamps are ``perf_counter_ns`` reads at points
+the host already reaches: the decode chunk's span ends at its one sync; a
+prefill chunk's covers the host's enqueue time, as prefill does not sync.
+Telemetry adds no device round-trip; with no tracer each site costs one
+check. ``tuning_cache`` activates the measured plans ``fusion="tuned"``
+reads (``core.autotune``); ``pretune()`` fills it.
+
 Decoding modes (``serving/decoding.py``) are per-slot state: a request's
 ``decoding`` is ``greedy``/``sample``, ``beam:W`` (W slots of one group,
 forked every step) or ``spec:draftNb`` (self-speculation: K tokens drafted
@@ -48,8 +61,10 @@ done, its hypotheses ranked by ``rank_hypotheses``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -57,8 +72,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ArchConfig
+from repro_torch.core import mpgemm as mp
 from repro_torch.models import api, kvcache
 from repro_torch.models import quantized as qz
+from repro_torch.obs import dispatch as dispatch_obs
+from repro_torch.obs.metrics import MetricsRegistry, export_stats
+from repro_torch.obs.trace import Tracer
 from repro_torch.serving import blockpool, decoding
 from repro_torch.serving.sampler import categorical, mask_logits, sample
 
@@ -89,8 +108,28 @@ class ServingEngine:
                  num_cache_blocks: Optional[int] = None,
                  prefix_cache: bool = False, spec_k: int = 4,
                  spec_draft_planes: Optional[int] = None,
-                 beam_length_alpha: float = 0.6):
+                 beam_length_alpha: float = 0.6,
+                 tuning_cache: Optional[str] = None,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         self.cfg = cfg
+        self.tracer = tracer
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._h_chunk_s = self.metrics.histogram(
+            "engine_decode_chunk_seconds",
+            help="wall seconds per decode-chunk dispatch (sync to sync)",
+            unit="s")
+        self._h_occupancy = self.metrics.histogram(
+            "engine_slot_occupancy_ratio",
+            help="occupied slots / max_batch, sampled once per chunk")
+        self._h_prefill_s = self.metrics.histogram(
+            "engine_prefill_chunk_seconds",
+            help="wall seconds per prefill-chunk dispatch", unit="s")
+        # the measured plans fusion="tuned" reads for every projection
+        self.tuning_cache = None
+        if tuning_cache is not None:
+            from repro_torch.core import autotune
+            self.tuning_cache = autotune.configure(tuning_cache)
         self.params = params
         self.device = params["embed"]["table"].device
         # decoding modes: the spec draft is a plane-sliced view of the same
@@ -142,8 +181,10 @@ class ServingEngine:
         self.slots: List[Optional[Request]] = [None] * b
         self.page_table = None
         if self.paged:
-            self._alloc = blockpool.BlockAllocator(self.num_cache_blocks)
-            self._prefix = (blockpool.PrefixCache(self._alloc)
+            self._alloc = blockpool.BlockAllocator(self.num_cache_blocks,
+                                                   metrics=self.metrics)
+            self._prefix = (blockpool.PrefixCache(self._alloc,
+                                                  metrics=self.metrics)
                             if self.prefix_caching else None)
             # divergence entries whose last position is unwritten until the
             # origin slot's first decode chunk
@@ -191,7 +232,9 @@ class ServingEngine:
         self.admit_attempts = 0
         self.admit_blocked = 0  # admissions deferred for lack of blocks
         self.peak_active_slots = 0
-        self._chunk_s: List[float] = []
+        self._h_chunk_s.reset()
+        self._h_occupancy.reset()
+        self._h_prefill_s.reset()
 
     # -- device programs ----------------------------------------------------
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -200,23 +243,42 @@ class ServingEngine:
         CUDA runtime has staged the bytes, so ``arr`` may be dropped at once."""
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
 
+    def _annotate(self, name: str):
+        """The tracer's ``torch.profiler`` annotation of a span, or a
+        no-op context without a tracer."""
+        return (contextlib.nullcontext() if self.tracer is None
+                else self.tracer.annotation(name))
+
     def _prefill(self, prompt: np.ndarray, start: int, caches,
-                 page_row=None):
+                 page_row=None, *, uid: int = -1,
+                 slot: int = -1) -> Tuple[int, int]:
         """Prefill ``prompt[start:-1]`` in fixed [1, C] chunks (the tail
         right-padded) into ``caches`` at offsets start, start + C, ...; the
-        LM head is skipped (only the caches are kept)."""
+        LM head is skipped (only the caches are kept). Each chunk's host
+        time (its enqueue: prefill does not sync) goes to the prefill
+        histogram and, with a tracer, a ``prefill_chunk`` span of request
+        ``uid`` in ``slot``. Returns the (start, end) ``perf_counter_ns``."""
         plen, c = int(prompt.size), self.prefill_chunk
-        t0 = time.perf_counter()
+        t0 = tc = time.perf_counter_ns()
         for j in range(start, plen - 1, c):
             vl = min(c, plen - 1 - j)
             buf = np.zeros((1, c), np.int64)
             buf[0, :vl] = prompt[j:j + vl]
-            api.forward(self.params, {"tokens": self._to_device(buf)},
-                        self.cfg, caches=caches, cache_pos=j, head=False,
-                        page_table=page_row)
+            with self._annotate("prefill_chunk"):
+                api.forward(self.params, {"tokens": self._to_device(buf)},
+                            self.cfg, caches=caches, cache_pos=j, head=False,
+                            page_table=page_row)
+            tn = time.perf_counter_ns()
+            self._h_prefill_s.observe((tn - tc) / 1e9)
+            if self.tracer is not None:
+                self.tracer.complete("prefill_chunk", tc, tn, cat="prefill",
+                                     uid=uid, slot=slot, offset=j, valid=vl)
+            tc = tn
             self.prefill_dispatches += 1
             self.prefill_tokens += vl
-        self.prefill_s += time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        self.prefill_s += (t1 - t0) / 1e9
+        return t0, t1
 
     def _decode_chunk(self, sampling: bool):
         """``decode_chunk`` steps for the whole pool, all on the device.
@@ -429,7 +491,13 @@ class ServingEngine:
         prompt = self._truncate(req)
         slot_caches = api.init_cache(self.cfg, 1, self.max_seq,
                                      dtype=torch.float32, device=self.device)
-        self._prefill(prompt, 0, slot_caches)
+        with self._annotate("admit"):
+            t0, t1 = self._prefill(prompt, 0, slot_caches, uid=req.uid,
+                                   slot=i)
+        if self.tracer is not None:
+            self.tracer.complete("admit", t0, t1, uid=req.uid, slot=i,
+                                 prompt_len=int(prompt.size),
+                                 mode=req.decoding, paged=False)
         kvcache.merge_batch(self.caches, slot_caches, i)
         self._set_slot(i, req, prompt)
 
@@ -538,8 +606,20 @@ class ServingEngine:
             self._alloc.decref(cow_src)  # the private copy is taken
             start += bs
         self.prefill_tokens_reused += min(start, plen - 1)
-        self._prefill(prompt, start, self.caches,
-                      page_row=self.page_table[i:i + 1])
+        if self.tracer is not None and (m0 > 0 or cow_src is not None):
+            self.tracer.instant("prefix_hit", cat="prefill", uid=req.uid,
+                                slot=i, shared_blocks=m0,
+                                cow=cow_src is not None,
+                                tokens_reused=min(start, plen - 1))
+        with self._annotate("admit"):
+            t0, t1 = self._prefill(prompt, start, self.caches,
+                                   page_row=self.page_table[i:i + 1],
+                                   uid=req.uid, slot=i)
+        if self.tracer is not None:
+            self.tracer.complete("admit", t0, t1, uid=req.uid, slot=i,
+                                 prompt_len=plen, mode=req.decoding,
+                                 paged=True, shared_blocks=m0,
+                                 cow=cow_src is not None)
         live = self._set_slot(i, req, prompt)
 
         # register the freshly written shareable blocks
@@ -646,6 +726,11 @@ class ServingEngine:
                 self.admit_blocked += 1
                 break
             self.queue.popleft()
+            if self.tracer is not None:
+                self.tracer.async_begin("request", id=req.uid,
+                                        mode=req.decoding, width=width)
+                if req.done:  # max_new_tokens <= 0: retires at admission
+                    self.tracer.async_end("request", id=req.uid, tokens=0)
             n += 1
         return n
 
@@ -653,7 +738,8 @@ class ServingEngine:
         """One chunk cycle: admit, decode N tokens per slot, retire."""
         admitted = self._admit()
         occupied = [i for i, r in enumerate(self.slots) if r is not None]
-        self.peak_active_slots = max(self.peak_active_slots, len(occupied))
+        occ = len(occupied)
+        self.peak_active_slots = max(self.peak_active_slots, occ)
         if not occupied:
             if self.paged and self.queue and admitted == 0:
                 # no live slot can ever free blocks: the head request needs
@@ -663,12 +749,57 @@ class ServingEngine:
                     f"than the pool can ever free (num_cache_blocks="
                     f"{self.num_cache_blocks}, block={self.cache_block_size})")
             return admitted > 0
+        self._h_occupancy.observe(occ / self.max_batch)
         sampling = any(self._sampling[i] for i in occupied)
         # a pool of NORMAL slots runs the one-token program; beam or spec
         # slots the general one
         has_beam = any(self._slot_kind[i] == decoding.BEAM for i in occupied)
         has_spec = any(self._slot_kind[i] == decoding.SPEC for i in occupied)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        with self._annotate("decode_chunk"):
+            toks, valid, parent, alive, scores, sst, sacc = self._run_chunk(
+                has_beam, has_spec, sampling)
+        t1 = time.perf_counter_ns()  # the timestamp the sync already earned
+        self.decode_syncs += 1
+        self._h_chunk_s.observe((t1 - t0) / 1e9)
+        if self.tracer is not None:
+            self.tracer.complete(
+                "decode_chunk", t0, t1, cat="decode", steps=self.decode_chunk,
+                active_slots=occ, occupancy=occ / self.max_batch,
+                has_beam=has_beam, has_spec=has_spec)
+        n = toks.shape[0]
+        if self.paged:
+            # each pending divergence entry's origin slot has now written
+            # the entry's last position: fully shareable from here on
+            self._pending_keys.clear()
+        for step in range(n):
+            if has_beam:
+                # hypothesis histories fork as the caches do: read every
+                # parent's history before committing any
+                moved = {i: list(self._beam_hist[parent[step, i]])
+                         for i in occupied
+                         if self._slot_kind[i] == decoding.BEAM
+                         and valid[step, i, 0]}
+                for i, hist in moved.items():
+                    hist.append(int(toks[step, i, 0]))
+                    self._beam_hist[i] = hist
+                    self.decode_tokens += 1
+            for i in occupied:
+                if self._slot_kind[i] == decoding.BEAM:
+                    continue  # recorded above
+                for j in range(toks.shape[2]):
+                    if valid[step, i, j]:
+                        self.slots[i].output.append(int(toks[step, i, j]))
+                        self.decode_tokens += 1
+        self._retire(occupied, alive, scores, sst, sacc)
+        return True
+
+    def _run_chunk(self, has_beam: bool, has_spec: bool, sampling: bool):
+        """One decode chunk and THE sync that reads it back: host arrays
+        toks / valid [N, B, S_e], the beam parents [N, B], liveness [B],
+        and the beam scores and spec counters [B] (None for a pool of
+        NORMAL slots)."""
+        parent = scores = sst = sacc = None
         if not (has_beam or has_spec):
             toks, valid = self._decode_chunk(sampling)
             n, b = toks.shape
@@ -697,31 +828,12 @@ class ServingEngine:
             valid = valid.astype(bool).reshape(n, b, s_e)
             parent = parent.astype(np.int64).reshape(n, b)
             alive = alive.astype(bool)
-        self._chunk_s.append(time.perf_counter() - t0)
-        self.decode_syncs += 1
-        if self.paged:
-            # each pending divergence entry's origin slot has now written
-            # the entry's last position: fully shareable from here on
-            self._pending_keys.clear()
-        for step in range(n):
-            if has_beam:
-                # hypothesis histories fork as the caches do: read every
-                # parent's history before committing any
-                moved = {i: list(self._beam_hist[parent[step, i]])
-                         for i in occupied
-                         if self._slot_kind[i] == decoding.BEAM
-                         and valid[step, i, 0]}
-                for i, hist in moved.items():
-                    hist.append(int(toks[step, i, 0]))
-                    self._beam_hist[i] = hist
-                    self.decode_tokens += 1
-            for i in occupied:
-                if self._slot_kind[i] == decoding.BEAM:
-                    continue  # recorded above
-                for j in range(toks.shape[2]):
-                    if valid[step, i, j]:
-                        self.slots[i].output.append(int(toks[step, i, j]))
-                        self.decode_tokens += 1
+        return toks, valid, parent, alive, scores, sst, sacc
+
+    def _retire(self, occupied: List[int], alive, scores, sst, sacc):
+        """Retire the occupied slots the chunk left dead: a request's slot
+        frees at once; a beam hypothesis freezes until its group is done,
+        then the group ranks its hypotheses and frees its slots."""
         retired = []
         for i in occupied:
             if alive[i]:
@@ -746,6 +858,9 @@ class ServingEngine:
                 self.spec_verify_steps += vs
                 self.spec_accepted_tokens += at
             req.done = True
+            if self.tracer is not None:
+                self.tracer.async_end("request", id=req.uid,
+                                      tokens=len(req.output or []))
             self.slots[i] = None  # refillable at the next boundary
             retired.append(i)
         # beam groups with no live hypothesis left: rank and retire together
@@ -761,6 +876,10 @@ class ServingEngine:
             req.beams = [(hyps[o][0], float(norm[o])) for o in order]
             req.output = list(req.beams[0][0]) if req.beams else []
             req.done = True
+            if self.tracer is not None:
+                self.tracer.async_end("request", id=req.uid,
+                                      tokens=len(req.output),
+                                      hypotheses=len(req.beams))
             for m in g["slots"]:
                 self.slots[m] = None
                 self._slot_kind[m] = decoding.NORMAL
@@ -769,7 +888,6 @@ class ServingEngine:
         if self.paged:
             for i in retired:
                 self._release(i)
-        return True
 
     def run_to_completion(self, max_ticks: int = 10000) -> int:
         ticks = 0
@@ -781,10 +899,40 @@ class ServingEngine:
                 raise RuntimeError("serving did not converge")
         return ticks
 
+    # -- kernel autotuning -----------------------------------------------------
+    def pretune(self, *, repeats: int = 2, max_candidates: int = 4,
+                verbose: bool = False) -> int:
+        """Measure-tune every mpGEMM shape this engine dispatches: each
+        packed weight's shape at M = ``max_batch`` (a decode step) and M =
+        ``prefill_chunk`` (a prefill chunk), missing from the tuning cache,
+        which is then saved where it has a path. Only ``lut_pallas`` has
+        kernel knobs: any other mode warns and returns 0. Returns the
+        number of shapes tuned."""
+        from repro_torch.core import autotune
+        cache = (self.tuning_cache if self.tuning_cache is not None
+                 else autotune.get_active())
+        if cache is None:
+            raise ValueError("pretune() needs a tuning cache: construct the "
+                             "engine with tuning_cache=<path>")
+        q = self.cfg.quant or {}
+        if q.get("mpgemm_mode") != "lut_pallas":
+            warnings.warn("pretune() is a no-op for mpgemm_mode="
+                          f"{q.get('mpgemm_mode')!r} (no kernel knobs)")
+            return 0
+        n = autotune.pretune_params(
+            self.params, [self.max_batch, self.prefill_chunk], cache=cache,
+            table_quant=mp.resolve_table_quant(q.get("table_quant", "auto"),
+                                               self.device),
+            repeats=repeats, max_candidates=max_candidates, verbose=verbose)
+        if cache.path is not None:
+            cache.save()
+        return n
+
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
-        chunk_s = np.asarray(self._chunk_s or [0.0])
-        decode_s = float(chunk_s.sum())
+        # percentiles interpolate over the bounded-reservoir histogram
+        h = self._h_chunk_s
+        decode_s = h.total
         out = {
             "decode_chunk": self.decode_chunk,
             "prefill_chunk": self.prefill_chunk,
@@ -795,13 +943,16 @@ class ServingEngine:
             "prefill_dispatches": self.prefill_dispatches,
             "prefill_tokens": self.prefill_tokens,
             "prefill_s": self.prefill_s,
-            "p50_chunk_ms": float(np.percentile(chunk_s, 50)) * 1e3,
-            "p95_chunk_ms": float(np.percentile(chunk_s, 95)) * 1e3,
+            "p50_chunk_ms": h.percentile(0.50) * 1e3,
+            "p95_chunk_ms": h.percentile(0.95) * 1e3,
             # decode-only throughput: excludes prefill and admission
             "decode_tok_s": (self.decode_tokens / decode_s
                              if decode_s else 0.0),
             "peak_active_slots": self.peak_active_slots,
+            "slot_occupancy": self._h_occupancy.mean,
             "paged": self.paged,
+            # single-device engine: no mesh (the reference's plan=None)
+            "mesh": None,
             "cache_hbm_bytes": sum(c.numel() * c.element_size()
                                    for c in self.caches),
             "admit_attempts": self.admit_attempts,
@@ -844,4 +995,22 @@ class ServingEngine:
                     "misses": self._prefix.misses,
                     "evictions": self._prefix.evictions,
                 }
+        if self.tuning_cache is not None:
+            out["tuning_cache"] = self.tuning_cache.counters()
+        rec = dispatch_obs.get_active()
+        if rec is not None:
+            s = rec.summary()
+            out["dispatch"] = {k: s[k] for k in
+                               ("decisions", "tuned", "heuristic", "forced")}
         return out
+
+    def metrics_snapshot(self) -> dict:
+        """JSON-able registry snapshot with ``stats()`` mirrored in as
+        ``engine_*`` gauges."""
+        export_stats(self.metrics, self.stats(), prefix="engine")
+        return self.metrics.snapshot()
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition of the same snapshot."""
+        export_stats(self.metrics, self.stats(), prefix="engine")
+        return self.metrics.prometheus_text()

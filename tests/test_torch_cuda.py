@@ -599,7 +599,8 @@ def test_ternary_int_paths_are_bit_exact_at_bitnet_shapes(cuda, m, nk):
     assert torch.equal(fused[:m, :n], staged[:m, :n])
     before = (fk.launches, lk.launches)
     out = ops.lut_mpgemm(x, qw, table_quant="per_row")
-    fused_rule = ops.resolve_dispatch(m, n, k // 4, 4, 2) == "fused"
+    fused_rule = ops.resolve_dispatch(m, n, k // 4, 4,
+                                      2).fusion == "fused"
     assert (fk.launches, lk.launches) == (before[0] + fused_rule,
                                           before[1] + (not fused_rule))
     assert torch.equal(out, fused[:m, :n])
@@ -747,3 +748,80 @@ def test_verify_burst_position_zero_has_the_decode_steps_bits(cuda):
     burst = eng._forward(params, torch.cat([eng.last_tok[:, None], drafts],
                                            dim=1), eng.pos)
     assert torch.equal(one, burst[:, 0])
+
+
+# (M, N, K, fusion, tile, S): tuned plans whose tile and S differ from
+# the heuristic's (per_row, tinyllama's widths): decode M 4 fused on the
+# 64x64 tile with S 3 and staged on the 16x128 tile with S 1; prefill M 128
+# staged on the 64x64 tile with S 5 and fused on the 128x128 tile with S 2
+TUNED_PLANS = [(4, 2048, 2048, "fused", 1, 3), (4, 256, 2048, "staged", 0, 1),
+               (128, 5632, 2048, "staged", 1, 5),
+               (128, 2048, 5632, "fused", 2, 2)]
+
+
+@pytest.mark.parametrize("plan", TUNED_PLANS, ids=str)
+def test_tuned_plan_launches_once_and_matches_the_heuristic(cuda, plan):
+    """A tuned plan (cache hit) launches its kernel once a call, each
+    counter once, and gives the heuristic plan's bits on per_row (exact
+    int32 sums); within 1e-4 on float tables."""
+    from repro_torch.core import autotune
+    m, n, k, fusion, tile, splits = plan
+    rng = np.random.default_rng(m + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    qw = _random_w2(rng, n, k, cuda)
+    heur = ops.resolve_dispatch(m, n, k // 4, 4, 2)
+    assert (heur.source, heur.tile, heur.splits) == ("heuristic", None, None)
+    assert ops.kernel_plan(m, n, k // 4, 4, 2, "per_row", fusion)[::4] != (
+        tile, splits)
+    for tq in ("per_row", None):
+        want = ops.lut_mpgemm(x, qw, table_quant=tq)
+        cache = autotune.configure(None)
+        try:
+            cache.put(autotune.shape_key(m, n, k // 4, 4, 2, table_quant=tq),
+                      autotune.TunedConfig(fusion, tile, splits))
+            assert ops.resolve_dispatch(m, n, k // 4, 4, 2, fusion="tuned",
+                                    table_quant=tq).source == "tuned"
+            before = (tk.launches, tk.row_scale_launches, lk.launches,
+                      fk.launches)
+            got = ops.lut_mpgemm(x, qw, table_quant=tq, fusion="tuned")
+            after = (tk.launches, tk.row_scale_launches, lk.launches,
+                     fk.launches)
+        finally:
+            autotune.deactivate()
+        fused = fusion == "fused"
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            int(not fused), int(fused and tq == "per_row"), int(not fused),
+            int(fused))
+        _close(got, want, tq)
+
+
+def test_traced_serve_keeps_one_sync_per_chunk(cuda):
+    """A serve with a tracer (torch.profiler annotation on) and a dispatch
+    recorder gives the untraced serve's tokens and syncs: one decode_chunk
+    span per sync, balanced request spans, every dispatch recorded."""
+    from repro_torch.obs import dispatch as dispatch_obs
+    from repro_torch.obs.trace import Tracer, validate_chrome_trace
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (9, 21, 16, 5, 30)]
+    runs = []
+    for traced in (False, True):
+        tracer = Tracer() if traced else None
+        _, _, eng = _reduced_engine(cuda, "lut_pallas", tracer=tracer)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+        with dispatch_obs.recording() as rec:
+            for r in reqs:
+                eng.submit(r)
+            eng.run_to_completion()
+        st = eng.stats()
+        assert st["host_syncs_per_token"] <= 1 / eng.decode_chunk
+        runs.append(([r.output for r in reqs], st["decode_syncs"]))
+        if traced:
+            evs = tracer.chrome_trace()["traceEvents"]
+            summary = validate_chrome_trace(evs)
+            assert summary["by_phase"]["b"] == summary["by_phase"]["e"] == 5
+            assert sum(e["name"] == "decode_chunk" for e in evs) == \
+                st["decode_syncs"]
+            assert sum(r.count for r in rec.records("dispatch")) > 0
+    assert runs[0] == runs[1]

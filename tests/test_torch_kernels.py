@@ -158,12 +158,14 @@ def test_fusion_rule_on_the_h100_budget():
     fused there."""
     for n, k in ((2048, 2048), (5632, 2048), (2048, 5632), (32000, 2048)):
         for m in (1, 4, 8, 32, 64):
-            assert tops.resolve_dispatch(m, n, k // 4, 4, 2) == "fused"
+            assert tops.resolve_dispatch(m, n, k // 4, 4,
+                                         2).fusion == "fused"
             assert jops.resolve_dispatch(m, n, k // 4, 4, 2)[0] == "fused"
-        assert tops.resolve_dispatch(128, n, k // 4, 4, 2) == "staged"
+        assert tops.resolve_dispatch(128, n, k // 4, 4,
+                                     2).fusion == "staged"
         assert jops.resolve_dispatch(128, n, k // 4, 4, 2)[0] == "fused"
     with pytest.raises(ValueError):
-        tops.resolve_dispatch(8, 128, 16, 4, 2, fusion="tuned")
+        tops.resolve_dispatch(8, 128, 16, 4, 2, fusion="bogus")
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
@@ -205,9 +207,9 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
                                        kw["k_group"], kw["planes"])[0] == tile
                 bm = 1  # the fused int path takes x's rows as they are
             else:
-                tlut.launch_args(kw["k_group"], kw["planes"],
-                                 kw["plane_scales"], rows.shape[0],
-                                 packed.shape[0], gp, tile)
+                assert tlut.staged_plan(1, rows.shape[0], packed.shape[0],
+                                        gp, kw["k_group"],
+                                        kw["planes"])[0] == tile
             assert (rows.shape[0], packed.shape[0], gp) == (
                 up(m, bm), up(n, bn), up(g, bg))
             assert rows_of(rows, kw["k_group"]) == gp
@@ -232,8 +234,7 @@ def test_wrappers_pad_to_the_kernel_tiles(case, monkeypatch):
     assert tfused.int_tile(m, k_group, bits)[3] > tlut.int_tile_for(
         m, k_group, bits)[3]
     with pytest.raises(ValueError, match="padded"):
-        tlut.launch_args(4, 2, (1.0, 2.0), 5, 64, 32,
-                         tlut.int_tile_for(5, 4, 2))
+        tlut.staged_plan(1, 5, 64, 32, 4, 2)
     with pytest.raises(ValueError, match="padded"):
         tlut.f32_plan(5, 64, 32, 4, 2)
 

@@ -150,4 +150,4 @@ def test_quantize_params_matches_reference_and_skips(weights):
     assert "qw" in skipped["layers"][0]["mlp"]["up"]
     assert tquant.quantized_bytes(got) < tquant.quantized_bytes(port_float)
     with pytest.raises(ValueError):
-        tquant.quantize_params(port_float, dict(qcfg.quant, fusion="tuned"))
+        tquant.quantize_params(port_float, dict(qcfg.quant, fusion="bogus"))
