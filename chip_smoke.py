@@ -155,8 +155,38 @@ exit and no result line):
      same operands, every float-table candidate within rtol = atol = 1e-4
      and 1e-4 of the largest output of the plain path.
 
+ 11. moe     — the MoE family, full-width olmoe-1b-7b (16 layers, d_model
+     2048, MHA 16/16, 64 experts of d_ff 1024, top-8, vocab 50304), W2
+     symmetric K=4 experts and head, float attention, per_row tables,
+     lut_pallas, random weights from seed 0 made on the card layer by
+     layer (``moe_phase``): (a) the expert axis of both LUT kernels
+     (``lut_mpgemm_batched``, ``fused_lut_mpgemm_batched``: E experts'
+     mpGEMMs in one launch) at E = 64, C ∈ {8, 24} rows an expert (a
+     decode step's capacity and a 128-token prefill chunk's), (N, K) of
+     gate/up and down, every table mode: per_row bit-exact against the
+     plain version, the bf16 paths within phase 8 (a)'s bound, every mode
+     bit-equal to 64 launches of the 2-D kernel on the same plan, one
+     launch a call; timed as phase 3 times its kernels beside the 64 2-D
+     launches, the plain version, a bf16 ``torch.bmm`` and the bound;
+     (b) phase 4's engine and request shapes served with fusion auto (the
+     default; every expert projection fused) and with fusion staged (the
+     batched staged kernel), launch counts set to 0 before the pair and
+     read after: every kernel of the path launched, equal tokens, <=
+     1/decode_chunk host syncs a token; one auto decode chunk under
+     torch's sync check launching exactly one batched fused kernel and
+     one row scale per expert projection a step and one of each for the
+     head; the fusion of each expert projection at C = 8 and 24; a
+     decode step and a 128-token prefill chunk profiled as in phase 4;
+     (c) a teacher-forced 128-token forward, lut_pallas vs lut_xla logits
+     bit-equal; (d) phase 6's prompts through the paged pool without
+     sharing equal to the dense engine's streams, then with prefix
+     sharing once, its agreement with dense and the prompt tokens reused
+     recorded (a suffix prefill routes fewer tokens, so its capacity and
+     drops differ).
+
 The line before the last is the card's name and power limit; the line
-before that the kernels' JSON record; the last line
+before that the kernels' JSON record (the two batched wrappers listed
+beside the four kernels, with phase 11's launches and times); the last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
 (``src/repro_torch/build/``).
@@ -172,6 +202,10 @@ phase 9 alone (its record as one line of JSON),
     python3 chip_smoke.py --telemetry         # phases 1, 2 and 10 only
 
 phase 10 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --moe               # phases 1, 2 and 11 only
+
+phase 11 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -898,22 +932,28 @@ def kernel_modules():
 
 
 def reset_counts():
-    """Sets every wrapper's launch count to 0, the row scale's too where
-    the checkout has that entry."""
+    """Sets every wrapper's launch count to 0, the row scale's and the
+    batched wrappers' too where the checkout has those entries."""
     mods = kernel_modules()
     for mod in mods.values():
         mod.launches = 0
     if hasattr(mods["table_precompute"], "row_scale_launches"):
         mods["table_precompute"].row_scale_launches = 0
+    for name in ("lut_mpgemm", "fused_lut_mpgemm"):
+        if hasattr(mods[name], "batched_launches"):
+            mods[name].batched_launches = 0
 
 
 def read_counts():
-    """{kernel: launches} of the four wrappers and of ``row_scale`` (None
-    where the checkout has no row-scale entry)."""
+    """{kernel: launches} of the four wrappers, of ``row_scale`` and of the
+    two batched (expert-axis) wrappers (None where the checkout has no
+    such entry)."""
     mods = kernel_modules()
     out = {name: mod.launches for name, mod in mods.items()}
     out["row_scale"] = getattr(mods["table_precompute"], "row_scale_launches",
                                None)
+    for name in ("lut_mpgemm", "fused_lut_mpgemm"):
+        out[name + "_batched"] = getattr(mods[name], "batched_launches", None)
     return out
 
 
@@ -1181,14 +1221,16 @@ def prefill_chunk_profile(eng):
                              ProfilerActivity.CUDA]) as prof:
         eng._prefill(prompt, 0, cache)
         torch.cuda.synchronize()
-    per_name, staged, kernels = {}, [0.0, 0], 0
+    per_name, staged, fused, kernels = {}, [0.0, 0], [0.0, 0], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
             kernels += not e.name.startswith(("Memcpy", "Memset"))
-            if any(k in e.name for k in STAGED_KERNELS):
-                staged[0] += e.device_time_total
-                staged[1] += 1
+            for names, acc in ((STAGED_KERNELS, staged),
+                               (FUSED_KERNELS, fused)):
+                if any(k in e.name for k in names):
+                    acc[0] += e.device_time_total
+                    acc[1] += 1
     busy_ms = sum(per_name.values()) / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms,
@@ -1197,6 +1239,10 @@ def prefill_chunk_profile(eng):
             "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
             "staged_lookup_ms": staged[0] / 1e3 if per_name else None,
             "staged_lookup_kernels": staged[1],
+            # the fused kernel, where a chunk's plan is fused (olmoe's
+            # experts at 24 rows an expert)
+            "fused_lookup_ms": fused[0] / 1e3 if per_name else None,
+            "fused_lookup_kernels": fused[1],
             "kernels": kernels,
             "lookup_kernels": lookup_names(per_name, STAGED_KERNELS),
             "top": [(name[:60], t / 1e3) for name, t in top]}
@@ -1210,7 +1256,11 @@ def prefill_line(rec):
             f"ms (idle share {rec['idle_share']:.3f}) in {rec['kernels']} "
             f"CUDA kernels; lut_mpgemm "
             f"{rec['staged_lookup_ms']:.2f} ms in "
-            f"{rec['staged_lookup_kernels']} kernels; device time by kernel: "
+            f"{rec['staged_lookup_kernels']} kernels; "
+            + (f"fused_lut_mpgemm {rec['fused_lookup_ms']:.2f} ms in "
+               f"{rec['fused_lookup_kernels']} kernels; "
+               if rec.get("fused_lookup_kernels") else "")
+            + "device time by kernel: "
             + ", ".join(f"{n} {t:.2f} ms" for n, t in rec["top"]))
 
 
@@ -1971,6 +2021,396 @@ def telemetry_lines(rec):
         f"phase 10 in {rec['seconds']:.1f} s"]
 
 
+# phase 11: the MoE family, full-width olmoe-1b-7b (64 experts, top-8, W2
+# experts, float attention)
+MOE = "olmoe-1b-7b"
+# rows an expert (capacity C) at a decode step of 4 slots and at a 128-token
+# prefill chunk: max(8, ⌈t·k·1.25 / E⌉ rounded up to 8)
+MOE_ROWS = (8, 24)
+BATCHED = ("lut_mpgemm_batched", "fused_lut_mpgemm_batched")
+
+
+def moe_config():
+    from repro_torch.configs import registry
+    return registry.get_config(MOE).replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
+                                                   fusion="auto")
+
+
+def random_experts(gen, e, n, k):
+    """E experts' random W2 weights [E, N, K/4] bytes, scales [E, N]."""
+    from repro_torch.core.quantize import QuantizedWeight
+    packed = torch.randint(0, 256, (e, n, k * BITS // 8), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    scale = torch.rand(e, n, generator=gen, device="cuda") * 0.01 + 1e-3
+    return QuantizedWeight(packed, scale, None, (1.0, 2.0), bits=BITS,
+                           k_group=KG, k_total=k, n=n)
+
+
+def expert_kernel_checks(flush, cfg, seed=0):
+    """Phase 11 (a): both LUT kernels' batched wrappers at olmoe's expert
+    shapes, E = 64, C ∈ MOE_ROWS, (N, K) of gate/up and down, every table
+    mode, on operands padded as ``ops`` pads them (each expert's C rows to
+    the tile's rows, Cp; channels and K-groups to the tile): per_row
+    bit-equal to the plain version (the 2-D plain version per expert), the
+    bf16 paths within BOUND_REL · Σ|a·w| + 1e-6 of it at every output
+    (phase 8 (a)'s bound); every mode bit-equal to E launches of the 2-D
+    kernel, one an expert, on the same plan (tile and split-K count S);
+    one batched launch a call and no 2-D one. Timed with ``time_ms``: the
+    batched kernel, the E 2-D launches, the plain version, a bf16
+    ``torch.bmm`` of the same [E, C, K] x [E, K, N], and the bound (all E
+    experts' packed weights and scales, the activations or table of the
+    C real rows, the outputs; 2·E·C·N·K int8 operations per_row, three
+    bf16 passes on float tables, plus the table adds where the kernel
+    builds the table). Returns (records, max |diff| a kernel)."""
+    from repro_torch.core import table as T
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels import fused_lut_mpgemm as fk
+    from repro_torch.kernels import lut_mpgemm as lk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import table_precompute as tk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    ne, ent = cfg.num_experts, 1 << (KG - 1)
+    shapes = ((cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.d_ff))
+    records, err = [], {name: 0.0 for name in BATCHED}
+    for c in MOE_ROWS:
+        for n, k in shapes:
+            g = k // KG
+            x = torch.randn(ne, c, k, generator=gen, device="cuda")
+            qw = random_experts(gen, ne, n, k)
+            x_bf16 = x.to(torch.bfloat16)
+            w_bf16 = torch.stack([dequantize(qw.expert(i)).T for i in
+                                  range(ne)]).to(torch.bfloat16).contiguous()
+            library = lambda: torch.bmm(x_bf16, w_bf16)
+            pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
+            for tq in MODES:
+                for name in BATCHED:
+                    fused = name == "fused_lut_mpgemm_batched"
+                    config, bm, bn, bg = ops._expert_tile(c, KG, BITS, tq,
+                                                          fused)
+                    cp = -(-c // bm) * bm
+                    xp = ops._pad_to(ops._pad_to(x, cp, 1), bg * KG, 2)
+                    xp = xp.reshape(ne * cp, -1).contiguous()
+                    gp = xp.shape[1] // KG
+                    rs = (tk.row_scale_plain(xp, KG).contiguous()
+                          if tq == "per_row" else None)
+                    if fused:
+                        pkp, wsp = ops._pad_packed(qw, gp, bn)
+                        ops_ = (xp, rs, pkp, wsp)
+                        kw = dict(pw, table_quant=tq)
+                        mod, one = fk, fk.fused_lut_mpgemm
+                        plan = fk.int_plan if tq == "per_row" else lk.f32_plan
+                        _, s, _ = plan(ne * cp, pkp.shape[1], gp, KG, BITS,
+                                       config)
+                        tables = tk.table_precompute_plain(xp, KG, tq, rs)
+                    else:
+                        tv, ts = tk.table_precompute_plain(xp, KG, tq, rs)
+                        ops_ = ops.staged_operands(T.Table(
+                            tv.reshape(ne * cp, g, ent),
+                            None if ts is None
+                            else ts.reshape(ne * cp, -1, 1), None, KG),
+                            qw, config)
+                        kw, mod, one = pw, lk, lk.lut_mpgemm
+                        _, s, _ = lk.staged_plan(
+                            int(tq == "per_row"), ne * cp, ops_[2].shape[1],
+                            ops_[0].shape[1] // ent, KG, BITS, config)
+                        tables = ops_[:2]
+                    batched = getattr(mod, name)
+                    plain = getattr(mod, name + "_plain")
+                    call = lambda: batched(*ops_, tile=config, **kw)
+                    what = (f"{name} C={c} N={n} K={k} table_quant={tq}")
+                    before = (mod.launches, mod.batched_launches)
+                    got = call()
+                    if (mod.launches, mod.batched_launches) != (
+                            before[0], before[1] + 1):
+                        raise AssertionError(f"{what}: not one batched "
+                                             f"launch a call")
+                    want = plain(*ops_, **kw)
+                    rows = lambda t, i: (None if t is None
+                                         else t[i * cp:(i + 1) * cp])
+                    loop = lambda: [one(
+                        rows(ops_[0], i), rows(ops_[1], i), ops_[2][i],
+                        ops_[3][i], tile=config, splits=s, **kw)
+                        for i in range(ne)]
+                    per_expert = torch.cat(loop())
+                    if not torch.equal(got, per_expert):
+                        raise AssertionError(f"{what}: not bit-equal to "
+                                             f"{ne} 2-D launches")
+                    diff = (got - want).abs().max().item()
+                    err[name] = max(err[name], diff)
+                    ratio = None
+                    if tq == "per_row":
+                        if diff != 0.0:
+                            raise AssertionError(f"{what}: per_row must be "
+                                                 f"bit-exact, |diff| {diff}")
+                    else:
+                        sums = torch.cat([lut_sums(
+                            rows(tables[0], i), rows(tables[1], i),
+                            ops_[2][i], ops_[3][i], **pw)
+                            for i in range(ne)])
+                        ratio = ((got - want).abs() / (BOUND_REL * sums
+                                                       + 1e-6)).max().item()
+                        if not ratio <= 1.0:
+                            raise AssertionError(
+                                f"{what}: |diff| exceeds {BOUND_REL} · "
+                                f"Σ|a·w| + 1e-6 (ratio {ratio:.3g})")
+                    pk_bytes = qw.packed.numel() + 4 * ne * n
+                    rows_ = ne * c
+                    if tq == "per_row":
+                        nops = {"int8": 2 * rows_ * n * k}
+                        tbl_bytes = rows_ * g * ent + 4 * rows_
+                    else:
+                        nops = {"bf16": lk.F32_PASSES * 2 * rows_ * n * k}
+                        tbl_bytes = (4 * rows_ * g * ent if tq is None
+                                     else rows_ * g * ent + 4 * rows_ * g)
+                    if fused:
+                        nops["f32"] = rows_ * g * ent * (KG - 1)
+                        in_bytes = 4 * rows_ * k + (4 * rows_ if rs is not None
+                                                    else 0)
+                    else:
+                        in_bytes = tbl_bytes
+                    b_ms, b_by = bound(in_bytes + pk_bytes + 4 * rows_ * n,
+                                       nops)
+                    records.append({
+                        "kernel": name, "experts": ne, "c": c, "cp": cp,
+                        "n": n, "k": k, "table_quant": tq, "tile": config,
+                        "splits": s, "max_abs_err": diff,
+                        "bound_ratio": ratio,
+                        "kernel_ms": time_ms(call, 10, flush),
+                        "two_d_loop_ms": time_ms(loop, 5, flush),
+                        "plain_ms": time_ms(lambda: plain(*ops_, **kw), 2,
+                                            flush),
+                        "library_ms": time_ms(library, 10, flush),
+                        "bound_ms": b_ms, "bound_by": b_by})
+    return records, err
+
+
+# each phase 11 serve's own kernels: (launched, not launched). Under
+# fusion auto every expert projection is a batched fused lookup with its
+# row scale, the head a 2-D fused one at decode; under fusion staged a
+# batched staged lookup on a precomputed table, the head a 2-D staged one
+MOE_PATHS = {
+    "auto": (("fused_lut_mpgemm_batched", "row_scale", "fused_lut_mpgemm"),
+             "lut_mpgemm_batched"),
+    "staged": (("lut_mpgemm_batched", "table_precompute", "lut_mpgemm"),
+               "fused_lut_mpgemm_batched")}
+
+
+def moe_serve(cfg, params):
+    """Phase 11 (b): phase 4's engine and request shapes (prompt tokens from
+    olmoe's vocab), served twice, each serve with the launch counts set to
+    0 just before it and read just after it: ``fusion="auto"`` (the main
+    path, the default: every expert projection fused) and
+    ``fusion="staged"`` (what ``--fusion staged`` serves: the batched
+    staged kernel, gate and up on one shared table). Each serve launched
+    its own kernels (``MOE_PATHS``) and not the other's batched lookup;
+    both finish every request with <= 1 / decode_chunk host syncs a token
+    and give the same tokens (per_row fused equals staged bit for bit).
+    Then one more auto decode chunk under torch's sync check: exactly one
+    batched fused launch and one row scale a step for each of the 3·L
+    expert projections, one fused launch and one row scale for the head,
+    nothing else; and one decode step and one 128-token prefill chunk
+    profiled. Returns (engine, record)."""
+    from repro_torch.kernels import ops
+    serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state, kernels
+    reset_counts()
+    eng, reqs = serve(cfg, params, seed=2)
+    launches = read_counts()
+    reset_counts()
+    staged_eng, staged_reqs = serve(cfg.with_quant(fusion="staged"), params,
+                                    seed=2)
+    staged_launches = read_counts()
+    st = eng.stats()
+    outputs = [r.output for r in reqs]
+    if not all(r.done and len(r.output) == 16 for r in reqs + staged_reqs):
+        raise AssertionError("moe: not every request finished 16 tokens")
+    if [r.output for r in staged_reqs] != outputs:
+        raise AssertionError("moe: the staged serve's tokens differ from "
+                             "the fused serve's")
+    for path, counts in (("auto", launches), ("staged", staged_launches)):
+        ran, other = MOE_PATHS[path]
+        if min(counts[n] for n in ran) <= 0 or counts[other] != 0:
+            raise AssertionError(f"moe: the fusion={path} serve launched "
+                                 f"{counts}: wanted {ran} > 0, {other} 0")
+    for e in (eng, staged_eng):
+        if e.stats()["host_syncs_per_token"] > 1.0 / e.decode_chunk:
+            raise AssertionError(f"moe: {e.stats()['host_syncs_per_token']} "
+                                 f"host syncs per token")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_chunk(sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk_launches = read_counts()
+    steps, experts = eng.decode_chunk, 3 * cfg.n_layers
+    want = dict({n: 0 for n in chunk_launches},
+                fused_lut_mpgemm_batched=experts * steps,
+                fused_lut_mpgemm=steps, row_scale=(experts + 1) * steps)
+    if chunk_launches != want:
+        raise AssertionError(f"moe: a decode chunk launched {chunk_launches}"
+                             f", not {want}")
+    d, f, g = cfg.d_model, cfg.d_ff, cfg.d_model // KG
+    return eng, dict(
+        prompts=[len(r.prompt) for r in reqs], serve=st,
+        staged_serve=staged_eng.stats(), outputs=outputs, launches=launches,
+        staged_launches=staged_launches, decode_chunk_launches=chunk_launches,
+        dispatch={f"C={c}": {
+            "gate/up": ops.resolve_dispatch(
+                c, f, g, KG, BITS, experts=cfg.num_experts).fusion,
+            "down": ops.resolve_dispatch(
+                c, d, f // KG, KG, BITS, experts=cfg.num_experts).fusion}
+            for c in MOE_ROWS},
+        **step_and_chunk(eng))
+
+
+def moe_parity(cfg, params):
+    """Phase 11 (c): a teacher-forced 128-token forward through the kernels
+    (lut_pallas) and the plain LUT path (lut_xla), per_row: logits equal bit
+    for bit (routing, drops and the combine are the same code; per_row
+    lookups are exact integer sums)."""
+    from repro_torch.models import api
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    logits = {mode: api.forward(params, {"tokens": toks}, cfg.with_quant(
+        mpgemm_mode=mode, table_quant="per_row"))[0]
+        for mode in ("lut_pallas", "lut_xla")}
+    a, b = logits["lut_pallas"], logits["lut_xla"]
+    if (tuple(a.shape) != (1, 128, cfg.vocab_size)
+            or not torch.isfinite(a).all()):
+        raise AssertionError(f"moe: bad logits {tuple(a.shape)}")
+    diff = (a - b).abs().max().item()
+    if diff != 0.0:
+        raise AssertionError(f"moe: kernels and plain path disagree, max "
+                             f"|logit diff| {diff}")
+    return {"parity_max_abs_diff": diff,
+            "parity_max_abs_logit": a.abs().max().item()}
+
+
+def moe_paged(cfg, params):
+    """Phase 11 (d): phase 6's eight prompts (six share a 144-token system
+    prompt, two equal 160-token ones) through the dense engine and the
+    block-paged pool (block 16, 96 blocks) without prefix sharing: equal
+    streams. Then once with prefix sharing: a prefix hit prefills only the
+    suffix, whose shorter chunk has another capacity, so its drops (and
+    tokens) may differ from the dense engine's; the tokens that agree and
+    the prompt tokens reused are recorded."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    bs = 16
+    prompts = paged_prompts(cfg.vocab_size, bs)
+    kw = dict(max_batch=4, max_seq=256, decode_chunk=8, prefill_chunk=128)
+    paged_kw = dict(kw, cache_block_size=bs, num_cache_blocks=96)
+
+    def run(**engine_kw):
+        eng = ServingEngine(cfg, params, **engine_kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        if not all(r.done and len(r.output) == 16 for r in reqs):
+            raise AssertionError("moe paged: a request did not finish")
+        return eng, [r.output for r in reqs]
+
+    _, dense = run(**kw)
+    _, unshared = run(**paged_kw)
+    if unshared != dense:
+        raise AssertionError("moe paged: without prefix sharing the streams "
+                             "differ from the dense engine's")
+    eng, shared = run(**paged_kw, prefix_cache=True)
+    agree = sum(x == y for a, b in zip(shared, dense) for x, y in zip(a, b))
+    st = eng.stats()
+    return {"tokens": 16 * len(prompts), "prefix_agreeing_tokens": agree,
+            "prefix_equal_streams": sum(a == b for a, b in zip(shared,
+                                                                dense)),
+            "prefill_tokens_reused": st["prefill_tokens_reused"],
+            "prefill_tokens": st["prefill_tokens"],
+            "prefix_cache": st["prefix_cache"]}
+
+
+def moe_phase(flush):
+    """Phase 11: full-width olmoe-1b-7b (16 layers, d_model 2048, MHA
+    16/16, 64 experts of d_ff 1024, top-8, vocab 50304), W2 symmetric K=4
+    experts and head, float attention, per_row tables, lut_pallas, fusion
+    auto, random weights from seed 0 made on the card layer by layer:
+    (a) ``expert_kernel_checks``, (b) ``moe_serve``, (c) ``moe_parity``,
+    (d) ``moe_paged``. Returns (config, engine, record)."""
+    from repro_torch.launch.serve import scheme_name
+    from repro_torch.models import api
+    from repro_torch.models.quantized import quantized_bytes
+    cfg = moe_config()
+    rec = {"arch": MOE, "scheme": scheme_name(cfg.quant)}
+    t0 = time.perf_counter()
+    rec["records"], rec["err"] = expert_kernel_checks(flush, cfg)
+    rec["kernels_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["param_bytes"] = quantized_bytes(params)
+    rec["expert_bytes"] = quantized_bytes(
+        [lp["moe"]["experts"] for lp in params["layers"]])
+    rec["attention_bytes"] = quantized_bytes(
+        [lp["attn"] for lp in params["layers"]])
+    t0 = time.perf_counter()
+    eng, served = moe_serve(cfg, params)
+    rec.update(served)
+    rec.update(moe_parity(cfg, params))
+    rec["paged"] = moe_paged(cfg, params)
+    rec["serve_s"] = time.perf_counter() - t0
+    return cfg, eng, rec
+
+
+def moe_lines(cfg, eng, rec):
+    """Phase 11's record as text, one line a part."""
+    lines = [
+        f"moe: {cfg.arch_id} {rec['scheme']}: {cfg.n_layers} layers, "
+        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}; "
+        f"params made on the card in {rec['init_s']:.1f} s (peak "
+        f"{rec['init_peak_bytes'] / 1e9:.2f} GB), {rec['param_bytes'] / 1e9:.3f}"
+        f" GB resident ({rec['expert_bytes'] / 1e9:.3f} GB packed experts, "
+        f"{rec['attention_bytes'] / 1e9:.3f} GB float attention)",
+        "moe: batched kernels at E=64 (per call: kernel / 64 2-D launches "
+        "/ plain / bf16 torch.bmm / bound ms): " + "; ".join(
+            f"{r['kernel']} C={r['c']} (Cp {r['cp']}) N={r['n']} K={r['k']} "
+            f"{r['table_quant']} t{r['tile']} S{r['splits']}: "
+            f"{r['kernel_ms']:.4f} / {r['two_d_loop_ms']:.4f} / "
+            f"{r['plain_ms']:.2f} / {r['library_ms']:.4f} / "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})"
+            + ("" if r["bound_ratio"] is None
+               else f", bound ratio {r['bound_ratio']:.3g}")
+            for r in rec["records"])
+        + f" (per_row bit-exact, bf16 paths within {BOUND_REL} · Σ|a·w| + "
+        f"1e-6, every mode bit-equal to 64 2-D launches; {rec['kernels_s']:.1f}"
+        f" s)",
+        f"moe: dispatch {rec['dispatch']}"]
+    lines += serve_lines("moe", cfg, eng, rec)[:3]
+    st = rec["staged_serve"]
+    lines.append(f"moe: fusion=staged serve, same tokens; decode "
+                 f"{st['decode_tok_s']:.1f} tok/s, host syncs/token "
+                 f"{st['host_syncs_per_token']:.4f}; launches "
+                 f"{rec['staged_launches']}")
+    lines.append(f"moe: parity, 128-token forward, lut_pallas vs lut_xla "
+                 f"(per_row), max |logit diff| {rec['parity_max_abs_diff']} "
+                 f"(tolerance 0: exact), max |logit| "
+                 f"{rec['parity_max_abs_logit']:.4g}")
+    pg = rec["paged"]
+    lines.append(f"moe: paged pool without sharing equals dense; with prefix "
+                 f"sharing {pg['prefix_agreeing_tokens']} of {pg['tokens']} "
+                 f"tokens agree with dense ({pg['prefix_equal_streams']} of 8 "
+                 f"streams equal), {pg['prefill_tokens_reused']} prompt "
+                 f"tokens reused, {pg['prefill_tokens']} prefilled; phase 11 "
+                 f"serves in {rec['serve_s']:.1f} s")
+    return lines
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -2114,6 +2554,14 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"telemetry": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--moe":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        cfg, eng, rec = moe_phase(flush)
+        for line in moe_lines(cfg, eng, rec):
+            print(line, flush=True)
+        print(json.dumps({"moe": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -2239,6 +2687,13 @@ def main() -> int:
     for line in telemetry_lines(telemetry_rec):
         print(line, flush=True)
 
+    # phase 11: the MoE family, full-width olmoe-1b-7b
+    t0 = time.perf_counter()
+    mcfg, meng, moe_rec = moe_phase(flush)
+    for line in moe_lines(mcfg, meng, moe_rec):
+        print(line, flush=True)
+    print(f"moe: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -2298,7 +2753,30 @@ def main() -> int:
                 r["bound_ms"] for r in rs if r["bound_by"] == by)),
             "library_ms": tot("library_ms"),
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs],
-            "bitnet": bit})
+            "bitnet": bit, "moe_launches": moe_rec["launches"][name],
+            "moe_staged_launches": moe_rec["staged_launches"][name]})
+    # the expert-batched wrappers, per_row at the expert shapes (decode
+    # C = 8 and prefill C = 24, gate/up and down), each with the launches
+    # of the phase 11 serve whose path runs it
+    for name in BATCHED:
+        rs = [r for r in moe_rec["records"]
+              if r["kernel"] == name and r["table_quant"] == "per_row"]
+        tot = lambda key, rs=rs: float(sum(r[key] for r in rs))
+        src, replaces = sources[name[:-len("_batched")]]
+        path = next(p for p, (ran, _) in MOE_PATHS.items() if name in ran)
+        counts = moe_rec["launches" if path == "auto" else "staged_launches"]
+        summary.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts[name],
+            "path": f"phase 11, olmoe-1b-7b served with fusion={path}",
+            "max_abs_err": moe_rec["err"][name],
+            "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+                r["bound_ms"] for r in rs if r["bound_by"] == by)),
+            "library_ms": tot("library_ms"),
+            "two_d_loop_ms": tot("two_d_loop_ms"),
+            "shapes": [[r["experts"], r["c"], r["n"], r["k"]] for r in rs]})
     with open(_build.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "records": records,
                    "precompute_records": pre_records,
@@ -2309,7 +2787,7 @@ def main() -> int:
                    "float_serve": fst, "float_launches": float_launches,
                    "float_tables": float_rec, "bitnet": bitnet_rec,
                    "decoding": decoding_rec, "telemetry": telemetry_rec,
-                   "ptxas": ptxas, "mma_ptxas": mma_report,
+                   "moe": moe_rec, "ptxas": ptxas, "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": summary}))

@@ -1,7 +1,8 @@
-"""Architecture config (dense family) and the port's registry.
+"""Architecture config (dense and MoE families) and the port's registry.
 
 A copy of the reference's ``ArchConfig`` holding only the fields the dense
-llama-family transformer reads. Dtypes are torch dtypes.
+llama-family transformer and the MoE LM read, with the reference's
+parameter counts for these two families. Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +30,13 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_theta: float = 1.0e4
     norm_eps: float = 1e-5
+    # moe
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
@@ -52,6 +60,36 @@ class ArchConfig:
         q.update(kw)
         return self.replace(quant=q)
 
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+
+    def num_params(self) -> int:
+        """Total parameter count, as the reference counts it (embedding
+        and head, attention and MLP weights; norms and biases left out)."""
+        d, l = self.d_model, self.n_layers
+        n = 2 * self.vocab_size * d
+        attn = self._attn_params()
+        if self.family == "dense":
+            return n + l * (attn + 3 * d * self.d_ff)
+        nd = self.first_dense_layers
+        n += nd * (attn + 3 * d * (self.dense_d_ff or self.d_ff))
+        per = attn + self.num_experts * 3 * d * self.d_ff + d * self.num_experts
+        per += self.n_shared_experts * 3 * d * self.d_ff
+        return n + (l - nd) * per
+
+    def active_params(self) -> int:
+        """Parameters a token activates (MoE: its top-k and the shared
+        experts only), as the reference counts them."""
+        if self.family != "moe":
+            return self.num_params()
+        d, l, nd = self.d_model, self.n_layers, self.first_dense_layers
+        attn = self._attn_params()
+        n = 2 * self.vocab_size * d
+        n += nd * (attn + 3 * d * (self.dense_d_ff or self.d_ff))
+        per = attn + (self.top_k + self.n_shared_experts) * 3 * d * self.d_ff
+        return n + (l - nd) * per
+
 
 _REGISTRY: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
@@ -59,6 +97,8 @@ _REGISTRY: Dict[str, str] = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
 }
 
 

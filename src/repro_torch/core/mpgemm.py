@@ -13,6 +13,11 @@ Modes (the reference's names):
                        tensor each kernel wrapper runs its plain version.
 
 ``mpgemm`` takes any leading batch dims; the contraction is the last axis.
+A stack of experts' weights (``QuantizedWeight.experts``: packed
+[E, N, bytes]) takes x [E, C, K] and gives [E, C, N], expert e's rows
+against expert e's weights: one batched kernel launch under ``lut_pallas``
+(``kernels.ops.lut_mpgemm_experts``), the 2-D path per expert in the other
+modes, as the reference vmaps its mpGEMM over the experts.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch
 from .quantize import QuantizedWeight, dequantize
 from .table import Table, precompute_table
 
-__all__ = ["mpgemm", "precompute_tables", "resolve_table_quant",
+__all__ = ["mpgemm", "precompute_tables", "precompute_expert_tables",
+           "resolve_table_quant",
            "MPGEMM_MODES", "FUSION_MODES"]
 
 MPGEMM_MODES = ("fp16", "dequant", "lut_xla", "lut_pallas")
@@ -54,6 +60,32 @@ def precompute_tables(x: torch.Tensor, k_group: int = 4,
     return precompute_table(x2d, k_group, table_quant)
 
 
+def precompute_expert_tables(x: torch.Tensor, k_group: int = 4,
+                             table_quant: Optional[str] = "per_row",
+                             mode: str = "lut_xla") -> Table:
+    """``precompute_tables`` for the consumers of an expert buffer x
+    [E, C, K]: one table over the experts' rows, expert e's the e-th of E
+    equal row blocks. Under ``lut_pallas`` the form the batched kernel
+    takes (``kernels.ops.expert_table``: each block padded to the tile's
+    rows, one launch), else the E·C rows as they are."""
+    if mode == "lut_pallas":
+        from repro_torch.kernels import ops
+        return ops.expert_table(
+            x, k_group, resolve_table_quant(table_quant, x.device))
+    return precompute_tables(x, k_group, table_quant, mode)
+
+
+def _expert_slice(table: Optional[Table], e: int, experts: int,
+                  c: int) -> Optional[Table]:
+    """Expert e's C rows of a table over ``experts`` equal row blocks."""
+    if table is None:
+        return None
+    start = e * (table.values.shape[0] // experts)
+    pick = lambda t: t[start:start + c]
+    return Table(pick(table.values), None if table.scale is None
+                 else pick(table.scale), pick(table.rowsum), table.k_group)
+
+
 def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",
            table_quant: Optional[str] = "per_row",
            table: Optional[Table] = None, fusion: str = "auto",
@@ -68,6 +100,20 @@ def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",
     if x.shape[-1] != qw.k_total:
         raise ValueError(f"contract dim {x.shape[-1]} != k_total {qw.k_total}")
     out_dtype = out_dtype or x.dtype
+    if qw.experts is not None:
+        if x.dim() != 3 or x.shape[0] != qw.experts:
+            raise ValueError(f"a stack of {qw.experts} experts' weights takes "
+                             f"x [E, C, K], got {tuple(x.shape)}")
+        if mode == "lut_pallas":
+            from repro_torch.kernels import ops
+            out = ops.lut_mpgemm_experts(x, qw, table_quant=table_quant,
+                                         table=table, fusion=fusion)
+            return out.to(out_dtype)
+        return torch.stack([mpgemm(
+            x[e], qw.expert(e), mode=mode, table_quant=table_quant,
+            table=_expert_slice(table, e, qw.experts, x.shape[1]),
+            fusion=fusion,
+            out_dtype=out_dtype) for e in range(qw.experts)])
     lead = x.shape[:-1]
     x2d = x.reshape(-1, qw.k_total)
 

@@ -5,6 +5,12 @@
   * ``packed``       uint8 [N, ceil(K*B/8)] — folded group codes (Eq. 6),
   * ``scale``        float32 [N]            — s' = s/2 (reinterpreted),
   * ``zero_prime``   float32 [N] or None    — z' (None ⇒ symmetric),
+
+or, for a stack of E experts' projections (the MoE FFN), the same with a
+leading [E] on ``packed``, ``scale`` and ``zero_prime``: one weight per
+expert, the bytes of E separate packings (``quantize_experts``). The
+metadata is per expert:
+
   * ``plane_scales`` tuple of B floats      — [1,2,4..] or [1,1] (ternary),
   * ``bits, k_group, k_total, n``           — static metadata,
   * ``plane_start, stored_planes``          — plane-slice view fields.
@@ -20,7 +26,8 @@ from . import packing, reinterpret
 from .table import true_divide
 
 __all__ = ["QuantizedWeight", "quantize_symmetric", "quantize_asymmetric",
-           "quantize_ternary", "quantize", "plane_codes", "dequantize"]
+           "quantize_ternary", "quantize", "quantize_experts", "plane_codes",
+           "dequantize"]
 
 
 class QuantizedWeight:
@@ -50,6 +57,21 @@ class QuantizedWeight:
     @property
     def g(self) -> int:
         return self.k_total // self.k_group
+
+    @property
+    def experts(self):
+        """E for a stack of experts' weights (``packed`` [E, N, bytes]),
+        else None."""
+        return self.packed.shape[0] if self.packed.dim() == 3 else None
+
+    def expert(self, e: int) -> "QuantizedWeight":
+        """Expert ``e`` of a stack, as a 2-D weight (views, no copy)."""
+        pick = lambda t: None if t is None else t[e]
+        return QuantizedWeight(
+            self.packed[e], self.scale[e], pick(self.zero_prime),
+            self.plane_scales, bits=self.bits, k_group=self.k_group,
+            k_total=self.k_total, n=self.n, plane_start=self.plane_start,
+            stored_planes=self.stored_planes)
 
     @property
     def is_plane_sliced(self) -> bool:
@@ -179,6 +201,20 @@ def quantize(w, bits: int, k_group: int = 4,
     if scheme == "ternary":
         return quantize_ternary(w, k_group)
     raise ValueError(f"unknown scheme {scheme!r}")
+
+
+def quantize_experts(w, bits: int, k_group: int = 4,
+                     scheme: str = "symmetric") -> QuantizedWeight:
+    """Stacked expert weights w [E, d_in, d_out] -> one QuantizedWeight with
+    a leading [E]: expert e's rows are ``quantize(w[e].T)``'s. Every scheme
+    works row by row, so the E·d_out rows are quantized in one call."""
+    e, d_in, d_out = w.shape
+    qw = quantize(w.transpose(1, 2).reshape(e * d_out, d_in), bits, k_group,
+                  scheme)
+    lead = lambda t: None if t is None else t.reshape(e, d_out, *t.shape[1:])
+    return QuantizedWeight(lead(qw.packed), lead(qw.scale),
+                           lead(qw.zero_prime), qw.plane_scales, bits=qw.bits,
+                           k_group=k_group, k_total=d_in, n=d_out)
 
 
 def plane_codes(qw: QuantizedWeight) -> torch.Tensor:

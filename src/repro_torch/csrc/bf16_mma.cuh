@@ -498,20 +498,24 @@ inline R with_tile(int config, R refused, F&& f) {
 
 // One block of a bf16 kernel: its split z's K-range of the Gp/bg K-steps
 // (the first steps % S ranges one step longer, kernels/lut_mpgemm.py:
-// k_ranges), the main loop, the epilogue.
+// k_ranges), the main loop, the epilogue. With cp > 0 the rows are E
+// experts' row blocks of cp rows each (cp a multiple of BM): the block's
+// expert is e = m0 / cp, whose packed codes [Np, pb] and weight scales
+// [Np] follow expert e - 1's (lut_mma.cuh: expert_of).
 template <class C, int kTerms, class A, class B>
 __device__ __forceinline__ void bf16_block(
     const A& a, const B& b, const uint8_t* __restrict__ packed,
     const float* __restrict__ ws, float* __restrict__ out, float* __restrict__ work,
     int* __restrict__ arrivals, int m, int np, int gp, int bg, int kt, int pbs,
-    int splits, int stages, int pchunk) {
+    int splits, int stages, int pchunk, int cp = 0) {
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN, z = blockIdx.z;
   const int steps = gp / bg, q = steps / splits, r = steps % splits;
   const int first = z * q + min(z, r), count = q + (z < r ? 1 : 0);
+  const long long pb = static_cast<long long>(steps) * pbs, e = expert_of(m0, cp);
   float acc[C::MT][C::NT][4];
-  bf16_mainloop<C, kTerms>(a, b, packed, kt, pbs, static_cast<long long>(steps) * pbs,
-                           m, bg, first, count, stages, pchunk, m0, n0, acc);
-  store_or_reduce<C>(acc, ws, out, work, arrivals, m, np, m0, n0, z, splits);
+  bf16_mainloop<C, kTerms>(a, b, packed + e * np * pb, kt, pbs, pb, m, bg, first,
+                           count, stages, pchunk, m0, n0, acc);
+  store_or_reduce<C>(acc, ws + e * np, out, work, arrivals, m, np, m0, n0, z, splits);
 }
 
 }  // namespace lut

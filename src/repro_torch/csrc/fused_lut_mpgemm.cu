@@ -54,6 +54,18 @@
 // one wave of two blocks an SM; the f32 partials meet in a workspace and
 // the last block of a tile adds them in split order, in the same launch,
 // so two calls give the same bits.
+//
+// The expert axis (kernels/fused_lut_mpgemm.py: *_batched): the MoE FFN's E
+// experts' products in one launch, which the reference gets by vmapping
+// fused_lut_mpgemm_pallas over the experts (a grid axis of the pallas_call). With
+// cp > 0 the rows are E row blocks of cp rows, each padded to the tile's BM,
+// and a block reads the codes and scales of its rows' expert
+// (lut_mma.cuh: expert_of); the grid, split-K and arrival counts are the
+// 2-D ones over the E·cp rows. At olmoe-1b-7b's experts (E = 64; N, K =
+// 1024, 2048 or 2048, 1024) a call reads 33.5 MB of packed codes, a bytes
+// bound of 0.010 ms, in 512+ blocks of S = 1, each walking every K-step of
+// its expert: the steps' latency, not the bytes, sets its time. Empty
+// expert rows are zero rows and are computed, as the reference computes them.
 #include <algorithm>
 
 #include "bf16_mma.cuh"
@@ -69,10 +81,14 @@ fused_mma_kernel(const float* __restrict__ x, const float* __restrict__ rs,
                  float* __restrict__ out, int* __restrict__ work,
                  int* __restrict__ arrivals, int m, int np, int gp, int k_group,
                  int planes, int bg, int splits, int stages, int pchunk,
-                 lut::PlaneScales ps) {
+                 lut::PlaneScales ps, int cp) {
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN, z = blockIdx.z;
   const int steps = gp / bg, q = steps / splits, r = steps % splits;
   const int first = z * q + min(z, r), count = q + (z < r ? 1 : 0);
+  // the block's expert (lut_mma.cuh: expert_of): its codes and scales
+  const long long e = lut::expert_of(m0, cp);
+  packed += e * np * (static_cast<long long>(gp) * planes * k_group / 8);
+  ws += e * np;
   int acc[C::MT][C::NT][4];
   const lut::ActivationA<C> a{x, rs, static_cast<long long>(gp) * k_group, m,
                               k_group, __ffs(bg) - 1};
@@ -121,14 +137,14 @@ template <class C>
 int launch_int(const float* x, const float* rs, const uint8_t* packed,
                const float* ws, float* out, int* work, int* arrivals, int m,
                int np, int gp, int k_group, int planes, int bg, int splits,
-               const lut::PlaneScales& ps, cudaStream_t stream) {
+               const lut::PlaneScales& ps, int cp, cudaStream_t stream) {
   const int kt = bg << (k_group - 1), ld = kt + lut::kPad;
   const int pbs = bg * planes * k_group / 8;
   const int x_bytes = bg * k_group * static_cast<int>(sizeof(float));
   const long long pb = static_cast<long long>(gp / bg) * pbs;
   const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
   if (np % C::BN || kt % 32 || pbs % 4 || x_bytes % 16 || (bg & (bg - 1)) ||
-      splits < 1 || splits > gp / bg ||
+      !lut::valid_experts(cp, C::BM, m) || splits < 1 || splits > gp / bg ||
       (splits > 1) != (work != nullptr && arrivals != nullptr) ||
       reinterpret_cast<uintptr_t>(x) % 16 || pk % 4)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -142,7 +158,7 @@ int launch_int(const float* x, const float* rs, const uint8_t* packed,
   const dim3 grid(np / C::BN, (m + C::BM - 1) / C::BM, splits);
   kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
       x, rs, packed, ws, out, work, arrivals, m, np, gp, k_group, planes, bg,
-      splits, plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
+      splits, plan.stages, lut::packed_chunk(pbs, pb, pk), ps, cp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -165,12 +181,12 @@ fused_bf16_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packe
                   const float* __restrict__ ws, float* __restrict__ out,
                   float* __restrict__ work, int* __restrict__ arrivals, int m,
                   int np, int gp, int k_group, int planes, int bg, int splits,
-                  int stages, int pchunk, lut::PlaneScales ps) {
+                  int stages, int pchunk, lut::PlaneScales ps, int cp) {
   lut::bf16_block<C, kTerms>(
       lut::BuiltTable<C, kMode == lut::kPerGroup>{
           x, static_cast<long long>(gp) * k_group, m, k_group},
       lut::CwB{planes, k_group, ps}, packed, ws, out, work, arrivals, m, np, gp, bg,
-      bg << (k_group - 1), bg * planes * k_group / 8, splits, stages, pchunk);
+      bg << (k_group - 1), bg * planes * k_group / 8, splits, stages, pchunk, cp);
 }
 
 // The ring's stages and the dynamic shared memory of an f32 launch.
@@ -186,12 +202,12 @@ template <class C, int kMode>
 int launch_f32(const float* x, const uint8_t* packed, const float* ws, float* out,
                float* work, int* arrivals, int m, int np, int gp, int k_group,
                int planes, int bg, int splits, const lut::PlaneScales& ps,
-               cudaStream_t stream) {
+               int cp, cudaStream_t stream) {
   const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
   const long long pb = static_cast<long long>(gp / bg) * pbs;
   const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
   if (np % C::BN || kt % 16 || pbs % 4 || (bg * k_group) % 4 || (bg & (bg - 1)) ||
-      splits < 1 || splits > gp / bg ||
+      !lut::valid_experts(cp, C::BM, m) || splits < 1 || splits > gp / bg ||
       (splits > 1) != (work != nullptr && arrivals != nullptr) ||
       reinterpret_cast<uintptr_t>(x) % 16 || pk % 4)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -203,7 +219,7 @@ int launch_f32(const float* x, const uint8_t* packed, const float* ws, float* ou
   const dim3 grid(np / C::BN, (m + C::BM - 1) / C::BM, splits);
   kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
       x, packed, ws, out, work, arrivals, m, np, gp, k_group, planes, bg, splits,
-      plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
+      plan.stages, lut::packed_chunk(pbs, pb, pk), ps, cp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,14 +232,17 @@ int launch_f32(const float* x, const uint8_t* packed, const float* ws, float* ou
 // and arrival counts [ceil(m / BM) * np / BN], zero on entry and left
 // zero: for mode 1 int32 [m, np] (the splits add into it), for modes 0 and
 // 2 f32 [splits, m, np] (a slot a split). plane_scales: host array of
-// `planes` ints.
+// `planes` ints. cp: 0, or the expert axis (lut_mma.cuh: expert_of): the m
+// rows are m / cp experts' row blocks of cp rows (a multiple of the tile's
+// BM; rows past an expert's own are zero rows), packed is [m / cp, np,
+// gp·B·K/8] and ws [m / cp, np].
 extern "C" int fused_lut_mpgemm_launch(const float* x, const float* row_scale,
                                        const uint8_t* packed, const float* ws,
                                        float* out, void* workspace, int* arrivals,
                                        int m, int np, int gp, int k_group,
                                        int planes, const int* plane_scales,
                                        int mode, int config, int bg, int splits,
-                                       cudaStream_t stream) {
+                                       int cp, cudaStream_t stream) {
   if (!lut::valid_k_group(k_group) || planes < 1 || planes > lut::kMaxPlanes ||
       bg < 1 || gp % bg || ((bg << (k_group - 1)) % 4) ||
       (bg * planes * k_group) % 8 || mode < lut::kFloat || mode > lut::kPerGroup)
@@ -237,15 +256,15 @@ extern "C" int fused_lut_mpgemm_launch(const float* x, const float* row_scale,
       case 0:
         return launch_int<lut::MmaSmall>(x, row_scale, packed, ws, out, work,
                                          arrivals, m, np, gp, k_group, planes, bg,
-                                         splits, ps, stream);
+                                         splits, ps, cp, stream);
       case 1:
         return launch_int<lut::MmaMid>(x, row_scale, packed, ws, out, work,
                                        arrivals, m, np, gp, k_group, planes, bg,
-                                       splits, ps, stream);
+                                       splits, ps, cp, stream);
       case 2:
         return launch_int<lut::MmaLarge>(x, row_scale, packed, ws, out, work,
                                          arrivals, m, np, gp, k_group, planes, bg,
-                                         splits, ps, stream);
+                                         splits, ps, cp, stream);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -256,10 +275,10 @@ extern "C" int fused_lut_mpgemm_launch(const float* x, const float* row_scale,
     return mode == lut::kFloat
                ? launch_f32<C, lut::kFloat>(x, packed, ws, out, work, arrivals, m, np,
                                             gp, k_group, planes, bg, splits, ps,
-                                            stream)
+                                            cp, stream)
                : launch_f32<C, lut::kPerGroup>(x, packed, ws, out, work, arrivals, m,
                                                np, gp, k_group, planes, bg, splits,
-                                               ps, stream);
+                                               ps, cp, stream);
   });
 }
 

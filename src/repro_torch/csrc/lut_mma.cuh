@@ -405,6 +405,24 @@ __device__ __forceinline__ void for_each_pair(F&& f) {
         f(mi, nj, h, wm0 + mi * 16 + g + h * 8, wn0 + nj * 8 + t2);
 }
 
+// The expert axis of the batched mpGEMMs (the MoE FFN: E experts' products
+// in one launch, as the reference's vmapped pallas_call computes them). The
+// rows are E row blocks of cp rows, each padded to a multiple of the tile's
+// BM, so no block straddles two experts; the packed codes are [E, Np, pb]
+// and the weight scales [E, Np]. A block of rows m0.. belongs to expert
+// m0 / cp and reads that expert's codes and scales; the grid, the split-K
+// ranges and the arrival counts keep their 2-D shape over the E·cp rows.
+// cp = 0: one weight for every row. Returns the block's expert.
+__device__ __forceinline__ long long expert_of(int m0, int cp) {
+  return cp == 0 ? 0 : m0 / cp;
+}
+
+// The launch-side check of the expert layout: cp = 0, or cp a multiple of
+// the tile's rows that divides the rows.
+inline bool valid_experts(int cp, int bm, int rows) {
+  return cp == 0 || (cp > 0 && cp % bm == 0 && rows % cp == 0);
+}
+
 // The int path's epilogue of one output pair: (float(acc) · ts[m]) · ws[n].
 __device__ __forceinline__ float2 int_epilogue(int v0, int v1, float tm,
                                                const float* __restrict__ ws,

@@ -57,6 +57,18 @@
 //    SM; the f32 partial tiles meet in a workspace [S, M, Np] and the last
 //    block of a tile adds them in split order, in the same launch, without
 //    atomics on the sums: two calls give the same bits.
+//
+// The expert axis (kernels/lut_mpgemm.py: *_batched): the MoE FFN's E
+// experts' products in one launch, which the reference gets by vmapping
+// lut_mpgemm_pallas over the experts (a grid axis of the pallas_call). With
+// cp > 0 the rows are E row blocks of cp rows, each padded to the tile's BM,
+// and a block reads the codes and scales of its rows' expert
+// (lut_mma.cuh: expert_of); the grid, split-K and arrival counts are the
+// 2-D ones over the E·cp rows. At olmoe-1b-7b's experts (E = 64; N, K =
+// 1024, 2048 or 2048, 1024) a call reads 33.5 MB of packed codes, a bytes
+// bound of 0.010 ms, in 512+ blocks of S = 1, each walking every K-step of
+// its expert: the steps' latency, not the bytes, sets its time. Empty
+// expert rows are zero rows and are computed, as the reference computes them.
 #include <algorithm>
 
 #include "bf16_mma.cuh"
@@ -74,10 +86,14 @@ lut_mma_kernel(const int8_t* __restrict__ tv, const float* __restrict__ ts,
                const uint8_t* __restrict__ packed, const float* __restrict__ ws,
                float* __restrict__ out, int* __restrict__ part, int mp, int np,
                int gp, int k_group, int planes, int bg, int splits, int stages,
-               int pchunk, lut::PlaneScales ps) {
+               int pchunk, lut::PlaneScales ps, int cp) {
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN, z = blockIdx.z;
   const int steps = gp / bg, q = steps / splits, r = steps % splits;
   const int first = z * q + min(z, r), count = q + (z < r ? 1 : 0);
+  // the block's expert (lut_mma.cuh: expert_of): its codes and scales
+  const long long e = lut::expert_of(m0, cp);
+  packed += e * np * (static_cast<long long>(gp) * planes * k_group / 8);
+  ws += e * np;
   int acc[C::MT][C::NT][4];
   const lut::TableA<C> a{tv, static_cast<long long>(gp) << (k_group - 1)};
   lut::int_mainloop<C>(a, packed, gp, k_group, planes, bg, first, count,
@@ -94,11 +110,12 @@ lut_mma_kernel(const int8_t* __restrict__ tv, const float* __restrict__ ts,
   });
 }
 
-// out = (float(Σ_z part[z]) · ts[m]) · ws[n], four outputs per thread.
+// out = (float(Σ_z part[z]) · ts[m]) · ws[n], four outputs per thread; with
+// cp > 0, ws[n] of row m's expert m / cp.
 __global__ void __launch_bounds__(lut::kThreads)
 splitk_epilogue_kernel(const int* __restrict__ part, const float* __restrict__ ts,
                        const float* __restrict__ ws, float* __restrict__ out,
-                       int mp, int np, int splits) {
+                       int mp, int np, int splits, int cp) {
   const long long quads = static_cast<long long>(mp) * np / 4;
   const int4* p4 = reinterpret_cast<const int4*>(part);
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -111,7 +128,8 @@ splitk_epilogue_kernel(const int* __restrict__ part, const float* __restrict__ t
       s.z += v.z;
       s.w += v.w;
     }
-    const int m = static_cast<int>(4 * i / np), n = static_cast<int>(4 * i % np);
+    const int m = static_cast<int>(4 * i / np);
+    const int n = static_cast<int>(4 * i % np) + (cp == 0 ? 0 : m / cp * np);
     const float tm = ts[m];
     reinterpret_cast<float4*>(out)[i] =
         make_float4(__fmul_rn(__fmul_rn(__int2float_rn(s.x), tm), ws[n]),
@@ -125,13 +143,13 @@ template <class C>
 int launch_int(const int8_t* tv, const float* ts, const uint8_t* packed,
                const float* ws, float* out, int* part, int mp, int np, int gp,
                int k_group, int planes, int bg, int splits,
-               const lut::PlaneScales& ps, cudaStream_t stream) {
+               const lut::PlaneScales& ps, int cp, cudaStream_t stream) {
   const int kt = bg << (k_group - 1), ld = kt + lut::kPad;
   const int pbs = bg * planes * k_group / 8;
   const long long pb = static_cast<long long>(gp / bg) * pbs;
   const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
   if (mp % C::BM || np % C::BN || kt % 32 || pbs % 4 || (bg & (bg - 1)) ||
-      splits < 1 ||
+      !lut::valid_experts(cp, C::BM, mp) || splits < 1 ||
       splits > gp / bg || (splits > 1) != (part != nullptr) ||
       reinterpret_cast<uintptr_t>(tv) % 16 || pk % 4)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -145,14 +163,14 @@ int launch_int(const int8_t* tv, const float* ts, const uint8_t* packed,
   const dim3 grid(np / C::BN, mp / C::BM, splits);
   kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
       tv, ts, packed, ws, out, part, mp, np, gp, k_group, planes, bg, splits,
-      plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
+      plan.stages, lut::packed_chunk(pbs, pb, pk), ps, cp);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long quads = static_cast<long long>(mp) * np / 4;
   const int blocks = static_cast<int>(
       std::min<long long>((quads + lut::kThreads - 1) / lut::kThreads, 132 * 8));
   splitk_epilogue_kernel<<<blocks, lut::kThreads, 0, stream>>>(part, ts, ws, out,
-                                                               mp, np, splits);
+                                                               mp, np, splits, cp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -176,7 +194,7 @@ lut_bf16_kernel(const void* __restrict__ tv, const float* __restrict__ ts,
                 float* __restrict__ out, float* __restrict__ work,
                 int* __restrict__ arrivals, int m, int np, int gp, int k_group,
                 int planes, int bg, int splits, int stages, int pchunk,
-                lut::PlaneScales ps) {
+                lut::PlaneScales ps, int cp) {
   const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
   const lut::CwB b{planes, k_group, ps};
   if constexpr (kMode == lut::kFloat)
@@ -184,12 +202,12 @@ lut_bf16_kernel(const void* __restrict__ tv, const float* __restrict__ ts,
         lut::F32Rows<C>{static_cast<const float*>(tv),
                         static_cast<long long>(gp) << (k_group - 1), m},
         b, packed, ws, out, work, arrivals, m, np, gp, bg, kt, pbs, splits, stages,
-        pchunk);
+        pchunk, cp);
   else
     lut::bf16_block<C, kTerms>(
         lut::ScaledCodes<C>{static_cast<const int8_t*>(tv), ts, gp, m, k_group}, b,
         packed, ws, out, work, arrivals, m, np, gp, bg, kt, pbs, splits, stages,
-        pchunk);
+        pchunk, cp);
 }
 
 // The ring's stages and the dynamic shared memory of an f32 launch.
@@ -206,11 +224,12 @@ template <class C, int kMode>
 int launch_f32(const void* tv, const float* ts, const uint8_t* packed,
                const float* ws, float* out, float* work, int* arrivals, int m,
                int np, int gp, int k_group, int planes, int bg, int splits,
-               const lut::PlaneScales& ps, cudaStream_t stream) {
+               const lut::PlaneScales& ps, int cp, cudaStream_t stream) {
   const int kt = bg << (k_group - 1), pbs = bg * planes * k_group / 8;
   const long long pb = static_cast<long long>(gp / bg) * pbs;
   const uintptr_t pk = reinterpret_cast<uintptr_t>(packed);
-  if (np % C::BN || kt % 16 || pbs % 4 || (bg & (bg - 1)) || splits < 1 ||
+  if (np % C::BN || kt % 16 || pbs % 4 || (bg & (bg - 1)) ||
+      !lut::valid_experts(cp, C::BM, m) || splits < 1 ||
       splits > gp / bg || (splits > 1) != (work != nullptr && arrivals != nullptr) ||
       (kMode == lut::kPerGroup && ts == nullptr) ||
       reinterpret_cast<uintptr_t>(tv) % 16 || pk % 4)
@@ -223,7 +242,7 @@ int launch_f32(const void* tv, const float* ts, const uint8_t* packed,
   const dim3 grid(np / C::BN, (m + C::BM - 1) / C::BM, splits);
   kernel<<<grid, lut::kThreads, plan.smem, stream>>>(
       tv, ts, packed, ws, out, work, arrivals, m, np, gp, k_group, planes, bg,
-      splits, plan.stages, lut::packed_chunk(pbs, pb, pk), ps);
+      splits, plan.stages, lut::packed_chunk(pbs, pb, pk), ps, cp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,13 +256,16 @@ int launch_f32(const void* tv, const float* ts, const uint8_t* packed,
 // kernel, and no arrival counts. Modes 0 and 2 (the f32 paths): any mp;
 // when splits > 1 an f32 workspace [splits, mp, np] and arrival counts
 // [ceil(mp / BM) * np / BN], zero on entry and left zero. plane_scales:
-// host array of `planes` ints.
+// host array of `planes` ints. cp: 0, or the expert axis (lut_mma.cuh:
+// expert_of): the mp rows are mp / cp experts' row blocks of cp rows (a
+// multiple of the tile's BM), packed is [mp / cp, np, gp·B·K/8] and ws
+// [mp / cp, np], and each expert's rows contract against its own codes.
 extern "C" int lut_mpgemm_launch(const void* tv, const float* ts,
                                  const uint8_t* packed, const float* ws,
                                  float* out, void* workspace, int* arrivals,
                                  int mp, int np, int gp, int k_group, int planes,
                                  const int* plane_scales, int mode, int config,
-                                 int bg, int splits, cudaStream_t stream) {
+                                 int bg, int splits, int cp, cudaStream_t stream) {
   if (!lut::valid_k_group(k_group) || planes < 1 || planes > lut::kMaxPlanes ||
       bg < 1 || gp % bg || ((bg << (k_group - 1)) % 4) ||
       (bg * planes * k_group) % 8 || mode < lut::kFloat || mode > lut::kPerGroup)
@@ -258,13 +280,13 @@ extern "C" int lut_mpgemm_launch(const void* tv, const float* ts,
     switch (config) {
       case 0:
         return launch_int<lut::MmaSmall>(t8, ts, packed, ws, out, work, mp, np, gp,
-                                    k_group, planes, bg, splits, ps, stream);
+                                    k_group, planes, bg, splits, ps, cp, stream);
       case 1:
         return launch_int<lut::MmaMid>(t8, ts, packed, ws, out, work, mp, np, gp,
-                                  k_group, planes, bg, splits, ps, stream);
+                                  k_group, planes, bg, splits, ps, cp, stream);
       case 2:
         return launch_int<lut::MmaLarge>(t8, ts, packed, ws, out, work, mp, np, gp,
-                                    k_group, planes, bg, splits, ps, stream);
+                                    k_group, planes, bg, splits, ps, cp, stream);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -275,10 +297,10 @@ extern "C" int lut_mpgemm_launch(const void* tv, const float* ts,
     return mode == lut::kFloat
                ? launch_f32<C, lut::kFloat>(tv, ts, packed, ws, out, work, arrivals,
                                             mp, np, gp, k_group, planes, bg, splits,
-                                            ps, stream)
+                                            ps, cp, stream)
                : launch_f32<C, lut::kPerGroup>(tv, ts, packed, ws, out, work,
                                                arrivals, mp, np, gp, k_group, planes,
-                                               bg, splits, ps, stream);
+                                               bg, splits, ps, cp, stream);
   });
 }
 

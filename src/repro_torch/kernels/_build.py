@@ -36,10 +36,10 @@ _SIGNATURES = {
                          [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "lut_mpgemm": ("lut_mpgemm_launch",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-                    _I, _I, _I, _P]),
+                    _I, _I, _I, _I, _P]),
     "fused_lut_mpgemm": ("fused_lut_mpgemm_launch",
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                          _I, _I, _I, _I, _P]),
+                          _I, _I, _I, _I, _I, _P]),
     "dequant_mpgemm": ("dequant_mpgemm_launch",
                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                         _I, _P]),

@@ -30,6 +30,12 @@ rows as they are.
 Channels and K-groups are pre-padded to the tile (done by ``kernels.ops``).
 The wrapper launches the kernel for CUDA tensors and runs the plain version
 — the staged pair's plain versions composed — for CPU tensors.
+
+``fused_lut_mpgemm_batched`` adds the expert axis (the MoE FFN): E experts'
+activation rows, each expert's padded with zero rows to the tile's rows,
+against a stack of E experts' packed weights, in one launch
+(``batched_launches`` counts them); its plain version is
+``fused_lut_mpgemm_plain`` per expert.
 """
 
 from __future__ import annotations
@@ -47,8 +53,9 @@ from repro_torch.kernels.lut_mpgemm import (check_operands, device_workspace,
 from repro_torch.kernels.table_precompute import (MODES, check_activations,
                                                   table_precompute_plain)
 
-__all__ = ["fused_lut_mpgemm", "fused_lut_mpgemm_plain", "int_tile",
-           "int_plan", "INT_KT"]
+__all__ = ["fused_lut_mpgemm", "fused_lut_mpgemm_plain",
+           "fused_lut_mpgemm_batched", "fused_lut_mpgemm_batched_plain",
+           "int_tile", "int_plan", "INT_KT"]
 
 # Table entries per K-step of the per_row path. At decode each K-step of a
 # block waits in turn on its loads, its table build, its CW decode and its
@@ -57,6 +64,7 @@ __all__ = ["fused_lut_mpgemm", "fused_lut_mpgemm_plain", "int_tile",
 # and 512 beat 256 at two only.
 INT_KT = 2 * lut_kernel.INT_KT
 launches = 0
+batched_launches = 0  # fused_lut_mpgemm_batched's launches (the expert axis)
 # device index -> (split-K workspace, tile arrival counts), int32, all zero
 # between launches
 _workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -103,20 +111,74 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
     [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]. ``tile`` (an index into
     INT_TILES on per_row, BF16_TILES on float tables) and ``splits`` (S)
     replace the plan's own; None keeps it."""
-    global launches
+    return _fused(x, row_scale, packed, wscale, 0, k_group=k_group,
+                  table_quant=table_quant, planes=planes,
+                  plane_scales=plane_scales, tile=tile, splits=splits)
+
+
+def fused_lut_mpgemm_batched(x: torch.Tensor,
+                             row_scale: Optional[torch.Tensor],
+                             packed: torch.Tensor, wscale: torch.Tensor, *,
+                             k_group: int, table_quant: Optional[str],
+                             planes: int, plane_scales: Sequence[float],
+                             tile: int,
+                             splits: Optional[int] = None) -> torch.Tensor:
+    """E experts' fused mpGEMMs in one launch (the reference vmaps
+    ``fused_lut_mpgemm_pallas`` over the experts): x f32 [E·Cp, Gp*K],
+    expert e's rows e·Cp .. (e+1)·Cp - 1 with Cp a multiple of the tile's
+    rows (rows past an expert's own are zero); row_scale f32 [E·Cp, 1]
+    (per_row); packed [E, Np, Gp*B*K/8]; wscale f32 [E, Np] -> f32
+    [E·Cp, Np]. ``tile`` is the caller's (``kernels.ops``: the tile an
+    expert's C rows take alone); split-K plans over all E·Cp rows."""
+    cp = lut_kernel.expert_rows("fused_lut_mpgemm_batched", x.shape[0],
+                                packed, wscale)
+    return _fused(x, row_scale, packed, wscale, cp, k_group=k_group,
+                  table_quant=table_quant, planes=planes,
+                  plane_scales=plane_scales, tile=tile, splits=splits)
+
+
+def fused_lut_mpgemm_batched_plain(x, row_scale, packed, wscale, *,
+                                   k_group: int, table_quant: Optional[str],
+                                   planes: int, plane_scales: Sequence[float]
+                                   ) -> torch.Tensor:
+    """Plain version of ``fused_lut_mpgemm_batched``:
+    ``fused_lut_mpgemm_plain`` per expert, on its row block and its
+    weights."""
+    cp = lut_kernel.expert_rows("fused_lut_mpgemm_batched", x.shape[0],
+                                packed, wscale)
+    rows = lambda t, i: None if t is None else t[i * cp:(i + 1) * cp]
+    return torch.cat([fused_lut_mpgemm_plain(
+        rows(x, i), rows(row_scale, i), packed[i], wscale[i],
+        k_group=k_group, table_quant=table_quant, planes=planes,
+        plane_scales=plane_scales) for i in range(packed.shape[0])])
+
+
+def _fused(x, row_scale, packed, wscale, cp: int, *, k_group: int,
+           table_quant: Optional[str], planes: int,
+           plane_scales: Sequence[float], tile: Optional[int],
+           splits: Optional[int]) -> torch.Tensor:
+    """The launch of ``fused_lut_mpgemm`` (cp = 0: packed [Np, bytes];
+    counted in ``launches``) and of ``fused_lut_mpgemm_batched`` (cp = rows
+    per expert: packed [E, Np, bytes]; counted in ``batched_launches``) for
+    CUDA operands, the plain version for CPU ones."""
+    global launches, batched_launches
     check_activations(x, k_group, table_quant, row_scale)
     m = x.shape[0]
     gp = x.shape[1] // k_group
-    check_operands("fused_lut_mpgemm", x, packed, wscale, k_group, planes,
-                   gp, x.device)
-    np_ = packed.shape[0]
+    weights = packed if cp == 0 else packed.reshape(-1, packed.shape[-1])
+    check_operands("fused_lut_mpgemm", x, weights, wscale.reshape(-1),
+                   k_group, planes, gp, x.device)
+    np_ = packed.shape[-2]
     plan = int_plan if table_quant == "per_row" else f32_plan
     if x.device.type == "cpu":
         if tile is not None or splits is not None:
-            plan(m, np_, gp, k_group, planes, tile, splits)
-        return fused_lut_mpgemm_plain(
-            x, row_scale, packed, wscale, k_group=k_group,
-            table_quant=table_quant, planes=planes, plane_scales=plane_scales)
+            _, bm, _, _ = plan(m, np_, gp, k_group, planes, tile, splits)[0]
+            lut_kernel.check_expert_rows(cp, bm)
+        fn = (fused_lut_mpgemm_plain if cp == 0
+              else fused_lut_mpgemm_batched_plain)
+        return fn(x, row_scale, packed, wscale, k_group=k_group,
+                  table_quant=table_quant, planes=planes,
+                  plane_scales=plane_scales)
     if x.device.type != "cuda":
         raise ValueError(f"fused_lut_mpgemm: unsupported device {x.device}")
     if x.data_ptr() % 16 or packed.data_ptr() % 4:
@@ -124,8 +186,9 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                          "and the codes in 4-byte pieces; pass aligned "
                          "operands")
     ps = plane_args(planes, plane_scales)
-    (config, _, _, bg), splits, tiles = plan(m, np_, gp, k_group, planes,
-                                             tile, splits)
+    (config, bm, _, bg), splits, tiles = plan(m, np_, gp, k_group, planes,
+                                              tile, splits)
+    lut_kernel.check_expert_rows(cp, bm)
     work, arrivals = None, None
     if table_quant == "per_row" and splits > 1:
         work, arrivals = device_workspace(_workspaces, x.device, m * np_,
@@ -141,7 +204,10 @@ def fused_lut_mpgemm(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                 None if work is None else work.data_ptr(),
                 None if arrivals is None else arrivals.data_ptr(),
                 m, np_, gp, k_group, planes, ps, MODES[table_quant], config,
-                bg, splits, torch.cuda.current_stream(x.device).cuda_stream)
+                bg, splits, cp, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("fused_lut_mpgemm", rc)
-    launches += 1
+    if cp:
+        batched_launches += 1
+    else:
+        launches += 1
     return out

@@ -28,6 +28,12 @@ Channels and K-groups (and the int path's rows) are pre-padded to the
 kernel's tile (done by ``kernels.ops``). The wrapper launches the kernel
 for CUDA tensors and runs the plain version for CPU tensors; ``launches``
 counts wrapper calls that launched the kernel.
+
+``lut_mpgemm_batched`` is the same kernel with an expert axis (the MoE
+FFN, which the reference runs as a vmap of the TPU kernel): E experts'
+tables, each expert's rows padded to the tile's rows, against a stack of
+E experts' packed weights, in one launch (``batched_launches`` counts
+them); its plain version is ``lut_mpgemm_plain`` per expert.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.core.table import Table
 from repro_torch.kernels import _build, ref
 
-__all__ = ["lut_mpgemm", "lut_mpgemm_plain", "int_tile_for", "split_for",
+__all__ = ["lut_mpgemm", "lut_mpgemm_plain", "lut_mpgemm_batched",
+           "lut_mpgemm_batched_plain", "expert_rows", "check_expert_rows",
+           "int_tile_for", "split_for",
            "k_ranges", "f32_tile_for", "f32_plan", "f32_ring", "wave_splits",
            "max_splits", "check_splits", "INT_TILES", "BF16_TILES",
            "F32_PASSES"]
@@ -64,6 +72,7 @@ F32_PASSES = 3     # bf16 terms per table value (csrc/lut_mpgemm.cu: kTerms)
 SMS = 132          # streaming multiprocessors of an H100 SXM
 MIN_STEPS = 2      # least K-steps in one split
 launches = 0
+batched_launches = 0  # lut_mpgemm_batched's launches (the expert axis)
 # device index -> (f32 split-K partials, int32 tile arrival counts, zero
 # between launches), shared by the bf16 kernels: both LUT kernels' f32
 # paths and dequant_mpgemm
@@ -314,13 +323,77 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
     uint8 [Np, Gp*B*K/8]; wscale f32 [Np] -> f32 [M, Np]. ``tile`` (an
     index into INT_TILES on the int path, BF16_TILES on the f32 paths) and
     ``splits`` (S) replace the plan's own; None keeps it."""
-    global launches
+    return _lut_mpgemm(tv, ts, packed, wscale, 0, k_group=k_group,
+                       planes=planes, plane_scales=plane_scales, tile=tile,
+                       splits=splits)
+
+
+def expert_rows(name: str, rows: int, packed: torch.Tensor,
+                wscale: torch.Tensor) -> int:
+    """Rows per expert, Cp, of a batched call: ``rows`` (E·Cp) over the E
+    of packed [E, Np, bytes] and wscale [E, Np]."""
+    if packed.dim() != 3 or wscale.dim() != 2:
+        raise ValueError(f"{name}: batched weights are packed [E, Np, bytes] "
+                         f"and wscale [E, Np]")
+    e = packed.shape[0]
+    if e < 1 or rows % e or wscale.shape[0] != e:
+        raise ValueError(f"{name}: {rows} rows do not split into {e} experts")
+    return rows // e
+
+
+def check_expert_rows(cp: int, bm: int):
+    """A batched call's Cp rows per expert must fill whole row tiles of
+    BM rows, so that no block of the kernel straddles two experts."""
+    if cp % bm:
+        raise ValueError(f"{cp} rows per expert are not padded to the "
+                         f"tile's {bm} rows")
+
+
+def lut_mpgemm_batched(tv: torch.Tensor, ts: Optional[torch.Tensor],
+                       packed: torch.Tensor, wscale: torch.Tensor, *,
+                       k_group: int, planes: int,
+                       plane_scales: Sequence[float], tile: int,
+                       splits: Optional[int] = None) -> torch.Tensor:
+    """E experts' staged mpGEMMs in one launch (the reference vmaps
+    ``lut_mpgemm_pallas`` over the experts): tv [E·Cp, Gp*E'] and ts as
+    ``lut_mpgemm`` takes them, expert e's rows e·Cp .. (e+1)·Cp - 1 with Cp
+    a multiple of the tile's rows; packed [E, Np, Gp*B*K/8]; wscale f32
+    [E, Np] -> f32 [E·Cp, Np]. ``tile`` is the caller's (``kernels.ops``:
+    the tile an expert's C rows take alone); split-K plans over all E·Cp
+    rows."""
+    cp = expert_rows("lut_mpgemm_batched", tv.shape[0], packed, wscale)
+    return _lut_mpgemm(tv, ts, packed, wscale, cp, k_group=k_group,
+                       planes=planes, plane_scales=plane_scales, tile=tile,
+                       splits=splits)
+
+
+def lut_mpgemm_batched_plain(tv, ts, packed, wscale, *, k_group: int,
+                             planes: int, plane_scales: Sequence[float]
+                             ) -> torch.Tensor:
+    """Plain version of ``lut_mpgemm_batched``: ``lut_mpgemm_plain`` per
+    expert, on its row block and its weights."""
+    cp = expert_rows("lut_mpgemm_batched", tv.shape[0], packed, wscale)
+    return torch.cat([lut_mpgemm_plain(
+        tv[i * cp:(i + 1) * cp], None if ts is None else ts[i * cp:(i + 1) * cp],
+        packed[i], wscale[i], k_group=k_group, planes=planes,
+        plane_scales=plane_scales) for i in range(packed.shape[0])])
+
+
+def _lut_mpgemm(tv, ts, packed, wscale, cp: int, *, k_group: int,
+                planes: int, plane_scales: Sequence[float],
+                tile: Optional[int], splits: Optional[int]) -> torch.Tensor:
+    """The launch of ``lut_mpgemm`` (cp = 0: packed [Np, bytes]; counted
+    in ``launches``) and of ``lut_mpgemm_batched`` (cp = rows per expert:
+    packed [E, Np, bytes]; counted in ``batched_launches``) for CUDA
+    operands, the plain version for CPU ones."""
+    global launches, batched_launches
     e = 1 << (k_group - 1)
     mp, ge = tv.shape
     gp = ge // e
     mode = _mode(tv, ts, gp)
-    check_operands("lut_mpgemm", tv, packed, wscale, k_group, planes, gp,
-                   tv.device)
+    weights = packed if cp == 0 else packed.reshape(-1, packed.shape[-1])
+    check_operands("lut_mpgemm", tv, weights, wscale.reshape(-1), k_group,
+                   planes, gp, tv.device)
     if ts is not None and (ts.dtype != torch.float32 or ts.device != tv.device
                            or not ts.is_contiguous() or ts.shape[0] != mp):
         raise ValueError("lut_mpgemm: table scales must be contiguous f32 "
@@ -329,16 +402,20 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
         raise ValueError("lut_mpgemm: the kernel copies the table in "
                          "16-byte and the codes in 4-byte pieces; pass "
                          "aligned operands")
-    np_ = packed.shape[0]
+    np_ = packed.shape[-2]
     if tv.device.type == "cpu":
         if tile is not None or splits is not None:
-            staged_plan(mode, mp, np_, gp, k_group, planes, tile, splits)
-        return lut_mpgemm_plain(tv, ts, packed, wscale, k_group=k_group,
-                                planes=planes, plane_scales=plane_scales)
+            _, bm, _, _ = staged_plan(mode, mp, np_, gp, k_group, planes,
+                                      tile, splits)[0]
+            check_expert_rows(cp, bm)
+        plain = lut_mpgemm_plain if cp == 0 else lut_mpgemm_batched_plain
+        return plain(tv, ts, packed, wscale, k_group=k_group, planes=planes,
+                     plane_scales=plane_scales)
     if tv.device.type != "cuda":
         raise ValueError(f"lut_mpgemm: unsupported device {tv.device}")
-    (config, _, _, bg), splits, tiles = staged_plan(
+    (config, bm, _, bg), splits, tiles = staged_plan(
         mode, mp, np_, gp, k_group, planes, tile, splits)
+    check_expert_rows(cp, bm)
     ps = plane_args(planes, plane_scales)
     work, arrivals = None, None
     if mode == 1 and splits > 1:
@@ -353,8 +430,11 @@ def lut_mpgemm(tv: torch.Tensor, ts: Optional[torch.Tensor],
                 packed.data_ptr(), wscale.data_ptr(), out.data_ptr(),
                 None if work is None else work.data_ptr(),
                 None if arrivals is None else arrivals.data_ptr(), mp, np_,
-                gp, k_group, planes, ps, mode, config, bg, splits,
+                gp, k_group, planes, ps, mode, config, bg, splits, cp,
                 torch.cuda.current_stream(tv.device).cuda_stream)
     _build.check("lut_mpgemm", rc)
-    launches += 1
+    if cp:
+        batched_launches += 1
+    else:
+        launches += 1
     return out

@@ -6,6 +6,14 @@ the kernels, as in the reference. Padding is inert: padded rows get a row
 scale of 1 and zero activations, padded K-groups have zero activations
 (their decoded CW is nonzero at entry 0, but their table entries are 0),
 and padded channels are sliced off.
+
+The expert entries (``lut_mpgemm_experts``, ``fused_lut_mpgemm_experts``)
+run E experts' mpGEMMs, x [E, C, K] against a stack of weights, in one
+launch of a kernel's batched wrapper: each expert's C rows are padded with
+zero rows to the tile's rows, Cp, and the E·Cp rows are laid out one
+expert after the other. Tables and row scales are row by row, so they are
+built in one launch over the E·Cp rows; a zero row gets the clamped row
+scale and a zero table, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ from repro_torch.kernels import table_precompute as tp_kernel
 from repro_torch.obs import dispatch as dispatch_obs
 
 __all__ = ["table_precompute", "lut_mpgemm", "fused_lut_mpgemm",
-           "dequant_mpgemm", "staged_operands", "pick_blocks", "auto_fusion",
+           "dequant_mpgemm", "lut_mpgemm_experts", "fused_lut_mpgemm_experts",
+           "expert_table",
+           "staged_operands", "pick_blocks", "auto_fusion",
            "resolve_dispatch", "kernel_plan", "Plan", "FUSION_MODES"]
 
 
@@ -86,22 +96,30 @@ class Plan(NamedTuple):
 
 
 def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto",
-                     table_quant: Optional[str] = "per_row") -> Plan:
+                     table_quant: Optional[str] = "per_row",
+                     experts: int = 0) -> Plan:
     """The dispatch decision for one shape, the single source the LUT
     wrappers follow. "fused"/"staged": forced, the kernels' own tile and S;
     "auto": ``auto_fusion``; "tuned": the active tuning cache's plan
     (``autotune.lookup_tuned``, memoized per shape), else "auto". Records
     the decision on the active ``obs.dispatch`` recorder, keyed by
-    ``autotune.shape_key``; with none, that costs one check. (The CUDA
+    ``autotune.shape_key``, with the tile and S the kernel runs
+    (``kernel_plan``); with none, that costs one check. (The CUDA
     kernels' tiles: ``lut_mpgemm.int_tile_for`` and
     ``fused_lut_mpgemm.int_tile`` on per_row tables, the staged one with
     rows padded; ``lut_mpgemm.f32_tile_for`` on None and per_group tables,
-    shared by both kernels, rows as they are.)"""
+    shared by both kernels, rows as they are.)
+
+    ``experts`` > 0: an expert call, m rows an expert of that many
+    experts, one batched launch (``lut_mpgemm_experts``). The fusion is
+    decided at (m, n, g) all the same; "tuned" runs as "auto", since the
+    tuning cache holds 2-D shapes, whose tile and S do not fit the batched
+    launch; the key gets an "e<E>." prefix."""
     if fusion not in FUSION_MODES:
         raise ValueError(f"fusion {fusion!r} not in {FUSION_MODES}")
     tuned = (autotune.lookup_tuned(m, n, g, k_group, planes,
                                    table_quant=table_quant)
-             if fusion == "tuned" else None)
+             if fusion == "tuned" and not experts else None)
     if tuned is not None:
         plan = Plan(tuned.fusion, tuned.tile, tuned.splits, "tuned")
     elif fusion in ("auto", "tuned"):
@@ -111,10 +129,12 @@ def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto",
         plan = Plan(fusion, None, None, "forced")
     if dispatch_obs.get_active() is not None:
         _, bm, bn, bg, s = kernel_plan(m, n, g, k_group, planes, table_quant,
-                                       plan.fusion, plan.tile, plan.splits)
+                                       plan.fusion, plan.tile, plan.splits,
+                                       experts=experts)
+        key = autotune.shape_key(m, n, g, k_group, planes,
+                                 table_quant=table_quant)
         dispatch_obs.record(
-            "dispatch", autotune.shape_key(m, n, g, k_group, planes,
-                                           table_quant=table_quant),
+            "dispatch", f"e{experts}.{key}" if experts else key,
             plan.fusion, fusion, plan.source, (bm, bn, bg), s)
     return plan
 
@@ -125,12 +145,24 @@ def _up(x: int, mult: int) -> int:
 
 def kernel_plan(m, n, g, k_group, planes, table_quant: Optional[str],
                 fusion: str, tile: Optional[int] = None,
-                splits: Optional[int] = None):
+                splits: Optional[int] = None, *, experts: int = 0):
     """(config, BM, BN, bg, S) the kernel runs for an [m, G·K] × [n, G·K]
     mpGEMM, padded as this module pads it: per_row fused
     (``fused_lut_mpgemm.int_plan``), per_row staged (``lut_mpgemm.
     staged_plan``, rows padded) or the float tables' ``lut_mpgemm.
-    f32_plan``; ``tile`` and ``splits`` as the wrappers take them."""
+    f32_plan``; ``tile`` and ``splits`` as the wrappers take them. With
+    ``experts`` > 0, the batched launch of an expert call of m rows an
+    expert: the tile m rows take alone (``_expert_tile``), S planned over
+    the experts' padded rows."""
+    if experts:
+        config, bm, bn, bg = _expert_tile(m, k_group, planes, table_quant,
+                                          fusion == "fused")
+        plan = (lut_kernel.f32_plan if table_quant != "per_row"
+                else fused_kernel.int_plan if fusion == "fused"
+                else functools.partial(lut_kernel.staged_plan, 1))
+        _, s, _ = plan(experts * _up(max(m, 1), bm), _up(n, bn), _up(g, bg),
+                       k_group, planes, config)
+        return config, bm, bn, bg, s
     mp = m
     if table_quant != "per_row":
         _, _, bn, bg = lut_kernel.f32_tile_for(m, k_group, planes, tile)
@@ -166,13 +198,15 @@ def _closed_form_row_scale(a: torch.Tensor, g: int, k_group: int):
 
 
 def _pad_packed(qw: QuantizedWeight, gp: int, bn: int):
-    """Packed codes padded to gp K-groups and bn channels, scale alongside."""
+    """Packed codes padded to gp K-groups and bn channels, scale alongside
+    (each expert's, for a stack of experts: [E, Np, bytes] and [E, Np])."""
     pkp = qw.packed
     pb_full = gp * qw.num_planes * qw.k_group // 8
-    if pkp.shape[1] < pb_full:
-        pkp = torch.nn.functional.pad(pkp, (0, pb_full - pkp.shape[1]))
-    pkp = _pad_to(pkp, bn, 0)
-    wsp = _pad_to(qw.scale.to(torch.float32), bn, 0)
+    if pkp.shape[-1] < pb_full:
+        pkp = torch.nn.functional.pad(pkp, (0, pb_full - pkp.shape[-1]))
+    pkp = _pad_to(pkp, bn, pkp.dim() - 2)
+    scale = qw.scale.to(torch.float32)
+    wsp = _pad_to(scale, bn, scale.dim() - 1)
     return pkp.contiguous(), wsp.contiguous()
 
 
@@ -302,3 +336,99 @@ def dequant_mpgemm(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
         xp, pkp, wsp, k_group=kg, planes=qw.num_planes,
         plane_scales=qw.plane_scales)[:m, :qw.n]
     return ref.zero_point_correction(out, qw, _rowsum(x, qw))
+
+
+def _expert_tile(c: int, k_group: int, planes: int, table_quant,
+                 fused: bool):
+    """(config, BM, BN, bg) of an expert call of C rows an expert, the one
+    place that chooses it: the tile C rows take alone in the fused kernel
+    (``fused_lut_mpgemm.int_tile``) or the staged one
+    (``lut_mpgemm.int_tile_for``) on per_row tables, the f32 paths'
+    (``lut_mpgemm.f32_tile_for``) on float tables. Each expert's rows are
+    padded to its BM, Cp."""
+    if table_quant != "per_row":
+        return lut_kernel.f32_tile_for(c, k_group, planes)
+    if fused:
+        return fused_kernel.int_tile(c, k_group, planes)
+    return lut_kernel.int_tile_for(c, k_group, planes)
+
+
+def _experts_zero_point(out, qw: QuantizedWeight, rowsum):
+    """``ref.zero_point_correction`` for [E, C, N] outputs of a stack of
+    experts' weights (rowsum [E, C]); no-op for symmetric weights."""
+    if qw.zero_prime is None:
+        return out
+    return out - rowsum[..., None] * (qw.scale * qw.zero_prime)[:, None, :]
+
+
+def expert_table(x: torch.Tensor, k_group: int = 4,
+                 table_quant: Optional[str] = "per_row") -> Table:
+    """The table of x [E, C, K] that ``lut_mpgemm_experts`` shares between
+    consumers, in the form the batched staged kernel takes: each expert's
+    C rows padded with zero rows to the staged tile's, Cp, and the E·Cp
+    rows built in one ``table_precompute`` launch (a zero row gets the
+    clamped row scale and a zero table, as in the reference)."""
+    e, c, k = x.shape
+    # the tile's rows depend on C alone, not on the weights' planes
+    _, bm, _, _ = _expert_tile(c, k_group, 1, table_quant, False)
+    cp = _up(max(c, 1), bm)
+    return table_precompute(_pad_to(x, cp, 1).reshape(e * cp, k), k_group,
+                            table_quant)
+
+
+def fused_lut_mpgemm_experts(x: torch.Tensor, qw: QuantizedWeight, *,
+                             table_quant: Optional[str] = "per_row"
+                             ) -> torch.Tensor:
+    """E experts' fused precompute→lookup mpGEMMs, x [E, C, K] against a
+    stack of weights ([E, N, bytes]) -> f32 [E, C, N]: one row-scale
+    launch over the padded rows (per_row) and one launch of
+    ``fused_lut_mpgemm_batched``."""
+    _check_not_plane_sliced(qw, "fused_lut_mpgemm_experts")
+    e, c, _ = x.shape
+    kg, planes = qw.k_group, qw.num_planes
+    config, bm, bn, bg = _expert_tile(c, kg, planes, table_quant, True)
+    cp = _up(max(c, 1), bm)
+    xp = _pad_to(_pad_to(x.to(torch.float32), cp, 1), bg * kg, 2)
+    xp = _aligned(xp.reshape(e * cp, -1).contiguous())
+    row_scale = (tp_kernel.row_scale(xp, kg) if table_quant == "per_row"
+                 else None)
+    pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
+    out = fused_kernel.fused_lut_mpgemm_batched(
+        xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,
+        planes=planes, plane_scales=qw.plane_scales,
+        tile=config).reshape(e, cp, -1)[:, :c, :qw.n]
+    return _experts_zero_point(out, qw, None if qw.zero_prime is None
+                               else x.to(torch.float32).sum(-1))
+
+
+def lut_mpgemm_experts(x: torch.Tensor, qw: QuantizedWeight, *,
+                       table_quant: Optional[str] = "per_row",
+                       table: Optional[Table] = None,
+                       fusion: str = "auto") -> torch.Tensor:
+    """E experts' LUT mpGEMMs, x [E, C, K] against a stack of weights
+    ([E, N, bytes]) -> f32 [E, C, N], as ``lut_mpgemm`` runs one: the
+    fusion is resolved once from (C, N, G) (``resolve_dispatch`` with
+    ``experts``); fused runs ``fused_lut_mpgemm_experts``, staged one
+    launch of ``lut_mpgemm_batched`` on the given table (``expert_table``'s
+    form) or on one built by ``expert_table``. The tile is the one C rows
+    take alone, S the kernel's own plan over the E·Cp rows."""
+    _check_not_plane_sliced(qw, "lut_mpgemm_experts")
+    e, c, _ = x.shape
+    kg, planes = qw.k_group, qw.num_planes
+    plan = resolve_dispatch(c, qw.n, qw.g, kg, planes, fusion=fusion,
+                            table_quant=table_quant, experts=e)
+    if table is None and plan.fusion == "fused":
+        return fused_lut_mpgemm_experts(x, qw, table_quant=table_quant)
+    config, bm, _, _ = _expert_tile(c, kg, planes, table_quant, False)
+    cp = _up(max(c, 1), bm)
+    if table is None:
+        table = expert_table(x, kg, table_quant)
+    if table.values.shape[0] != e * cp:
+        raise ValueError(f"lut_mpgemm_experts: the table has "
+                         f"{table.values.shape[0]} rows, not {e} experts' "
+                         f"{cp} padded rows (ops.expert_table)")
+    out = lut_kernel.lut_mpgemm_batched(
+        *staged_operands(table, qw, config), k_group=kg, planes=planes,
+        plane_scales=qw.plane_scales,
+        tile=config).reshape(e, cp, -1)[:, :c, :qw.n]
+    return _experts_zero_point(out, qw, table.rowsum.reshape(e, cp)[:, :c])

@@ -14,7 +14,11 @@ draft) and is refused under ``fp16``.
 
 ``--arch`` is any of ``configs.registry.list_archs()``; each serves its
 own weight scheme (``paper-bitnet-3b``: ternary, ``--weight-bits`` refused;
-the others W2 symmetric unless ``--weight-bits`` says otherwise).
+the others W2 symmetric unless ``--weight-bits`` says otherwise;
+``olmoe-1b-7b`` keeps its attention float). The MoE archs
+(``olmoe-1b-7b``; ``kimi-k2-1t-a32b``, which fits a card only
+``--reduced``) serve greedy and sampled requests; ``beam`` and ``spec``
+raise NotImplementedError on them.
 
 Telemetry and tuning: ``--fusion tuned`` dispatches each projection with
 the measured plan of the tuning cache (``--tuning-cache PATH``; the
@@ -53,10 +57,14 @@ from repro_torch.serving.engine import Request, ServingEngine
 
 def scheme_name(quant: dict) -> str:
     """The weight scheme as text: "ternary", or the bits and the scheme
-    (e.g. "W2 symmetric")."""
-    if quant["scheme"] == "ternary":
-        return "ternary"
-    return f"W{quant['weight_bits']} {quant['scheme']}"
+    (e.g. "W2 symmetric"), and the projections that stay float where the
+    arch keeps some (olmoe-1b-7b: "W2 symmetric, float attention")."""
+    name = ("ternary" if quant["scheme"] == "ternary"
+            else f"W{quant['weight_bits']} {quant['scheme']}")
+    skip = quant.get("skip")
+    if skip:
+        name += ", float " + ("attention" if skip == "attn" else skip)
+    return name
 
 
 def main(argv=None):

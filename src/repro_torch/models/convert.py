@@ -2,10 +2,11 @@
 
 ``from_jax_params`` takes the reference's param tree with every leaf
 already turned into a numpy array (``jax.tree.map(np.asarray, params)``):
-dicts of arrays, a layer stack whose leaves carry a leading [L] axis, and
+dicts of arrays, layer stacks whose leaves carry a leading [L] axis, and
 packed weights as any object with the reference ``QuantizedWeight``
-attributes. It imports neither JAX nor the reference package: the packed
-byte format is shared, so the buffers load unchanged.
+attributes (leading [L], or [L, E] for a stack of experts). It imports
+neither JAX nor the reference package: the packed byte format is shared,
+so the buffers load unchanged.
 """
 
 from __future__ import annotations
@@ -63,11 +64,14 @@ def _convert(node, device, index=None) -> Any:
 
 def from_jax_params(np_tree, cfg, device="cuda"):
     """Reference param tree (numpy leaves) -> the port's param tree on
-    ``device`` (the card unless the caller asks for the CPU): the stacked
-    [L, ...] layers become a list of L layer dicts."""
+    ``device`` (the card unless the caller asks for the CPU): each stacked
+    layer stack becomes a list of layer dicts. The MoE family has two:
+    ``dense_layers`` ([first_dense_layers, ...]) and ``layers`` (the MoE
+    layers); a batched expert weight keeps its [E, ...] after the layer
+    index."""
     device = resolve_device(device)
-    layers = [_convert(np_tree["layers"], device, index=i)
-              for i in range(cfg.n_layers)]
-    out = {k: _convert(v, device) for k, v in np_tree.items() if k != "layers"}
-    out["layers"] = layers
-    return out
+    counts = {"layers": cfg.n_layers - cfg.first_dense_layers,
+              "dense_layers": cfg.first_dense_layers}
+    return {k: ([_convert(v, device, index=i) for i in range(counts[k])]
+                if k in counts else _convert(v, device))
+            for k, v in np_tree.items()}

@@ -238,7 +238,8 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     b, s, _ = x.shape
     hd = cfg.head_dim
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
-    tbl = make_table(x, quant)
+    # float projections (quant["skip"]: olmoe's attention) read no table
+    tbl = make_table(x, quant) if "qw" in p["wq"] else None
     q = lut_dense(p["wq"], x, quant, tbl).reshape(b, s, cfg.n_heads, hd)
     k = lut_dense(p["wk"], x, quant, tbl).reshape(b, s, cfg.n_kv_heads, hd)
     v = lut_dense(p["wv"], x, quant, tbl).reshape(b, s, cfg.n_kv_heads, hd)

@@ -1,0 +1,236 @@
+"""Mixture-of-Experts LM (olmoe, kimi-k2) with sort-based dispatch.
+
+The port of the reference's ``models/moe.py`` (its single-device path; the
+expert-parallel ``shard_map`` dispatch is not ported). Routing is
+token-choice top-k with an f32 router that is never quantized. Dispatch
+builds no [T, E] one-hot: the T·k assignments are sorted by expert id
+(stable, so a token's assignments and equal ids keep their order), each
+assignment's position within its expert comes from the per-expert counts,
+and the tokens are written into a capacity-bucketed [E, C, D] buffer;
+assignments past an expert's capacity are dropped (their output is zero),
+and kept ones never share a slot. The expert FFN runs on the [E, C, D]
+buffer as one batched mpGEMM a projection (``core.mpgemm``: one launch of
+a kernel's batched wrapper under ``lut_pallas``), every expert computed,
+empty capacity included, as the reference's vmap computes them.
+
+Determinism. The reference's combine (``y.at[tok].add``) adds each token's
+k contributions in the sorted order, so in increasing expert id, starting
+from zero. The port gathers them [T, k, D] in that order and adds over k
+in a fixed loop: no atomics, so the same inputs give the same bits on the
+card (a paged pool equals a dense one), and the sums are the reference's.
+Nothing here waits for the card: counts come from a scatter-add, not
+``bincount``, and dropped assignments go to a trash row, not through a
+boolean mask.
+
+Aux outputs: the load-balance loss (Switch-style E·Σ f_e·P_e) and the
+router-z loss, averaged over the MoE layers. A forward without its head
+(``head=False``: prefill, caches only) skips them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core import mpgemm as mp
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as TR
+
+Params = Dict[str, Any]
+
+
+def _expert_init(gen, e: int, d_in: int, d_out: int, dtype, device):
+    w = torch.randn(e, d_in, d_out, generator=gen, device=device,
+                    dtype=torch.float32) / math.sqrt(d_in)
+    return w.to(dtype)
+
+
+def moe_mlp_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    p = {
+        # the router stays f32
+        "router": {"w": torch.randn(d, e, generator=gen, device=device,
+                                    dtype=torch.float32) * 0.02},
+        "experts": {
+            "gate": _expert_init(gen, e, d, f, dtype, device),
+            "up": _expert_init(gen, e, d, f, dtype, device),
+            "down": _expert_init(gen, e, f, d, dtype, device),
+        },
+    }
+    if cfg.n_shared_experts:
+        p["shared_mlp"] = L.mlp_init(gen, d, f * cfg.n_shared_experts,
+                                     dtype=dtype, device=device)
+    return p
+
+
+def _capacity(t: int, k: int, e: int, factor: float) -> int:
+    """Slots per expert: ⌈t·k·factor / e⌉ rounded up to 8, at least 8."""
+    c = int(math.ceil(t * k * factor / e))
+    return max(8, -(-c // 8) * 8)
+
+
+def _expert_ffn(w: Params, x: torch.Tensor, quant) -> torch.Tensor:
+    """The experts' SwiGLU FFN on the dispatch buffer x [E, C, D] ->
+    [E, C, D]. Packed experts (``gate_qw`` ...) run one batched mpGEMM a
+    projection, ``gate`` and ``up`` sharing one table where the plan at
+    (C, D) is staged (§3.1.1: the fused kernel rebuilds its table on chip);
+    float experts run batched f32 products of x and the weights rounded to
+    x's dtype."""
+    if "gate_qw" in w:
+        q = quant or {}
+        mode = q.get("mpgemm_mode", "lut_xla")
+        tq = q.get("table_quant", "per_row")
+        kg = q.get("k_group", 4)
+        fusion = q.get("fusion", "auto")
+        # the tuning cache holds 2-D shapes: expert calls follow the auto
+        # rule (``kernels.ops.resolve_dispatch``), so does the table
+        rule = dict(q, fusion="auto") if fusion == "tuned" else q
+        share = mode == "lut_xla" or (
+            mode == "lut_pallas"
+            and L.resolve_fusion(x.shape[1], x.shape[2], rule) == "staged")
+        tbl = (mp.precompute_expert_tables(x, kg, tq, mode)
+               if share else None)
+        kw = dict(mode=mode, table_quant=tq, fusion=fusion)
+        g = mp.mpgemm(x, w["gate_qw"], table=tbl, **kw)
+        u = mp.mpgemm(x, w["up_qw"], table=tbl, **kw)
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+        return mp.mpgemm(h, w["down_qw"], **kw)
+
+    def bmm(a, wt):
+        return torch.bmm(a.to(torch.float32),
+                         wt.to(a.dtype).to(torch.float32)).to(a.dtype)
+
+    g, u = bmm(x, w["gate"]), bmm(x, w["up"])
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    return bmm(h, w["down"])
+
+
+def moe_mlp_apply(p: Params, x: torch.Tensor, cfg, quant=None, *,
+                  aux: bool = True):
+    """x [B, S, D] -> (y [B, S, D], {"lb_loss", "router_z_loss"} or {}).
+    Every one of the B·S tokens is routed and takes capacity, pad tokens
+    too, as in the reference: t = B·S sets the capacity."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.top_k
+    xf = x.reshape(t, d)
+    dev = x.device
+
+    logits = xf.to(torch.float32) @ p["router"]["w"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    # top-k as jax.lax.top_k: descending, the lower expert id first on ties
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]
+    top_p = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+
+    # ---- sort-based dispatch ----------------------------------------------
+    eid = top_i.reshape(-1)                               # [T·k]
+    order = torch.argsort(eid, stable=True)
+    sorted_eid = eid[order]
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, eid, torch.ones_like(eid))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(t * k, device=dev) - starts[sorted_eid]
+    cap = _capacity(t, k, e, cfg.capacity_factor)
+    keep = pos_in_e < cap
+    slot = sorted_eid * cap + torch.clamp_max(pos_in_e, cap - 1)
+    tok = order // k                                      # source token
+    # kept assignments own distinct slots; dropped ones go to the trash row
+    disp = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=dev)
+    disp[torch.where(keep, slot, e * cap)] = xf[tok]
+    out = _expert_ffn(p["experts"], disp[:-1].reshape(e, cap, d), quant)
+    out = out.reshape(e * cap, d)
+
+    # ---- combine: each token's k contributions in increasing expert id ----
+    contrib = (torch.where(keep[:, None], out[slot], 0).to(torch.float32)
+               * top_p.reshape(-1)[order][:, None])       # [T·k, D], sorted
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * k, device=dev)         # sorted position
+    picks = contrib[rank.reshape(t, k).sort(dim=1).values]  # [T, k, D]
+    y = torch.zeros(t, d, dtype=torch.float32, device=dev)
+    for j in range(k):
+        y = y + picks[:, j]
+
+    if "shared_mlp" in p:
+        y = y + L.mlp_apply(p["shared_mlp"], xf, quant).to(torch.float32)
+
+    losses = {}
+    if aux:
+        f_e = counts.to(torch.float32) / (t * k) * e      # mean of one-hots
+        p_e = probs.mean(dim=0)
+        losses = {"lb_loss": e * torch.sum(f_e / e * p_e),
+                  "router_z_loss": torch.square(
+                      torch.logsumexp(logits, dim=-1)).mean()}
+    return y.reshape(b, s, d).to(x.dtype), losses
+
+
+# ---------------------------------------------------------------------------
+# MoE block + LM
+# ---------------------------------------------------------------------------
+
+def block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
+    return {
+        "attn_norm": L.norm_init(cfg.d_model, dtype, device),
+        "attn": L.attention_init(gen, cfg, dtype=dtype, device=device),
+        "mlp_norm": L.norm_init(cfg.d_model, dtype, device),
+        "moe": moe_mlp_init(gen, cfg, dtype, device),
+    }
+
+
+def dense_block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
+    """A leading dense layer (kimi-k2's first): the dense block with the
+    MLP width ``dense_d_ff``."""
+    return TR.block_init(gen, cfg.replace(d_ff=cfg.dense_d_ff or cfg.d_ff),
+                         dtype, device)
+
+
+def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
+                quant=None, page_table=None, aux: bool = True):
+    a, cache = L.attention_apply(
+        p["attn"], TR._norm(p["attn_norm"], h, cfg, cache_pos), cfg,
+        kv_cache=cache, cache_pos=cache_pos, quant=quant,
+        page_table=page_table)
+    h = h + a
+    m, losses = moe_mlp_apply(p["moe"],
+                              TR._norm(p["mlp_norm"], h, cfg, cache_pos),
+                              cfg, quant, aux=aux)
+    return h + m, cache, losses
+
+
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
+            caches=None, cache_pos=0, head: bool = True, page_table=None):
+    """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``.
+    Layer i of the caches is dense layer i for i < first_dense_layers, then
+    the MoE layers in order. ``head=False`` stops before the final norm
+    and LM head and computes no aux losses."""
+    h = TR.embed_apply(params["embed"], batch["tokens"]).to(
+        cfg.activation_dtype)
+    nd, quant = cfg.first_dense_layers, cfg.quant
+
+    def layer_cache(i):
+        return None if caches is None else (caches[0][i], caches[1][i])
+
+    for i, lp in enumerate(params.get("dense_layers", [])):
+        h, _ = TR.block_apply(lp, h, cfg, cache=layer_cache(i),
+                              cache_pos=cache_pos, quant=quant,
+                              page_table=page_table)
+    lb = zl = 0.0
+    for j, lp in enumerate(params["layers"]):
+        h, _, losses = block_apply(lp, h, cfg, cache=layer_cache(nd + j),
+                                   cache_pos=cache_pos, quant=quant,
+                                   page_table=page_table, aux=head)
+        if head:
+            lb, zl = lb + losses["lb_loss"], zl + losses["router_z_loss"]
+    if not head:
+        return None, caches, {}
+    h = TR._norm(params["final_norm"], h, cfg, cache_pos)
+    n_moe = cfg.n_layers - nd
+    return (TR.head_apply(params["lm_head"], h, quant), caches,
+            {"lb_loss": lb / n_moe, "router_z_loss": zl / n_moe})
+
+
+def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
+               device=None):
+    return TR.init_cache(cfg, batch, s_cache, dtype, device)

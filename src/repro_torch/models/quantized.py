@@ -1,9 +1,12 @@
 """Convert float param trees to packed low-bit serving trees.
 
 Every quantizable projection ``{"w": [in, out]}`` becomes
-``{"qw": QuantizedWeight}`` (bias kept). The layer stack is a list of
-per-layer dicts, walked like any other node. Never quantized: the
-embedding, norms. ``quant["skip"]`` is a path regex of projections that
+``{"qw": QuantizedWeight}`` (bias kept), and an MoE layer's stacked expert
+weights ``experts: {"gate", "up", "down": [E, in, out]}`` become batched
+weights under the reference's names ``gate_qw``, ``up_qw``, ``down_qw``
+(``Q.quantize_experts``). The layer stack is a list of per-layer dicts,
+walked like any other node. Never quantized: the embedding, norms, the MoE
+router. ``quant["skip"]`` is a path regex of projections that
 stay float. ``plane_sliced_params`` reads a packed tree at fewer
 bit-planes (the self-speculative draft).
 """
@@ -50,6 +53,16 @@ def quantize_params(params: Dict[str, Any], quant: dict) -> Dict[str, Any]:
                                     scheme=quant.get("scheme", "symmetric"))}
             if "b" in node:
                 out["b"] = node["b"]
+            return out
+        if path.endswith("experts"):  # stacked [E, in, out] -> batched
+            out = {}
+            for name, w in node.items():
+                if w.shape[-2] % kg:
+                    out[name] = w
+                else:
+                    out[name + "_qw"] = Q.quantize_experts(
+                        w, quant.get("weight_bits", 2), k_group=kg,
+                        scheme=quant.get("scheme", "symmetric"))
             return out
         return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
 

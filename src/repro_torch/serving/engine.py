@@ -466,6 +466,11 @@ class ServingEngine:
         # parse now, so a bad decoding string or an unservable mode fails
         # here and not at admission
         dm = decoding.parse(req.decoding)
+        if dm.kind != decoding.NORMAL and self.cfg.family == "moe":
+            raise NotImplementedError(
+                f"{req.decoding!r} on the MoE family ({self.cfg.arch_id}): "
+                "beam search and self-speculation on MoE configs are not "
+                "ported (ROADMAP.md queue 1, MoE decoding modes)")
         if dm.kind == decoding.SPEC and self.draft_params is None:
             raise ValueError(
                 "spec decoding needs a draft view: construct the engine "

@@ -825,3 +825,87 @@ def test_traced_serve_keeps_one_sync_per_chunk(cuda):
                 st["decode_syncs"]
             assert sum(r.count for r in rec.records("dispatch")) > 0
     assert runs[0] == runs[1]
+
+
+# (E, C, K, N) of the expert-batched kernels: split-K over few experts, an
+# odd C with channels padded, C rows at decode (8) and prefill (24) sizes,
+# and C past the largest row tile
+EXPERT_CASES = [(2, 8, 2048, 128), (6, 24, 256, 320), (5, 3, 512, 256),
+                (3, 130, 256, 128)]
+
+
+def _expert_weights(rng, e, n, k, device):
+    from repro_torch.core.quantize import quantize_experts
+    w = torch.from_numpy(rng.normal(size=(e, k, n)).astype(np.float32))
+    return quantize_experts(w, 2).to(device)
+
+
+@pytest.mark.parametrize("fusion", ("fused", "staged"))
+@pytest.mark.parametrize("tq", MODES)
+@pytest.mark.parametrize("case", EXPERT_CASES, ids=str)
+def test_batched_kernels_equal_per_expert_launches(cuda, case, tq, fusion):
+    """The expert axis of both LUT kernels: x [E, C, K] against E experts'
+    weights in one launch of the batched wrapper (and one table or row
+    scale launch over the E·Cp rows), equal to E launches of the 2-D
+    kernel, one an expert: per_row bit for bit; the bf16 paths within the
+    plain version's 1e-4 (their split-K count differs with the rows);
+    expert rows with no token (zero rows) give zero outputs."""
+    e, c, k, n = case
+    rng = np.random.default_rng(e * 100 + c + k + n)
+    x = torch.from_numpy(rng.normal(size=(e, c, k)).astype(np.float32)
+                         ).to(cuda)
+    x[0, c // 2:] = 0.0  # expert 0's empty capacity
+    qw = _expert_weights(rng, e, n, k, cuda)
+    mod = fk if fusion == "fused" else lk
+    before = (mod.launches, mod.batched_launches, tk.launches,
+              tk.row_scale_launches)
+    got = ops.lut_mpgemm_experts(x, qw, table_quant=tq, fusion=fusion)
+    after = (mod.launches, mod.batched_launches, tk.launches,
+             tk.row_scale_launches)
+    assert after[1] == before[1] + 1 and after[0] == before[0]
+    if fusion == "staged":
+        assert after[2:] == (before[2] + 1, before[3])
+    else:
+        assert after[2:] == (before[2], before[3] + (tq == "per_row"))
+    assert got.shape == (e, c, n)
+    assert not got[0, c // 2:].any()
+    per_expert = torch.stack([ops.lut_mpgemm(x[i], qw.expert(i),
+                                             table_quant=tq, fusion=fusion)
+                              for i in range(e)])
+    _close(got, per_expert, tq)
+    assert torch.equal(ops.lut_mpgemm_experts(x, qw, table_quant=tq,
+                                              fusion=fusion), got)
+
+
+def test_reduced_olmoe_serve_through_the_kernels_equals_lut_xla(cuda):
+    """Reduced olmoe-1b-7b (8 experts, top-2, float attention), per_row:
+    the engine's greedy streams through the batched kernels (lut_pallas)
+    equal the plain LUT path's (lut_xla), dense and paged, with every
+    expert projection a batched launch."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n) for n in (9, 40, 17)]
+    out = []
+    for mode, kw in (("lut_pallas", {}), ("lut_xla", {}),
+                     ("lut_pallas", dict(cache_block_size=16))):
+        cfg = registry.get_reduced("olmoe-1b-7b").replace(
+            activation_dtype=torch.float32).with_quant(
+                mpgemm_mode=mode, table_quant="per_row")
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        params = api.init_params(gen, cfg, cuda)
+        eng = ServingEngine(cfg, params, max_batch=4, max_seq=64,
+                            decode_chunk=4, prefill_chunk=16, **kw)
+        before = fk.batched_launches + lk.batched_launches
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert eng.stats()["host_syncs_per_token"] <= 1 / eng.decode_chunk
+        launched = fk.batched_launches + lk.batched_launches - before
+        assert (launched > 0) == (mode == "lut_pallas")
+        out.append([r.output for r in reqs])
+    assert out[0] == out[1] == out[2]
