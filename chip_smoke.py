@@ -183,10 +183,41 @@ exit and no result line):
      sharing once, its agreement with dense and the prompt tokens reused
      recorded (a suffix prefill routes fewer tokens, so its capacity and
      drops differ).
+ 12. ssm     — the SSM and hybrid families at full width (``ssm_phase``),
+     random weights from seed 0 made on the card layer by layer, per_row
+     tables, lut_pallas, fusion auto: falcon-mamba-7b (64 Mamba1 layers,
+     d_model 4096, d_inner 8192, dt_rank 256, state 16, vocab 65024, every
+     projection and the head W2) and zamba2-7b (81 Mamba2 layers in 13
+     groups of 6 and a tail of 3, each group followed by one shared
+     attention + MLP block, MHA 32/32, d_ff 14336, vocab 32000; the Mamba2
+     in/out projections float, the shared block and the head W2). (a)
+     phase 3's checks and times (``check_kernels``, every table mode and
+     ``dequant_mpgemm``, M ∈ {4, 128}) at their packed projections' (N,
+     K): (16384, 4096), (288, 8192), (8192, 256), (4096, 8192), (65024,
+     4096); (3584, 3584), (14336, 3584), (3584, 14336), (32000, 3584):
+     per_row bit-exact, the bf16 paths within phase 8 (a)'s bound; and
+     ``precompute_checks`` at their K; (b) falcon-mamba-7b through phase
+     4's engine and request shapes (``ssm_serve``): the launch counts set
+     to 0 just before the serve and read just after, every kernel of the
+     per_row path launched, <= 1/decode_chunk host syncs a token, one
+     decode chunk under torch's sync check launching exactly one fused
+     lookup and one row scale per packed projection a step; lut_pallas =
+     lut_xla teacher-forced logits bit for bit (``ssm_parity``); (c) the
+     same prompts with prefill chunk 32 against 128 (a right-padded tail in
+     both): equal greedy streams, or a divergence at a near tie (phase 6's
+     top-2 margin rule); (d) zamba2-7b served as in (b), its parity, the
+     block-paged pool (block 16: the shared attention's KV pooled, the
+     Mamba state slot-resident) giving the dense streams exactly,
+     ``prefix_cache=True`` turned off with the engine's warning, a
+     ``spec`` request refused (ValueError: SSM state cannot rewind a
+     draft); (e) one decode step and one 128-token prefill chunk of each
+     profiled as in phase 4.
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record (the two batched wrappers listed
-beside the four kernels, with phase 11's launches and times); the last line
+beside the four kernels, with phase 11's launches and times; each kernel's
+launches and times at falcon-mamba-7b's and zamba2-7b's shapes under
+their names); the last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
 (``src/repro_torch/build/``).
@@ -206,6 +237,10 @@ phase 10 alone (its record as one line of JSON),
     python3 chip_smoke.py --moe               # phases 1, 2 and 11 only
 
 phase 11 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --ssm               # phases 1, 2 and 12 only
+
+phase 12 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -247,6 +282,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -970,9 +1006,9 @@ def serve_prompts(vocab, seed):
 
 def serve(cfg, params, seed, **engine_kw):
     """Phase 4: 4 requests through the engine (``engine_kw`` added to
-    SERVE_KW); returns (engine, requests)."""
+    SERVE_KW, or replacing its values); returns (engine, requests)."""
     from repro_torch.serving.engine import Request, ServingEngine
-    eng = ServingEngine(cfg, params, **SERVE_KW, **engine_kw)
+    eng = ServingEngine(cfg, params, **dict(SERVE_KW, **engine_kw))
     reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(serve_prompts(cfg.vocab_size, seed))]
     for r in reqs:
@@ -2411,6 +2447,288 @@ def moe_lines(cfg, eng, rec):
     return lines
 
 
+# phase 12: the SSM and hybrid families, full-width falcon-mamba-7b (Mamba1,
+# attention-free, every projection W2) and zamba2-7b (Mamba2 groups, float
+# Mamba projections, one shared W2 attention + MLP block)
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+
+
+def ssm_config(arch):
+    from repro_torch.configs import registry
+    return registry.get_config(arch).replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
+                                                   fusion="auto")
+
+
+def ssm_projection_shapes(cfg):
+    """{projection: (N, K)} of the packed projections a step runs: the
+    Mamba1 layer's four and the head (falcon-mamba), or the shared block's
+    seven and the head (zamba2: its Mamba2 projections stay float)."""
+    if cfg.family == "hybrid":
+        return projection_shapes(cfg)
+    d, di, r, ds = cfg.d_model, cfg.d_inner, cfg.dt_rank, cfg.ssm_state
+    return {"in_proj": (2 * di, d), "x_proj": (r + 2 * ds, di),
+            "dt_proj": (di, r), "out_proj": (d, di),
+            "lm_head": (cfg.vocab_size, d)}
+
+
+def projections_per_step(cfg) -> int:
+    """Packed projections one forward runs: a layer's four per Mamba1
+    layer, the shared block's seven per invocation, and the head."""
+    if cfg.family == "hybrid":
+        return 7 * (cfg.n_layers // cfg.attn_every) + 1
+    return 4 * cfg.n_layers + 1
+
+
+def near_ties(tag, cfg, params, prompts, got, want):
+    """Streams ``got`` against ``want``: equal, or diverging at a near tie
+    (the top-2 logit margin of a full forward over the prompt and the
+    agreed tokens <= MARGIN), after which that stream is not compared."""
+    from repro_torch.models import api
+    out = []
+    for uid, (p, g, w) in enumerate(zip(prompts, got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if j is None:
+            continue
+        seq = torch.as_tensor(np.concatenate([p, w[:j]])[None], device="cuda")
+        top2 = torch.topk(api.forward(params, {"tokens": seq}, cfg)[0][0, -1],
+                          2).values
+        margin = (top2[0] - top2[1]).item()
+        out.append({"uid": uid, "position": j, "margin": margin})
+        if margin > MARGIN:
+            raise AssertionError(f"{tag}: request {uid} diverges at token "
+                                 f"{j} with top-2 margin {margin} > {MARGIN}")
+    return out
+
+
+def ssm_serve(tag, cfg, params):
+    """Phase 12 (b) / (d): phase 4's engine and request shapes (prompt
+    tokens from the arch's vocab), a warm-up serve, then the serve with the
+    launch counts set to 0 just before and read just after: every request
+    finishes 16 tokens, every kernel of the per_row path ran (the fused
+    lookup and its row scale in decode, the staged precompute and lookup in
+    prefill), <= 1/decode_chunk host syncs a token. One more decode chunk
+    under torch's sync check launches exactly one fused lookup and one row
+    scale per packed projection a step (``projections_per_step``). The
+    fusion of each projection at M = 4 and 128. Returns (engine,
+    record)."""
+    from repro_torch.kernels import ops
+    serve(cfg, params, seed=1)  # warm-up: lazy CUDA/cuBLAS state, kernels
+    reset_counts()
+    eng, reqs = serve(cfg, params, seed=2)
+    launches = read_counts()
+    st = eng.stats()
+    if not all(r.done and len(r.output) == 16 for r in reqs):
+        raise AssertionError(f"{tag}: not every request finished 16 tokens")
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"{tag}: a kernel never ran: {launches}")
+    if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
+        raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
+                             f"syncs per token > 1/{eng.decode_chunk}")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_chunk(sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk_launches = read_counts()
+    per_step = projections_per_step(cfg) * eng.decode_chunk
+    want = dict({n: 0 for n in chunk_launches}, fused_lut_mpgemm=per_step,
+                row_scale=per_step)
+    if chunk_launches != want:
+        raise AssertionError(f"{tag}: a decode chunk launched "
+                             f"{chunk_launches}, not {want}")
+    return eng, dict(
+        prompts=[len(r.prompt) for r in reqs], serve=st,
+        outputs=[r.output for r in reqs], launches=launches,
+        decode_chunk_launches=chunk_launches,
+        dispatch={f"M={m}": {name: ops.resolve_dispatch(
+            m, n, k // KG, KG, BITS).fusion for name, (n, k)
+            in ssm_projection_shapes(cfg).items()} for m in ROWS})
+
+
+def ssm_parity(tag, cfg, params):
+    """A teacher-forced 128-token forward through the kernels (lut_pallas)
+    and the plain LUT path (lut_xla), per_row: logits equal bit for bit
+    (per_row lookups are exact integer sums; the scan, conv and float
+    projections are the same torch ops on the same inputs)."""
+    from repro_torch.models import api
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    logits = {mode: api.forward(params, {"tokens": toks}, cfg.with_quant(
+        mpgemm_mode=mode, table_quant="per_row"))[0]
+        for mode in ("lut_pallas", "lut_xla")}
+    a, b = logits["lut_pallas"], logits["lut_xla"]
+    if (tuple(a.shape) != (1, 128, cfg.vocab_size)
+            or not torch.isfinite(a).all()):
+        raise AssertionError(f"{tag}: bad logits {tuple(a.shape)}")
+    diff = (a - b).abs().max().item()
+    if diff != 0.0:
+        raise AssertionError(f"{tag}: kernels and plain path disagree, max "
+                             f"|logit diff| {diff}")
+    return {"parity_max_abs_diff": diff,
+            "parity_max_abs_logit": a.abs().max().item()}
+
+
+def ssm_phase(flush):
+    """Phase 12: the SSM and hybrid families at full width, random weights
+    from seed 0 made on the card layer by layer, per_row tables,
+    lut_pallas, fusion auto. (a) ``check_kernels`` (every table mode and
+    ``dequant_mpgemm``, M ∈ {4, 128}; per_row bit-exact, the bf16 paths
+    within phase 8 (a)'s bound) at both archs' packed projection shapes
+    and ``precompute_checks`` at their K; (b) falcon-mamba-7b served
+    (``ssm_serve``) and its teacher-forced parity (``ssm_parity``); (c)
+    the same prompts served with prefill chunk 32: the greedy streams of
+    chunk 128 (``near_ties``); (d) zamba2-7b served, its parity, the
+    block-paged pool (block 16) giving the dense streams exactly,
+    ``prefix_cache=True`` turned off with the engine's warning, a ``spec``
+    request refused with ValueError; (e) one decode step and one 128-token
+    prefill chunk of each profiled (``step_and_chunk``). Returns
+    {arch: (config, engine)} and the record."""
+    from repro_torch.launch.serve import scheme_name
+    from repro_torch.models import api
+    from repro_torch.models.quantized import quantized_bytes
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfgs = {arch: ssm_config(arch) for arch in SSM_ARCHS}
+    shapes = sorted({s for cfg in cfgs.values()
+                     for s in ssm_projection_shapes(cfg).values()})
+    rec = {}
+    t0 = time.perf_counter()
+    rec["records"], rec["err"] = check_kernels(flush, shapes,
+                                               scaled_bound=True)
+    rec["precompute_records"] = precompute_checks(
+        flush, sorted({k for _, k in shapes}))
+    rec["err"]["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
+    rec["kernels_s"] = time.perf_counter() - t0
+    engines = {}
+    for arch, cfg in cfgs.items():
+        a = rec[arch] = {"scheme": scheme_name(cfg.quant)}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(gen, cfg, "cuda")
+        torch.cuda.synchronize()
+        a["init_s"] = time.perf_counter() - t0
+        a["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        a["param_bytes"] = quantized_bytes(params)
+        layers = params.get("layers") or [
+            lp for grp in params["groups"] for lp in grp] + params.get(
+                "tail", [])
+        a["mamba_bytes"] = quantized_bytes(layers)
+        t0 = time.perf_counter()
+        eng, served = ssm_serve(arch, cfg, params)
+        a.update(served)
+        a.update(ssm_parity(arch, cfg, params))
+        prompts = serve_prompts(cfg.vocab_size, 2)
+        if cfg.family == "ssm":
+            # (c) chunked-prefill state: prefill chunk 32 against 128, both
+            # with a right-padded tail
+            tails = [((len(p) - 1) % 128, (len(p) - 1) % 32) for p in prompts]
+            if not any(x and y for x, y in tails):
+                raise AssertionError(f"{arch}: no prompt ends on a padded "
+                                     f"tail in both chunkings: {tails}")
+            ceng, creqs = serve(cfg, params, seed=2, prefill_chunk=32)
+            got = [r.output for r in creqs]
+            a["chunk32"] = {
+                "tails": tails, "equal_streams": sum(
+                    g == w for g, w in zip(got, a["outputs"])),
+                "divergences": near_ties(arch, cfg, params, prompts, got,
+                                         a["outputs"]),
+                "prefill_dispatches": ceng.stats()["prefill_dispatches"]}
+        else:
+            # (d) paged equals dense; prefix caching off; spec refused
+            reset_counts()
+            peng, preqs = serve(cfg, params, seed=2, cache_block_size=16)
+            a["paged_launches"] = read_counts()
+            if [r.output for r in preqs] != a["outputs"]:
+                raise AssertionError(f"{arch}: the paged pool's streams "
+                                     f"differ from the dense engine's")
+            pst = peng.stats()
+            a["paged"] = {k: pst[k] for k in (
+                "cache_block_size", "num_cache_blocks", "blocks_in_use",
+                "cache_hbm_bytes", "decode_tok_s", "host_syncs_per_token")}
+            a["dense_cache_hbm_bytes"] = eng.stats()["cache_hbm_bytes"]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                xeng = ServingEngine(cfg, params, **SERVE_KW,
+                                     cache_block_size=16, prefix_cache=True)
+            said = [str(w.message) for w in caught
+                    if "prefix caching needs every cache leaf paged"
+                    in str(w.message)]
+            if not said or xeng.prefix_caching:
+                raise AssertionError(f"{arch}: prefix caching was not "
+                                     f"turned off with its warning")
+            a["prefix_cache_warning"] = said[0]
+            del xeng
+            seng = ServingEngine(cfg, params, **SERVE_KW, spec_draft_planes=1)
+            try:
+                seng.submit(Request(uid=0, prompt=prompts[0],
+                                    decoding="spec"))
+            except ValueError as e:
+                a["spec_refused"] = str(e)
+            else:
+                raise AssertionError(f"{arch}: a spec request was accepted")
+            del seng
+        # (e) a decode step and a prefill chunk profiled
+        a.update(step_and_chunk(eng))
+        a["serve_s"] = time.perf_counter() - t0
+        engines[arch] = (cfg, eng)
+        del params
+    return engines, rec
+
+
+def ssm_lines(engines, rec):
+    """Phase 12's record as text, one line a part."""
+    lines = [
+        "ssm: kernels at falcon-mamba-7b's and zamba2-7b's shapes, against "
+        "the plain versions (per_row bit-exact; None, per_group and "
+        f"dequant_mpgemm within {BOUND_REL} · Σ|a·w| + 1e-6 of each output; "
+        f"{rec['kernels_s']:.1f} s): " + "; ".join(
+            record_line(r) for r in rec["records"]),
+        "ssm: table_precompute and row_scale at their K, bit-equal to the "
+        "plain versions: " + "; ".join(
+            precompute_line(r) for r in rec["precompute_records"])]
+    for arch, (cfg, eng) in engines.items():
+        a = rec[arch]
+        what = (f"{cfg.n_layers} Mamba1 layers, d_model {cfg.d_model}, "
+                f"d_inner {cfg.d_inner}, dt_rank {cfg.dt_rank}, state "
+                f"{cfg.ssm_state}, vocab {cfg.vocab_size}"
+                if cfg.family == "ssm" else
+                f"{cfg.n_layers} Mamba2 layers ({cfg.ssm_heads} heads, state "
+                f"{cfg.ssm_state}) in {cfg.n_layers // cfg.attn_every} groups "
+                f"of {cfg.attn_every} with a shared attention block "
+                f"({cfg.n_heads} heads, d_ff {cfg.d_ff}), vocab "
+                f"{cfg.vocab_size}")
+        lines.append(
+            f"{arch}: {what}, {a['scheme']}: params made on the card in "
+            f"{a['init_s']:.1f} s (peak {a['init_peak_bytes'] / 1e9:.2f} GB),"
+            f" {a['param_bytes'] / 1e9:.3f} GB resident, Mamba layers "
+            f"{a['mamba_bytes'] / 1e9:.3f} GB; dispatch {a['dispatch']}")
+        lines += serve_lines(arch, cfg, eng, a)
+        if "chunk32" in a:
+            c = a["chunk32"]
+            lines.append(
+                f"{arch}: prefill chunk 32 against 128 (tails {c['tails']}): "
+                f"{c['equal_streams']} of 4 greedy streams equal, "
+                + ("no divergence" if not c["divergences"] else
+                   f"near ties {c['divergences']}")
+                + f"; {c['prefill_dispatches']} prefill chunks")
+        if "paged" in a:
+            p = a["paged"]
+            lines.append(
+                f"{arch}: paged pool (block 16) streams equal the dense "
+                f"engine's; cache {p['cache_hbm_bytes'] / 1e6:.1f} MB paged "
+                f"vs {a['dense_cache_hbm_bytes'] / 1e6:.1f} MB dense, decode "
+                f"{p['decode_tok_s']:.1f} tok/s; launches "
+                f"{a['paged_launches']}; prefix_cache=True turned off: "
+                f"{a['prefix_cache_warning']!r}; spec refused: "
+                f"{a['spec_refused']!r}; phase 12 serves in "
+                f"{a['serve_s']:.1f} s")
+    return lines
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -2562,6 +2880,14 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"moe": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--ssm":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        engines, rec = ssm_phase(flush)
+        for line in ssm_lines(engines, rec):
+            print(line, flush=True)
+        print(json.dumps({"ssm": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -2694,6 +3020,14 @@ def main() -> int:
         print(line, flush=True)
     print(f"moe: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 12: the SSM and hybrid families, full-width falcon-mamba-7b and
+    # zamba2-7b
+    t0 = time.perf_counter()
+    ssm_engines, ssm_rec = ssm_phase(flush)
+    for line in ssm_lines(ssm_engines, ssm_rec):
+        print(line, flush=True)
+    print(f"ssm: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -2721,23 +3055,38 @@ def main() -> int:
     # dequant_mpgemm's path is its op entry (phase 3's op run); a serve
     # step launches it 0 times, as in the reference
     path_launches = dict(launches, dequant_mpgemm=dq_launches)
+    def at_shapes(name, records, err, launches, shapes=None):
+        """A kernel's launches in a phase's serve and, where the phase
+        timed it, its on-path records at that model's shapes summed."""
+        rs = [r for r in records if r["kernel"] == name and on_path(r)
+              and (shapes is None or (r.get("n"), r["k"]) in shapes
+                   or r["kernel"] in ("table_precompute", "row_scale")
+                   and r["k"] in {k for _, k in shapes})]
+        out = {"launches": launches[name]}
+        if rs:
+            out.update(max_abs_err=err[name], **{
+                o: float(sum(r[key] for r in rs)) for o, key in (
+                    ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                    ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
+                bound_by=max(("bytes", "operations"), key=lambda by: sum(
+                    r["bound_ms"] for r in rs if r["bound_by"] == by)),
+                shapes=[[r["m"], r.get("n"), r["k"]] for r in rs])
+        return out
+
+    ssm_records = ssm_rec["records"] + ssm_rec["precompute_records"]
     summary = []
     for name, (src, replaces) in sources.items():
         rs = [r for r in main_recs if r["kernel"] == name]
         tot = lambda key, rs=rs: float(sum(r[key] for r in rs))
-        brs = [r for r in bitnet_rec["records"]
-               + bitnet_rec["precompute_records"]
-               if r["kernel"] == name and on_path(r)]
         # phase 8's serve, its kernel times at paper-bitnet-3b's shapes
-        bit = {"launches": bitnet_rec["launches"][name]}
-        if brs:
-            bit.update(max_abs_err=bitnet_rec["err"][name], **{
-                out: float(sum(r[key] for r in brs)) for out, key in (
-                    ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-                    ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
-                bound_by=max(("bytes", "operations"), key=lambda by: sum(
-                    r["bound_ms"] for r in brs if r["bound_by"] == by)),
-                shapes=[[r["m"], r["n"], r["k"]] for r in brs])
+        bit = at_shapes(name, bitnet_rec["records"]
+                        + bitnet_rec["precompute_records"],
+                        bitnet_rec["err"], bitnet_rec["launches"])
+        # phase 12's serves, the kernel times at each model's shapes
+        ssm_models = {arch: at_shapes(
+            name, ssm_records, ssm_rec["err"], ssm_rec[arch]["launches"],
+            set(ssm_projection_shapes(cfg).values()))
+            for arch, (cfg, _) in ssm_engines.items()}
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": path_launches[name], "max_abs_err": err[name],
@@ -2754,7 +3103,8 @@ def main() -> int:
             "library_ms": tot("library_ms"),
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs],
             "bitnet": bit, "moe_launches": moe_rec["launches"][name],
-            "moe_staged_launches": moe_rec["staged_launches"][name]})
+            "moe_staged_launches": moe_rec["staged_launches"][name],
+            **ssm_models})
     # the expert-batched wrappers, per_row at the expert shapes (decode
     # C = 8 and prefill C = 24, gate/up and down), each with the launches
     # of the phase 11 serve whose path runs it
@@ -2787,7 +3137,8 @@ def main() -> int:
                    "float_serve": fst, "float_launches": float_launches,
                    "float_tables": float_rec, "bitnet": bitnet_rec,
                    "decoding": decoding_rec, "telemetry": telemetry_rec,
-                   "moe": moe_rec, "ptxas": ptxas, "mma_ptxas": mma_report,
+                   "moe": moe_rec, "ssm": ssm_rec, "ptxas": ptxas,
+                   "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": summary}))

@@ -1,19 +1,22 @@
-"""Architecture config (dense and MoE families) and the port's registry.
+"""Architecture config (dense, MoE, SSM and hybrid families) and the
+port's registry.
 
 A copy of the reference's ``ArchConfig`` holding only the fields the dense
-llama-family transformer and the MoE LM read, with the reference's
-parameter counts for these two families. Dtypes are torch dtypes.
+llama-family transformer, the MoE LM, the Mamba1 LM and the Mamba2 +
+shared-attention hybrid read, with the reference's parameter counts for
+these four families. Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Any, Dict, Optional
 
 import torch
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +33,16 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_theta: float = 1.0e4
     norm_eps: float = 1e-5
+    # ssm (mamba1/2)
+    ssm_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    d_inner: int = 0
+    dt_rank: int = 0
+    ssm_heads: int = 0
+    ssm_chunk: int = 64
+    # hybrid
+    attn_every: int = 6
     # moe
     num_experts: int = 0
     top_k: int = 0
@@ -51,6 +64,12 @@ class ArchConfig:
                              f"{FAMILIES}")
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.family in ("ssm", "hybrid") and not self.d_inner:
+            object.__setattr__(self, "d_inner", self.expand * self.d_model)
+        if self.family == "ssm" and not self.dt_rank:
+            object.__setattr__(self, "dt_rank", math.ceil(self.d_model / 16))
+        if self.family == "hybrid" and not self.ssm_heads:
+            object.__setattr__(self, "ssm_heads", max(1, self.d_inner // 64))
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -66,12 +85,21 @@ class ArchConfig:
 
     def num_params(self) -> int:
         """Total parameter count, as the reference counts it (embedding
-        and head, attention and MLP weights; norms and biases left out)."""
+        and head, attention, MLP and SSM weights; norms and most biases
+        left out)."""
         d, l = self.d_model, self.n_layers
         n = 2 * self.vocab_size * d
         attn = self._attn_params()
         if self.family == "dense":
             return n + l * (attn + 3 * d * self.d_ff)
+        di, ds = self.d_inner, self.ssm_state
+        if self.family == "ssm":
+            per = (d * 2 * di + di * (self.dt_rank + 2 * ds)
+                   + self.dt_rank * di + di * ds + 2 * di + di * d)
+            return n + l * per
+        if self.family == "hybrid":
+            per = d * (2 * di + 2 * ds + self.ssm_heads) + di * d + 2 * di
+            return n + l * per + attn + 3 * d * self.d_ff
         nd = self.first_dense_layers
         n += nd * (attn + 3 * d * (self.dense_d_ff or self.d_ff))
         per = attn + self.num_experts * 3 * d * self.d_ff + d * self.num_experts
@@ -99,6 +127,8 @@ _REGISTRY: Dict[str, str] = {
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 

@@ -15,10 +15,15 @@ draft) and is refused under ``fp16``.
 ``--arch`` is any of ``configs.registry.list_archs()``; each serves its
 own weight scheme (``paper-bitnet-3b``: ternary, ``--weight-bits`` refused;
 the others W2 symmetric unless ``--weight-bits`` says otherwise;
-``olmoe-1b-7b`` keeps its attention float). The MoE archs
-(``olmoe-1b-7b``; ``kimi-k2-1t-a32b``, which fits a card only
-``--reduced``) serve greedy and sampled requests; ``beam`` and ``spec``
-raise NotImplementedError on them.
+``olmoe-1b-7b`` keeps its attention float, ``zamba2-7b`` its Mamba2
+in/out projections). The MoE archs (``olmoe-1b-7b``; ``kimi-k2-1t-a32b``,
+which fits a card only ``--reduced``) serve greedy and sampled requests;
+``beam`` and ``spec`` raise NotImplementedError on them. The SSM and hybrid
+archs (``falcon-mamba-7b``: Mamba1, attention-free; ``zamba2-7b``: Mamba2
+with one shared attention block) serve greedy and sampled requests too;
+``spec`` raises ValueError (their SSM state cannot rewind a rejected
+draft), ``beam`` NotImplementedError, and ``--prefix-cache`` is turned off
+with a warning (SSM state cannot be shared by block reference).
 
 Telemetry and tuning: ``--fusion tuned`` dispatches each projection with
 the measured plan of the tuning cache (``--tuning-cache PATH``; the
@@ -55,15 +60,21 @@ from repro_torch.serving import decoding
 from repro_torch.serving.engine import Request, ServingEngine
 
 
+# the float projections of an arch's ``quant["skip"]``, as text
+SKIP_NAMES = {"attn": "attention",
+              "ssm/(in_proj|out_proj)": "Mamba in/out projections"}
+
+
 def scheme_name(quant: dict) -> str:
     """The weight scheme as text: "ternary", or the bits and the scheme
     (e.g. "W2 symmetric"), and the projections that stay float where the
-    arch keeps some (olmoe-1b-7b: "W2 symmetric, float attention")."""
+    arch keeps some (olmoe-1b-7b: "W2 symmetric, float attention";
+    zamba2-7b: "W2 symmetric, float Mamba in/out projections")."""
     name = ("ternary" if quant["scheme"] == "ternary"
             else f"W{quant['weight_bits']} {quant['scheme']}")
     skip = quant.get("skip")
     if skip:
-        name += ", float " + ("attention" if skip == "attn" else skip)
+        name += ", float " + SKIP_NAMES.get(skip, skip)
     return name
 
 

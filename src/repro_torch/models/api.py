@@ -1,14 +1,55 @@
-"""Model API for the dense and MoE families: param init (float or packed
-serving weights), forward and cache init, dispatched on ``cfg.family``."""
+"""Model API for the dense, MoE, SSM and hybrid families: param init
+(float or packed serving weights), forward and cache init, dispatched on
+``cfg.family``."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.registry import ArchConfig
-from repro_torch.models import layers as L, moe, quantized, transformer
+from repro_torch.models import hybrid, kvcache, layers as L, moe, quantized
+from repro_torch.models import ssm, transformer
 
-_FAMILY = {"dense": transformer, "moe": moe}
+
+class _SsmLM:
+    """The SSM LM (falcon-mamba): Mamba1 blocks in the standard stack, a
+    namespace with ``transformer``'s interface (the reference's
+    ``api._SsmLM``)."""
+
+    @staticmethod
+    def block_init(gen, cfg, dtype=torch.float32, device=None):
+        return {"norm": L.norm_init(cfg.d_model, dtype, device),
+                "ssm": ssm.mamba_init(gen, cfg, dtype, device)}
+
+    @staticmethod
+    def forward(params, batch, cfg, *, caches=None, cache_pos=0,
+                head: bool = True, page_table=None, token_valid=None):
+        """(logits or None, caches, aux). The state is O(1) a slot:
+        nothing is paged, ``cache_pos`` and ``page_table`` go unread."""
+        h = transformer.embed_apply(params["embed"], batch["tokens"]).to(
+            cfg.activation_dtype)
+        for i, lp in enumerate(params["layers"]):
+            lc = None if caches is None else {k: v[i]
+                                              for k, v in caches.items()}
+            y, _ = ssm.mamba_apply(lp["ssm"], L.rms_norm(lp["norm"], h,
+                                                         cfg.norm_eps),
+                                   cfg, cache=lc, quant=cfg.quant,
+                                   token_valid=token_valid)
+            h = h + y
+        if not head:
+            return None, caches, {}
+        h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+        return (transformer.head_apply(params["lm_head"], h, cfg.quant),
+                caches, {})
+
+    @staticmethod
+    def init_cache(cfg, batch, s_cache, dtype=torch.bfloat16, device=None):
+        return kvcache.mamba_cache(cfg.n_layers, batch, cfg.d_inner,
+                                   cfg.ssm_state, cfg.d_conv, device)
+
+
+_FAMILY = {"dense": transformer, "moe": moe, "ssm": _SsmLM,
+           "hybrid": hybrid}
 
 
 def resolve_device(name) -> torch.device:
@@ -29,7 +70,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
     """Random params from ``gen``, made on ``device`` (the card unless the
     caller asks for the CPU). With serve_quantized and a quant config,
     projections are packed per cfg.quant layer by layer, so full-width
-    float weights never all exist at once."""
+    float weights never all exist at once. Layer stacks are lists of layer
+    dicts (the hybrid's ``groups``: G lists of ``attn_every`` layers)."""
     device = resolve_device(device)
     dtype = cfg.param_dtype
     pack = serve_quantized and cfg.quant
@@ -51,6 +93,19 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
             params["dense_layers"] = [
                 finish(moe.dense_block_init(gen, cfg, dtype, device))
                 for _ in range(cfg.first_dense_layers)]
+    elif cfg.family == "ssm":
+        params["layers"] = [finish(_SsmLM.block_init(gen, cfg, dtype, device))
+                            for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        n_groups, tail = divmod(cfg.n_layers, cfg.attn_every)
+        layer = lambda: finish(hybrid.mamba_layer_init(gen, cfg, dtype,
+                                                       device))
+        params["groups"] = [[layer() for _ in range(cfg.attn_every)]
+                            for _ in range(n_groups)]
+        if tail:
+            params["tail"] = [layer() for _ in range(tail)]
+        params["shared"] = finish(hybrid.shared_block_init(gen, cfg, dtype,
+                                                           device))
     else:
         params["layers"] = [
             finish(transformer.block_init(gen, cfg, dtype, device))
@@ -62,6 +117,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
 
 
 def forward(params, batch, cfg: ArchConfig, **kw):
+    """(logits, caches, aux). ``token_valid`` ([B] real-token counts of a
+    right-padded prefill chunk) is read by the SSM and hybrid families and
+    ignored by the dense and MoE ones."""
     return _FAMILY[cfg.family].forward(params, batch, cfg, **kw)
 
 

@@ -2,9 +2,10 @@
 
 ``from_jax_params`` takes the reference's param tree with every leaf
 already turned into a numpy array (``jax.tree.map(np.asarray, params)``):
-dicts of arrays, layer stacks whose leaves carry a leading [L] axis, and
-packed weights as any object with the reference ``QuantizedWeight``
-attributes (leading [L], or [L, E] for a stack of experts). It imports
+dicts of arrays, layer stacks whose leaves carry a leading [L] axis (the
+hybrid's ``groups`` [G, A]), and packed weights as any object with the
+reference ``QuantizedWeight`` attributes (leading [L], or [L, E] for a
+stack of experts). It imports
 neither JAX nor the reference package: the packed byte format is shared,
 so the buffers load unchanged.
 """
@@ -38,7 +39,7 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
     return torch.from_numpy(a).to(device)
 
 
-def _qw(node, device, index=None) -> QuantizedWeight:
+def _qw(node, device, index: Optional[tuple] = None) -> QuantizedWeight:
     if getattr(node, "cw", None) is not None and node.packed is None:
         raise ValueError("CW-store weights cannot be loaded: convert the "
                          "packed tree (before the CPU engine's CW expansion)")
@@ -52,7 +53,7 @@ def _qw(node, device, index=None) -> QuantizedWeight:
         stored_planes=getattr(node, "stored_planes", None))
 
 
-def _convert(node, device, index=None) -> Any:
+def _convert(node, device, index: Optional[tuple] = None) -> Any:
     if _is_qw(node):
         return _qw(node, device, index)
     if isinstance(node, dict):
@@ -62,16 +63,33 @@ def _convert(node, device, index=None) -> Any:
     return _tensor(node if index is None else node[index], device)
 
 
+def _stacks(cfg) -> dict:
+    """{key: the stacked dims} of the layer stacks of the family's tree."""
+    if cfg.family == "hybrid":
+        n_groups, tail = divmod(cfg.n_layers, cfg.attn_every)
+        return {"groups": (n_groups, cfg.attn_every), "tail": (tail,)}
+    return {"layers": (cfg.n_layers - cfg.first_dense_layers,),
+            "dense_layers": (cfg.first_dense_layers,)}
+
+
+def _unstack(node, device, dims, prefix=()):
+    """A stack with leading ``dims`` -> nested lists of layer dicts."""
+    if len(dims) == 1:
+        return [_convert(node, device, prefix + (i,)) for i in range(dims[0])]
+    return [_unstack(node, device, dims[1:], prefix + (i,))
+            for i in range(dims[0])]
+
+
 def from_jax_params(np_tree, cfg, device="cuda"):
     """Reference param tree (numpy leaves) -> the port's param tree on
     ``device`` (the card unless the caller asks for the CPU): each stacked
     layer stack becomes a list of layer dicts. The MoE family has two:
     ``dense_layers`` ([first_dense_layers, ...]) and ``layers`` (the MoE
     layers); a batched expert weight keeps its [E, ...] after the layer
-    index."""
+    index. The hybrid's ``groups`` [G, A, ...] become G lists of A layer
+    dicts, its ``tail`` [T, ...] a list; its ``shared`` block is one dict."""
     device = resolve_device(device)
-    counts = {"layers": cfg.n_layers - cfg.first_dense_layers,
-              "dense_layers": cfg.first_dense_layers}
-    return {k: ([_convert(v, device, index=i) for i in range(counts[k])]
-                if k in counts else _convert(v, device))
+    stacks = _stacks(cfg)
+    return {k: (_unstack(v, device, stacks[k]) if k in stacks
+                else _convert(v, device))
             for k, v in np_tree.items()}

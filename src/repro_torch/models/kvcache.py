@@ -1,8 +1,20 @@
-"""Attention KV caches.
+"""Attention KV caches and SSM state caches.
 
 A dense cache is a tuple (k, v), each [L, B, S_cache, KV, hd], the
 reference's layout. The model writes into it in place: layer l of the
-forward updates ``k[l]`` / ``v[l]`` at the positions it computes.
+forward updates ``k[l]`` / ``v[l]`` at the positions it computes. The SSM
+families' caches are the reference's trees (dicts and tuples of tensors):
+Mamba state ``{"conv": [L, B, d_conv-1, d_inner], "ssm": [L, B, ...]}``
+(f32), and zamba2's hybrid ``{"mamba": [G, A, B, ...] leaves, "kv": (k, v)
+[G, B, S, KV, hd], "tail": [T, B, ...] leaves}``, also written in place.
+
+The batch axis is not one fixed axis across these layouts, so
+``batch_axes`` finds it per leaf from two caches built with batch 1 and
+2, and ``seq_axes`` the sequence axis from two built with different
+capacities (-1: the leaf holds O(1) state a slot, SSM conv and recurrent
+state, which stays slot-indexed under the block-paged pool). Probes are
+built on ``torch.device("meta")``, the counterpart of the reference's
+``jax.eval_shape``: shapes only, no memory.
 
 A block-paged cache has the same two leaves shaped [L, num_blocks,
 block_size, KV, hd] (``attn_cache(L, num_blocks, block_size, ...)``): a
@@ -18,10 +30,13 @@ one bit for bit.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["attn_cache", "cache_len", "slice_batch", "merge_batch",
-           "paged_gather", "paged_scatter"]
+__all__ = ["attn_cache", "mamba_cache", "mamba2_cache", "cache_len",
+           "tree_map", "leaves", "batch_axes", "seq_axes", "slice_batch",
+           "merge_batch", "paged_gather", "paged_scatter"]
 
 
 def attn_cache(n_layers: int, batch: int, s_cache: int, n_kv: int,
@@ -31,20 +46,100 @@ def attn_cache(n_layers: int, batch: int, s_cache: int, n_kv: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def mamba_cache(n_layers: int, batch: int, d_inner: int, d_state: int,
+                d_conv: int, device=None):
+    """Mamba1 state, f32 whatever the KV dtype (the reference's layout)."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"conv": z(n_layers, batch, d_conv - 1, d_inner),
+            "ssm": z(n_layers, batch, d_inner, d_state)}
+
+
+def mamba2_cache(n_layers: int, batch: int, n_heads: int, head_dim: int,
+                 d_state: int, d_inner: int, d_conv: int, device=None):
+    """Mamba2 state, f32: conv [L, B, d_conv-1, d_inner], SSM [L, B, H,
+    hd, d_state]."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"conv": z(n_layers, batch, d_conv - 1, d_inner),
+            "ssm": z(n_layers, batch, n_heads, head_dim, d_state)}
+
+
 def cache_len(cache) -> int:
     """Sequence capacity of an attention cache."""
     return cache[0].shape[2]
 
 
-def slice_batch(caches, idx: int):
-    """Slot ``idx`` as a batch-1 view [L, 1, S, KV, hd] (shares memory)."""
-    return tuple(c[:, idx:idx + 1] for c in caches)
+# ---------------------------------------------------------------------------
+# cache trees and per-slot views (continuous-batching engine)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree, *rest, path: str = ""):
+    """``fn(leaf, *other_leaves, path)`` over a tree of dicts, tuples and
+    lists, the trees in ``rest`` shaped alike; keeps the containers."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest), path=f"{path}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   path=f"{path}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest, path)
 
 
-def merge_batch(caches, slot_caches, idx: int):
-    """Copy a batch-1 cache into slot ``idx`` of the pool, in place."""
-    for c, sc in zip(caches, slot_caches):
-        c[:, idx:idx + 1].copy_(sc)
+def leaves(tree) -> list:
+    """The leaves of a cache tree, in ``tree_map``'s order."""
+    out = []
+    tree_map(lambda leaf, _: out.append(leaf), tree)
+    return out
+
+
+def _diff_axes(a: torch.Tensor, b: torch.Tensor):
+    return [i for i, (p, q) in enumerate(zip(a.shape, b.shape)) if p != q]
+
+
+def batch_axes(cache_b1, cache_b2):
+    """Per-leaf batch axis, from two caches built with batch 1 and 2."""
+    def one(a, b, path):
+        diffs = _diff_axes(a, b)
+        if len(diffs) != 1:
+            raise ValueError(
+                f"ambiguous batch axis for cache leaf at {path!r}: probe "
+                f"shapes {tuple(a.shape)} vs {tuple(b.shape)} differ in "
+                f"{len(diffs)} dims (expected exactly 1)")
+        return diffs[0]
+    return tree_map(one, cache_b1, cache_b2)
+
+
+def seq_axes(cache_s1, cache_s2):
+    """Per-leaf sequence axis, from two caches built with different
+    capacities (same batch); -1 where the shape does not depend on it."""
+    def one(a, b, path):
+        diffs = _diff_axes(a, b)
+        if len(diffs) > 1:
+            raise ValueError(
+                f"ambiguous sequence axis for cache leaf at {path!r}: probe "
+                f"shapes {tuple(a.shape)} vs {tuple(b.shape)} differ in "
+                f"{len(diffs)} dims (expected 0 or 1)")
+        return diffs[0] if diffs else -1
+    return tree_map(one, cache_s1, cache_s2)
+
+
+def slice_batch(caches, idx: int, axes=None):
+    """Slot ``idx`` as a batch-1 view of every leaf (shares memory);
+    ``axes`` the per-leaf batch axes (None: axis 1 of every leaf, the
+    layer-stacked layout)."""
+    if axes is None:
+        return tree_map(lambda c, _: c.narrow(1, idx, 1), caches)
+    return tree_map(lambda c, ax, _: c.narrow(ax, idx, 1), caches, axes)
+
+
+def merge_batch(caches, slot_caches, idx: int, axes=None):
+    """Copy a batch-1 cache tree into slot ``idx`` of the pool, in place."""
+    if axes is None:
+        tree_map(lambda c, sc, _: c.narrow(1, idx, 1).copy_(sc), caches,
+                 slot_caches)
+    else:
+        tree_map(lambda c, sc, ax, _: c.narrow(ax, idx, 1).copy_(sc),
+                 caches, slot_caches, axes)
     return caches
 
 

@@ -200,8 +200,10 @@ def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
-            caches=None, cache_pos=0, head: bool = True, page_table=None):
-    """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``.
+            caches=None, cache_pos=0, head: bool = True, page_table=None,
+            token_valid=None):
+    """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``
+    (``token_valid`` ignored, as there).
     Layer i of the caches is dense layer i for i < first_dense_layers, then
     the MoE layers in order. ``head=False`` stops before the final norm
     and LM head and computes no aux losses."""

@@ -5,9 +5,11 @@ Every quantizable projection ``{"w": [in, out]}`` becomes
 weights ``experts: {"gate", "up", "down": [E, in, out]}`` become batched
 weights under the reference's names ``gate_qw``, ``up_qw``, ``down_qw``
 (``Q.quantize_experts``). The layer stack is a list of per-layer dicts,
-walked like any other node. Never quantized: the embedding, norms, the MoE
-router. ``quant["skip"]`` is a path regex of projections that
-stay float. ``plane_sliced_params`` reads a packed tree at fewer
+walked like any other node. The SSM projections (``in_proj``, ``x_proj``,
+``dt_proj`` with its bias, ``out_proj``) pack like the others. Never
+quantized: the embedding, norms, the MoE router, conv taps, the SSM's A, D
+and dt vectors. ``quant["skip"]`` is a path regex of projections that stay
+float (zamba2-7b: ``ssm/(in_proj|out_proj)``, its Mamba2 projections). ``plane_sliced_params`` reads a packed tree at fewer
 bit-planes (the self-speculative draft).
 """
 
@@ -21,7 +23,8 @@ import torch
 from repro_torch.core import quantize as Q
 from repro_torch.core.mpgemm import FUSION_MODES, MPGEMM_MODES
 
-_QUANTIZABLE = re.compile(r"(wq|wk|wv|wo|gate|up|down|lm_head)$")
+_QUANTIZABLE = re.compile(
+    r"(wq|wk|wv|wo|gate|up|down|in_proj|out_proj|x_proj|dt_proj|lm_head)$")
 _NEVER = re.compile(r"(router|embed|pos_embed)")
 
 

@@ -75,12 +75,15 @@ def stack_apply(layers, h: torch.Tensor, cfg, *, caches=None, cache_pos=0,
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
-            caches=None, cache_pos=0, head: bool = True, page_table=None):
+            caches=None, cache_pos=0, head: bool = True, page_table=None,
+            token_valid=None):
     """(logits [B, S, V] or None, caches, aux). ``head=False`` stops before
     the final norm and LM head, for callers that need only the caches
     (prefill), where the reference's compiler drops the head as dead code.
     With ``page_table`` ([B, nb] int64) ``caches`` is a block pool
-    (``kvcache`` module docstring)."""
+    (``kvcache`` module docstring). ``token_valid`` is accepted and
+    ignored: a right-padded chunk's pad positions write K/V past the
+    prompt, which decode overwrites before any query reads it."""
     h = embed_apply(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
     h, caches = stack_apply(params["layers"], h, cfg, caches=caches,
                             cache_pos=cache_pos, quant=cfg.quant,

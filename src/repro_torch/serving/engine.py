@@ -3,7 +3,16 @@
 The engine owns ``max_batch`` decode slots backed by one dense cache
 [L, max_batch, max_seq, KV, hd], or, with ``cache_block_size``, by a pool of
 blocks [L, num_cache_blocks, block_size, KV, hd] and a page table
-[max_batch, max_seq / block_size] on the device. Per-slot control state (``pos``,
+[max_batch, max_seq / block_size] on the device. The SSM and hybrid
+families' caches are trees (``kvcache`` module docstring): the engine finds
+each leaf's batch and sequence axes by probing ``api.init_cache`` on the
+meta device, as the reference probes with ``jax.eval_shape``. Leaves with
+no sequence axis (SSM conv and recurrent state, O(1) a slot) are
+slot-resident: under the block-paged pool they stay [.., max_batch, ..],
+only the attention KV is pooled, and prefix caching is turned off with a
+warning (such state cannot fan out by block reference). Self-speculation
+is refused there (cumulative state cannot rewind a rejected draft), and
+beam search is not ported for these families. Per-slot control state (``pos``,
 ``budget``, ``last_tok``, ``active`` and the sampling params) lives on the
 device, as in the reference's ``EngineState``:
 
@@ -14,7 +23,10 @@ device, as in the reference's ``EngineState``:
     once per chunk (one ``.cpu()``), not once per token;
   * admission prefills ``prompt[:-1]`` chunk by chunk into a zeroed batch-1
     slot cache at offsets 0, C, 2C, ... (fixed ``[1, C]`` chunks, the tail
-    right-padded), then copies it into the slot. The last prompt token is
+    right-padded, with its count of real tokens passed as ``token_valid``
+    so SSM state ends at the last real token), then copies it into the
+    slot, leaf by leaf: a retired request's state never reaches the next
+    occupant of its slot. The last prompt token is
     the slot's first decode input, so the first new token comes out of the
     decode loop.
 
@@ -170,6 +182,33 @@ class ServingEngine:
                     f"one max_seq={max_seq} request at block size {bs} "
                     f"(need >= {self.blocks_per_slot + 1} incl. null block)")
             self.num_cache_blocks = int(num_cache_blocks)
+        # per-leaf batch and sequence axes of the cache tree, probed on the
+        # meta device (shapes only): SSM leaves have no sequence axis
+        probe = lambda batch, seq: api.init_cache(
+            cfg, batch, seq, dtype=torch.float32, device="meta")
+        self._slot_probe = probe(1, max_seq)
+        self._axes = kvcache.batch_axes(self._slot_probe, probe(2, max_seq))
+        seq_axes = kvcache.seq_axes(probe(1, 16), probe(1, 32))
+        self._pooled = kvcache.tree_map(lambda sax, _: sax >= 0, seq_axes)
+        # every leaf positional: what self-speculation (it rewrites cache
+        # positions), beam forks and prefix caching need
+        pooled = kvcache.leaves(self._pooled)
+        self._has_pooled, self._all_pooled = any(pooled), all(pooled)
+        if self.paged:
+            # a pooled leaf carries (batch, seq) adjacently, so
+            # init_cache(cfg, num_blocks, block_size) is its pool
+            def check(bax, sax, path):
+                if sax >= 0 and sax != bax + 1:
+                    raise ValueError(
+                        f"cannot page cache leaf at {path!r}: sequence axis "
+                        f"{sax} is not adjacent to batch axis {bax}")
+            kvcache.tree_map(check, self._axes, seq_axes)
+            if self.prefix_caching and not self._all_pooled:
+                warnings.warn(
+                    "prefix caching needs every cache leaf paged; family="
+                    f"{cfg.family!r} holds slot-resident state (SSM/cross "
+                    "KV) that cannot fan out by block reference — disabled")
+                self.prefix_caching = False
         self.reset(seed=seed)
 
     # -- lifecycle ----------------------------------------------------------
@@ -190,11 +229,17 @@ class ServingEngine:
             # origin slot's first decode chunk
             self._pending_keys: set = set()
             self._slot_blocks: List[List[int]] = [[] for _ in range(b)]
-            # the pool: attn_cache with (num_blocks, block_size) in place of
-            # (batch, seq)
-            self.caches = api.init_cache(self.cfg, self.num_cache_blocks,
-                                         self.cache_block_size,
-                                         dtype=torch.float32, device=dev)
+            # pooled leaves: (num_blocks, block_size) in place of (batch,
+            # seq); slot-resident leaves: dense [.., max_batch, ..]
+            pool = api.init_cache(self.cfg, self.num_cache_blocks,
+                                  self.cache_block_size, dtype=torch.float32,
+                                  device="meta")
+            dense = api.init_cache(self.cfg, b, self.max_seq,
+                                   dtype=torch.float32, device="meta")
+            self.caches = kvcache.tree_map(
+                lambda p, d, pooled, _: torch.zeros(
+                    (p if pooled else d).shape, dtype=p.dtype, device=dev),
+                pool, dense, self._pooled)
             self.page_table = torch.zeros((b, self.blocks_per_slot),
                                           dtype=torch.int64, device=dev)
         else:
@@ -264,10 +309,13 @@ class ServingEngine:
             vl = min(c, plen - 1 - j)
             buf = np.zeros((1, c), np.int64)
             buf[0, :vl] = prompt[j:j + vl]
+            # a right-padded tail: its real tokens, so SSM state ends there
+            valid = (None if vl == c
+                     else self._to_device(np.array([vl], np.int64)))
             with self._annotate("prefill_chunk"):
                 api.forward(self.params, {"tokens": self._to_device(buf)},
                             self.cfg, caches=caches, cache_pos=j, head=False,
-                            page_table=page_row)
+                            page_table=page_row, token_valid=valid)
             tn = time.perf_counter_ns()
             self._h_prefill_s.observe((tn - tc) / 1e9)
             if self.tracer is not None:
@@ -471,10 +519,21 @@ class ServingEngine:
                 f"{req.decoding!r} on the MoE family ({self.cfg.arch_id}): "
                 "beam search and self-speculation on MoE configs are not "
                 "ported (ROADMAP.md queue 1, MoE decoding modes)")
-        if dm.kind == decoding.SPEC and self.draft_params is None:
-            raise ValueError(
-                "spec decoding needs a draft view: construct the engine "
-                "with spec_draft_planes=<planes> (and packed weights)")
+        if dm.kind == decoding.BEAM and not self._all_pooled:
+            raise NotImplementedError(
+                f"{req.decoding!r} on the {self.cfg.family} family "
+                f"({self.cfg.arch_id}): beam search over slot-resident SSM "
+                "state is not ported (ROADMAP.md queue 1, decoding modes)")
+        if dm.kind == decoding.SPEC:
+            if self.draft_params is None:
+                raise ValueError(
+                    "spec decoding needs a draft view: construct the engine "
+                    "with spec_draft_planes=<planes> (and packed weights)")
+            if not self._all_pooled:
+                raise ValueError(
+                    f"self-speculative decoding unsupported for family "
+                    f"{self.cfg.family!r}: its cache holds cumulative "
+                    "(SSM/conv) state that cannot rewind rejected drafts")
         if dm.kind == decoding.BEAM and dm.beam_width > self.max_batch:
             raise ValueError(
                 f"beam width {dm.beam_width} exceeds max_batch "
@@ -492,7 +551,7 @@ class ServingEngine:
 
     def _admit_one(self, i: int, req: Request):
         """Dense admission: prefill ``prompt[:-1]`` into a zeroed batch-1
-        cache, then copy it into slot ``i``."""
+        cache, then copy it into slot ``i`` leaf by leaf."""
         prompt = self._truncate(req)
         slot_caches = api.init_cache(self.cfg, 1, self.max_seq,
                                      dtype=torch.float32, device=self.device)
@@ -503,7 +562,7 @@ class ServingEngine:
             self.tracer.complete("admit", t0, t1, uid=req.uid, slot=i,
                                  prompt_len=int(prompt.size),
                                  mode=req.decoding, paged=False)
-        kvcache.merge_batch(self.caches, slot_caches, i)
+        kvcache.merge_batch(self.caches, slot_caches, i, self._axes)
         self._set_slot(i, req, prompt)
 
     def _set_slot(self, i: int, req: Request, prompt: np.ndarray, *,
@@ -557,7 +616,9 @@ class ServingEngine:
         """Paged admission: reserve blocks, reuse shared-prefix blocks,
         prefill only the unshared suffix. Returns False, leaving the request
         queued and the engine untouched, when the pool cannot grant the
-        reservation."""
+        reservation. Slot-resident leaves (SSM state) are prefilled from a
+        zeroed batch-1 view and copied into slot ``i``; a tree with no
+        pooled leaf (falcon-mamba) reserves no block."""
         prompt = self._truncate(req)
         plen = int(prompt.size)
         bs = self.cache_block_size
@@ -565,7 +626,7 @@ class ServingEngine:
         # decode plen-1 onward, and a finished slot rewrites its frozen
         # position until the next chunk boundary
         cap = min(plen + max(0, req.max_new_tokens), self.max_seq)
-        n_need = max(1, -(-cap // bs))
+        n_need = max(1, -(-cap // bs)) if self._has_pooled else 0
 
         # block j is shared read-only only below the first decode write:
         # (j+1)*bs <= plen-1
@@ -606,6 +667,7 @@ class ServingEngine:
         self._set_page_row(i, row)
         start = m0 * bs
         if cow_src is not None:
+            # prefix caching runs only where every leaf is pooled: (k, v)
             for leaf in self.caches:
                 leaf[:, blocks[0]].copy_(leaf[:, cow_src])
             self._alloc.decref(cow_src)  # the private copy is taken
@@ -616,10 +678,21 @@ class ServingEngine:
                                 slot=i, shared_blocks=m0,
                                 cow=cow_src is not None,
                                 tokens_reused=min(start, plen - 1))
+        # pooled leaves: the pool itself; slot-resident ones: a zeroed
+        # batch-1 view, copied into slot i after the prefill
+        view = kvcache.tree_map(
+            lambda c, z, pooled, _: c if pooled else torch.zeros(
+                z.shape, dtype=z.dtype, device=self.device),
+            self.caches, self._slot_probe, self._pooled)
         with self._annotate("admit"):
-            t0, t1 = self._prefill(prompt, start, self.caches,
+            t0, t1 = self._prefill(prompt, start, view,
                                    page_row=self.page_table[i:i + 1],
                                    uid=req.uid, slot=i)
+        if not self._all_pooled:
+            kvcache.tree_map(
+                lambda c, v, ax, pooled, _: None if pooled else c.narrow(
+                    ax, i, 1).copy_(v),
+                self.caches, view, self._axes, self._pooled)
         if self.tracer is not None:
             self.tracer.complete("admit", t0, t1, uid=req.uid, slot=i,
                                  prompt_len=plen, mode=req.decoding,
@@ -698,8 +771,10 @@ class ServingEngine:
                 self._slot_blocks[m] = list(row)
                 self._set_page_row(m, row)
             else:
-                kvcache.merge_batch(self.caches,
-                                    kvcache.slice_batch(self.caches, lead), m)
+                kvcache.merge_batch(
+                    self.caches, kvcache.slice_batch(self.caches, lead,
+                                                     self._axes),
+                    m, self._axes)
             self._set_slot(m, req, prompt, leader=lead)
             stamped.append(m)
         self._beam_groups[lead] = {"req": req, "slots": list(slots_w),
@@ -959,7 +1034,7 @@ class ServingEngine:
             # single-device engine: no mesh (the reference's plan=None)
             "mesh": None,
             "cache_hbm_bytes": sum(c.numel() * c.element_size()
-                                   for c in self.caches),
+                                   for c in kvcache.leaves(self.caches)),
             "admit_attempts": self.admit_attempts,
             "admit_blocked": self.admit_blocked,
             "admission_blocked_rate": (self.admit_blocked

@@ -909,3 +909,74 @@ def test_reduced_olmoe_serve_through_the_kernels_equals_lut_xla(cuda):
         assert (launched > 0) == (mode == "lut_pallas")
         out.append([r.output for r in reqs])
     assert out[0] == out[1] == out[2]
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_reduced_ssm_forward_through_the_kernels_equals_plain(cuda, arch):
+    """Reduced falcon-mamba-7b (Mamba1: in_proj, x_proj with N = 264,
+    dt_proj with K = 256 and a bias, out_proj with K = 8192) and zamba2-7b
+    (Mamba2, float in/out projections, shared attention), per_row: the
+    teacher-forced logits through the kernels (lut_pallas) equal the plain
+    LUT path's (lut_xla) bit for bit, a prefill of 10 tokens (chunked scan)
+    then a decode step from the caches too."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 256, (2, 11)), device=cuda)
+    out = {}
+    for mode in ("lut_pallas", "lut_xla"):
+        cfg = registry.get_reduced(arch).replace(
+            activation_dtype=torch.float32).with_quant(
+                mpgemm_mode=mode, table_quant="per_row")
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        params = api.init_params(gen, cfg, cuda)
+        before = fk.launches + lk.launches
+        full = api.forward(params, {"tokens": toks}, cfg)[0]
+        caches = api.init_cache(cfg, 2, 16, dtype=torch.float32,
+                                device=cuda)
+        api.forward(params, {"tokens": toks[:, :10]}, cfg, caches=caches,
+                    head=False)
+        step = api.forward(params, {"tokens": toks[:, 10:]}, cfg,
+                           caches=caches,
+                           cache_pos=torch.full((2,), 10, device=cuda))[0]
+        assert ((fk.launches + lk.launches - before) > 0) == (
+            mode == "lut_pallas")
+        assert torch.isfinite(full).all()
+        out[mode] = (full, step)
+    assert torch.equal(out["lut_pallas"][0], out["lut_xla"][0])
+    assert torch.equal(out["lut_pallas"][1], out["lut_xla"][1])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_reduced_ssm_serve_paged_equals_dense_on_the_card(cuda, arch):
+    """Reduced falcon-mamba-7b and zamba2-7b served through the kernels
+    (per_row) with prefill chunk 4 (right-padded tails): the block-paged
+    pool's greedy streams equal the dense engine's, the chunked prefill's
+    equal a one-shot prefill's, one sync a decode chunk."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = registry.get_reduced(arch).replace(
+        activation_dtype=torch.float32).with_quant(
+            mpgemm_mode="lut_pallas", table_quant="per_row")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, n) for n in (9, 30, 17)]
+    out = []
+    for kw in (dict(prefill_chunk=4), dict(prefill_chunk=4,
+                                           cache_block_size=16),
+               dict(prefill_chunk=64)):
+        eng = ServingEngine(cfg, params, max_batch=2, max_seq=64,
+                            decode_chunk=4, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert eng.stats()["host_syncs_per_token"] <= 1 / eng.decode_chunk
+        out.append([r.output for r in reqs])
+    assert out[0] == out[1]
+    assert out[0] == out[2]
