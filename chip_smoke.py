@@ -197,7 +197,7 @@ exit and no result line):
      4096); (3584, 3584), (14336, 3584), (3584, 14336), (32000, 3584):
      per_row bit-exact, the bf16 paths within phase 8 (a)'s bound; and
      ``precompute_checks`` at their K; (b) falcon-mamba-7b through phase
-     4's engine and request shapes (``ssm_serve``): the launch counts set
+     4's engine and request shapes (``family_serve``): the launch counts set
      to 0 just before the serve and read just after, every kernel of the
      per_row path launched, <= 1/decode_chunk host syncs a token, one
      decode chunk under torch's sync check launching exactly one fused
@@ -212,12 +212,51 @@ exit and no result line):
      ``spec`` request refused (ValueError: SSM state cannot rewind a
      draft); (e) one decode step and one 128-token prefill chunk of each
      profiled as in phase 4.
+ 13. xattn   — the VLM and audio families at full width (``xattn_phase``),
+     random weights from seed 0 made on the card layer by layer, per_row
+     tables, lut_pallas, fusion auto: llama-3.2-vision-11b (40 layers in 8
+     groups of 4 self layers and a gated cross layer, d_model 4096, GQA
+     32/8, d_ff 14336, vocab 128256, 1601 image tokens; the gates, 0 after
+     init, set to 0.5) and whisper-tiny (4 encoder and 4 decoder layers,
+     d_model 384, 6 heads, d_ff 1536, vocab 51865, 1500 frames), every
+     projection and the head W2. The stub frontends' inputs (image
+     embeddings, audio frames) are normal draws × 0.1 made on the card.
+     (e) first, on phase 12's models, which are freed after it: a beam:2
+     request beside two greedy ones (``beam_legs``: 8 new tokens each)
+     through falcon-mamba-7b and zamba2-7b under lut_pallas and lut_xla,
+     and for zamba2 through the paged pool: equal streams and hypotheses.
+     (a) phase 3's checks and times (``check_kernels``, every table mode
+     and ``dequant_mpgemm``, M ∈ {4, 128}) at both models' packed (N, K):
+     (4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256,
+     4096); (384, 384), (1536, 384), (384, 1536), (51865, 384); per_row
+     alone, staged and fused, at the served large M: 1601 at (1024, 4096)
+     (the image K/V) and 1500 at whisper's three layer shapes (its
+     encoder), with the path the fusion rule picks there; and
+     ``precompute_checks`` at K 384 and 1536 (M ∈ {4, 128} and 1500) and
+     at K 4096, M 1601. (b) the VLM through phase 4's engine and request
+     shapes (``family_serve``: every kernel of the per_row path launched,
+     one fused lookup and one row scale per packed projection a decode
+     step under torch's sync check); teacher-forced 128-token forwards
+     (``xattn_parity``) with the image embeddings and with tokens only
+     over a zero image K/V (the engine's case: its requests carry tokens
+     only, as the reference's do), lut_pallas = lut_xla bit for bit,
+     finite; the image K/V alone: its 16 lookups (two a cross layer)
+     counted by kernel on the path the rule picks, the plans from the
+     dispatch recorder, its wall and device time; the paged pool (block
+     16) giving the dense streams, ``prefix_cache=True`` turned off with
+     the engine's warning, ``spec`` refused with ValueError
+     (``paged_and_refusals``); a beam:2 request beside two greedy ones
+     equal under lut_pallas, lut_xla and paged (``beam_legs``); (c) the
+     same for whisper-tiny (its encoder and cross K/V alone: 32 lookups);
+     (d) one decode step and one 128-token prefill chunk of each profiled
+     as in phase 4.
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record (the two batched wrappers listed
 beside the four kernels, with phase 11's launches and times; each kernel's
-launches and times at falcon-mamba-7b's and zamba2-7b's shapes under
-their names); the last line
+launches and times at falcon-mamba-7b's, zamba2-7b's,
+llama-3.2-vision-11b's and whisper-tiny's shapes under their names); the
+last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
 (``src/repro_torch/build/``).
@@ -241,6 +280,11 @@ phase 11 alone (its record as one line of JSON),
     python3 chip_smoke.py --ssm               # phases 1, 2 and 12 only
 
 phase 12 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --xattn             # phases 1, 2 and 13 only
+
+phase 13 alone (falcon-mamba-7b and zamba2-7b made for its (e); its
+record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -474,11 +518,12 @@ def dequant_sums(a, packed, wscale, *, k_group, planes, plane_scales,
 
 
 def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
-                  paths=("dequant",) + MODES, scaled_bound=False, seed=0):
-    """Phase 3 at ``shapes`` ((N, K) pairs) with weights from
-    ``make_weight``, on ``paths``: ``dequant_mpgemm`` and the two LUT
+                  paths=("dequant",) + MODES, scaled_bound=False, seed=0,
+                  rows=ROWS):
+    """Phase 3 at ``shapes`` ((N, K) pairs) and ``rows`` (M) with weights
+    from ``make_weight``, on ``paths``: ``dequant_mpgemm`` and the two LUT
     mpGEMMs in each table mode (phase 8: paper-bitnet-3b's shapes, ternary
-    weights). ``scaled_bound``: the bf16 tensor-core paths are held to
+    weights; phase 13 also per_row alone at the served large M). ``scaled_bound``: the bf16 tensor-core paths are held to
     ``|kernel - plain| <= BOUND_REL · Σ_k |a_k · w_k| + 1e-6`` at every
     output, the sum taken over the plain version's operands (``lut_sums``,
     ``dequant_sums``): what reordering f32 sums can move, at any output
@@ -538,7 +583,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
         if not torch.equal(kern(), got):
             raise AssertionError(f"{name} {what}: two calls differ")
 
-    for m in ROWS:
+    for m in rows:
         for n, k in shapes:
             g = k // KG
             x = torch.randn(m, k, generator=gen, device="cuda")
@@ -681,12 +726,14 @@ def tables_equal(got, want):
         gs.contiguous().view(torch.int32), ws.contiguous().view(torch.int32)))
 
 
-def precompute_checks(flush, ks=PRECOMPUTE_K):
+def precompute_checks(flush, ks=PRECOMPUTE_K, rows=ROWS,
+                      row_scale_m=ROW_SCALE_M):
     """Phase 3, ``table_precompute`` and its row-scale entry at ``ks``
-    (tinyllama's K; phase 8: paper-bitnet-3b's). The precompute at M ∈ {4,
-    128}: None, per_group, and per_row with the row scale given or
-    computed in the same launch; the row scale alone
-    at M ∈ {1, 4, 16, 128}. Each call is held to its plain version bit for
+    (tinyllama's K; phase 8: paper-bitnet-3b's). The precompute at M in
+    ``rows`` (M ∈ {4, 128}; phase 13 also the served 1500 and 1601): None,
+    per_group, and per_row with the row scale given or computed in the
+    same launch; the row scale alone at M in ``row_scale_m`` ({1, 4, 16,
+    128}). Each call is held to its plain version bit for
     bit (values and scale) and must add one launch to its own counter only.
     Times (``time_ms``): the kernel, the plain version, the library
     yardstick (for the precompute an f32 ``torch.matmul`` against the ±1
@@ -719,7 +766,7 @@ def precompute_checks(flush, ks=PRECOMPUTE_K):
                                  f"on its own counter expected")
         return out
 
-    for m in ROWS:
+    for m in rows:
         for k in ks:
             g = k // KG
             x = torch.randn(m, k, generator=gen, device="cuda")
@@ -756,7 +803,7 @@ def precompute_checks(flush, ks=PRECOMPUTE_K):
                                        if tq == "per_row" and not given
                                        else None),
                     "bound_ms": b_ms, "bound_by": b_by})
-    for m in ROW_SCALE_M:
+    for m in row_scale_m:
         for k in ks:
             g = k // KG
             x = torch.randn(m, k, generator=gen, device="cuda")
@@ -2453,19 +2500,27 @@ def moe_lines(cfg, eng, rec):
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
 
 
-def ssm_config(arch):
+def full_config(arch):
+    """An arch at full width as phases 12 and 13 serve it: f32
+    activations, lut_pallas, fusion auto."""
     from repro_torch.configs import registry
     return registry.get_config(arch).replace(
         activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
                                                    fusion="auto")
 
 
-def ssm_projection_shapes(cfg):
+def packed_shapes(cfg):
     """{projection: (N, K)} of the packed projections a step runs: the
-    Mamba1 layer's four and the head (falcon-mamba), or the shared block's
-    seven and the head (zamba2: its Mamba2 projections stay float)."""
-    if cfg.family == "hybrid":
-        return projection_shapes(cfg)
+    Mamba1 layer's four and the head (falcon-mamba), the shared block's
+    seven and the head (zamba2: its Mamba2 projections stay float), or the
+    attention's, the MLP's and the head (the VLM: wk / wv also make the
+    image K/V; whisper: every layer projection, the encoder's too, is one
+    of its four shapes)."""
+    if cfg.family in ("hybrid", "vlm", "audio"):
+        shapes = projection_shapes(cfg)
+        if cfg.family == "audio":  # a GELU MLP: up and down
+            del shapes["gate"]
+        return shapes
     d, di, r, ds = cfg.d_model, cfg.d_inner, cfg.dt_rank, cfg.ssm_state
     return {"in_proj": (2 * di, d), "x_proj": (r + 2 * ds, di),
             "dt_proj": (di, r), "out_proj": (d, di),
@@ -2474,9 +2529,17 @@ def ssm_projection_shapes(cfg):
 
 def projections_per_step(cfg) -> int:
     """Packed projections one forward runs: a layer's four per Mamba1
-    layer, the shared block's seven per invocation, and the head."""
+    layer, the shared block's seven per invocation, a self layer's seven
+    and a cross layer's five (wq, wo and the MLP's three) in the VLM, a
+    whisper decoder layer's eight (self attention's four, wq and wo of the
+    cross attention, up and down), and the head."""
     if cfg.family == "hybrid":
         return 7 * (cfg.n_layers // cfg.attn_every) + 1
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.xattn_every
+        return 7 * (cfg.n_layers - n_cross) + 5 * n_cross + 1
+    if cfg.family == "audio":
+        return 8 * cfg.n_layers + 1
     return 4 * cfg.n_layers + 1
 
 
@@ -2501,7 +2564,7 @@ def near_ties(tag, cfg, params, prompts, got, want):
     return out
 
 
-def ssm_serve(tag, cfg, params):
+def family_serve(tag, cfg, params):
     """Phase 12 (b) / (d): phase 4's engine and request shapes (prompt
     tokens from the arch's vocab), a warm-up serve, then the serve with the
     launch counts set to 0 just before and read just after: every request
@@ -2545,7 +2608,7 @@ def ssm_serve(tag, cfg, params):
         decode_chunk_launches=chunk_launches,
         dispatch={f"M={m}": {name: ops.resolve_dispatch(
             m, n, k // KG, KG, BITS).fusion for name, (n, k)
-            in ssm_projection_shapes(cfg).items()} for m in ROWS})
+            in packed_shapes(cfg).items()} for m in ROWS})
 
 
 def ssm_parity(tag, cfg, params):
@@ -2578,7 +2641,7 @@ def ssm_phase(flush):
     ``dequant_mpgemm``, M ∈ {4, 128}; per_row bit-exact, the bf16 paths
     within phase 8 (a)'s bound) at both archs' packed projection shapes
     and ``precompute_checks`` at their K; (b) falcon-mamba-7b served
-    (``ssm_serve``) and its teacher-forced parity (``ssm_parity``); (c)
+    (``family_serve``) and its teacher-forced parity (``ssm_parity``); (c)
     the same prompts served with prefill chunk 32: the greedy streams of
     chunk 128 (``near_ties``); (d) zamba2-7b served, its parity, the
     block-paged pool (block 16) giving the dense streams exactly,
@@ -2589,10 +2652,9 @@ def ssm_phase(flush):
     from repro_torch.launch.serve import scheme_name
     from repro_torch.models import api
     from repro_torch.models.quantized import quantized_bytes
-    from repro_torch.serving.engine import Request, ServingEngine
-    cfgs = {arch: ssm_config(arch) for arch in SSM_ARCHS}
+    cfgs = {arch: full_config(arch) for arch in SSM_ARCHS}
     shapes = sorted({s for cfg in cfgs.values()
-                     for s in ssm_projection_shapes(cfg).values()})
+                     for s in packed_shapes(cfg).values()})
     rec = {}
     t0 = time.perf_counter()
     rec["records"], rec["err"] = check_kernels(flush, shapes,
@@ -2618,7 +2680,7 @@ def ssm_phase(flush):
                 "tail", [])
         a["mamba_bytes"] = quantized_bytes(layers)
         t0 = time.perf_counter()
-        eng, served = ssm_serve(arch, cfg, params)
+        eng, served = family_serve(arch, cfg, params)
         a.update(served)
         a.update(ssm_parity(arch, cfg, params))
         prompts = serve_prompts(cfg.vocab_size, 2)
@@ -2639,44 +2701,57 @@ def ssm_phase(flush):
                 "prefill_dispatches": ceng.stats()["prefill_dispatches"]}
         else:
             # (d) paged equals dense; prefix caching off; spec refused
-            reset_counts()
-            peng, preqs = serve(cfg, params, seed=2, cache_block_size=16)
-            a["paged_launches"] = read_counts()
-            if [r.output for r in preqs] != a["outputs"]:
-                raise AssertionError(f"{arch}: the paged pool's streams "
-                                     f"differ from the dense engine's")
-            pst = peng.stats()
-            a["paged"] = {k: pst[k] for k in (
-                "cache_block_size", "num_cache_blocks", "blocks_in_use",
-                "cache_hbm_bytes", "decode_tok_s", "host_syncs_per_token")}
-            a["dense_cache_hbm_bytes"] = eng.stats()["cache_hbm_bytes"]
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                xeng = ServingEngine(cfg, params, **SERVE_KW,
-                                     cache_block_size=16, prefix_cache=True)
-            said = [str(w.message) for w in caught
-                    if "prefix caching needs every cache leaf paged"
-                    in str(w.message)]
-            if not said or xeng.prefix_caching:
-                raise AssertionError(f"{arch}: prefix caching was not "
-                                     f"turned off with its warning")
-            a["prefix_cache_warning"] = said[0]
-            del xeng
-            seng = ServingEngine(cfg, params, **SERVE_KW, spec_draft_planes=1)
-            try:
-                seng.submit(Request(uid=0, prompt=prompts[0],
-                                    decoding="spec"))
-            except ValueError as e:
-                a["spec_refused"] = str(e)
-            else:
-                raise AssertionError(f"{arch}: a spec request was accepted")
-            del seng
+            a.update(paged_and_refusals(arch, cfg, params, eng,
+                                        a["outputs"]))
         # (e) a decode step and a prefill chunk profiled
         a.update(step_and_chunk(eng))
         a["serve_s"] = time.perf_counter() - t0
         engines[arch] = (cfg, eng)
         del params
     return engines, rec
+
+
+def paged_and_refusals(tag, cfg, params, eng, outputs):
+    """Phase 12 (d) / 13 (b), (c): phase 4's prompts through the
+    block-paged pool (block 16: the attention K/V pooled, slot-resident
+    state dense), its launch counts set to 0 just before and read just
+    after, giving the dense engine ``eng``'s streams ``outputs`` exactly;
+    ``prefix_cache=True`` turned off with the engine's warning; a ``spec``
+    request refused with ValueError. Returns the record."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    out = {}
+    reset_counts()
+    peng, preqs = serve(cfg, params, seed=2, cache_block_size=16)
+    out["paged_launches"] = read_counts()
+    if [r.output for r in preqs] != outputs:
+        raise AssertionError(f"{tag}: the paged pool's streams differ from "
+                             f"the dense engine's")
+    pst = peng.stats()
+    out["paged"] = {k: pst[k] for k in (
+        "cache_block_size", "num_cache_blocks", "blocks_in_use",
+        "cache_hbm_bytes", "decode_tok_s", "host_syncs_per_token")}
+    out["dense_cache_hbm_bytes"] = eng.stats()["cache_hbm_bytes"]
+    del peng
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xeng = ServingEngine(cfg, params, **SERVE_KW, cache_block_size=16,
+                             prefix_cache=True)
+    said = [str(w.message) for w in caught
+            if "prefix caching needs every cache leaf paged"
+            in str(w.message)]
+    if not said or xeng.prefix_caching:
+        raise AssertionError(f"{tag}: prefix caching was not turned off "
+                             f"with its warning")
+    out["prefix_cache_warning"] = said[0]
+    del xeng
+    seng = ServingEngine(cfg, params, **SERVE_KW, spec_draft_planes=1)
+    try:
+        seng.submit(Request(uid=0, prompt=preqs[0].prompt, decoding="spec"))
+    except ValueError as e:
+        out["spec_refused"] = str(e)
+    else:
+        raise AssertionError(f"{tag}: a spec request was accepted")
+    return out
 
 
 def ssm_lines(engines, rec):
@@ -2726,6 +2801,372 @@ def ssm_lines(engines, rec):
                 f"{a['prefix_cache_warning']!r}; spec refused: "
                 f"{a['spec_refused']!r}; phase 12 serves in "
                 f"{a['serve_s']:.1f} s")
+    return lines
+
+
+# phase 13: the VLM and audio families at full width
+XATTN_ARCHS = ("llama-3.2-vision-11b", "whisper-tiny")
+# init_params leaves the VLM's cross gates at 0, where a cross layer adds
+# exactly nothing; phase 13 sets both gates of every cross layer to this
+# (tanh(0.5) = 0.46)
+XATTN_GATE = 0.5
+# the served lookups of the largest M: the image K/V (wk and wv over 1601
+# image tokens) and whisper's encoder (every projection over 1500 frames)
+LARGE_M = {"llama-3.2-vision-11b": (1601, ((1024, 4096),)),
+           "whisper-tiny": (1500, ((384, 384), (1536, 384), (384, 1536)))}
+# new tokens a request of a beam leg (phase 13 (b), (c), (e))
+BEAM_NEW = 8
+
+
+def stub_inputs(cfg, seed=4):
+    """The stub frontend's output for one request, made on the card from
+    ``seed``: [1, n, d_model] normal draws × 0.1
+    (tests/test_archs_smoke.py's scale), image embeddings (n = 1601) or
+    audio frames (n = 1500). Returns (batch key, tensor)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    vlm = cfg.family == "vlm"
+    n = cfg.n_image_tokens if vlm else cfg.n_audio_frames
+    return ("image_embeds" if vlm else "audio_frames",
+            0.1 * torch.randn(1, n, cfg.d_model, generator=gen,
+                              device="cuda"))
+
+
+def cross_forward(cfg, params, inputs):
+    """The image K/V (VLM) or the encoder and its cross K/V (whisper) alone:
+    the served lookups of the largest M."""
+    from repro_torch.models import audio, vlm
+    if cfg.family == "vlm":
+        return vlm.compute_image_kv(params, inputs, cfg)
+    return audio.compute_cross_kv(params, audio.encode(params, inputs, cfg),
+                                  cfg)
+
+
+def busy_profile(fn):
+    """Wall time of ``fn`` (host clock, synchronized, after a warm-up)
+    against the device time of its CUDA kernels (torch.profiler, on a
+    second call, so its host overhead stays out of the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_name, kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+    busy_ms = sum(per_name.values()) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"wall_ms": wall_ms,
+            # None: the profiler saw no device activity (not measured)
+            "busy_ms": busy_ms if per_name else None,
+            "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
+            "kernels": kernels,
+            "top": [(name[:60], t / 1e3) for name, t in top]}
+
+
+def xattn_parity(tag, cfg, params):
+    """Phase 13 (b) / (c): teacher-forced 128-token forwards through the
+    kernels (lut_pallas) and the plain LUT path (lut_xla), per_row, twice:
+    with the stub frontend's inputs (``stub_inputs``: the image K/V or the
+    encoder run in the forward), and with tokens only over a zeroed cache
+    (the engine's case: a zero cross K/V, so each cross attention hands
+    ``wo`` all-zero rows). Logits finite and equal bit for bit, and the
+    cross inputs must move them (> 1e-3). Then the image K/V / encoder
+    alone (``cross_forward``), its launch counts set to 0 just before and
+    read just after: two lookups a cross layer (VLM), or six an encoder
+    layer and two a decoder layer (whisper), on the path the fusion rule
+    picks at that M (``ops.resolve_dispatch``), the plans from the
+    dispatch recorder; its wall and device time (``busy_profile``).
+    Returns the record."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.obs import dispatch as dispatch_obs
+    key, inputs = stub_inputs(cfg)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    out, seen = {}, {}
+    for case, batch, cached in (
+            ("inputs", {"tokens": toks, key: inputs}, False),
+            ("tokens_only", {"tokens": toks}, True)):
+        logits = {}
+        for mode in ("lut_pallas", "lut_xla"):
+            c = cfg.with_quant(mpgemm_mode=mode, table_quant="per_row")
+            caches = (api.init_cache(c, 1, SERVE_KW["max_seq"],
+                                     dtype=torch.float32, device="cuda")
+                      if cached else None)
+            logits[mode] = api.forward(params, batch, c, caches=caches)[0]
+        a, b = logits["lut_pallas"], logits["lut_xla"]
+        if (tuple(a.shape) != (1, 128, cfg.vocab_size)
+                or not (torch.isfinite(a).all() and torch.isfinite(b).all())):
+            raise AssertionError(f"{tag} ({case}): bad logits "
+                                 f"{tuple(a.shape)}")
+        diff = (a - b).abs().max().item()
+        if diff != 0.0:
+            raise AssertionError(f"{tag} ({case}): kernels and plain path "
+                                 f"disagree, max |logit diff| {diff}")
+        out[f"parity_{case}"] = {"max_abs_diff": diff,
+                                 "max_abs_logit": a.abs().max().item()}
+        seen[case] = a
+    out["cross_moves_logits"] = (seen["inputs"]
+                                 - seen["tokens_only"]).abs().max().item()
+    if not out["cross_moves_logits"] > 1e-3:
+        raise AssertionError(f"{tag}: the cross inputs move the logits by "
+                             f"{out['cross_moves_logits']} only")
+    del seen, logits, a, b
+
+    m = inputs.shape[1]
+    reset_counts()
+    with dispatch_obs.recording() as drec:
+        kv = cross_forward(cfg, params, inputs)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    if not all(torch.isfinite(t).all() for t in kv):
+        raise AssertionError(f"{tag}: non-finite cross K/V")
+    del kv
+    lookups = launches["lut_mpgemm"] + launches["fused_lut_mpgemm"]
+    if cfg.family == "vlm":
+        want = 2 * (cfg.n_layers // cfg.xattn_every)
+        rule = ops.resolve_dispatch(m, cfg.n_kv_heads * cfg.head_dim,
+                                    cfg.d_model // KG, KG, BITS).fusion
+        ran = "lut_mpgemm" if rule == "staged" else "fused_lut_mpgemm"
+        if launches[ran] != want:
+            raise AssertionError(f"{tag}: the image K/V ran {launches}, not "
+                                 f"{want} {ran} launches ({rule})")
+    else:
+        want = 6 * cfg.enc_layers + 2 * cfg.n_layers
+        rule = {f"{n}x{k}": ops.resolve_dispatch(m, n, k // KG, KG,
+                                                 BITS).fusion
+                for n, k in LARGE_M[cfg.arch_id][1]}
+    if lookups != want:
+        raise AssertionError(f"{tag}: {lookups} lookups at M = {m}, not "
+                             f"{want}: {launches}")
+    out["cross_lookups"] = {
+        "m": m, "launches": launches, "rule": rule,
+        "plans": [r.as_dict() for r in drec.records("dispatch")]}
+    out["cross_forward"] = busy_profile(
+        lambda: cross_forward(cfg, params, inputs))
+    return out
+
+
+def beam_legs(tag, cfg, params, paged):
+    """Phase 13 (b), (c), (e): a beam:2 request beside two greedy ones
+    (phase 4's prompts 0-2, ``BEAM_NEW`` new tokens each) on phase 4's
+    engine shape, under lut_pallas (its launch counts set to 0 just before
+    and read just after: every kernel of the per_row path must run) and
+    under lut_xla, dense, and with ``paged`` through the block-paged pool
+    (block 16) under lut_pallas: the greedy streams and the ranked
+    hypotheses (tokens and scores) equal, <= 1/decode_chunk host syncs a
+    token. Returns the record."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    prompts = serve_prompts(cfg.vocab_size, seed=2)[:3]
+    out = {}
+
+    def run(leg, c, **engine_kw):
+        eng = ServingEngine(c, params, **SERVE_KW, **engine_kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=BEAM_NEW,
+                        decoding="beam:2" if i == 0 else "greedy")
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out[leg] = {"seconds": time.perf_counter() - t0,
+                    "decode_tok_s": st["decode_tok_s"],
+                    "host_syncs_per_token": st["host_syncs_per_token"]}
+        if (not all(r.done for r in reqs) or len(reqs[0].beams) != 2
+                or st["host_syncs_per_token"] > 1 / eng.decode_chunk):
+            raise AssertionError(f"{tag} beam ({leg}): {out[leg]}, done "
+                                 f"{[r.done for r in reqs]}")
+        return ([r.output for r in reqs[1:]],
+                [(list(t), sc) for t, sc in reqs[0].beams])
+
+    reset_counts()
+    want = run("lut_pallas", cfg)
+    out["launches"] = read_counts()
+    if min(out["launches"][n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"{tag} beam: a kernel never ran: "
+                             f"{out['launches']}")
+    legs = [("lut_xla", cfg.with_quant(mpgemm_mode="lut_xla",
+                                       table_quant="per_row"), {})]
+    if paged:
+        legs.append(("paged", cfg, dict(cache_block_size=16)))
+    for leg, c, kw in legs:
+        if run(leg, c, **kw) != want:
+            raise AssertionError(f"{tag} beam: {leg} serves the pool "
+                                 f"differently from lut_pallas dense")
+    out["beams"] = want[1]
+    return out
+
+
+def xattn_phase(flush, ssm_models):
+    """Phase 13: the VLM and audio families at full width (module
+    docstring), random weights from seed 0 made on the card layer by
+    layer, per_row tables, lut_pallas, fusion auto. ``ssm_models``:
+    {arch: (config, params)} of phase 12's models for (e), run first and
+    then dropped from the dict, so that phase 12's weights are freed
+    before the VLM is made. Returns {arch: (config, engine)} and the
+    record."""
+    import gc
+    from repro_torch.launch.serve import scheme_name
+    from repro_torch.models import api
+    from repro_torch.models.quantized import quantized_bytes
+    from repro_torch.kernels import ops
+    rec = {"ssm_beam": {}}
+    t0 = time.perf_counter()
+    # (e) beam search on the SSM families, on phase 12's models
+    for arch, (cfg, params) in ssm_models.items():
+        rec["ssm_beam"][arch] = beam_legs(arch, cfg, params,
+                                          paged=cfg.family == "hybrid")
+    ssm_models.clear()
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ssm_beam_s"] = time.perf_counter() - t0
+
+    # (a) the kernels at the two archs' shapes, and at the served large M
+    cfgs = {arch: full_config(arch) for arch in XATTN_ARCHS}
+    shapes = sorted({s for cfg in cfgs.values()
+                     for s in packed_shapes(cfg).values()})
+    t0 = time.perf_counter()
+    rec["records"], rec["err"] = check_kernels(flush, shapes,
+                                               scaled_bound=True)
+    rec["large_m_records"] = []
+    for arch, (m, large) in LARGE_M.items():
+        recs, err = check_kernels(flush, large, paths=("per_row",),
+                                  rows=(m,), scaled_bound=True)
+        for r in recs:
+            r["fusion_rule"] = ops.resolve_dispatch(
+                m, r["n"], r["k"] // KG, KG, BITS).fusion
+        rec["large_m_records"] += recs
+        for name, e in err.items():
+            rec["err"][name] = max(rec["err"][name], e)
+    ks = sorted({k for _, k in shapes if k < 4096})  # 384, 1536
+    rec["precompute_records"] = (
+        precompute_checks(flush, ks)
+        + precompute_checks(flush, ks, rows=(1500,), row_scale_m=())
+        + precompute_checks(flush, (4096,), rows=(1601,), row_scale_m=()))
+    rec["err"]["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
+    rec["kernels_s"] = time.perf_counter() - t0
+
+    engines = {}
+    for arch, cfg in cfgs.items():
+        a = rec[arch] = {"scheme": scheme_name(cfg.quant)}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(gen, cfg, "cuda")
+        for xp in params.get("xattn_layers", []):
+            xp["gate_attn"].fill_(XATTN_GATE)
+            xp["gate_mlp"].fill_(XATTN_GATE)
+        torch.cuda.synchronize()
+        a["init_s"] = time.perf_counter() - t0
+        a["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        a["param_bytes"] = quantized_bytes(params)
+        layer_keys = ("self_groups", "xattn_layers", "enc_layers",
+                      "dec_layers")
+        a["layer_bytes"] = quantized_bytes(
+            [params[k] for k in layer_keys if k in params])
+        a["head_bytes"] = quantized_bytes(params["lm_head"])
+        a["embed_bytes"] = quantized_bytes(params["embed"])
+        t0 = time.perf_counter()
+        # (b) / (c): the serve, its parity and cross forward, paged, the
+        # refusals, beam
+        eng, served = family_serve(arch, cfg, params)
+        a.update(served)
+        a.update(xattn_parity(arch, cfg, params))
+        a.update(paged_and_refusals(arch, cfg, params, eng, a["outputs"]))
+        a["beam"] = beam_legs(arch, cfg, params, paged=True)
+        # (d) a decode step and a prefill chunk profiled
+        a.update(step_and_chunk(eng))
+        a["serve_s"] = time.perf_counter() - t0
+        engines[arch] = (cfg, eng)
+        del params
+    return engines, rec
+
+
+def xattn_lines(engines, rec):
+    """Phase 13's record as text, one line a part."""
+    lines = []
+    for arch, b in rec["ssm_beam"].items():
+        lines.append(
+            f"{arch}: beam:2 beside two greedy requests ({BEAM_NEW} tokens "
+            f"each) equal under lut_pallas and lut_xla"
+            + (" and paged (block 16)" if "paged" in b else "")
+            + f"; launches {b['launches']}; legs " + ", ".join(
+                f"{leg} {b[leg]['decode_tok_s']:.1f} tok/s"
+                for leg in ("lut_pallas", "lut_xla", "paged") if leg in b))
+    lines += [
+        "xattn: kernels at llama-3.2-vision-11b's and whisper-tiny's "
+        "shapes, against the plain versions (per_row bit-exact; None, "
+        f"per_group and dequant_mpgemm within {BOUND_REL} · Σ|a·w| + 1e-6 "
+        f"of each output; {rec['kernels_s']:.1f} s): " + "; ".join(
+            record_line(r) for r in rec["records"]),
+        "xattn: per_row at the served large M (the image K/V, whisper's "
+        "encoder), staged and fused, bit-exact: " + "; ".join(
+            record_line(r) + f" [the fusion rule picks {r['fusion_rule']}]"
+            for r in rec["large_m_records"]),
+        "xattn: table_precompute and row_scale at their K (and M 1500 / "
+        "1601), bit-equal to the plain versions: " + "; ".join(
+            precompute_line(r) for r in rec["precompute_records"])]
+    for arch, (cfg, eng) in engines.items():
+        a = rec[arch]
+        what = (f"{cfg.n_layers} layers in {cfg.n_layers // cfg.xattn_every}"
+                f" groups of {cfg.xattn_every - 1} self layers and a cross "
+                f"layer (gates {XATTN_GATE}), d_model {cfg.d_model}, GQA "
+                f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+                f"{cfg.vocab_size}, {cfg.n_image_tokens} image tokens"
+                if cfg.family == "vlm" else
+                f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, "
+                f"d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+                f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_audio_frames} "
+                f"frames")
+        lines.append(
+            f"{arch}: {what}, {a['scheme']}: params made on the card in "
+            f"{a['init_s']:.1f} s (peak {a['init_peak_bytes'] / 1e9:.2f} GB),"
+            f" {a['param_bytes'] / 1e9:.3f} GB resident: layers "
+            f"{a['layer_bytes'] / 1e9:.3f} GB, head "
+            f"{a['head_bytes'] / 1e9:.3f} GB, embedding "
+            f"{a['embed_bytes'] / 1e9:.3f} GB; dispatch {a['dispatch']}")
+        lines += serve_lines(arch, cfg, eng, dict(
+            a, parity_max_abs_diff=a["parity_inputs"]["max_abs_diff"],
+            parity_max_abs_logit=a["parity_inputs"]["max_abs_logit"]))
+        c, f = a["cross_lookups"], a["cross_forward"]
+        lines.append(
+            f"{arch}: parity with tokens only over a zero cross K/V (the "
+            f"engine's case): max |logit diff| "
+            f"{a['parity_tokens_only']['max_abs_diff']}, every logit finite;"
+            f" the cross inputs move the logits by "
+            f"{a['cross_moves_logits']:.4g}; "
+            + ("the image K/V" if cfg.family == "vlm" else
+               "the encoder and cross K/V")
+            + f" at M = {c['m']}: launches {c['launches']} (the rule picks "
+            f"{c['rule']}), plans {c['plans']}; wall {f['wall_ms']:.2f} ms, "
+            + ("device busy not measured" if f["busy_ms"] is None else
+               f"device busy {f['busy_ms']:.2f} ms (idle share "
+               f"{f['idle_share']:.3f}) in {f['kernels']} CUDA kernels: "
+               + ", ".join(f"{n} {t:.2f} ms" for n, t in f["top"])))
+        p, b = a["paged"], a["beam"]
+        lines.append(
+            f"{arch}: paged pool (block 16) streams equal the dense "
+            f"engine's; cache {p['cache_hbm_bytes'] / 1e6:.1f} MB paged vs "
+            f"{a['dense_cache_hbm_bytes'] / 1e6:.1f} MB dense; launches "
+            f"{a['paged_launches']}; prefix_cache=True turned off: "
+            f"{a['prefix_cache_warning']!r}; spec refused: "
+            f"{a['spec_refused']!r}; beam:2 beside two greedy requests "
+            f"equal under lut_pallas, lut_xla and paged, beams "
+            f"{[(t, round(sc, 4)) for t, sc in b['beams']]}, launches "
+            f"{b['launches']}; phase 13 serves in {a['serve_s']:.1f} s")
     return lines
 
 
@@ -2888,6 +3329,20 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"ssm": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--xattn":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        ssm_models = {}
+        for arch in SSM_ARCHS:  # (e)'s models, made as phase 12 makes them
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            cfg = full_config(arch)
+            ssm_models[arch] = (cfg, api.init_params(gen, cfg, "cuda"))
+        engines, rec = xattn_phase(flush, ssm_models)
+        for line in xattn_lines(engines, rec):
+            print(line, flush=True)
+        print(json.dumps({"xattn": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -3028,6 +3483,19 @@ def main() -> int:
         print(line, flush=True)
     print(f"ssm: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 13: the VLM and audio families, full-width llama-3.2-vision-11b
+    # and whisper-tiny; its (e) runs beam search on phase 12's models, whose
+    # weights it then frees
+    t0 = time.perf_counter()
+    ssm_cfgs = {arch: cfg for arch, (cfg, _) in ssm_engines.items()}
+    ssm_models = {arch: (cfg, e.params)
+                  for arch, (cfg, e) in ssm_engines.items()}
+    del ssm_engines
+    xattn_engines, xattn_rec = xattn_phase(flush, ssm_models)
+    for line in xattn_lines(xattn_engines, xattn_rec):
+        print(line, flush=True)
+    print(f"xattn: phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -3074,6 +3542,7 @@ def main() -> int:
         return out
 
     ssm_records = ssm_rec["records"] + ssm_rec["precompute_records"]
+    xattn_records = xattn_rec["records"] + xattn_rec["precompute_records"]
     summary = []
     for name, (src, replaces) in sources.items():
         rs = [r for r in main_recs if r["kernel"] == name]
@@ -3085,8 +3554,13 @@ def main() -> int:
         # phase 12's serves, the kernel times at each model's shapes
         ssm_models = {arch: at_shapes(
             name, ssm_records, ssm_rec["err"], ssm_rec[arch]["launches"],
-            set(ssm_projection_shapes(cfg).values()))
-            for arch, (cfg, _) in ssm_engines.items()}
+            set(packed_shapes(cfg).values()))
+            for arch, cfg in ssm_cfgs.items()}
+        # phase 13's serves, the kernel times at each model's shapes
+        xattn_models = {arch: at_shapes(
+            name, xattn_records, xattn_rec["err"],
+            xattn_rec[arch]["launches"], set(packed_shapes(cfg).values()))
+            for arch, (cfg, _) in xattn_engines.items()}
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": path_launches[name], "max_abs_err": err[name],
@@ -3104,7 +3578,7 @@ def main() -> int:
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs],
             "bitnet": bit, "moe_launches": moe_rec["launches"][name],
             "moe_staged_launches": moe_rec["staged_launches"][name],
-            **ssm_models})
+            **ssm_models, **xattn_models})
     # the expert-batched wrappers, per_row at the expert shapes (decode
     # C = 8 and prefill C = 24, gate/up and down), each with the launches
     # of the phase 11 serve whose path runs it
@@ -3137,7 +3611,8 @@ def main() -> int:
                    "float_serve": fst, "float_launches": float_launches,
                    "float_tables": float_rec, "bitnet": bitnet_rec,
                    "decoding": decoding_rec, "telemetry": telemetry_rec,
-                   "moe": moe_rec, "ssm": ssm_rec, "ptxas": ptxas,
+                   "moe": moe_rec, "ssm": ssm_rec, "xattn": xattn_rec,
+                   "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -1,10 +1,11 @@
-"""Architecture config (dense, MoE, SSM and hybrid families) and the
-port's registry.
+"""Architecture config (the reference's six families) and the port's
+registry.
 
 A copy of the reference's ``ArchConfig`` holding only the fields the dense
-llama-family transformer, the MoE LM, the Mamba1 LM and the Mamba2 +
-shared-attention hybrid read, with the reference's parameter counts for
-these four families. Dtypes are torch dtypes.
+llama-family transformer, the MoE LM, the Mamba1 LM, the Mamba2 +
+shared-attention hybrid, the cross-attention VLM and the encoder-decoder
+audio model read, with the reference's parameter counts for these
+families. Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,13 @@ class ArchConfig:
     n_shared_experts: int = 0
     first_dense_layers: int = 0
     dense_d_ff: int = 0
+    # vlm
+    xattn_every: int = 0
+    n_image_tokens: int = 0
+    # audio (encoder-decoder): n_layers = decoder layers
+    enc_layers: int = 0
+    n_audio_frames: int = 0
+    max_positions: int = 0
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
@@ -70,6 +78,16 @@ class ArchConfig:
             object.__setattr__(self, "dt_rank", math.ceil(self.d_model / 16))
         if self.family == "hybrid" and not self.ssm_heads:
             object.__setattr__(self, "ssm_heads", max(1, self.d_inner // 64))
+        if self.family == "vlm" and not (self.xattn_every > 0
+                                         and self.n_image_tokens > 0):
+            raise ValueError(f"{self.arch_id}: a vlm config needs "
+                             "xattn_every > 0 and n_image_tokens > 0")
+        if self.family == "audio" and not (self.enc_layers > 0
+                                           and self.n_audio_frames > 0
+                                           and self.max_positions > 0):
+            raise ValueError(f"{self.arch_id}: an audio config needs "
+                             "enc_layers, n_audio_frames and max_positions "
+                             "> 0")
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -85,13 +103,19 @@ class ArchConfig:
 
     def num_params(self) -> int:
         """Total parameter count, as the reference counts it (embedding
-        and head, attention, MLP and SSM weights; norms and most biases
-        left out)."""
+        and head, attention, MLP and SSM weights, whisper's learned
+        positions; norms, gates and most biases left out)."""
         d, l = self.d_model, self.n_layers
         n = 2 * self.vocab_size * d
         attn = self._attn_params()
-        if self.family == "dense":
+        if self.family in ("dense", "vlm"):
+            # vlm: (L - G) self layers and G cross layers, each attention
+            # and a gated MLP
             return n + l * (attn + 3 * d * self.d_ff)
+        if self.family == "audio":
+            return (n + self.enc_layers * (attn + 2 * d * self.d_ff)
+                    + l * (2 * attn + 2 * d * self.d_ff)
+                    + self.max_positions * d)
         di, ds = self.d_inner, self.ssm_state
         if self.family == "ssm":
             per = (d * 2 * di + di * (self.dt_rank + 2 * ds)
@@ -129,6 +153,8 @@ _REGISTRY: Dict[str, str] = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama3_2_vision_11b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 

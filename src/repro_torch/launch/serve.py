@@ -20,10 +20,15 @@ in/out projections). The MoE archs (``olmoe-1b-7b``; ``kimi-k2-1t-a32b``,
 which fits a card only ``--reduced``) serve greedy and sampled requests;
 ``beam`` and ``spec`` raise NotImplementedError on them. The SSM and hybrid
 archs (``falcon-mamba-7b``: Mamba1, attention-free; ``zamba2-7b``: Mamba2
-with one shared attention block) serve greedy and sampled requests too;
-``spec`` raises ValueError (their SSM state cannot rewind a rejected
-draft), ``beam`` NotImplementedError, and ``--prefix-cache`` is turned off
-with a warning (SSM state cannot be shared by block reference).
+with one shared attention block) and the cross-attention archs
+(``llama-3.2-vision-11b``: a gated image cross layer every 5 layers;
+``whisper-tiny``: an encoder-decoder) serve greedy, sampled and beam
+requests; ``spec`` raises ValueError (their SSM state or cross K/V cannot
+rewind a rejected draft), and ``--prefix-cache`` is turned off with a
+warning (slot-resident state cannot be shared by block reference). As in
+the reference, requests carry tokens only: the VLM and whisper serve with
+a zero image / encoder K/V (their ``image_embeds`` / ``audio_frames``
+inputs run in a teacher-forced ``api.forward``).
 
 Telemetry and tuning: ``--fusion tuned`` dispatches each projection with
 the measured plan of the tuning cache (``--tuning-cache PATH``; the
@@ -81,7 +86,11 @@ def scheme_name(quant: dict) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=registry.list_archs())
+                    choices=registry.list_archs(),
+                    help="the reference's 11 archs in six families: dense "
+                         "(tinyllama-1.1b, ...), MoE (olmoe-1b-7b), SSM "
+                         "(falcon-mamba-7b), hybrid (zamba2-7b), VLM "
+                         "(llama-3.2-vision-11b) and audio (whisper-tiny)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)

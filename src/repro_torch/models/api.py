@@ -1,14 +1,14 @@
-"""Model API for the dense, MoE, SSM and hybrid families: param init
-(float or packed serving weights), forward and cache init, dispatched on
-``cfg.family``."""
+"""Model API for the reference's six families (dense, MoE, SSM, hybrid,
+VLM, audio): param init (float or packed serving weights), forward and
+cache init, dispatched on ``cfg.family``."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.registry import ArchConfig
-from repro_torch.models import hybrid, kvcache, layers as L, moe, quantized
-from repro_torch.models import ssm, transformer
+from repro_torch.models import audio, hybrid, kvcache, layers as L, moe
+from repro_torch.models import quantized, ssm, transformer, vlm
 
 
 class _SsmLM:
@@ -49,7 +49,7 @@ class _SsmLM:
 
 
 _FAMILY = {"dense": transformer, "moe": moe, "ssm": _SsmLM,
-           "hybrid": hybrid}
+           "hybrid": hybrid, "vlm": vlm, "audio": audio}
 
 
 def resolve_device(name) -> torch.device:
@@ -71,7 +71,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
     caller asks for the CPU). With serve_quantized and a quant config,
     projections are packed per cfg.quant layer by layer, so full-width
     float weights never all exist at once. Layer stacks are lists of layer
-    dicts (the hybrid's ``groups``: G lists of ``attn_every`` layers)."""
+    dicts (the hybrid's ``groups``: G lists of ``attn_every`` layers; the
+    VLM's ``self_groups``: G lists of ``xattn_every - 1``, beside its G
+    ``xattn_layers``; whisper's ``enc_layers`` and ``dec_layers``). The
+    VLM's gates are 0.0, as the reference's init leaves them."""
     device = resolve_device(device)
     dtype = cfg.param_dtype
     pack = serve_quantized and cfg.quant
@@ -106,6 +109,28 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
             params["tail"] = [layer() for _ in range(tail)]
         params["shared"] = finish(hybrid.shared_block_init(gen, cfg, dtype,
                                                            device))
+    elif cfg.family == "vlm":
+        n_groups = cfg.n_layers // cfg.xattn_every
+        params["self_groups"] = [
+            [finish(transformer.block_init(gen, cfg, dtype, device))
+             for _ in range(cfg.xattn_every - 1)] for _ in range(n_groups)]
+        params["xattn_layers"] = [
+            finish(vlm.xattn_layer_init(gen, cfg, dtype, device))
+            for _ in range(n_groups)]
+    elif cfg.family == "audio":
+        params["pos_embed"] = (torch.randn(
+            cfg.max_positions, cfg.d_model, generator=gen, device=device,
+            dtype=torch.float32) * 0.01).to(dtype)
+        params["enc_layers"] = [
+            finish(audio.enc_layer_init(gen, cfg, dtype, device))
+            for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = L.norm_init(cfg.d_model, dtype, device,
+                                         bias=True)
+        params["dec_layers"] = [
+            finish(audio.dec_layer_init(gen, cfg, dtype, device))
+            for _ in range(cfg.n_layers)]
+        params["final_norm"] = L.norm_init(cfg.d_model, dtype, device,
+                                           bias=True)
     else:
         params["layers"] = [
             finish(transformer.block_init(gen, cfg, dtype, device))

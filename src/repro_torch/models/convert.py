@@ -5,7 +5,8 @@ already turned into a numpy array (``jax.tree.map(np.asarray, params)``):
 dicts of arrays, layer stacks whose leaves carry a leading [L] axis (the
 hybrid's ``groups`` [G, A]), and packed weights as any object with the
 reference ``QuantizedWeight`` attributes (leading [L], or [L, E] for a
-stack of experts). It imports
+stack of experts; the hybrid's ``groups`` and the VLM's ``self_groups``
+carry [G, A]). It imports
 neither JAX nor the reference package: the packed byte format is shared,
 so the buffers load unchanged.
 """
@@ -68,6 +69,13 @@ def _stacks(cfg) -> dict:
     if cfg.family == "hybrid":
         n_groups, tail = divmod(cfg.n_layers, cfg.attn_every)
         return {"groups": (n_groups, cfg.attn_every), "tail": (tail,)}
+    if cfg.family == "vlm":
+        n_groups = cfg.n_layers // cfg.xattn_every
+        return {"self_groups": (n_groups, cfg.xattn_every - 1),
+                "xattn_layers": (n_groups,)}
+    if cfg.family == "audio":
+        return {"enc_layers": (cfg.enc_layers,),
+                "dec_layers": (cfg.n_layers,)}
     return {"layers": (cfg.n_layers - cfg.first_dense_layers,),
             "dense_layers": (cfg.first_dense_layers,)}
 
@@ -87,7 +95,10 @@ def from_jax_params(np_tree, cfg, device="cuda"):
     ``dense_layers`` ([first_dense_layers, ...]) and ``layers`` (the MoE
     layers); a batched expert weight keeps its [E, ...] after the layer
     index. The hybrid's ``groups`` [G, A, ...] become G lists of A layer
-    dicts, its ``tail`` [T, ...] a list; its ``shared`` block is one dict."""
+    dicts, its ``tail`` [T, ...] a list; its ``shared`` block is one dict.
+    The VLM's ``self_groups`` [G, xattn_every - 1, ...] become G lists, its
+    ``xattn_layers`` [G, ...] a list (each cross layer's scalar gates 0-dim
+    tensors); whisper's ``enc_layers`` and ``dec_layers`` lists."""
     device = resolve_device(device)
     stacks = _stacks(cfg)
     return {k: (_unstack(v, device, stacks[k]) if k in stacks

@@ -1,5 +1,6 @@
 """Shared model layers: norms, RoPE, LutDense (the paper's integration
-point), chunked attention and the gated MLP.
+point), chunked attention (self and cross) and the MLPs (gated SwiGLU,
+whisper's GELU).
 
 Every projection goes through :func:`lut_dense`, which dispatches on the
 parameter form: float ``{"w": [in, out]}`` is a dense GEMM, packed
@@ -35,11 +36,17 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def norm_init(d: int, dtype=torch.float32, device=None) -> Params:
-    return {"g": torch.ones(d, dtype=dtype, device=device)}
+def norm_init(d: int, dtype=torch.float32, device=None, *,
+              bias: bool = False) -> Params:
+    p = {"g": torch.ones(d, dtype=dtype, device=device)}
+    if bias:
+        p["b"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
 
 
 def attention_init(gen, cfg, *, dtype=torch.float32, device=None) -> Params:
+    """Q, K, V and O projections; a cross-attention layer has the same
+    four (its K and V read the image or encoder states)."""
     d, hd = cfg.d_model, cfg.head_dim
     kw = dict(bias=cfg.qkv_bias, dtype=dtype, device=device)
     return {
@@ -50,12 +57,15 @@ def attention_init(gen, cfg, *, dtype=torch.float32, device=None) -> Params:
     }
 
 
-def mlp_init(gen, d_model: int, d_ff: int, *, dtype=torch.float32,
-             device=None) -> Params:
+def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = True,
+             dtype=torch.float32, device=None) -> Params:
+    """SwiGLU (gate, up, down), or with ``gated=False`` whisper's GELU MLP
+    (up, down)."""
     kw = dict(dtype=dtype, device=device)
-    return {"gate": dense_init(gen, d_model, d_ff, **kw),
-            "up": dense_init(gen, d_model, d_ff, **kw),
-            "down": dense_init(gen, d_ff, d_model, **kw)}
+    p = {"gate": dense_init(gen, d_model, d_ff, **kw)} if gated else {}
+    p["up"] = dense_init(gen, d_model, d_ff, **kw)
+    p["down"] = dense_init(gen, d_ff, d_model, **kw)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +132,18 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["g"].to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (mean, population variance, ``rsqrt(var + eps)``),
+    with a bias where ``p`` has one (whisper)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["g"].to(torch.float32)
+    if "b" in p:
+        out = out + p["b"].to(torch.float32)
+    return out.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -210,8 +232,15 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
 def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                     cache_pos=0, quant: Optional[dict] = None,
                     page_table: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, xattn_kv=None,
+                    causal: bool = True, use_rope: bool = True):
     """Returns (out, kv_cache); the cache is updated in place.
+
+    * ``xattn_kv`` (k, v) [B, S_kv, KV, hd] (cross-attention: precomputed
+      image or encoder K/V): only ``wq`` and ``wo`` run, every query attends
+      to every key without a mask or RoPE, and no cache is read or written;
+    * ``use_rope=False`` leaves q and k unrotated (whisper); ``causal=False``
+      (an encoder, no cache) lets every position attend to every other.
 
     * ``cache_pos`` a [B] tensor (per-slot decode): slot b writes its s
       tokens at positions cache_pos[b] .. cache_pos[b] + s - 1 and query j
@@ -238,18 +267,25 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     b, s, _ = x.shape
     hd = cfg.head_dim
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
-    # float projections (quant["skip"]: olmoe's attention) read no table
+    # float projections (quant["skip"]: olmoe's attention) read no table;
+    # in cross-attention only wq reads it, as in the reference
     tbl = make_table(x, quant) if "qw" in p["wq"] else None
     q = lut_dense(p["wq"], x, quant, tbl).reshape(b, s, cfg.n_heads, hd)
+    if xattn_kv is not None:
+        k, v = xattn_kv
+        out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        out = out.reshape(b, s, cfg.n_heads * hd)
+        return lut_dense(p["wo"], out, quant), kv_cache
     k = lut_dense(p["wk"], x, quant, tbl).reshape(b, s, cfg.n_kv_heads, hd)
     v = lut_dense(p["wv"], x, quant, tbl).reshape(b, s, cfg.n_kv_heads, hd)
     steps = torch.arange(s, device=x.device)
     positions = cache_pos[:, None] + steps if per_slot else cache_pos + steps
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        out = chunked_attention(q, k, v, q_offset=cache_pos, causal=True,
+        out = chunked_attention(q, k, v, q_offset=cache_pos, causal=causal,
                                 chunk=cfg.attn_chunk)
     elif page_table is not None:
         pos2d = positions if per_slot else torch.full(
@@ -263,7 +299,7 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                                     chunk=cfg.attn_chunk)
         else:
             out = chunked_attention(q, kg, vg, q_offset=cache_pos,
-                                    causal=True, kv_valid_len=cache_pos + s,
+                                    causal=causal, kv_valid_len=cache_pos + s,
                                     chunk=cfg.attn_chunk)
     elif per_slot:
         ck, cv = kv_cache
@@ -287,7 +323,7 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
         n = min(s, ck.shape[1] - cache_pos)  # a right-padded tail may overrun
         ck[:, cache_pos:cache_pos + n] = k[:, :n].to(ck.dtype)
         cv[:, cache_pos:cache_pos + n] = v[:, :n].to(cv.dtype)
-        out = chunked_attention(q, ck, cv, q_offset=cache_pos, causal=True,
+        out = chunked_attention(q, ck, cv, q_offset=cache_pos, causal=causal,
                                 kv_valid_len=cache_pos + s,
                                 chunk=cfg.attn_chunk)
     out = out.reshape(b, s, cfg.n_heads * hd)
@@ -296,9 +332,15 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
 
 def mlp_apply(p: Params, x: torch.Tensor,
               quant: Optional[dict] = None) -> torch.Tensor:
-    """SwiGLU MLP."""
+    """SwiGLU MLP, or without a ``gate`` whisper's GELU MLP (the tanh
+    form, ``jax.nn.gelu``'s default)."""
     tbl = make_table(x, quant)
-    g = lut_dense(p["gate"], x, quant, tbl)
-    u = lut_dense(p["up"], x, quant, tbl)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    if "gate" in p:
+        g = lut_dense(p["gate"], x, quant, tbl)
+        u = lut_dense(p["up"], x, quant, tbl)
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    else:
+        h = torch.nn.functional.gelu(
+            lut_dense(p["up"], x, quant, tbl).to(torch.float32),
+            approximate="tanh").to(x.dtype)
     return lut_dense(p["down"], h, quant)

@@ -6,9 +6,11 @@ weights ``experts: {"gate", "up", "down": [E, in, out]}`` become batched
 weights under the reference's names ``gate_qw``, ``up_qw``, ``down_qw``
 (``Q.quantize_experts``). The layer stack is a list of per-layer dicts,
 walked like any other node. The SSM projections (``in_proj``, ``x_proj``,
-``dt_proj`` with its bias, ``out_proj``) pack like the others. Never
-quantized: the embedding, norms, the MoE router, conv taps, the SSM's A, D
-and dt vectors. ``quant["skip"]`` is a path regex of projections that stay
+``dt_proj`` with its bias, ``out_proj``) pack like the others, and so do
+the cross-attention layers' (``xattn/wq`` .. ``wo``) and whisper's
+non-gated MLP (``up``, ``down``). Never quantized: the embedding, whisper's
+``pos_embed``, norms, the VLM's scalar gates, the MoE router, conv taps,
+the SSM's A, D and dt vectors. ``quant["skip"]`` is a path regex of projections that stay
 float (zamba2-7b: ``ssm/(in_proj|out_proj)``, its Mamba2 projections). ``plane_sliced_params`` reads a packed tree at fewer
 bit-planes (the self-speculative draft).
 """

@@ -4,15 +4,18 @@ The engine owns ``max_batch`` decode slots backed by one dense cache
 [L, max_batch, max_seq, KV, hd], or, with ``cache_block_size``, by a pool of
 blocks [L, num_cache_blocks, block_size, KV, hd] and a page table
 [max_batch, max_seq / block_size] on the device. The SSM and hybrid
-families' caches are trees (``kvcache`` module docstring): the engine finds
-each leaf's batch and sequence axes by probing ``api.init_cache`` on the
-meta device, as the reference probes with ``jax.eval_shape``. Leaves with
-no sequence axis (SSM conv and recurrent state, O(1) a slot) are
-slot-resident: under the block-paged pool they stay [.., max_batch, ..],
-only the attention KV is pooled, and prefix caching is turned off with a
-warning (such state cannot fan out by block reference). Self-speculation
-is refused there (cumulative state cannot rewind a rejected draft), and
-beam search is not ported for these families. Per-slot control state (``pos``,
+families' caches, and the VLM's and whisper's, are trees (``kvcache``
+module docstring): the engine finds each leaf's batch and sequence axes by
+probing ``api.init_cache`` on the meta device, as the reference probes
+with ``jax.eval_shape``. Leaves with no sequence axis (SSM conv and
+recurrent state, the image and encoder cross K/V: O(1) in the sequence a
+slot) are slot-resident: under the block-paged pool they stay [..,
+max_batch, ..], only the attention KV is pooled, and prefix caching is
+turned off with a warning (such state cannot fan out by block reference).
+Self-speculation is refused there (cumulative state cannot rewind a
+rejected draft). Beam search forks every leaf along its own batch axis.
+As in the reference, a request carries tokens only: the VLM's and
+whisper's slots attend to a zero cross K/V. Per-slot control state (``pos``,
 ``budget``, ``last_tok``, ``active`` and the sampling params) lives on the
 device, as in the reference's ``EngineState``:
 
@@ -366,22 +369,40 @@ class ServingEngine:
                            caches=self.caches, cache_pos=cache_pos,
                            page_table=self.page_table)[0]
 
+    def _copy_blocks(self, src: List[int], dst: List[int]):
+        """Pool blocks ``src`` -> ``dst`` on every pooled leaf, along its
+        block (batch) axis; slot-resident leaves are left as they are."""
+        src_t, dst_t = (self._to_device(np.asarray(ids, np.int64))
+                        for ids in (src, dst))
+        kvcache.tree_map(
+            lambda c, ax, pooled, _: c.index_copy_(
+                ax, dst_t, c.index_select(ax, src_t)) if pooled else None,
+            self.caches, self._axes, self._pooled)
+
     def _beam_fork_caches(self, parent: torch.Tensor, do_copy: torch.Tensor):
         """Beam reassignment after a step's forward: slot b takes slot
-        parent[b]'s cache, the parent's fresh position included. Dense: a
-        batch gather (identity rows for slots that keep their own). Paged:
-        block content from the parent's row into the slot's row, and slots
-        that do not fork write to the null block 0. Duplicate destinations
-        are harmless: group members share the same prefix blocks (a block
-        copied onto itself) and own every later block."""
-        for leaf in self.caches:
-            if self.paged:
-                src = self.page_table[parent].reshape(-1)
-                dst = torch.where(do_copy[:, None], self.page_table,
-                                  0).reshape(-1)
-                leaf[:, dst] = leaf[:, src]
+        parent[b]'s cache, the parent's fresh position included, on every
+        leaf along its own batch axis (the reference's
+        ``_beam_fork_caches``). Dense, and a paged pool's slot-resident
+        leaves (SSM state, cross K/V): a batch gather (identity rows for
+        slots that keep their own). Pooled leaves: block content from the
+        parent's row into the slot's row, and slots that do not fork write
+        to the null block 0. Duplicate destinations are harmless: group
+        members share the same prefix blocks (a block copied onto itself)
+        and own every later block."""
+        src = dst = None
+        if self.paged:
+            src = self.page_table[parent].reshape(-1)
+            dst = torch.where(do_copy[:, None], self.page_table,
+                              0).reshape(-1)
+
+        def fork(c, ax, pooled, _):
+            if self.paged and pooled:
+                cm = c.movedim(ax, 0)  # a view: the assignment writes c
+                cm[dst] = cm[src]
             else:
-                leaf.copy_(leaf[:, parent])
+                c.copy_(c.index_select(ax, parent))
+        kvcache.tree_map(fork, self.caches, self._axes, self._pooled)
 
     def _decode_general(self, has_beam: bool, has_spec: bool,
                         sampling: bool):
@@ -519,11 +540,6 @@ class ServingEngine:
                 f"{req.decoding!r} on the MoE family ({self.cfg.arch_id}): "
                 "beam search and self-speculation on MoE configs are not "
                 "ported (ROADMAP.md queue 1, MoE decoding modes)")
-        if dm.kind == decoding.BEAM and not self._all_pooled:
-            raise NotImplementedError(
-                f"{req.decoding!r} on the {self.cfg.family} family "
-                f"({self.cfg.arch_id}): beam search over slot-resident SSM "
-                "state is not ported (ROADMAP.md queue 1, decoding modes)")
         if dm.kind == decoding.SPEC:
             if self.draft_params is None:
                 raise ValueError(
@@ -667,9 +683,7 @@ class ServingEngine:
         self._set_page_row(i, row)
         start = m0 * bs
         if cow_src is not None:
-            # prefix caching runs only where every leaf is pooled: (k, v)
-            for leaf in self.caches:
-                leaf[:, blocks[0]].copy_(leaf[:, cow_src])
+            self._copy_blocks([cow_src], blocks[:1])
             self._alloc.decref(cow_src)  # the private copy is taken
             start += bs
         self.prefill_tokens_reused += min(start, plen - 1)
@@ -733,8 +747,9 @@ class ServingEngine:
         of it. Dense: the leader's cache row copied into each member's.
         Paged: the leader's blocks below ``plen - 1`` shared by reference
         (immutable for the group's life), the rest copied into private
-        blocks. Returns False, the request left queued and every slot rolled
-        back, when the pool cannot grant every member's blocks."""
+        blocks, and the slot-resident leaves' rows copied. Returns False,
+        the request left queued and every slot rolled back, when the pool
+        cannot grant every member's blocks."""
         lead = slots_w[0]
         if self.paged:
             if not self._admit_one_paged(lead, req):
@@ -764,9 +779,14 @@ class ServingEngine:
                     return False
                 for bid in lead_row[:m_share]:
                     self._alloc.incref(bid)
-                for src, dst in zip(lead_row[m_share:], blocks):
-                    for leaf in self.caches:
-                        leaf[:, dst].copy_(leaf[:, src])
+                if blocks:
+                    self._copy_blocks(lead_row[m_share:], blocks)
+                # slot-resident leaves: the leader's row (the reference's
+                # ``_fork_slot``)
+                kvcache.tree_map(
+                    lambda c, ax, pooled, _: None if pooled else c.narrow(
+                        ax, m, 1).copy_(c.narrow(ax, lead, 1)),
+                    self.caches, self._axes, self._pooled)
                 row = lead_row[:m_share] + blocks
                 self._slot_blocks[m] = list(row)
                 self._set_page_row(m, row)

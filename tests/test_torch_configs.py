@@ -54,6 +54,7 @@ from repro_torch.models.convert import from_jax_params
 ARCHS = ["paper-bitnet-3b", "qwen1.5-0.5b", "llama3.2-3b", "qwen2-72b"]
 MOE_ARCHS = ["olmoe-1b-7b", "kimi-k2-1t-a32b"]
 SSM_ARCHS = ["falcon-mamba-7b", "zamba2-7b"]
+XATTN_ARCHS = ["llama-3.2-vision-11b", "whisper-tiny"]
 # (arch, variant): None, "head_dim100" (widened) or "bf16" (params as at
 # full width)
 CASES = ([(arch, None) for arch in ARCHS]
@@ -212,19 +213,24 @@ def test_bf16_init_params_match_the_reference_tree():
 
 def test_registry_lists_the_dense_archs():
     """The port's archs: the dense ones, then the MoE family's
-    (tests/test_torch_moe.py), then the SSM and hybrid families'
-    (tests/test_torch_ssm.py); its families: dense, moe, ssm, hybrid."""
+    (tests/test_torch_moe.py), the SSM and hybrid families'
+    (tests/test_torch_ssm.py), then the VLM and audio families'
+    (tests/test_torch_xattn.py): the reference's 11 archs. Its families
+    are the reference's six, in the reference's order."""
     assert treg.list_archs() == (["tinyllama-1.1b"] + ARCHS + MOE_ARCHS
-                                 + SSM_ARCHS)
-    assert treg.FAMILIES == ("dense", "moe", "ssm", "hybrid")
+                                 + SSM_ARCHS + XATTN_ARCHS)
+    assert sorted(treg.list_archs()) == sorted(jreg.list_archs())
+    assert treg.FAMILIES == jreg.FAMILIES == (
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + SSM_ARCHS
+                         + XATTN_ARCHS)
 @pytest.mark.parametrize("size", ["full", "reduced"])
 def test_configs_equal_the_reference(arch, size):
-    """Every field the dense, MoE, SSM and hybrid forwards read, the quant
-    dict, and the parameter counts, as the reference's config gives them,
-    at full width and reduced."""
+    """Every field the dense, MoE, SSM, hybrid, VLM and audio forwards
+    read, the quant dict, and the parameter counts, as the reference's
+    config gives them, at full width and reduced."""
     get = "get_config" if size == "full" else "get_reduced"
     jc, tc = getattr(jreg, get)(arch), getattr(treg, get)(arch)
     for field in ("arch_id", "family", "n_layers", "d_model", "n_heads",
@@ -233,7 +239,9 @@ def test_configs_equal_the_reference(arch, size):
                   "num_experts", "top_k", "capacity_factor",
                   "n_shared_experts", "first_dense_layers", "dense_d_ff",
                   "ssm_state", "d_conv", "expand", "d_inner", "dt_rank",
-                  "ssm_heads", "ssm_chunk", "attn_every"):
+                  "ssm_heads", "ssm_chunk", "attn_every", "xattn_every",
+                  "n_image_tokens", "enc_layers", "n_audio_frames",
+                  "max_positions"):
         assert getattr(tc, field) == getattr(jc, field), field
     assert str(tc.param_dtype).split(".")[-1] == jnp.dtype(
         jc.param_dtype).name

@@ -980,3 +980,98 @@ def test_reduced_ssm_serve_paged_equals_dense_on_the_card(cuda, arch):
         out.append([r.output for r in reqs])
     assert out[0] == out[1]
     assert out[0] == out[2]
+
+
+def _reduced_cfg(arch, mode):
+    from repro_torch.configs import registry
+    return registry.get_reduced(arch).replace(
+        activation_dtype=torch.float32).with_quant(
+            mpgemm_mode=mode, table_quant="per_row")
+
+
+def _reduced_params(arch, cfg, device):
+    """Reduced params from seed 0, a VLM's cross gates set to 0.5 (the
+    init leaves them at 0, where a cross layer adds nothing)."""
+    from repro_torch.models import api
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, device)
+    for xp in params.get("xattn_layers", []):
+        xp["gate_attn"].fill_(0.5)
+        xp["gate_mlp"].fill_(0.5)
+    return params
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_reduced_xattn_forward_through_the_kernels_equals_plain(cuda, arch):
+    """Reduced llama-3.2-vision-11b with image embeddings and whisper-tiny
+    with audio frames, per_row: the teacher-forced logits through the
+    kernels (lut_pallas) equal the plain LUT path's (lut_xla) bit for bit;
+    so do a prefill that carries the inputs into the cache and a decode
+    step that reads the cached cross K/V; with tokens only over a zero
+    cross K/V (the engine's case) the logits are finite and equal too."""
+    from repro_torch.models import api
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 512, (2, 11)), device=cuda)
+    out = {}
+    for mode in ("lut_pallas", "lut_xla"):
+        cfg = _reduced_cfg(arch, mode)
+        params = _reduced_params(arch, cfg, cuda)
+        vlm = cfg.family == "vlm"
+        key = "image_embeds" if vlm else "audio_frames"
+        n = cfg.n_image_tokens if vlm else cfg.n_audio_frames
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(4)
+        emb = 0.1 * torch.randn(2, n, cfg.d_model, generator=gen,
+                                device=cuda)
+        before = fk.launches + lk.launches
+        full = api.forward(params, {"tokens": toks, key: emb}, cfg)[0]
+        caches = api.init_cache(cfg, 2, 16, dtype=torch.float32,
+                                device=cuda)
+        api.forward(params, {"tokens": toks[:, :10], key: emb}, cfg,
+                    caches=caches, head=False)
+        step = api.forward(params, {"tokens": toks[:, 10:]}, cfg,
+                           caches=caches,
+                           cache_pos=torch.full((2,), 10, device=cuda))[0]
+        zero_kv = api.init_cache(cfg, 2, 16, dtype=torch.float32,
+                                 device=cuda)
+        zero = api.forward(params, {"tokens": toks}, cfg, caches=zero_kv)[0]
+        assert ((fk.launches + lk.launches - before) > 0) == (
+            mode == "lut_pallas")
+        assert torch.isfinite(full).all() and torch.isfinite(zero).all()
+        out[mode] = (full, step, zero)
+    for a, b in zip(out["lut_pallas"], out["lut_xla"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny",
+                                  "falcon-mamba-7b", "zamba2-7b"])
+def test_reduced_beam_through_the_kernels_equals_plain(cuda, arch):
+    """A beam:2 request beside two greedy ones, reduced, per_row: through
+    the kernels (lut_pallas) dense and paged (block 16), and through the
+    plain LUT path (lut_xla) dense, the greedy streams and the ranked
+    hypotheses equal, one sync a decode chunk. Every cache leaf forks
+    along its own batch axis (slot-resident cross K/V and SSM state
+    included)."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    rng = np.random.default_rng(0)
+    vocab = 256 if arch in ("falcon-mamba-7b", "zamba2-7b") else 512
+    prompts = [rng.integers(0, vocab, n) for n in (9, 30, 17)]
+    out = []
+    for mode, kw in (("lut_pallas", {}),
+                     ("lut_pallas", dict(cache_block_size=16)),
+                     ("lut_xla", {})):
+        cfg = _reduced_cfg(arch, mode)
+        params = _reduced_params(arch, cfg, cuda)
+        eng = ServingEngine(cfg, params, max_batch=4, max_seq=64,
+                            decode_chunk=4, prefill_chunk=8, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6,
+                        decoding="beam:2" if i == 0 else "greedy")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert eng.stats()["host_syncs_per_token"] <= 1 / eng.decode_chunk
+        assert len(reqs[0].beams) == 2
+        out.append(([r.output for r in reqs[1:]], reqs[0].beams))
+    assert out[0] == out[1] == out[2]

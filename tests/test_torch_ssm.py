@@ -29,8 +29,10 @@ Tolerances (rtol = atol unless said otherwise):
     the positions;
   * engines (float tables: lut_xla in the reference, lut_pallas in the
     port): greedy streams equal to the reference engine's, prefill chunk 3
-    and one-shot; block-paged streams equal to dense; chunked prefill
-    state equal to one-shot within 1e-5.
+    and one-shot; a beam:2 request's ranked beams equal to the reference
+    engine's (scores within 1e-4 relative), dense and paged; block-paged
+    streams equal to dense; chunked prefill state equal to one-shot within
+    1e-5.
 Measured here: one layer within 2.2e-6 (f32) and 7.8e-3 (bf16: the conv
 state, one bf16 step); logits within 2.8e-5 (fp16, float-table lut_xla)
 and 0.042 (per_row, both modes), the greedy token equal at every position.
@@ -411,19 +413,54 @@ def test_prefix_cache_is_turned_off_with_a_warning(engine_params, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_spec_raises_value_error_and_beam_not_implemented(engine_params,
-                                                          arch):
+def test_spec_raises_value_error(engine_params, arch):
     """The reference's ``ValueError`` for self-speculation on cumulative
-    state (with a draft view), and NotImplementedError for beam search."""
+    state (with a draft view)."""
     _, _, tc, tparams = engine_params(arch)
     eng = ServingEngine(tc, tparams, max_batch=2, max_seq=48,
                         spec_draft_planes=1)
     with pytest.raises(ValueError, match="self-speculative decoding "
                        "unsupported for family .* cumulative"):
         eng.submit(Request(uid=0, prompt=np.arange(5), decoding="spec"))
-    with pytest.raises(NotImplementedError, match="beam search"):
-        eng.submit(Request(uid=1, prompt=np.arange(5), decoding="beam:2"))
     assert not eng.queue
+
+
+def _beam_pool(cfg, params, engine, request, **kw):
+    """A beam:2 request between two greedy ones, 6 new tokens each."""
+    eng = engine(cfg, params, max_batch=4, max_seq=48, decode_chunk=4, **kw)
+    prompts = _prompts(cfg.vocab_size)
+    reqs = [request(uid=i, prompt=p, max_new_tokens=6,
+                    decoding="beam:2" if i == 1 else "greedy")
+            for i, p in enumerate(prompts[:3])]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    assert all(r.done for r in reqs)
+    return reqs
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_beam_equals_the_reference_engine(engine_params, arch, paged):
+    """A beam:2 request beside two greedy ones, dense and paged (block
+    16): the greedy streams and the ranked beams' tokens equal the
+    reference engine's, their scores within 1e-4 relative. The Mamba
+    state forks along its own batch axis (axis 2 in zamba2's groups), the
+    shared attention's pooled K/V by block content."""
+    jc, jparams, tc, tparams = engine_params(arch)
+    kw = dict(cache_block_size=16) if paged else {}
+    want = _beam_pool(jc, jparams, JEngine,
+                      lambda prompt, **k: JRequest(
+                          prompt=prompt.astype(np.int32), **k), **kw)
+    got = _beam_pool(tc, tparams, ServingEngine, Request, prefill_chunk=3,
+                     **kw)
+    for g, w in zip(got, want):
+        assert g.output == [int(t) for t in w.output]
+    assert len(got[1].beams) == 2
+    assert [t for t, _ in got[1].beams] == [[int(x) for x in t]
+                                            for t, _ in want[1].beams]
+    np.testing.assert_allclose([sc for _, sc in got[1].beams],
+                               [sc for _, sc in want[1].beams], rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
