@@ -250,12 +250,35 @@ exit and no result line):
      same for whisper-tiny (its encoder and cross K/V alone: 32 lookups);
      (d) one decode step and one 128-token prefill chunk of each profiled
      as in phase 4.
+ 14. train   — the training path, after the earlier phases' models are
+     freed (``train_phase``): (a) full-width tinyllama-1.1b, float params
+     from seed 0 made on the card, trained 30 steps through
+     ``training.train_loop.make_train_step`` with the QAT forward (W2
+     symmetric fake-quant of every projection and the head), AdamW with
+     ``lr_schedule(3e-4, warmup=20, total=30)``, batch 8, seq 256,
+     ``SyntheticLM(seed=0)``, f32 activations (TF32 off): every loss and
+     grad norm finite, the mean of the last 5 losses below the first 5's;
+     tokens a second and ms a step over steps 2-30 by wall time (the
+     checkpoint included), the median step, peak device memory; (b) its
+     whole state checkpointed by ``RestartManager`` at step 20 (async,
+     under the gitignored build directory, removed after), restored into a
+     fresh state made from another seed, steps 21-30 rerun from the same
+     data steps: losses, grad norms and final params bit-equal to the straight
+     run (both under ``torch.use_deterministic_algorithms(True)``, with
+     ``CUBLAS_WORKSPACE_CONFIG`` set at the top of this script); one more
+     step profiled (busy, idle, GEMM time, device time by kernel); (c) the
+     trained params packed (``quantize_params``) and served as phases 4 and
+     5 serve (``serve_and_parity``: every kernel of the per_row path
+     launched, lut_pallas = lut_xla logits bit for bit), and, as a record,
+     the max |logit difference| between the QAT forward and the packed
+     lut_xla forward.
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record (the two batched wrappers listed
 beside the four kernels, with phase 11's launches and times; each kernel's
 launches and times at falcon-mamba-7b's, zamba2-7b's,
-llama-3.2-vision-11b's and whisper-tiny's shapes under their names); the
+llama-3.2-vision-11b's and whisper-tiny's shapes under their names, and
+the launches of phase 14's serve of the trained weights); the
 last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
@@ -285,6 +308,10 @@ phase 12 alone (its record as one line of JSON),
 
 phase 13 alone (falcon-mamba-7b and zamba2-7b made for its (e); its
 record as one line of JSON),
+
+    python3 chip_smoke.py --train             # phases 1, 2 and 14 only
+
+phase 14 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -330,6 +357,10 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# phase 14 trains under torch.use_deterministic_algorithms(True), which
+# needs cuBLAS's workspace fixed before the first cuBLAS handle (":4096:8"
+# is also the default size on Hopper, so the other phases run as before)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -3170,6 +3201,270 @@ def xattn_lines(engines, rec):
     return lines
 
 
+# phase 14: training full-width tinyllama-1.1b, then serving what it learned
+TRAIN_STEPS = 30           # AdamW steps, lr_schedule(3e-4, 20, total=30)
+TRAIN_CKPT = 20            # the RestartManager checkpoint the restart reads
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+
+
+def train_config():
+    """Phase 14's model: full-width tinyllama-1.1b, W2 symmetric K=4 QAT
+    (the float params' forward fake-quantizes every projection and the
+    head), f32 activations, as the reference's launch/train.py trains it."""
+    from repro_torch.configs import registry
+    return registry.get_config("tinyllama-1.1b").replace(
+        activation_dtype=torch.float32)
+
+
+def train_steps(step_fn, state, data, steps, rm=None):
+    """Runs ``steps`` (data steps) from ``state``; returns (state, losses,
+    grad norms, ms a step, the host clock at each step's end). Each step's
+    metrics are read at its end, so the host clock times a finished step;
+    a step's ms leave out its checkpoint snapshot, its end takes it in."""
+    losses, gnorms, ms, ends = [], [], [], []
+    for step in steps:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data.batch_at(step))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if rm is not None:
+            rm.maybe_save(step + 1, state)
+        ends.append(time.perf_counter())
+    return state, losses, gnorms, ms, ends
+
+
+def train_phase():
+    """Phase 14: (a) full-width tinyllama-1.1b trained 30 QAT steps with
+    AdamW (``lr_schedule(3e-4, warmup=20, total=30)``), batch 8, seq 256,
+    ``SyntheticLM(seed=0)``, through ``make_train_step`` from float params
+    made on the card from seed 0: every loss and grad norm finite, the mean
+    of the last 5 losses below the first 5's; tokens a second and ms a step
+    over steps 2-30 by wall time (the checkpoint included), the median
+    step, peak device memory. (b) The run checkpoints its whole state (params,
+    AdamW m and v, step counters) with ``RestartManager`` at step 20 (an
+    async write, its host snapshot taken before the step returns); the
+    checkpoint is restored into a fresh state (other params, seed 1) and
+    steps 21–30 rerun from the same data steps: their losses and grad norms
+    and the final params must equal the straight run's bit for bit. Both
+    runs are under ``torch.use_deterministic_algorithms(True)`` (cuBLAS
+    workspace ``CUBLAS_WORKSPACE_CONFIG`` set at the top of this script).
+    (c) The trained params packed (``models.quantized.quantize_params``)
+    and served as phases 4 and 5 serve (``serve_and_parity``: every kernel
+    of the per_row path launched, lut_pallas = lut_xla logits bit for
+    bit); recorded, not checked: the max |logit difference| between the
+    QAT forward of the float params and the packed lut_xla forward (the
+    serving quantizer searches a clip ratio, fake_quant uses absmax)."""
+    import shutil
+    from repro_torch.kernels import _build
+    from repro_torch.models import api, quantized
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.core.tree import tree_leaves
+    cfg = train_config()
+    opt = opt_mod.make_optimizer("adamw", lr=opt_mod.lr_schedule(
+        3e-4, warmup=20, total=TRAIN_STEPS))
+    step_fn = make_train_step(cfg, opt, qat=True)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    ckpt_dir = str(_build.BUILD_DIR / "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec = {"arch": cfg.arch_id, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "optimizer": "adamw", "qat": True}
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) the straight run, checkpointing at step 20
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        state = init_train_state(gen, cfg, opt, "cuda")
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = sum(p.numel() for p in tree_leaves(state["params"]))
+        rm = ckpt_mod.RestartManager(ckpt_dir, every=TRAIN_CKPT, keep=1)
+        t0 = time.perf_counter()
+        state, losses, gnorms, ms, ends = train_steps(
+            step_fn, state, data, range(TRAIN_STEPS), rm)
+        rec["train_s"] = ends[-1] - t0
+        t0 = time.perf_counter()
+        rm.wait()
+        rec["ckpt_wait_s"] = time.perf_counter() - t0
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec.update(losses=losses, grad_norms=gnorms, step_ms=ms)
+        # the rate: every token of steps 2-30 over the wall time from the
+        # end of step 1 to the end of step 30, the step-20 checkpoint's
+        # snapshot and its async write's cost to the later steps included
+        window_s = ends[-1] - ends[0]
+        rec["first_step_ms"] = ms[0]
+        rec["step_ms_wall"] = window_s / (TRAIN_STEPS - 1) * 1e3
+        rec["step_ms_median"] = sorted(ms[1:])[len(ms[1:]) // 2]
+        rec["tokens_s"] = (TRAIN_STEPS - 1) * TRAIN_BATCH * TRAIN_SEQ / window_s
+        # where the window goes beyond the steps: the checkpoint's host
+        # snapshot (its step's end less its start and its ms), and the
+        # steps that ran beside the async write against those before it
+        i = TRAIN_CKPT - 1
+        rec["snapshot_s"] = ends[i] - ends[i - 1] - ms[i] / 1e3
+        before = sorted(ms[1:i])
+        rec["step_ms_before_ckpt"] = before[len(before) // 2]
+        rec["step_ms_during_write"] = (min(ms[i + 1:]), max(ms[i + 1:]))
+        if not all(np.isfinite(losses + gnorms)):
+            raise AssertionError(f"train: a loss or grad norm is not finite: "
+                                 f"{losses} {gnorms}")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        rec["first5"], rec["last5"] = first5, last5
+        if not last5 < first5:
+            raise AssertionError(f"train: the loss did not fall: first 5 "
+                                 f"{first5}, last 5 {last5}")
+        if ckpt_mod.list_steps(ckpt_dir) != [TRAIN_CKPT]:
+            raise AssertionError(f"train: checkpoints "
+                                 f"{ckpt_mod.list_steps(ckpt_dir)}")
+        trained = state["params"]
+        del state
+
+        # (b) restart from the step-20 checkpoint into a fresh state
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        fresh = init_train_state(gen, cfg, opt, "cuda")
+        t0 = time.perf_counter()
+        state, start = rm.restore_or_none(fresh)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        del fresh
+        if start != TRAIN_CKPT or int(state["step"]) != TRAIN_CKPT:
+            raise AssertionError(f"train: restored step {start}")
+        state, r_losses, r_gnorms, _, _ = train_steps(
+            step_fn, state, data, range(TRAIN_CKPT, TRAIN_STEPS))
+        equal_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(state["params"]), tree_leaves(trained)))
+        rec["restart"] = {
+            "losses": r_losses, "grad_norms": r_gnorms,
+            "bit_equal": (r_losses == losses[TRAIN_CKPT:]
+                          and r_gnorms == gnorms[TRAIN_CKPT:]
+                          and equal_params),
+            "max_abs_loss_diff": max(abs(a - b) for a, b in zip(
+                r_losses, losses[TRAIN_CKPT:]))}
+        # one more step (31) profiled on the restarted state: where a train
+        # step's device time goes
+        rec["step_profile"] = train_step_profile(step_fn, state,
+                                                 data.batch_at(TRAIN_STEPS))
+        del state
+        if not rec["restart"]["bit_equal"]:
+            raise AssertionError(f"train: the restart is not bit-equal to "
+                                 f"the straight run: {rec['restart']}, "
+                                 f"params equal {equal_params}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (c) serve the trained weights through the kernels
+    gc_cuda()
+    scfg = main_config()
+    t0 = time.perf_counter()
+    packed = quantized.quantize_params(trained, scfg.quant)
+    torch.cuda.synchronize()
+    rec["quantize_s"] = time.perf_counter() - t0
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    with torch.no_grad():
+        qat = api.forward(trained, {"tokens": toks},
+                          cfg.with_quant(qat=True))[0]
+    del trained
+    gc_cuda()
+    lut = api.forward(packed, {"tokens": toks}, scfg.with_quant(
+        mpgemm_mode="lut_xla", table_quant="per_row"))[0]
+    rec["qat_vs_packed_max_abs_logit_diff"] = (qat - lut).abs().max().item()
+    rec["qat_max_abs_logit"] = qat.abs().max().item()
+    del qat, lut
+    eng, serve_rec = serve_and_parity("train", scfg, packed)
+    rec["serve"] = serve_rec
+    rec["launches"] = serve_rec["launches"]
+    return scfg, eng, rec
+
+
+def train_step_profile(step_fn, state, batch):
+    """One train step under torch.profiler: wall (host clock, synchronized,
+    the profiler on), device busy, idle share, CUDA kernels, and device time
+    by kernel (GEMMs: cuBLAS / CUTLASS kernels by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+    busy_ms = sum(per_name.values()) / 1e3
+    gemm_ms = sum(t for n, t in per_name.items()
+                  if re.search(r"gemm|cutlass|sm90_xmma|ampere", n)) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms if per_name else None,
+            "idle_share": 1.0 - busy_ms / wall_ms if per_name else None,
+            "gemm_ms": gemm_ms if per_name else None,
+            "kernel_names": len(per_name),
+            "top": [(n[:60], t / 1e3) for n, t in top]}
+
+
+def gc_cuda():
+    """Frees what Python no longer holds, and the allocator's cached
+    blocks, before a phase that needs the card's memory."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_lines(cfg, eng, rec):
+    """``train_phase``'s record as text."""
+    rs, prof = rec["restart"], rec["step_profile"]
+    return [
+        f"train: {rec['arch']} ({rec['params'] / 1e9:.3f} B params), QAT "
+        f"W2 symmetric, AdamW lr_schedule(3e-4, 20, {rec['steps']}), batch "
+        f"{rec['batch']} x seq {rec['seq']}: {rec['steps']} steps in "
+        f"{rec['train_s']:.1f} s; steps 2-{rec['steps']} at "
+        f"{rec['tokens_s']:.0f} tokens/s, {rec['step_ms_wall']:.1f} ms a "
+        f"step by wall time (the checkpoint at step {TRAIN_CKPT} included; "
+        f"median step {rec['step_ms_median']:.1f} ms, the first "
+        f"{rec['first_step_ms']:.1f} ms); the step-{TRAIN_CKPT} snapshot "
+        f"{rec['snapshot_s']:.2f} s; steps {TRAIN_CKPT + 1}-{rec['steps']} "
+        f"{rec['step_ms_during_write'][0]:.1f}-"
+        f"{rec['step_ms_during_write'][1]:.1f} ms beside the async write "
+        f"(median of steps 2-{TRAIN_CKPT - 1} "
+        f"{rec['step_ms_before_ckpt']:.1f} ms); peak "
+        f"device memory {rec['peak_bytes'] / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); loss "
+        f"{rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f}, mean of the "
+        f"first 5 {rec['first5']:.4f}, last 5 {rec['last5']:.4f}; grad "
+        f"norms {rec['grad_norms'][0]:.4g} -> {rec['grad_norms'][-1]:.4g}",
+        f"train: restart from the step-{TRAIN_CKPT} checkpoint (params, "
+        f"AdamW m and v; waited {rec['ckpt_wait_s']:.1f} s for the async "
+        f"write after step {rec['steps']}, restored in "
+        f"{rec['restore_s']:.1f} s) into a fresh state: steps "
+        f"{TRAIN_CKPT + 1}-{rec['steps']} "
+        + ("bit-equal to the straight run (losses, grad norms, final params;"
+           " deterministic algorithms)" if rs["bit_equal"] else
+           f"NOT bit-equal (max |loss diff| {rs['max_abs_loss_diff']})"),
+        "train: one step profiled (step 31, the profiler on): " + (
+            "device busy not measured (the profiler saw no device events)"
+            if prof["busy_ms"] is None else
+            f"wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}),"
+            f" GEMM kernels {prof['gemm_ms']:.1f} ms; device time by kernel: "
+            + ", ".join(f"{n} {t:.1f} ms" for n, t in prof["top"])),
+        f"train: the trained params packed in {rec['quantize_s']:.1f} s; "
+        f"QAT forward vs the packed lut_xla forward, 128 tokens: max |logit "
+        f"diff| {rec['qat_vs_packed_max_abs_logit_diff']:.4g} (max |logit| "
+        f"{rec['qat_max_abs_logit']:.4g}; a record: the serving quantizer "
+        f"searches a clip ratio, fake_quant takes absmax)",
+    ] + serve_lines("train", cfg, eng, rec["serve"])
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -3343,6 +3638,12 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"xattn": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--train":
+        tcfg, teng, rec = train_phase()
+        for line in train_lines(tcfg, teng, rec):
+            print(line, flush=True)
+        print(json.dumps({"train": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -3496,6 +3797,18 @@ def main() -> int:
         print(line, flush=True)
     print(f"xattn: phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 14: training full-width tinyllama-1.1b, then serving the trained
+    # weights; the earlier phases' models are freed first
+    xattn_cfgs = {arch: cfg for arch, (cfg, _) in xattn_engines.items()}
+    del xattn_engines, eng, beng, meng, params
+    gc_cuda()
+    t0 = time.perf_counter()
+    tcfg, teng, train_rec = train_phase()
+    for line in train_lines(tcfg, teng, train_rec):
+        print(line, flush=True)
+    del teng
+    print(f"train: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -3560,7 +3873,7 @@ def main() -> int:
         xattn_models = {arch: at_shapes(
             name, xattn_records, xattn_rec["err"],
             xattn_rec[arch]["launches"], set(packed_shapes(cfg).values()))
-            for arch, (cfg, _) in xattn_engines.items()}
+            for arch, cfg in xattn_cfgs.items()}
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": path_launches[name], "max_abs_err": err[name],
@@ -3578,6 +3891,7 @@ def main() -> int:
             "shapes": [[r["m"], r["n"], r["k"]] for r in rs],
             "bitnet": bit, "moe_launches": moe_rec["launches"][name],
             "moe_staged_launches": moe_rec["staged_launches"][name],
+            "train_serve_launches": train_rec["launches"][name],
             **ssm_models, **xattn_models})
     # the expert-batched wrappers, per_row at the expert shapes (decode
     # C = 8 and prefill C = 24, gate/up and down), each with the launches
@@ -3612,6 +3926,7 @@ def main() -> int:
                    "float_tables": float_rec, "bitnet": bitnet_rec,
                    "decoding": decoding_rec, "telemetry": telemetry_rec,
                    "moe": moe_rec, "ssm": ssm_rec, "xattn": xattn_rec,
+                   "train": train_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,

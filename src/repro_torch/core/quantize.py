@@ -27,7 +27,7 @@ from .table import true_divide
 
 __all__ = ["QuantizedWeight", "quantize_symmetric", "quantize_asymmetric",
            "quantize_ternary", "quantize", "quantize_experts", "plane_codes",
-           "dequantize"]
+           "dequantize", "fake_quant"]
 
 
 class QuantizedWeight:
@@ -236,3 +236,45 @@ def dequantize(qw: QuantizedWeight) -> torch.Tensor:
     if qw.zero_prime is not None:
         qp = qp - qw.zero_prime[:, None]
     return qw.scale[:, None] * qp
+
+
+# ---------------------------------------------------------------------------
+# QAT fake-quant (straight-through estimator)
+# ---------------------------------------------------------------------------
+
+def _fq_symmetric(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Absmax symmetric quantization onto the odd grid, per row of the last
+    axis (no clip-ratio search: that is the serving quantizer's)."""
+    qmax = (1 << bits) - 1
+    s = true_divide(w.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30),
+                    qmax)
+    q = torch.clamp(torch.round((w / s + qmax) / 2.0), 0, qmax)
+    return s * (2.0 * q - qmax)
+
+
+def _fq_ternary(w: torch.Tensor) -> torch.Tensor:
+    s = w.abs().mean(dim=-1, keepdim=True).clamp_min(1e-30)
+    return s * torch.clamp(torch.round(w / s), -1, 1)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Forward: ``w + (wq - w)`` in w's dtype, the reference's expression
+    (in f32 it can differ from ``wq`` in the last bit). Backward: the
+    identity, the reference's ``stop_gradient`` straight-through estimator."""
+
+    @staticmethod
+    def forward(ctx, w, bits, scheme):
+        wf = w.to(torch.float32)
+        wq = _fq_ternary(wf) if scheme == "ternary" else _fq_symmetric(wf, bits)
+        return w + (wq.to(w.dtype) - w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def fake_quant(w: torch.Tensor, bits: int,
+               scheme: str = "symmetric") -> torch.Tensor:
+    """STE fake-quant along the last axis (one scale a row): the forward
+    uses the quantized value, the gradient passes through unchanged."""
+    return _FakeQuant.apply(w, bits, scheme)

@@ -30,12 +30,12 @@ one bit for bit.
 
 from __future__ import annotations
 
-from typing import Callable
-
 import torch
 
+from repro_torch.core.tree import tree_map, tree_map_with_path
+
 __all__ = ["attn_cache", "mamba_cache", "mamba2_cache", "cache_len",
-           "tree_map", "leaves", "batch_axes", "seq_axes", "slice_batch",
+           "batch_axes", "seq_axes", "slice_batch",
            "merge_batch", "paged_gather", "paged_scatter"]
 
 
@@ -72,33 +72,13 @@ def cache_len(cache) -> int:
 # cache trees and per-slot views (continuous-batching engine)
 # ---------------------------------------------------------------------------
 
-def tree_map(fn: Callable, tree, *rest, path: str = ""):
-    """``fn(leaf, *other_leaves, path)`` over a tree of dicts, tuples and
-    lists, the trees in ``rest`` shaped alike; keeps the containers."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest), path=f"{path}/{k}")
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
-                                   path=f"{path}/{i}")
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest, path)
-
-
-def leaves(tree) -> list:
-    """The leaves of a cache tree, in ``tree_map``'s order."""
-    out = []
-    tree_map(lambda leaf, _: out.append(leaf), tree)
-    return out
-
-
 def _diff_axes(a: torch.Tensor, b: torch.Tensor):
     return [i for i, (p, q) in enumerate(zip(a.shape, b.shape)) if p != q]
 
 
 def batch_axes(cache_b1, cache_b2):
     """Per-leaf batch axis, from two caches built with batch 1 and 2."""
-    def one(a, b, path):
+    def one(path, a, b):
         diffs = _diff_axes(a, b)
         if len(diffs) != 1:
             raise ValueError(
@@ -106,13 +86,13 @@ def batch_axes(cache_b1, cache_b2):
                 f"shapes {tuple(a.shape)} vs {tuple(b.shape)} differ in "
                 f"{len(diffs)} dims (expected exactly 1)")
         return diffs[0]
-    return tree_map(one, cache_b1, cache_b2)
+    return tree_map_with_path(one, cache_b1, cache_b2)
 
 
 def seq_axes(cache_s1, cache_s2):
     """Per-leaf sequence axis, from two caches built with different
     capacities (same batch); -1 where the shape does not depend on it."""
-    def one(a, b, path):
+    def one(path, a, b):
         diffs = _diff_axes(a, b)
         if len(diffs) > 1:
             raise ValueError(
@@ -120,7 +100,7 @@ def seq_axes(cache_s1, cache_s2):
                 f"shapes {tuple(a.shape)} vs {tuple(b.shape)} differ in "
                 f"{len(diffs)} dims (expected 0 or 1)")
         return diffs[0] if diffs else -1
-    return tree_map(one, cache_s1, cache_s2)
+    return tree_map_with_path(one, cache_s1, cache_s2)
 
 
 def slice_batch(caches, idx: int, axes=None):
@@ -128,17 +108,17 @@ def slice_batch(caches, idx: int, axes=None):
     ``axes`` the per-leaf batch axes (None: axis 1 of every leaf, the
     layer-stacked layout)."""
     if axes is None:
-        return tree_map(lambda c, _: c.narrow(1, idx, 1), caches)
-    return tree_map(lambda c, ax, _: c.narrow(ax, idx, 1), caches, axes)
+        return tree_map(lambda c: c.narrow(1, idx, 1), caches)
+    return tree_map(lambda c, ax: c.narrow(ax, idx, 1), caches, axes)
 
 
 def merge_batch(caches, slot_caches, idx: int, axes=None):
     """Copy a batch-1 cache tree into slot ``idx`` of the pool, in place."""
     if axes is None:
-        tree_map(lambda c, sc, _: c.narrow(1, idx, 1).copy_(sc), caches,
+        tree_map(lambda c, sc: c.narrow(1, idx, 1).copy_(sc), caches,
                  slot_caches)
     else:
-        tree_map(lambda c, sc, ax, _: c.narrow(ax, idx, 1).copy_(sc),
+        tree_map(lambda c, sc, ax: c.narrow(ax, idx, 1).copy_(sc),
                  caches, slot_caches, axes)
     return caches
 

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core import mpgemm as mp
+from repro_torch.core.quantize import fake_quant
 from repro_torch.models import kvcache
 
 Params = Dict[str, Any]
@@ -74,14 +75,20 @@ def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = True,
 
 def lut_dense(p: Params, x: torch.Tensor, quant: Optional[dict] = None,
               table=None) -> torch.Tensor:
-    """y = x @ W (+b)."""
+    """y = x @ W (+b). A float W under ``quant["qat"]`` (the training
+    forward) is fake-quantized per output channel along the input axis
+    first, whatever ``quant["skip"]`` says, as in the reference."""
     if "qw" in p:
         q = quant or {}
         y = mp.mpgemm(x, p["qw"], mode=q.get("mpgemm_mode", "lut_xla"),
                       table_quant=q.get("table_quant", "per_row"),
                       table=table, fusion=q.get("fusion", "auto"))
     else:
-        w = p["w"].to(x.dtype).to(torch.float32)
+        w = p["w"]
+        if quant and quant.get("qat"):
+            w = fake_quant(w.T, quant.get("weight_bits", 2),
+                           quant.get("scheme", "symmetric")).T
+        w = w.to(x.dtype).to(torch.float32)
         y = (x.to(torch.float32) @ w).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
@@ -333,8 +340,9 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
 def mlp_apply(p: Params, x: torch.Tensor,
               quant: Optional[dict] = None) -> torch.Tensor:
     """SwiGLU MLP, or without a ``gate`` whisper's GELU MLP (the tanh
-    form, ``jax.nn.gelu``'s default)."""
-    tbl = make_table(x, quant)
+    form, ``jax.nn.gelu``'s default). Float weights (the training
+    forward) read no table."""
+    tbl = make_table(x, quant) if "qw" in p["up"] else None
     if "gate" in p:
         g = lut_dense(p["gate"], x, quant, tbl)
         u = lut_dense(p["up"], x, quant, tbl)

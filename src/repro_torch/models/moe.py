@@ -35,6 +35,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core import mpgemm as mp
+from repro_torch.core.quantize import fake_quant
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TR
 
@@ -77,7 +78,8 @@ def _expert_ffn(w: Params, x: torch.Tensor, quant) -> torch.Tensor:
     projection, ``gate`` and ``up`` sharing one table where the plan at
     (C, D) is staged (§3.1.1: the fused kernel rebuilds its table on chip);
     float experts run batched f32 products of x and the weights rounded to
-    x's dtype."""
+    x's dtype, fake-quantized along their contraction axis first under
+    ``quant["qat"]`` (the training forward)."""
     if "gate_qw" in w:
         q = quant or {}
         mode = q.get("mpgemm_mode", "lut_xla")
@@ -99,6 +101,9 @@ def _expert_ffn(w: Params, x: torch.Tensor, quant) -> torch.Tensor:
         return mp.mpgemm(h, w["down_qw"], **kw)
 
     def bmm(a, wt):
+        if quant and quant.get("qat"):  # per expert and output channel
+            wt = fake_quant(wt.transpose(1, 2), quant.get("weight_bits", 2),
+                            quant.get("scheme", "symmetric")).transpose(1, 2)
         return torch.bmm(a.to(torch.float32),
                          wt.to(a.dtype).to(torch.float32)).to(a.dtype)
 

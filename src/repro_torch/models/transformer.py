@@ -2,12 +2,12 @@
 
 embedding → L × block (a Python loop over the per-layer param dicts, the
 counterpart of the reference's ``lax.scan`` over stacked layers) → final
-norm → LM head.
+norm → LM head; ``lm_loss`` is the training loss.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -29,6 +29,20 @@ def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def head_apply(p: Params, h: torch.Tensor, quant=None) -> torch.Tensor:
     return L.lut_dense(p, h, quant)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in f32; with ``mask`` the mean over the
+    masked-in tokens (at least one)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:

@@ -88,6 +88,7 @@ import torch
 
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.core import mpgemm as mp
+from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
 from repro_torch.models import api, kvcache
 from repro_torch.models import quantized as qz
 from repro_torch.obs import dispatch as dispatch_obs
@@ -192,20 +193,20 @@ class ServingEngine:
         self._slot_probe = probe(1, max_seq)
         self._axes = kvcache.batch_axes(self._slot_probe, probe(2, max_seq))
         seq_axes = kvcache.seq_axes(probe(1, 16), probe(1, 32))
-        self._pooled = kvcache.tree_map(lambda sax, _: sax >= 0, seq_axes)
+        self._pooled = tree_map(lambda sax: sax >= 0, seq_axes)
         # every leaf positional: what self-speculation (it rewrites cache
         # positions), beam forks and prefix caching need
-        pooled = kvcache.leaves(self._pooled)
+        pooled = tree_leaves(self._pooled)
         self._has_pooled, self._all_pooled = any(pooled), all(pooled)
         if self.paged:
             # a pooled leaf carries (batch, seq) adjacently, so
             # init_cache(cfg, num_blocks, block_size) is its pool
-            def check(bax, sax, path):
+            def check(path, bax, sax):
                 if sax >= 0 and sax != bax + 1:
                     raise ValueError(
                         f"cannot page cache leaf at {path!r}: sequence axis "
                         f"{sax} is not adjacent to batch axis {bax}")
-            kvcache.tree_map(check, self._axes, seq_axes)
+            tree_map_with_path(check, self._axes, seq_axes)
             if self.prefix_caching and not self._all_pooled:
                 warnings.warn(
                     "prefix caching needs every cache leaf paged; family="
@@ -239,8 +240,8 @@ class ServingEngine:
                                   device="meta")
             dense = api.init_cache(self.cfg, b, self.max_seq,
                                    dtype=torch.float32, device="meta")
-            self.caches = kvcache.tree_map(
-                lambda p, d, pooled, _: torch.zeros(
+            self.caches = tree_map(
+                lambda p, d, pooled: torch.zeros(
                     (p if pooled else d).shape, dtype=p.dtype, device=dev),
                 pool, dense, self._pooled)
             self.page_table = torch.zeros((b, self.blocks_per_slot),
@@ -374,8 +375,8 @@ class ServingEngine:
         block (batch) axis; slot-resident leaves are left as they are."""
         src_t, dst_t = (self._to_device(np.asarray(ids, np.int64))
                         for ids in (src, dst))
-        kvcache.tree_map(
-            lambda c, ax, pooled, _: c.index_copy_(
+        tree_map(
+            lambda c, ax, pooled: c.index_copy_(
                 ax, dst_t, c.index_select(ax, src_t)) if pooled else None,
             self.caches, self._axes, self._pooled)
 
@@ -396,13 +397,13 @@ class ServingEngine:
             dst = torch.where(do_copy[:, None], self.page_table,
                               0).reshape(-1)
 
-        def fork(c, ax, pooled, _):
+        def fork(c, ax, pooled):
             if self.paged and pooled:
                 cm = c.movedim(ax, 0)  # a view: the assignment writes c
                 cm[dst] = cm[src]
             else:
                 c.copy_(c.index_select(ax, parent))
-        kvcache.tree_map(fork, self.caches, self._axes, self._pooled)
+        tree_map(fork, self.caches, self._axes, self._pooled)
 
     def _decode_general(self, has_beam: bool, has_spec: bool,
                         sampling: bool):
@@ -694,8 +695,8 @@ class ServingEngine:
                                 tokens_reused=min(start, plen - 1))
         # pooled leaves: the pool itself; slot-resident ones: a zeroed
         # batch-1 view, copied into slot i after the prefill
-        view = kvcache.tree_map(
-            lambda c, z, pooled, _: c if pooled else torch.zeros(
+        view = tree_map(
+            lambda c, z, pooled: c if pooled else torch.zeros(
                 z.shape, dtype=z.dtype, device=self.device),
             self.caches, self._slot_probe, self._pooled)
         with self._annotate("admit"):
@@ -703,8 +704,8 @@ class ServingEngine:
                                    page_row=self.page_table[i:i + 1],
                                    uid=req.uid, slot=i)
         if not self._all_pooled:
-            kvcache.tree_map(
-                lambda c, v, ax, pooled, _: None if pooled else c.narrow(
+            tree_map(
+                lambda c, v, ax, pooled: None if pooled else c.narrow(
                     ax, i, 1).copy_(v),
                 self.caches, view, self._axes, self._pooled)
         if self.tracer is not None:
@@ -783,8 +784,8 @@ class ServingEngine:
                     self._copy_blocks(lead_row[m_share:], blocks)
                 # slot-resident leaves: the leader's row (the reference's
                 # ``_fork_slot``)
-                kvcache.tree_map(
-                    lambda c, ax, pooled, _: None if pooled else c.narrow(
+                tree_map(
+                    lambda c, ax, pooled: None if pooled else c.narrow(
                         ax, m, 1).copy_(c.narrow(ax, lead, 1)),
                     self.caches, self._axes, self._pooled)
                 row = lead_row[:m_share] + blocks
@@ -1054,7 +1055,7 @@ class ServingEngine:
             # single-device engine: no mesh (the reference's plan=None)
             "mesh": None,
             "cache_hbm_bytes": sum(c.numel() * c.element_size()
-                                   for c in kvcache.leaves(self.caches)),
+                                   for c in tree_leaves(self.caches)),
             "admit_attempts": self.admit_attempts,
             "admit_blocked": self.admit_blocked,
             "admission_blocked_rate": (self.admit_blocked

@@ -56,6 +56,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import registry as treg
 from repro_torch.core.quantize import QuantizedWeight
+from repro_torch.core.tree import tree_leaves
 from repro_torch.models import api as tapi
 from repro_torch.models import kvcache as tkv
 from repro_torch.models import ssm as tssm
@@ -307,8 +308,8 @@ def test_chunked_prefill_then_decode_equals_one_shot(packed, arch):
                      head=False, token_valid=torch.tensor([n]))
     seq = tkv.seq_axes(tapi.init_cache(tc, 1, 16, device="meta"),
                        tapi.init_cache(tc, 1, 32, device="meta"))
-    for a, b, sax in zip(tkv.leaves(one), tkv.leaves(chunked),
-                         tkv.leaves(seq)):
+    for a, b, sax in zip(tree_leaves(one), tree_leaves(chunked),
+                         tree_leaves(seq)):
         if sax >= 0:
             a, b = a.narrow(sax, 0, 11), b.narrow(sax, 0, 11)
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
@@ -393,7 +394,7 @@ def test_paged_streams_equal_dense(engine_params, arch):
     assert st["blocks_in_use"] == 0
     if arch == "falcon-mamba-7b":
         assert not eng._has_pooled and eng._alloc.num_used == 0
-        assert not any(tkv.leaves(eng._pooled))
+        assert not any(tree_leaves(eng._pooled))
     else:
         assert eng.caches["kv"][0].shape[1] == eng.num_cache_blocks
         assert eng.caches["mamba"]["ssm"].shape[2] == 2
@@ -512,7 +513,7 @@ def test_zamba2_hybrid_layout_axes():
     got = tapi.init_cache(tc, 2, 32, dtype=torch.float32, device="meta")
     assert set(got) == set(want)
     for grp in want:
-        assert ([tuple(a.shape) for a in tkv.leaves(got[grp])]
+        assert ([tuple(a.shape) for a in tree_leaves(got[grp])]
                 == [tuple(a.shape) for a in jax.tree.leaves(want[grp])]), grp
 
 

@@ -51,6 +51,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import registry as treg
 from repro_torch.core.quantize import QuantizedWeight
+from repro_torch.core.tree import tree_leaves
 from repro_torch.launch import serve
 from repro_torch.models import api as tapi
 from repro_torch.models import audio as taudio
@@ -379,9 +380,9 @@ def test_chunked_prefill_then_decode_equals_one_shot(packed, arch):
     seq = tkv.seq_axes(tapi.init_cache(tc, 1, 16, device="meta"),
                        tapi.init_cache(tc, 1, 32, device="meta"))
     cross = "image_kv" if arch == VLM else "cross_kv"
-    assert tkv.leaves(chunked[cross])[0].abs().max() > 0
-    for a, b, sax in zip(tkv.leaves(one), tkv.leaves(chunked),
-                         tkv.leaves(seq)):
+    assert tree_leaves(chunked[cross])[0].abs().max() > 0
+    for a, b, sax in zip(tree_leaves(one), tree_leaves(chunked),
+                         tree_leaves(seq)):
         if sax >= 0:
             a, b = a.narrow(sax, 0, 11), b.narrow(sax, 0, 11)
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL, atol=TOL)
@@ -462,8 +463,8 @@ def test_paged_streams_equal_dense(engine_params, arch):
     assert paged == dense
     assert eng.stats()["blocks_in_use"] == 0
     cross = "image_kv" if arch == VLM else "cross_kv"
-    assert not any(tkv.leaves(eng._pooled[cross]))
-    assert all(tkv.leaves(eng._pooled["kv"]))
+    assert not any(tree_leaves(eng._pooled[cross]))
+    assert all(tree_leaves(eng._pooled["kv"]))
     pool_axis = 2 if arch == VLM else 1
     assert eng.caches["kv"][0].shape[pool_axis] == eng.num_cache_blocks
     assert eng.caches[cross][0].shape[1] == 2
@@ -597,7 +598,7 @@ def test_cache_layout_axes(arch):
     got = tapi.init_cache(tc, 2, 32, dtype=torch.float32, device="meta")
     assert set(got) == set(want)
     for grp in want:
-        assert ([tuple(a.shape) for a in tkv.leaves(got[grp])]
+        assert ([tuple(a.shape) for a in tree_leaves(got[grp])]
                 == [tuple(a.shape) for a in jax.tree.leaves(want[grp])]), grp
 
 
