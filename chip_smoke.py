@@ -272,13 +272,47 @@ exit and no result line):
      launched, lut_pallas = lut_xla logits bit for bit), and, as a record,
      the max |logit difference| between the QAT forward and the packed
      lut_xla forward.
+ 15. kvint8  — the int8 KV cache (``kv_cache_dtype="int8"``: int8 codes
+     and one f32 absmax scale a position and head, quantized and
+     dequantized by plain torch ops, as the reference's are plain ``jnp``)
+     at full width, after phase 14, each model made anew from seed 0 and
+     freed after its part (``kvint8_phase``): (a) tinyllama-1.1b: phase
+     4's requests on an f32 and an int8 cache (``int8_serve``: the int8
+     serve's launch counts set to 0 just before and read just after, every
+     kernel of the per_row path launched, <= 1/decode_chunk host syncs a
+     token, an int8 decode chunk under torch's sync check launching exactly
+     one fused lookup and one row scale per projection a step), the
+     streams' agreement recorded; ``cache_hbm_bytes`` of both caches equal
+     to ``cache_formula``, dense (4 × 256) and paged (96 blocks of 16); a
+     decode step and a 128-token prefill chunk profiled on each cache in
+     turns, the kernels the int8 cache adds listed by name; a
+     teacher-forced forward (120 tokens prefilled, 8 per-slot decode
+     steps) on int8 caches through lut_pallas and lut_xla, logits bit-equal,
+     and the decode positions against an f32 cache, corrcoef > 0.999 (the
+     reference's bound, in its test's setting: float tables, the prefill
+     attending over its unquantized K/V; per_row and the engine's prefill
+     recorded beside a bf16 cache's); phase 6's prompts on int8 caches, the
+     paged pool with prefix sharing against the dense engine, phase 6's
+     reuse count and near-tie rule; a beam:2 request beside two greedy ones
+     through the kernels = lut_xla (``beam_legs``). (b) olmoe-1b-7b on int8 caches: phase 4's
+     requests (the batched fused kernel, one launch per expert projection
+     a step), paged = dense, the cache bytes against the formula; beam:1 =
+     greedy; beam:2 through the batched kernels = lut_xla (hypotheses
+     equal, scores within 1e-4); spec:draft1b (spec k 4, lut_xla) with
+     zero extra weight bytes, its verify steps, accepted drafts and
+     agreement with greedy recorded, not required (capacity couples a
+     burst's tokens); a lut_xla decode step timed. (c) whisper-tiny and
+     zamba2-7b: one int8 serve each (``int8_serve``), the cache bytes
+     against the formula (whisper's cross K/V int8 zeros, zamba2's Mamba2
+     state f32).
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record (the two batched wrappers listed
 beside the four kernels, with phase 11's launches and times; each kernel's
 launches and times at falcon-mamba-7b's, zamba2-7b's,
-llama-3.2-vision-11b's and whisper-tiny's shapes under their names, and
-the launches of phase 14's serve of the trained weights); the
+llama-3.2-vision-11b's and whisper-tiny's shapes under their names, the
+launches of phase 14's serve of the trained weights, and phase 15's
+int8-cache serves' by model); the
 last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
@@ -312,6 +346,10 @@ record as one line of JSON),
     python3 chip_smoke.py --train             # phases 1, 2 and 14 only
 
 phase 14 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --kvint8            # phases 1, 2 and 15 only
+
+phase 15 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -1273,10 +1311,11 @@ def decode_step_profile(eng):
                              ProfilerActivity.CUDA]) as prof:
         eng._decode_chunk(sampling=False)
         torch.cuda.synchronize()
-    per_name, fused, kernels = {}, [0.0, 0], 0
+    per_name, counts, fused, kernels = {}, {}, [0.0, 0], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
             kernels += not e.name.startswith(("Memcpy", "Memset"))
             if any(k in e.name for k in FUSED_KERNELS):
                 fused[0] += e.device_time_total
@@ -1292,7 +1331,9 @@ def decode_step_profile(eng):
             # CUDA kernels the profiler saw per step (copies and fills apart)
             "kernels": kernels / n,
             "lookup_kernels": lookup_names(per_name, FUSED_KERNELS),
-            "top": [(name[:60], t / 1e3 / n) for name, t in top]}
+            "top": [(name[:60], t / 1e3 / n) for name, t in top],
+            # launches a step of each kernel name
+            "by_name": {name: c / n for name, c in counts.items()}}
 
 
 def lookup_names(per_name, bases):
@@ -1323,7 +1364,9 @@ def prefill_chunk_profile(eng):
     from repro_torch.models import api
     prompt = np.random.default_rng(5).integers(0, eng.cfg.vocab_size,
                                                eng.prefill_chunk + 1)
-    cache = api.init_cache(eng.cfg, 1, eng.max_seq, dtype=torch.float32,
+    # the engine's cache dtype (f32 in a checkout without the int8 cache)
+    cache = api.init_cache(eng.cfg, 1, eng.max_seq,
+                           dtype=getattr(eng, "_cache_dtype", torch.float32),
                            device=eng.device)
     eng._prefill(prompt, 0, cache)  # warm-up
     torch.cuda.synchronize()
@@ -1335,10 +1378,12 @@ def prefill_chunk_profile(eng):
                              ProfilerActivity.CUDA]) as prof:
         eng._prefill(prompt, 0, cache)
         torch.cuda.synchronize()
-    per_name, staged, fused, kernels = {}, [0.0, 0], [0.0, 0], 0
+    per_name, counts = {}, {}
+    staged, fused, kernels = [0.0, 0], [0.0, 0], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+            counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
             kernels += not e.name.startswith(("Memcpy", "Memset"))
             for names, acc in ((STAGED_KERNELS, staged),
                                (FUSED_KERNELS, fused)):
@@ -1359,7 +1404,8 @@ def prefill_chunk_profile(eng):
             "fused_lookup_kernels": fused[1],
             "kernels": kernels,
             "lookup_kernels": lookup_names(per_name, STAGED_KERNELS),
-            "top": [(name[:60], t / 1e3) for name, t in top]}
+            "top": [(name[:60], t / 1e3) for name, t in top],
+            "by_name": counts}
 
 
 def prefill_line(rec):
@@ -3465,6 +3511,481 @@ def train_lines(cfg, eng, rec):
     ] + serve_lines("train", cfg, eng, rec["serve"])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the int8 KV cache
+# ---------------------------------------------------------------------------
+
+# (c)'s models, each served once on an int8 cache
+KV_FAMILIES = ("whisper-tiny", "zamba2-7b")
+KV_ARCHS = ("tinyllama-1.1b", MOE) + KV_FAMILIES
+# (b): olmoe's beam:2 legs and spec request, whose lut_xla forwards run 64
+# experts' plain lookups one expert at a time (~3 s a decode step on the
+# H100): as few new tokens as the checks need, two verify rounds of spec k
+# 4, each leg's decode chunk as long as its request (a chunk runs all its
+# steps, a finished request's too)
+KV_BEAM_NEW, KV_SPEC_NEW = 3, 2
+# the reference's bound on int8 against f32 cache logits
+# (tests/test_perf_features.py)
+KV_CORRCOEF = 0.999
+
+
+def cache_formula(cfg, batch, positions, int8):
+    """An engine's cache bytes from the config alone: every attention
+    layer's K and V at ``positions`` positions (f32: 4·hd bytes a head;
+    int8: hd bytes of codes and a 4-byte scale), plus the slot-resident
+    state of ``batch`` slots: whisper's cross K/V (f32, or int8 zeros) and
+    zamba2's Mamba2 conv and SSM state (f32)."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    n_attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+              else cfg.n_layers)
+    total = n_attn * positions * 2 * kv * (hd + 4 if int8 else 4 * hd)
+    if cfg.family == "audio":
+        total += (2 * cfg.n_layers * batch * cfg.n_audio_frames * kv * hd
+                  * (1 if int8 else 4))
+    if cfg.family == "hybrid":
+        hd_ssm = cfg.d_inner // cfg.ssm_heads
+        total += 4 * cfg.n_layers * batch * (
+            (cfg.d_conv - 1) * cfg.d_inner
+            + cfg.ssm_heads * hd_ssm * cfg.ssm_state)
+    return total
+
+
+def check_cache_bytes(tag, cfg, params, **engine_kw):
+    """``stats()["cache_hbm_bytes"]`` of an f32 and an int8 engine (made,
+    nothing served) against ``cache_formula``. Returns {dtype: bytes}."""
+    from repro_torch.serving.engine import ServingEngine
+    kw = dict(SERVE_KW, **engine_kw)
+    out = {}
+    for dt in ("bf16", "int8"):
+        eng = ServingEngine(cfg, params, kv_cache_dtype=dt, **kw)
+        got = eng.stats()["cache_hbm_bytes"]
+        positions = (eng.num_cache_blocks * eng.cache_block_size
+                     if eng.paged else kw["max_batch"] * kw["max_seq"])
+        want = cache_formula(cfg, kw["max_batch"], positions, dt == "int8")
+        if got != want:
+            raise AssertionError(f"{tag}: {dt} cache of {got} bytes, the "
+                                 f"formula gives {want}")
+        out[dt] = got
+        del eng
+    return out
+
+
+def stream_agreement(got, want):
+    """Tokens equal position by position, and each stream's tokens before
+    its first difference, over the streams ``got`` against ``want``."""
+    equal = sum(x == y for a, b in zip(got, want) for x, y in zip(a, b))
+    prefix = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b))) for a, b in zip(got, want)]
+    return {"tokens": sum(len(a) for a in want), "equal_tokens": equal,
+            "agreeing_prefix": prefix}
+
+
+def int8_serve(tag, cfg, params, per_step):
+    """Phase 4's requests on an int8 cache (``cfg.kv_cache_dtype``), a
+    warm-up serve first, the launch counts set to 0 just before the serve
+    and read just after: every request finishes 16 tokens, every kernel of
+    the per_row path ran (the MoE serve's batched ones, ``MOE_PATHS``),
+    <= 1/decode_chunk host syncs a token; one more decode chunk under
+    torch's sync check launches ``per_step`` (kernel -> launches a step)
+    and nothing else. Returns (engine, requests, record)."""
+    serve(cfg, params, seed=1)  # warm-up
+    reset_counts()
+    eng, reqs = serve(cfg, params, seed=2)
+    launches = read_counts()
+    st = eng.stats()
+    ran = MOE_PATHS["auto"][0] if cfg.family == "moe" else PER_ROW_PATH
+    if not all(r.done and len(r.output) == 16 for r in reqs):
+        raise AssertionError(f"{tag}: not every request finished 16 tokens")
+    if min(launches[n] for n in ran) <= 0:
+        raise AssertionError(f"{tag}: a kernel never ran: {launches}")
+    if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
+        raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
+                             f"syncs per token > 1/{eng.decode_chunk}")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_chunk(sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk = read_counts()
+    want = dict({n: 0 for n in chunk},
+                **{n: c * eng.decode_chunk for n, c in per_step.items()})
+    if chunk != want:
+        raise AssertionError(f"{tag}: an int8 decode chunk launched {chunk},"
+                             f" not {want}")
+    return eng, reqs, {"serve": st, "launches": launches,
+                       "decode_chunk_launches": chunk,
+                       "outputs": [r.output for r in reqs]}
+
+
+def added_kernels(f32, int8):
+    """Kernel names launched more often in the int8 profile than in the
+    f32 one (launches a step or chunk), most added first."""
+    names = set(f32["by_name"]) | set(int8["by_name"])
+    delta = {n: int8["by_name"].get(n, 0) - f32["by_name"].get(n, 0)
+             for n in names}
+    return sorted(((n, d) for n, d in delta.items() if d),
+                  key=lambda nd: -nd[1])
+
+
+def int8_forward(cfg, params):
+    """(a)'s teacher-forced forward: 120 tokens prefilled at offset 0 into
+    a batch-1 cache, then 8 per-slot decode steps (positions 120-127).
+    On int8 caches through the kernels (lut_pallas) and the plain LUT path
+    (lut_xla), per_row: logits bit-equal at all 128 positions (the int8
+    cache is the same torch ops on both paths). The decode positions'
+    logits against an f32 cache's, for float tables (None) and per_row,
+    in two settings: (1) the reference's own test's
+    (tests/test_perf_features.py): a prefill at the static offset 0
+    attends over its unquantized K/V and writes them quantized, so only
+    the decode steps read int8 codes; here the f32 cache's prefill, its
+    120 positions then quantized into an int8 cache (``_quantize_kv_slice``
+    a layer); (2) the engine's (and the reference engine's, whose traced
+    offset reads the cache): the prefill attends over the dequantized
+    cache. A bf16 cache in setting (2) is the control: per_row INT8
+    activation tables turn any change of a K/V into code flips, whatever
+    its size. The gate is the reference's bound, corrcoef > KV_CORRCOEF,
+    in its test's setting: float tables (its "auto" on the CPU), (1)."""
+    from repro_torch.models import api, kvcache
+    from repro_torch.models.layers import _quantize_kv_slice
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+
+    def decode(c, cache, out):
+        for p in range(120, 128):
+            out.append(api.forward(
+                params, {"tokens": toks[:, p:p + 1]}, c, caches=cache,
+                cache_pos=torch.full((1,), p, device="cuda"))[0])
+        return torch.cat(out, dim=1)
+
+    def run(c, dtype):
+        cache = api.init_cache(c, 1, 128, dtype=dtype, device="cuda")
+        return decode(c, cache, [api.forward(
+            params, {"tokens": toks[:, :120]}, c, caches=cache,
+            cache_pos=0)[0]])
+
+    def exact_prefill(c):
+        c32 = api.init_cache(c, 1, 128, dtype=torch.float32, device="cuda")
+        api.forward(params, {"tokens": toks[:, :120]}, c, caches=c32,
+                    cache_pos=0)
+        c8 = kvcache.attn_cache(cfg.n_layers, 1, 128, cfg.n_kv_heads,
+                                cfg.head_dim, "int8", device="cuda")
+        for i in (0, 1):
+            codes, scales = _quantize_kv_slice(c32[i][:, :, :120])
+            c8[i][:, :, :120], c8[i + 2][:, :, :120] = codes, scales
+        return decode(c, c8, [])
+
+    quant = lambda mode, tq: cfg.with_quant(mpgemm_mode=mode, table_quant=tq)
+    a = run(quant("lut_pallas", "per_row"), "int8")
+    b = run(quant("lut_xla", "per_row"), "int8")
+    if (tuple(a.shape) != (1, 128, cfg.vocab_size)
+            or not torch.isfinite(a).all()):
+        raise AssertionError(f"kvint8: bad logits {tuple(a.shape)}")
+    diff = (a - b).abs().max().item()
+    if diff != 0.0:
+        raise AssertionError(f"kvint8: int8-cache logits, kernels vs plain "
+                             f"path, max |diff| {diff}")
+    out = {"parity_max_abs_diff": diff}
+    for tq in (None, "per_row"):
+        c = quant("lut_pallas", tq)
+        dec32 = run(c, torch.float32)[0, 120:].double()
+
+        def vs_f32(logits):
+            d = logits[0, -8:].double()
+            return {"corrcoef": torch.corrcoef(torch.stack(
+                        [d.flatten(), dec32.flatten()]))[0, 1].item(),
+                    "max_abs_diff": (d - dec32).abs().max().item(),
+                    "argmax_equal": int((d.argmax(-1) == dec32.argmax(-1))
+                                        .sum().item())}
+
+        out[str(tq)] = {
+            "max_abs_logit": dec32.abs().max().item(),
+            "exact_prefill": vs_f32(exact_prefill(c)),
+            "engine_prefill": vs_f32(a if tq else run(c, "int8")),
+            "bf16_cache_control": vs_f32(run(c, torch.bfloat16))}
+    cc = out["None"]["exact_prefill"]["corrcoef"]
+    if not cc > KV_CORRCOEF:
+        raise AssertionError(f"kvint8: int8 vs f32 cache decode logits, "
+                             f"float tables, after an exact prefill: "
+                             f"corrcoef {cc} <= {KV_CORRCOEF} ({out})")
+    return out
+
+
+def int8_paged(tag, cfg, params):
+    """Phase 6's prompts (16 new tokens each) on int8 caches, the dense
+    engine against the block-paged pool (block 16, 96 blocks) with prefix
+    sharing: the dense streams up to a near tie (phase 6's rule) and the
+    prompt tokens reused equal to ``expected_reuse``."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    bs = 16
+    prompts = paged_prompts(cfg.vocab_size, bs)
+    paged_kw = dict(SERVE_KW, cache_block_size=bs, num_cache_blocks=96)
+
+    def run(**kw):
+        eng = ServingEngine(cfg, params, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        if not all(r.done and len(r.output) == 16 for r in reqs):
+            raise AssertionError(f"{tag} paged: a request did not finish")
+        return eng, [r.output for r in reqs]
+
+    _, dense = run(**SERVE_KW)
+    eng, shared = run(**paged_kw, prefix_cache=True)
+    st = eng.stats()
+    reuse = expected_reuse(prompts, bs)
+    if st["prefill_tokens_reused"] != reuse:
+        raise AssertionError(f"{tag} paged: {st['prefill_tokens_reused']} "
+                             f"prompt tokens reused, the rule gives {reuse}")
+    return {"requests": len(prompts),
+            "divergences": near_ties(f"{tag} paged", cfg, params, prompts,
+                                     shared, dense),
+            "prefill_tokens_reused": st["prefill_tokens_reused"],
+            "expected_reuse": reuse}
+
+
+def moe_int8_decoding(cfg, params, greedy):
+    """(b)'s decoding modes on olmoe's int8 caches, phase 4's prompts:
+    beam:1 of prompt 0 (16 new tokens) equal to its greedy stream; a
+    beam:2 request through the batched kernels and under lut_xla
+    (``KV_BEAM_NEW`` new tokens): the same hypotheses in the same order,
+    scores within 1e-4 relative; a spec:draft1b request (spec k 4, under
+    lut_xla, ``KV_SPEC_NEW`` new tokens) on a draft of zero extra weight
+    bytes, its verify steps, mean accepted drafts and agreement with the
+    greedy stream recorded (capacity couples a burst's tokens: equality is
+    not required). One lut_xla decode step of the pool is timed."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    prompt = serve_prompts(cfg.vocab_size, seed=2)[0]
+    xla = cfg.with_quant(mpgemm_mode="lut_xla", table_quant="per_row")
+    out = {}
+
+    def run(leg, c, decoding, n_new, **kw):
+        eng = ServingEngine(c, params, **dict(SERVE_KW, **kw))
+        req = Request(uid=0, prompt=prompt, max_new_tokens=n_new,
+                      decoding=decoding)
+        t0 = time.perf_counter()
+        eng.submit(req)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out[leg] = {"seconds": time.perf_counter() - t0,
+                    "decode_tok_s": st["decode_tok_s"],
+                    "host_syncs_per_token": st["host_syncs_per_token"]}
+        # one sync a decode chunk: a short request's one chunk too
+        if (not req.done or len(req.output) != n_new or st["decode_syncs"]
+                > -(-st["decode_tokens"] // eng.decode_chunk)):
+            raise AssertionError(f"moe int8 {leg}: {out[leg]}, "
+                                 f"{st['decode_syncs']} syncs")
+        return eng, req
+
+    _, b1 = run("beam1", cfg, "beam:1", 16)
+    if b1.output != greedy:
+        raise AssertionError("moe int8: beam:1 differs from greedy")
+    beams = {}
+    for leg, c in (("beam2_lut_pallas", cfg), ("beam2_lut_xla", xla)):
+        eng, req = run(leg, c, "beam:2", KV_BEAM_NEW,
+                       decode_chunk=KV_BEAM_NEW)
+        beams[leg] = req.beams
+    # one more lut_xla decode step of the pool, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._forward(params, eng.last_tok[:, None], eng.pos)
+    torch.cuda.synchronize()
+    out["lut_xla_step_s"] = time.perf_counter() - t0
+    del eng
+    got, want = beams["beam2_lut_pallas"], beams["beam2_lut_xla"]
+    if (len(got) != 2 or [list(t) for t, _ in got]
+            != [list(t) for t, _ in want]
+            or not np.allclose([s for _, s in got], [s for _, s in want],
+                               rtol=1e-4, atol=0)):
+        raise AssertionError(f"moe int8: beam:2 through the kernels {got} "
+                             f"vs lut_xla {want}")
+    out["beams"] = [(list(t), s) for t, s in got]
+    eng, req = run("spec_lut_xla", xla, "spec:draft1b", KV_SPEC_NEW,
+                   spec_k=4, spec_draft_planes=1, decode_chunk=KV_SPEC_NEW)
+    sp = eng.stats()["spec"]
+    if sp["draft_extra_hbm_bytes"] != 0 or sp["verify_steps"] <= 0:
+        raise AssertionError(f"moe int8: spec stats {sp}")
+    out["spec"] = dict(sp, output=req.output,
+                       agreement=stream_agreement([req.output],
+                                                  [greedy[:KV_SPEC_NEW]]))
+    return out
+
+
+def made(cfg):
+    """``cfg``'s params from seed 0, made on the card; (params, seconds)."""
+    from repro_torch.models import api
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def kvint8_phase():
+    """Phase 15 (module docstring): the int8 KV cache at full width, each
+    model made from seed 0 and freed after its part. Returns the record."""
+    t_start = time.perf_counter()
+    rec = {}
+
+    # (a) tinyllama-1.1b
+    cfg = main_config()
+    c8 = cfg.replace(kv_cache_dtype="int8")
+    params, init_s = made(cfg)
+    per_step = (len(projection_shapes(cfg)) - 1) * cfg.n_layers + 1
+    serve(cfg, params, seed=1)  # warm-up
+    eng32, reqs32 = serve(cfg, params, seed=2)
+    eng8, reqs8, a = int8_serve("kvint8 tinyllama", c8, params, {
+        "fused_lut_mpgemm": per_step, "row_scale": per_step})
+    a.update(init_s=init_s, serve_f32=eng32.stats(),
+             agreement_vs_f32=stream_agreement(a["outputs"],
+                                               [r.output for r in reqs32]))
+    a["cache_bytes"] = check_cache_bytes("kvint8 tinyllama", cfg, params)
+    a["paged_cache_bytes"] = check_cache_bytes(
+        "kvint8 tinyllama paged", cfg, params, cache_block_size=16,
+        num_cache_blocks=96)
+    # profiles in turns, f32 then int8, each with its launches
+    a["profile_f32"], a["profile_int8"] = (step_and_chunk(eng32),
+                                           step_and_chunk(eng8))
+    a["added_kernels"] = {what: added_kernels(a["profile_f32"][what],
+                                              a["profile_int8"][what])
+                          for what in ("decode_step", "prefill_chunk")}
+    a["forward"] = int8_forward(cfg, params)
+    a["paged"] = int8_paged("kvint8 tinyllama", c8, params)
+    a["beam"] = beam_legs("kvint8 tinyllama", c8, params, paged=False)
+    rec["tinyllama-1.1b"] = a
+    del eng32, eng8, params
+    gc_cuda()
+    rec["tinyllama_s"] = time.perf_counter() - t_start
+
+    # (b) olmoe-1b-7b
+    t0 = time.perf_counter()
+    cfg = moe_config()
+    c8 = cfg.replace(kv_cache_dtype="int8")
+    params, init_s = made(cfg)
+    experts = 3 * cfg.n_layers
+    eng8, reqs8, b = int8_serve("kvint8 olmoe", c8, params, {
+        "fused_lut_mpgemm_batched": experts, "fused_lut_mpgemm": 1,
+        "row_scale": experts + 1})
+    del eng8
+    b["init_s"] = init_s
+    _, paged_reqs = serve(c8, params, seed=2, cache_block_size=16)
+    if [r.output for r in paged_reqs] != b["outputs"]:
+        raise AssertionError("kvint8 olmoe: paged int8 streams differ from "
+                             "the dense int8 ones")
+    b["cache_bytes"] = check_cache_bytes("kvint8 olmoe", cfg, params)
+    b["paged_cache_bytes"] = check_cache_bytes(
+        "kvint8 olmoe paged", cfg, params, cache_block_size=16)
+    b["decoding"] = moe_int8_decoding(c8, params, b["outputs"][0])
+    b["seconds"] = time.perf_counter() - t0
+    rec[MOE] = b
+    del params
+    gc_cuda()
+
+    # (c) whisper-tiny and zamba2-7b, one int8 greedy serve each
+    for arch in KV_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = full_config(arch)
+        c8 = cfg.replace(kv_cache_dtype="int8")
+        params, init_s = made(cfg)
+        n = projections_per_step(cfg)
+        eng8, _, r = int8_serve(f"kvint8 {arch}", c8, params, {
+            "fused_lut_mpgemm": n, "row_scale": n})
+        r.update(init_s=init_s, decode_step_wall_ms=decode_step_wall(eng8),
+                 cache_bytes=check_cache_bytes(f"kvint8 {arch}", cfg,
+                                               params),
+                 seconds=time.perf_counter() - t0)
+        rec[arch] = r
+        del eng8, params
+        gc_cuda()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def kvint8_lines(rec):
+    """Phase 15's record as text."""
+    a = rec["tinyllama-1.1b"]
+    lines = []
+    for arch in KV_ARCHS:
+        r = rec[arch]
+        st, ag = r["serve"], r.get("agreement_vs_f32")
+        lines.append(
+            f"kvint8: {arch}, int8 KV cache, phase 4's requests: "
+            f"{st['decode_tokens']} tokens, decode {st['decode_tok_s']:.1f} "
+            f"tok/s, host syncs/token {st['host_syncs_per_token']:.4f}; "
+            f"launches {r['launches']}; an int8 decode chunk under torch's "
+            f"sync check: launches {r['decode_chunk_launches']}; cache bytes "
+            f"f32 {r['cache_bytes']['bf16']} / int8 "
+            f"{r['cache_bytes']['int8']} (the formula)"
+            + (f", paged f32 {r['paged_cache_bytes']['bf16']} / int8 "
+               f"{r['paged_cache_bytes']['int8']}"
+               if "paged_cache_bytes" in r else "")
+            + (f"; streams vs the f32 cache: {ag['equal_tokens']} of "
+               f"{ag['tokens']} tokens equal, agreeing prefixes "
+               f"{ag['agreeing_prefix']}" if ag else "")
+            + f"; params made in {r['init_s']:.1f} s")
+    for what in ("decode_step", "prefill_chunk"):
+        p32, p8 = a["profile_f32"][what], a["profile_int8"][what]
+        lines.append(
+            f"kvint8: tinyllama {what.replace('_', ' ')}, f32 vs int8 cache: "
+            + " vs ".join(
+                "busy not measured" if p["busy_ms"] is None else
+                f"{p['kernels']:g} kernels, busy {p['busy_ms']:.2f} / wall "
+                f"{p['wall_ms']:.2f} ms (idle {p['idle_share']:.3f})"
+                for p in (p32, p8))
+            + "; added kernels: " + ", ".join(
+                f"{n} +{d:g}" for n, d in a["added_kernels"][what][:8]))
+    fw, pg = a["forward"], a["paged"]
+    vs = lambda r: (f"corrcoef {r['corrcoef']:.6f}, max |diff| "
+                    f"{r['max_abs_diff']:.4g}, argmax equal at "
+                    f"{r['argmax_equal']} of 8")
+    lines.append(
+        f"kvint8: tinyllama 128-token forward on int8 caches, lut_pallas vs "
+        f"lut_xla max |logit diff| {fw['parity_max_abs_diff']} (exact); the "
+        f"8 decode positions vs the f32 cache's: " + "; ".join(
+            f"{tq} tables (max |logit| {fw[tq]['max_abs_logit']:.4g}): after "
+            f"an exact prefill (the reference test's setting) "
+            f"{vs(fw[tq]['exact_prefill'])}, after the engine's prefill "
+            f"{vs(fw[tq]['engine_prefill'])}, a bf16 cache (control) "
+            f"{vs(fw[tq]['bf16_cache_control'])}" for tq in ("None",
+                                                             "per_row"))
+        + f"; gate: None, exact prefill, corrcoef > {KV_CORRCOEF}")
+    lines.append(
+        f"kvint8: tinyllama paged int8 (block 16, 96 blocks, prefix "
+        f"sharing) vs dense int8 on phase 6's {pg['requests']} requests: "
+        f"near-tie divergences {pg['divergences']}, "
+        f"{pg['prefill_tokens_reused']} tokens reused (rule "
+        f"{pg['expected_reuse']}); beam:2 through the kernels = lut_xla "
+        "(legs " + ", ".join(f"{k} {a['beam'][k]['seconds']:.1f} s"
+                             for k in ("lut_pallas", "lut_xla"))
+        + ")")
+    d = rec[MOE]["decoding"]
+    sp = d["spec"]
+    lines.append(
+        f"kvint8: {MOE} int8 decoding: paged = dense; beam:1 = greedy; "
+        f"one lut_xla decode step {d['lut_xla_step_s']:.2f} s; beam:2 "
+        f"({KV_BEAM_NEW} tokens) through the batched kernels = lut_xla, "
+        f"scores {[round(s, 6) for _, s in d['beams']]}; spec:draft1b "
+        f"(spec k 4, lut_xla, {KV_SPEC_NEW} tokens): {sp['verify_steps']} "
+        f"verify steps, {sp['mean_accepted_per_step']:.2f} drafts accepted a"
+        f" step, extra weight bytes {sp['draft_extra_hbm_bytes']}, "
+        f"{sp['agreement']['equal_tokens']} of {KV_SPEC_NEW} tokens equal to"
+        f" greedy; legs " + ", ".join(
+            f"{k} {v['seconds']:.1f} s" for k, v in d.items()
+            if isinstance(v, dict) and "seconds" in v))
+    lines.append(f"kvint8: phase 15 in {rec['seconds']:.1f} s (tinyllama "
+                 f"{rec['tinyllama_s']:.1f}, olmoe "
+                 f"{rec[MOE]['seconds']:.1f}, " + ", ".join(
+                     f"{arch} {rec[arch]['seconds']:.1f}"
+                     for arch in KV_FAMILIES) + ")")
+    return lines
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -3644,6 +4165,12 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"train": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--kvint8":
+        rec = kvint8_phase()
+        for line in kvint8_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"kvint8": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -3809,6 +4336,13 @@ def main() -> int:
     del teng
     print(f"train: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 15: the int8 KV cache on tinyllama-1.1b, olmoe-1b-7b (with its
+    # beam and speculation), whisper-tiny and zamba2-7b, each made anew
+    gc_cuda()
+    kv_rec = kvint8_phase()
+    for line in kvint8_lines(kv_rec):
+        print(line, flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -3892,6 +4426,9 @@ def main() -> int:
             "bitnet": bit, "moe_launches": moe_rec["launches"][name],
             "moe_staged_launches": moe_rec["staged_launches"][name],
             "train_serve_launches": train_rec["launches"][name],
+            # phase 15's int8-cache serves, by model
+            "kvint8_launches": {arch: kv_rec[arch]["launches"][name]
+                                for arch in KV_ARCHS},
             **ssm_models, **xattn_models})
     # the expert-batched wrappers, per_row at the expert shapes (decode
     # C = 8 and prefill C = 24, gate/up and down), each with the launches
@@ -3907,6 +4444,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
             "path": f"phase 11, olmoe-1b-7b served with fusion={path}",
+            "kvint8_launches": kv_rec[MOE]["launches"][name],
             "max_abs_err": moe_rec["err"][name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
@@ -3926,7 +4464,7 @@ def main() -> int:
                    "float_tables": float_rec, "bitnet": bitnet_rec,
                    "decoding": decoding_rec, "telemetry": telemetry_rec,
                    "moe": moe_rec, "ssm": ssm_rec, "xattn": xattn_rec,
-                   "train": train_rec,
+                   "train": train_rec, "kvint8": kv_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,

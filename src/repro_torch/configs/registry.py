@@ -58,6 +58,10 @@ class ArchConfig:
     enc_layers: int = 0
     n_audio_frames: int = 0
     max_positions: int = 0
+    # "bf16" | "int8": anything but "int8" is the f32 cache the serving
+    # engine allocates; "int8" stores int8 codes and one f32 absmax scale a
+    # (position, head)
+    kv_cache_dtype: str = "bf16"
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024

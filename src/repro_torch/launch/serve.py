@@ -17,8 +17,11 @@ own weight scheme (``paper-bitnet-3b``: ternary, ``--weight-bits`` refused;
 the others W2 symmetric unless ``--weight-bits`` says otherwise;
 ``olmoe-1b-7b`` keeps its attention float, ``zamba2-7b`` its Mamba2
 in/out projections). The MoE archs (``olmoe-1b-7b``; ``kimi-k2-1t-a32b``,
-which fits a card only ``--reduced``) serve greedy and sampled requests;
-``beam`` and ``spec`` raise NotImplementedError on them. The SSM and hybrid
+which fits a card only ``--reduced``) serve every mode, ``spec`` under
+``--mode lut_xla`` as for the dense archs; the verify burst routes its
+B·(K+1) tokens with the capacity they set, as the reference's does, so a
+greedy ``spec`` stream can part from the greedy one where an expert
+overflows. The SSM and hybrid
 archs (``falcon-mamba-7b``: Mamba1, attention-free; ``zamba2-7b``: Mamba2
 with one shared attention block) and the cross-attention archs
 (``llama-3.2-vision-11b``: a gated image cross layer every 5 layers;

@@ -148,7 +148,12 @@ def forward(params, batch, cfg: ArchConfig, **kw):
     return _FAMILY[cfg.family].forward(params, batch, cfg, **kw)
 
 
-def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
-               dtype=torch.bfloat16, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, s_cache: int, dtype=None,
+               device="cuda"):
+    """The family's cache. ``dtype`` None follows ``cfg.kv_cache_dtype``,
+    as the reference's does: "int8" gives the int8 attention cache
+    (``kvcache.attn_cache``), anything else bf16."""
+    if dtype is None:
+        dtype = "int8" if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     return _FAMILY[cfg.family].init_cache(cfg, batch, s_cache, dtype,
                                           resolve_device(device))

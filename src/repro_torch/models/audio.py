@@ -90,7 +90,8 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             token_valid=None):
     """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``.
     With ``audio_frames`` in the batch the encoder runs and its cross K/V
-    is computed (and, with caches, written into ``caches["cross_kv"]``);
+    is computed (and, with caches, written into ``caches["cross_kv"]``, or
+    put there in place of the int8 cache's int8 zeros);
     without, the cross K/V is read from the caches. ``cache_pos`` a [B]
     tensor (per-slot decode) gives each slot its own learned positions.
     ``token_valid`` is ignored (an attention-only stack)."""
@@ -110,13 +111,18 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             cfg.activation_dtype), cfg)
         cross_kv = compute_cross_kv(params, enc_out, cfg)
         if caches is not None:
-            for leaf, new in zip(caches["cross_kv"], cross_kv):
-                leaf.copy_(new)
+            if caches["cross_kv"][0].dtype == cross_kv[0].dtype:
+                for leaf, new in zip(caches["cross_kv"], cross_kv):
+                    leaf.copy_(new)
+            else:
+                # the int8 cache's int8 zeros: the f32 cross K/V replace
+                # them, as they replace them in the reference's returned
+                # cache tree
+                caches["cross_kv"] = cross_kv
     else:
         cross_kv = caches["cross_kv"]
     for i, lp in enumerate(params["dec_layers"]):
-        lc = None if caches is None else (caches["kv"][0][i],
-                                          caches["kv"][1][i])
+        lc = None if caches is None else kvcache.layer_cache(caches["kv"], i)
         a, _ = L.attention_apply(
             lp["attn"], L.layer_norm(lp["attn_norm"], h, eps), cfg,
             kv_cache=lc, cache_pos=cache_pos, use_rope=False, quant=quant,
@@ -139,8 +145,11 @@ def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
                device=None):
     cross = (cfg.n_layers, batch, cfg.n_audio_frames, cfg.n_kv_heads,
              cfg.head_dim)
+    # the int8 cache's cross K/V are int8 zeros, as the reference makes
+    # them with the cache dtype
+    cdt = torch.int8 if kvcache.is_int8(dtype) else dtype
     return {"kv": kvcache.attn_cache(cfg.n_layers, batch, s_cache,
                                      cfg.n_kv_heads, cfg.head_dim, dtype,
                                      device),
-            "cross_kv": (torch.zeros(cross, dtype=dtype, device=device),
-                         torch.zeros(cross, dtype=dtype, device=device))}
+            "cross_kv": (torch.zeros(cross, dtype=cdt, device=device),
+                         torch.zeros(cross, dtype=cdt, device=device))}

@@ -79,8 +79,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
         for a, lp in enumerate(group):
             lc = None if caches is None else _layer_cache(caches["mamba"], g, a)
             h = _mamba_layer_apply(lp, h, cfg, lc, token_valid)
-        kv = None if caches is None else (caches["kv"][0][g],
-                                          caches["kv"][1][g])
+        kv = None if caches is None else kvcache.layer_cache(caches["kv"], g)
         h = _shared_apply(params["shared"], h, cfg, kv, cache_pos, page_table)
     for t, lp in enumerate(params.get("tail", [])):
         lc = None if caches is None else _layer_cache(caches["tail"], t)

@@ -1,8 +1,10 @@
 """Attention KV caches and SSM state caches.
 
 A dense cache is a tuple (k, v), each [L, B, S_cache, KV, hd], the
-reference's layout. The model writes into it in place: layer l of the
-forward updates ``k[l]`` / ``v[l]`` at the positions it computes. The SSM
+reference's layout, or the int8 cache's four leaves (k, v, k_scale,
+v_scale): int8 codes and f32 scales [L, B, S_cache, KV, 1]. The model
+writes into it in place: layer l of the forward updates ``k[l]`` /
+``v[l]`` (and the scales) at the positions it computes. The SSM
 families' caches are the reference's trees (dicts and tuples of tensors):
 Mamba state ``{"conv": [L, B, d_conv-1, d_inner], "ssm": [L, B, ...]}``
 (f32), and zamba2's hybrid ``{"mamba": [G, A, B, ...] leaves, "kv": (k, v)
@@ -16,9 +18,10 @@ state, which stays slot-indexed under the block-paged pool). Probes are
 built on ``torch.device("meta")``, the counterpart of the reference's
 ``jax.eval_shape``: shapes only, no memory.
 
-A block-paged cache has the same two leaves shaped [L, num_blocks,
-block_size, KV, hd] (``attn_cache(L, num_blocks, block_size, ...)``): a
-pool of fixed-size blocks shared by all slots. Slot i's logical sequence is
+A block-paged cache has the same leaves shaped [L, num_blocks,
+block_size, KV, hd] (the scales' last axis 1; ``attn_cache(L,
+num_blocks, block_size, ...)``): a pool of fixed-size blocks shared by
+all slots. Slot i's logical sequence is
 the concatenation of the blocks its page-table row names, so logical
 position p lives at ``pool[table[i, p // bs], p % bs]``. Block 0 is the
 null block: idle and retired slots point every entry at it, so their
@@ -34,14 +37,29 @@ import torch
 
 from repro_torch.core.tree import tree_map, tree_map_with_path
 
-__all__ = ["attn_cache", "mamba_cache", "mamba2_cache", "cache_len",
-           "batch_axes", "seq_axes", "slice_batch",
-           "merge_batch", "paged_gather", "paged_scatter"]
+__all__ = ["is_int8", "attn_cache", "mamba_cache", "mamba2_cache",
+           "layer_cache", "cache_len", "batch_axes", "seq_axes",
+           "slice_batch", "merge_batch", "paged_gather", "paged_scatter"]
+
+
+def is_int8(dtype) -> bool:
+    """Whether ``dtype`` asks for the int8 KV cache ("int8" or torch.int8)."""
+    return dtype == "int8" or dtype == torch.int8
 
 
 def attn_cache(n_layers: int, batch: int, s_cache: int, n_kv: int,
                head_dim: int, dtype=torch.bfloat16, device=None):
+    """(k, v), or with ``dtype`` "int8" (or torch.int8) the reference's
+    int8 cache (k, v, k_scale, v_scale): int8 codes and f32 absmax scales
+    [L, B, S, KV, 1], one a (position, head), which start at ones as the
+    reference's do. Attention dequantizes it a chunk at a time."""
     shape = (n_layers, batch, s_cache, n_kv, head_dim)
+    if is_int8(dtype):
+        sshape = shape[:-1] + (1,)
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.ones(sshape, dtype=torch.float32, device=device),
+                torch.ones(sshape, dtype=torch.float32, device=device))
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -61,6 +79,12 @@ def mamba2_cache(n_layers: int, batch: int, n_heads: int, head_dim: int,
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     return {"conv": z(n_layers, batch, d_conv - 1, d_inner),
             "ssm": z(n_layers, batch, n_heads, head_dim, d_state)}
+
+
+def layer_cache(cache, index):
+    """Layer ``index``'s view of every leaf of an attention cache: (k, v),
+    or the int8 cache's four leaves (views, written in place)."""
+    return tuple(leaf[index] for leaf in cache)
 
 
 def cache_len(cache) -> int:

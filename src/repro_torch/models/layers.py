@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.quantize import fake_quant
+from repro_torch.core.table import true_divide
 from repro_torch.models import kvcache
 
 Params = Dict[str, Any]
@@ -174,8 +175,36 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # chunked attention (online softmax over KV chunks)
 # ---------------------------------------------------------------------------
 
+def _quantize_kv_slice(x: torch.Tensor):
+    """[B, S, KV, hd] -> (int8 codes, f32 scales [B, S, KV, 1]): absmax a
+    (position, head), the reference's int8 KV quantizer. ``torch.round``
+    rounds half to even, as ``jnp.round`` does; the divisions are IEEE
+    ones on every device (``true_divide``)."""
+    xf = x.to(torch.float32)
+    sc = true_divide(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8),
+                     127.0)
+    q = torch.round(xf / sc).clamp(-127, 127).to(torch.int8)
+    return q, sc
+
+
+def _write_kv(kv_cache, k, v, write):
+    """Store fresh k / v [B, S, KV, hd] into the cache's leaves through
+    ``write(leaf, vals)``: (k, v) as they are, the int8 cache's four leaves
+    as codes and scales. Returns (k, v, k_scale, v_scale) to attend over:
+    the cache leaves as ``write`` left them (scales None for (k, v))."""
+    if len(kv_cache) == 4:
+        (kq, ks), (vq, vs) = _quantize_kv_slice(k), _quantize_kv_slice(v)
+        for leaf, vals in zip(kv_cache, (kq, vq, ks, vs)):
+            write(leaf, vals)
+        return kv_cache
+    for leaf, vals in zip(kv_cache, (k, v)):
+        write(leaf, vals)
+    return tuple(kv_cache) + (None, None)
+
+
 def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
-                      kv_valid_len=None, chunk: int = 1024) -> torch.Tensor:
+                      kv_valid_len=None, chunk: int = 1024,
+                      k_scale=None, v_scale=None) -> torch.Tensor:
     """q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd].
 
     Online softmax over KV chunks in f32; never builds the [Sq, Skv] score
@@ -190,12 +219,17 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
     their summation order, change with the number of queries, so query j of
     a speculative verify burst gets the bits of an s = 1 step at its
     position.
+
+    ``k_scale`` / ``v_scale`` [B, Skv, KV, 1] (the int8 cache): k and v are
+    int8 codes, dequantized a chunk at a time inside the loop (codes times
+    scales in f32), so no f32 copy of the cache is made.
     """
     b, sq, h, hd = q.shape
     if torch.is_tensor(kv_valid_len) and kv_valid_len.dim() == 2 and sq > 1:
         return torch.cat([chunked_attention(
             q[:, j:j + 1].contiguous(), k, v, q_offset=q_offset + j,
-            causal=causal, kv_valid_len=kv_valid_len[:, j], chunk=chunk)
+            causal=causal, kv_valid_len=kv_valid_len[:, j], chunk=chunk,
+            k_scale=k_scale, v_scale=v_scale)
             for j in range(sq)], dim=1)
     skv, kv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -214,6 +248,9 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
     for c0 in range(0, skv, chunk):
         kc = k[:, c0:c0 + chunk].to(torch.float32)
         vc = v[:, c0:c0 + chunk].to(torch.float32)
+        if k_scale is not None:
+            kc = kc * k_scale[:, c0:c0 + chunk]
+            vc = vc * v_scale[:, c0:c0 + chunk]
         kv_pos = c0 + torch.arange(kc.shape[1], device=dev)
         s = torch.einsum("bsgrh,btgh->bsgrt", qg, kc) * scale
         if causal:
@@ -241,7 +278,11 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                     page_table: Optional[torch.Tensor] = None,
                     window: Optional[int] = None, xattn_kv=None,
                     causal: bool = True, use_rope: bool = True):
-    """Returns (out, kv_cache); the cache is updated in place.
+    """Returns (out, kv_cache); the cache is updated in place. ``kv_cache``
+    is (k, v) or the int8 cache's (k, v, k_scale, v_scale): fresh k / v
+    are quantized a (position, head) at a time (``_quantize_kv_slice``)
+    and written as codes and scales in every branch below, and attention
+    reads the codes through the scales.
 
     * ``xattn_kv`` (k, v) [B, S_kv, KV, hd] (cross-attention: precomputed
       image or encoder K/V): only ``wq`` and ``wo`` run, every query attends
@@ -256,7 +297,11 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
       reference drops them; an s = 1 write must lie inside the cache (the
       engine keeps it there);
     * ``cache_pos`` an int with a cache (a prefill chunk at that offset):
-      writes the chunk at the offset and attends causally over the cache;
+      writes the chunk at the offset and attends causally over the cache,
+      at offset 0 too. (The reference attends over the fresh k / v instead
+      when its offset is the static int 0; its engine's prefill passes a
+      traced offset and reads the cache, as the port always does. With an
+      int8 cache the two differ by the quantization of the chunk's K/V.)
     * no cache: causal attention over the sequence itself.
 
     With ``page_table`` ([B, nb] int64) the cache leaves are pool-shaped
@@ -297,42 +342,59 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     elif page_table is not None:
         pos2d = positions if per_slot else torch.full(
             (b, 1), cache_pos, dtype=torch.int64, device=x.device) + steps
-        for leaf, vals in zip(kv_cache, (k, v)):
-            kvcache.paged_scatter(leaf, vals, page_table, pos2d)
-        kg, vg = (kvcache.paged_gather(leaf, page_table) for leaf in kv_cache)
+        leaves = _write_kv(kv_cache, k, v, lambda leaf, vals:
+                           kvcache.paged_scatter(leaf, vals, page_table,
+                                                 pos2d))
+        kg, vg, ksg, vsg = (None if leaf is None
+                            else kvcache.paged_gather(leaf, page_table)
+                            for leaf in leaves)
         if per_slot:
-            out = chunked_attention(q, kg.to(q.dtype), vg.to(q.dtype),
-                                    causal=False, kv_valid_len=pos2d + 1,
-                                    chunk=cfg.attn_chunk)
+            if ksg is None:
+                kg, vg = kg.to(q.dtype), vg.to(q.dtype)
+            out = chunked_attention(q, kg, vg, causal=False,
+                                    kv_valid_len=pos2d + 1,
+                                    chunk=cfg.attn_chunk, k_scale=ksg,
+                                    v_scale=vsg)
         else:
             out = chunked_attention(q, kg, vg, q_offset=cache_pos,
                                     causal=causal, kv_valid_len=cache_pos + s,
-                                    chunk=cfg.attn_chunk)
+                                    chunk=cfg.attn_chunk, k_scale=ksg,
+                                    v_scale=vsg)
     elif per_slot:
-        ck, cv = kv_cache
         wpos = positions
         if s > 1:
             # an entry past the cache repeats the slot's last in-range entry
             # (its position and its value), so it writes nothing new: the
-            # write is dropped without touching a live position
-            jj = torch.minimum(steps, ck.shape[1] - 1 - cache_pos[:, None])
+            # write is dropped without touching a live position (the int8
+            # cache quantizes each position alone, so its codes and scale
+            # repeat too)
+            jj = torch.minimum(steps,
+                               kv_cache[0].shape[1] - 1 - cache_pos[:, None])
             wpos = cache_pos[:, None] + jj
             idx = jj[:, :, None, None].expand_as(k)
             k, v = k.gather(1, idx), v.gather(1, idx)
         bi = torch.arange(b, device=x.device)[:, None]
-        ck[bi, wpos] = k.to(ck.dtype)
-        cv[bi, wpos] = v.to(cv.dtype)
-        out = chunked_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                causal=False, kv_valid_len=positions + 1,
-                                chunk=cfg.attn_chunk)
+
+        def write(leaf, vals):
+            leaf[bi, wpos] = vals.to(leaf.dtype)
+        ck, cv, cks, cvs = _write_kv(kv_cache, k, v, write)
+        if cks is None:
+            ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+        out = chunked_attention(q, ck, cv, causal=False,
+                                kv_valid_len=positions + 1,
+                                chunk=cfg.attn_chunk, k_scale=cks,
+                                v_scale=cvs)
     else:
-        ck, cv = kv_cache
-        n = min(s, ck.shape[1] - cache_pos)  # a right-padded tail may overrun
-        ck[:, cache_pos:cache_pos + n] = k[:, :n].to(ck.dtype)
-        cv[:, cache_pos:cache_pos + n] = v[:, :n].to(cv.dtype)
+        # a right-padded tail may overrun the cache
+        n = min(s, kv_cache[0].shape[1] - cache_pos)
+
+        def write(leaf, vals):
+            leaf[:, cache_pos:cache_pos + n] = vals[:, :n].to(leaf.dtype)
+        ck, cv, cks, cvs = _write_kv(kv_cache, k, v, write)
         out = chunked_attention(q, ck, cv, q_offset=cache_pos, causal=causal,
                                 kv_valid_len=cache_pos + s,
-                                chunk=cfg.attn_chunk)
+                                chunk=cfg.attn_chunk, k_scale=cks,
+                                v_scale=cvs)
     out = out.reshape(b, s, cfg.n_heads * hd)
     return lut_dense(p["wo"], out, quant), kv_cache
 

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.quantize import fake_quant
-from repro_torch.models import layers as L
+from repro_torch.models import kvcache, layers as L
 from repro_torch.models import transformer as TR
 
 Params = Dict[str, Any]
@@ -217,7 +217,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     nd, quant = cfg.first_dense_layers, cfg.quant
 
     def layer_cache(i):
-        return None if caches is None else (caches[0][i], caches[1][i])
+        return None if caches is None else kvcache.layer_cache(caches, i)
 
     for i, lp in enumerate(params.get("dense_layers", [])):
         h, _ = TR.block_apply(lp, h, cfg, cache=layer_cache(i),

@@ -82,7 +82,7 @@ def stack_apply(layers, h: torch.Tensor, cfg, *, caches=None, cache_pos=0,
     """The layer loop; layer l reads and writes ``caches[*][l]`` in place.
     ``page_table`` ([B, nb], paged caches) is one table for all layers."""
     for i, lp in enumerate(layers):
-        lc = None if caches is None else (caches[0][i], caches[1][i])
+        lc = None if caches is None else kvcache.layer_cache(caches, i)
         h, _ = block_apply(lp, h, cfg, cache=lc, cache_pos=cache_pos,
                            quant=quant, page_table=page_table)
     return h, caches

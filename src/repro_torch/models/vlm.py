@@ -105,6 +105,13 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
                device=None):
+    if kvcache.is_int8(dtype):
+        # the reference's VLM unpacks two cache leaves a layer and fails on
+        # the int8 cache's four: the port refuses it up front
+        raise ValueError(
+            f"{cfg.arch_id}: the int8 KV cache is not served on the VLM "
+            "family (the reference's VLM forward cannot read its four "
+            "leaves); use kv_cache_dtype='bf16'")
     n_groups = cfg.n_layers // cfg.xattn_every
     n_self = cfg.xattn_every - 1
     k, v = kvcache.attn_cache(n_groups * n_self, batch, s_cache,

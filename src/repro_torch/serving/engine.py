@@ -3,7 +3,11 @@
 The engine owns ``max_batch`` decode slots backed by one dense cache
 [L, max_batch, max_seq, KV, hd], or, with ``cache_block_size``, by a pool of
 blocks [L, num_cache_blocks, block_size, KV, hd] and a page table
-[max_batch, max_seq / block_size] on the device. The SSM and hybrid
+[max_batch, max_seq / block_size] on the device. The attention caches are
+f32, or with ``kv_cache_dtype="int8"`` (the argument, else
+``cfg.kv_cache_dtype``, as in the reference) the int8 cache: codes and one
+f32 scale a (position, head), four leaves that are pooled, copied and
+forked like any other (``kvcache.attn_cache``). The SSM and hybrid
 families' caches, and the VLM's and whisper's, are trees (``kvcache``
 module docstring): the engine finds each leaf's batch and sequence axes by
 probing ``api.init_cache`` on the meta device, as the reference probes
@@ -127,7 +131,8 @@ class ServingEngine:
                  beam_length_alpha: float = 0.6,
                  tuning_cache: Optional[str] = None,
                  tracer: Optional[Tracer] = None,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 kv_cache_dtype: Optional[str] = None):
         self.cfg = cfg
         self.tracer = tracer
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -166,6 +171,11 @@ class ServingEngine:
         self.prefill_chunk = max(1, min(prefill_chunk, max_seq))
         self.eos_id = eos_id
         self._seed = seed
+        # the cache dtype, resolved as the reference resolves it: "int8"
+        # (the argument, else cfg.kv_cache_dtype) is the int8 cache, any
+        # other value an f32 one
+        kv_dt = kv_cache_dtype or cfg.kv_cache_dtype
+        self._cache_dtype = "int8" if kv_dt == "int8" else torch.float32
         self.paged = cache_block_size is not None
         self.prefix_caching = bool(prefix_cache) and self.paged
         if self.paged:
@@ -189,7 +199,7 @@ class ServingEngine:
         # per-leaf batch and sequence axes of the cache tree, probed on the
         # meta device (shapes only): SSM leaves have no sequence axis
         probe = lambda batch, seq: api.init_cache(
-            cfg, batch, seq, dtype=torch.float32, device="meta")
+            cfg, batch, seq, dtype=self._cache_dtype, device="meta")
         self._slot_probe = probe(1, max_seq)
         self._axes = kvcache.batch_axes(self._slot_probe, probe(2, max_seq))
         seq_axes = kvcache.seq_axes(probe(1, 16), probe(1, 32))
@@ -235,20 +245,23 @@ class ServingEngine:
             self._slot_blocks: List[List[int]] = [[] for _ in range(b)]
             # pooled leaves: (num_blocks, block_size) in place of (batch,
             # seq); slot-resident leaves: dense [.., max_batch, ..]
+            # leaves start at a fresh cache's constant value: zeros, the
+            # int8 cache's scales ones
+            kw = dict(dtype=self._cache_dtype, device="meta")
             pool = api.init_cache(self.cfg, self.num_cache_blocks,
-                                  self.cache_block_size, dtype=torch.float32,
-                                  device="meta")
-            dense = api.init_cache(self.cfg, b, self.max_seq,
-                                   dtype=torch.float32, device="meta")
+                                  self.cache_block_size, **kw)
+            dense = api.init_cache(self.cfg, b, self.max_seq, **kw)
+            fill = tree_map(lambda c: c.reshape(-1)[0].item(), api.init_cache(
+                self.cfg, 1, 1, dtype=self._cache_dtype, device="cpu"))
             self.caches = tree_map(
-                lambda p, d, pooled: torch.zeros(
-                    (p if pooled else d).shape, dtype=p.dtype, device=dev),
-                pool, dense, self._pooled)
+                lambda p, d, pooled, f: torch.full(
+                    (p if pooled else d).shape, f, dtype=p.dtype, device=dev),
+                pool, dense, self._pooled, fill)
             self.page_table = torch.zeros((b, self.blocks_per_slot),
                                           dtype=torch.int64, device=dev)
         else:
             self.caches = api.init_cache(self.cfg, b, self.max_seq,
-                                         dtype=torch.float32, device=dev)
+                                         dtype=self._cache_dtype, device=dev)
         zeros = lambda dtype: torch.zeros(b, dtype=dtype, device=dev)
         self.pos = zeros(torch.int64)        # next cache write position
         self.budget = zeros(torch.int64)     # remaining new tokens
@@ -536,11 +549,6 @@ class ServingEngine:
         # parse now, so a bad decoding string or an unservable mode fails
         # here and not at admission
         dm = decoding.parse(req.decoding)
-        if dm.kind != decoding.NORMAL and self.cfg.family == "moe":
-            raise NotImplementedError(
-                f"{req.decoding!r} on the MoE family ({self.cfg.arch_id}): "
-                "beam search and self-speculation on MoE configs are not "
-                "ported (ROADMAP.md queue 1, MoE decoding modes)")
         if dm.kind == decoding.SPEC:
             if self.draft_params is None:
                 raise ValueError(
@@ -571,7 +579,8 @@ class ServingEngine:
         cache, then copy it into slot ``i`` leaf by leaf."""
         prompt = self._truncate(req)
         slot_caches = api.init_cache(self.cfg, 1, self.max_seq,
-                                     dtype=torch.float32, device=self.device)
+                                     dtype=self._cache_dtype,
+                                     device=self.device)
         with self._annotate("admit"):
             t0, t1 = self._prefill(prompt, 0, slot_caches, uid=req.uid,
                                    slot=i)

@@ -1075,3 +1075,80 @@ def test_reduced_beam_through_the_kernels_equals_plain(cuda, arch):
         assert len(reqs[0].beams) == 2
         out.append(([r.output for r in reqs[1:]], reqs[0].beams))
     assert out[0] == out[1] == out[2]
+
+
+def test_int8_cache_decode_step_launches_as_an_f32_one(cuda):
+    """The int8 KV cache adds only plain torch ops (quantize, dequantize):
+    a decode chunk of reduced tinyllama on CUDA tensors launches the same
+    fused lookups and row scales on an int8 cache as on an f32 one, and
+    nothing else of the kernels, with no hidden host sync."""
+    from repro_torch.serving.engine import Request
+    prompts = [np.random.default_rng(0).integers(0, 512, n)
+               for n in (9, 21, 16, 5)]
+    counts = []
+    for dt in ("bf16", "int8"):
+        _, _, eng = _reduced_engine(cuda, "lut_pallas", kv_cache_dtype=dt)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+        eng._admit()
+        assert len(tuple(eng.caches)) == (4 if dt == "int8" else 2)
+        torch.cuda.synchronize()
+        before = (fk.launches, tk.row_scale_launches, lk.launches,
+                  tk.launches, dk.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._decode_chunk(sampling=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts.append(tuple(a - b for a, b in zip(
+            (fk.launches, tk.row_scale_launches, lk.launches, tk.launches,
+             dk.launches), before)))
+    assert counts[0] == counts[1]
+    assert counts[0][0] > 0 and counts[0][0] == counts[0][1]
+    assert counts[0][2:] == (0, 0, 0)
+
+
+def test_reduced_int8_beam_and_olmoe_spec_on_the_card(cuda):
+    """On int8 caches: reduced tinyllama's beam:2 pool through the kernels
+    equals lut_xla's; reduced olmoe's beam:1 equals its greedy stream (the
+    same s = 1 forwards), and its spec:draft1b (lut_xla) finishes every
+    request on a draft of zero extra bytes. Greedy spec is not held to
+    greedy here: olmoe's attention projections and router are f32 GEMMs,
+    whose bits on the card follow the row count of the burst."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServingEngine
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (9, 21, 16)]
+    out = []
+    for mode in ("lut_pallas", "lut_xla"):
+        _, _, eng = _reduced_engine(cuda, mode, kv_cache_dtype="int8")
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8, decoding=d)
+                for i, (p, d) in enumerate(zip(prompts, ("beam:2", "greedy",
+                                                         "greedy")))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        out.append(([r.output for r in reqs], reqs[0].beams))
+    assert out[0] == out[1]
+    cfg = registry.get_reduced("olmoe-1b-7b").replace(
+        activation_dtype=torch.float32, kv_cache_dtype="int8").with_quant(
+            mpgemm_mode="lut_xla", table_quant="per_row")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, cuda)
+    streams, extra = {}, None
+    for d in ("greedy", "spec:draft1b", "beam:1"):
+        eng = ServingEngine(cfg, params, max_batch=4, max_seq=64,
+                            decode_chunk=4, prefill_chunk=16, spec_k=3,
+                            spec_draft_planes=1)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8, decoding=d)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert all(r.done and len(r.output) == 8 for r in reqs)
+        streams[d] = [r.output for r in reqs]
+        if d.startswith("spec"):
+            extra = eng.stats()["spec"]["draft_extra_hbm_bytes"]
+    assert streams["beam:1"] == streams["greedy"] and extra == 0
