@@ -301,18 +301,58 @@ exit and no result line):
      equal, scores within 1e-4); spec:draft1b (spec k 4, lut_xla) with
      zero extra weight bytes, its verify steps, accepted drafts and
      agreement with greedy recorded, not required (capacity couples a
-     burst's tokens); a lut_xla decode step timed. (c) whisper-tiny and
-     zamba2-7b: one int8 serve each (``int8_serve``), the cache bytes
-     against the formula (whisper's cross K/V int8 zeros, zamba2's Mamba2
-     state f32).
+     burst's tokens); a lut_xla decode step timed. Its depth is cut to 4 of
+     its 16 layers (``KV_MOE_LAYERS``): its lut_xla legs run 64 experts'
+     plain lookups one at a time, in a time linear in the layers. (c)
+     whisper-tiny and zamba2-7b: one int8 serve each (``int8_serve``), the
+     cache bytes against the formula (whisper's cross K/V int8 zeros,
+     zamba2's Mamba2 state f32); for zamba2 a teacher-forced forward (120
+     tokens prefilled, 8 decode steps, the kernels) on f32, bf16 and int8
+     caches with per_row and float tables (``cache_dtype_forward``): the
+     bf16 and int8 caches' decode logits against the f32 cache's
+     (corrcoef, max |diff|, argmax) and the prefill's last position (the
+     logits of a stream's first token) with the f32 cache's top-2 margin
+     there, recorded.
+ 16. train families — QAT training on the SSM, hybrid, VLM and audio
+     families (``train_families_phase``), after phase 15, each model made
+     on the card from seed 0 at full width and freed after its leg, its
+     depth cut as ``FAMILY_LEGS`` says: (a) falcon-mamba-7b, 4 of its 64
+     layers, batch 4, AdamW; (b) zamba2-7b, 13 of its 81 layers (2 groups
+     of 6, so two invocations of the shared block, and a tail of 1), batch
+     4, Adafactor; (c) llama-3.2-vision-11b, one group of its 8 (4 self
+     layers and a cross layer; both gates set to 0.5), batch 2, AdamW,
+     image embeddings [2, 1601, 4096]; (d) whisper-tiny whole (4 + 4
+     layers), batch 8 in 2 microbatches, AdamW, audio frames [8, 1500,
+     384]. Each leg (``family_train``): 10 QAT steps (W2 symmetric
+     fake-quant of every projection and the head) through
+     ``make_train_step``, ``lr_schedule(3e-4, warmup=3, total=10)``, seq
+     256, ``SyntheticLM(seed=0)``, the frontends' inputs normal draws × 0.1
+     made on the card from seed 1000 + step, f32 activations (TF32 off):
+     every loss and grad norm finite, the mean of the last 3 losses below
+     the first 3's, and the QAT loss of step 0's batch (``family_loss``,
+     no grad) after the 10 steps at least 0.05 below its loss before
+     them, which the batches' order cannot move; recorded: the median step (steps 2-10, host clock, the
+     loss read), tokens a second over them, peak device memory. (a) first
+     trains the same model with the 8-bit AdamW (``adamw8bit``) as a
+     record, not gated: the reference's INT8 m and v diverge there. Then
+     the trained params are packed (``quantize_params``, W2 per_row) and
+     run teacher-forced (``family_forward``: 128 tokens prefilled, 8
+     decode steps, with the stub frontend's input for (c) and (d)) through
+     lut_pallas and lut_xla: logits equal bit for bit, every kernel of the
+     per_row path launched (counts set to 0 before, read after); (a) also
+     serves 2 requests x 8 new tokens through the engine
+     (``family_engine``: every kernel launched, <= 1/decode_chunk host
+     syncs a token, a decode chunk under torch's sync check launching one
+     fused lookup and one row scale per packed projection a step).
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record (the two batched wrappers listed
 beside the four kernels, with phase 11's launches and times; each kernel's
 launches and times at falcon-mamba-7b's, zamba2-7b's,
 llama-3.2-vision-11b's and whisper-tiny's shapes under their names, the
-launches of phase 14's serve of the trained weights, and phase 15's
-int8-cache serves' by model); the
+launches of phase 14's serve of the trained weights, phase 15's
+int8-cache serves' by model, and phase 16's forwards and engine serve of
+the trained weights by model); every phase prints its seconds; the
 last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
@@ -350,6 +390,11 @@ phase 14 alone (its record as one line of JSON),
     python3 chip_smoke.py --kvint8            # phases 1, 2 and 15 only
 
 phase 15 alone (its record as one line of JSON),
+
+    python3 chip_smoke.py --train-families [LR]   # phases 1, 2 and 16
+
+phase 16 alone, at base lr LR (default 3e-4; its record as one line of
+JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -1109,6 +1154,27 @@ def read_counts():
     return out
 
 
+def checked_decode_chunk(tag, eng, per_step):
+    """One more decode chunk of ``eng`` under torch's sync check (a call
+    that makes the host wait for the card raises), its launches counted:
+    ``per_step`` (kernel -> launches a step) times the chunk's steps, and
+    no other launch. Returns the launches."""
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_chunk(sampling=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk = read_counts()
+    want = dict({n: 0 for n in chunk},
+                **{n: c * eng.decode_chunk for n, c in per_step.items()})
+    if chunk != want:
+        raise AssertionError(f"{tag}: a decode chunk launched {chunk}, not "
+                             f"{want}")
+    return chunk
+
+
 # phase 4's engine: 4 slots, max_seq 256, decode chunk 8, prefill chunk 128
 SERVE_KW = dict(max_batch=4, max_seq=256, decode_chunk=8, prefill_chunk=128)
 
@@ -1617,23 +1683,9 @@ def serve_and_parity(tag, cfg, params):
     if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
         raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
                              f"syncs per token > 1/{eng.decode_chunk}")
-    # one more decode chunk with torch's sync check armed: any call in the
-    # chunk that makes the host wait for the card raises here
-    torch.cuda.synchronize()
-    reset_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._decode_chunk(sampling=False)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    chunk_launches = read_counts()
     per_step = (len(projection_shapes(cfg)) - 1) * cfg.n_layers + 1
-    want = dict({n: 0 for n in chunk_launches},
-                fused_lut_mpgemm=per_step * eng.decode_chunk,
-                row_scale=per_step * eng.decode_chunk)
-    if chunk_launches != want:
-        raise AssertionError(f"{tag}: a decode chunk launched "
-                             f"{chunk_launches}, not {want}")
+    chunk_launches = checked_decode_chunk(tag, eng, {
+        "fused_lut_mpgemm": per_step, "row_scale": per_step})
     rec = dict(prompts=[len(r.prompt) for r in reqs], serve=st,
                outputs=[r.output for r in reqs], launches=launches,
                decode_chunk_launches=chunk_launches, **step_and_chunk(eng))
@@ -2397,21 +2449,10 @@ def moe_serve(cfg, params):
         if e.stats()["host_syncs_per_token"] > 1.0 / e.decode_chunk:
             raise AssertionError(f"moe: {e.stats()['host_syncs_per_token']} "
                                  f"host syncs per token")
-    torch.cuda.synchronize()
-    reset_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._decode_chunk(sampling=False)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    chunk_launches = read_counts()
-    steps, experts = eng.decode_chunk, 3 * cfg.n_layers
-    want = dict({n: 0 for n in chunk_launches},
-                fused_lut_mpgemm_batched=experts * steps,
-                fused_lut_mpgemm=steps, row_scale=(experts + 1) * steps)
-    if chunk_launches != want:
-        raise AssertionError(f"moe: a decode chunk launched {chunk_launches}"
-                             f", not {want}")
+    experts = 3 * cfg.n_layers
+    chunk_launches = checked_decode_chunk("moe", eng, {
+        "fused_lut_mpgemm_batched": experts, "fused_lut_mpgemm": 1,
+        "row_scale": experts + 1})
     d, f, g = cfg.d_model, cfg.d_ff, cfg.d_model // KG
     return eng, dict(
         prompts=[len(r.prompt) for r in reqs], serve=st,
@@ -2665,20 +2706,9 @@ def family_serve(tag, cfg, params):
     if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
         raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
                              f"syncs per token > 1/{eng.decode_chunk}")
-    torch.cuda.synchronize()
-    reset_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._decode_chunk(sampling=False)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    chunk_launches = read_counts()
-    per_step = projections_per_step(cfg) * eng.decode_chunk
-    want = dict({n: 0 for n in chunk_launches}, fused_lut_mpgemm=per_step,
-                row_scale=per_step)
-    if chunk_launches != want:
-        raise AssertionError(f"{tag}: a decode chunk launched "
-                             f"{chunk_launches}, not {want}")
+    per_step = projections_per_step(cfg)
+    chunk_launches = checked_decode_chunk(tag, eng, {
+        "fused_lut_mpgemm": per_step, "row_scale": per_step})
     return eng, dict(
         prompts=[len(r.prompt) for r in reqs], serve=st,
         outputs=[r.output for r in reqs], launches=launches,
@@ -3262,15 +3292,20 @@ def train_config():
         activation_dtype=torch.float32)
 
 
-def train_steps(step_fn, state, data, steps, rm=None):
-    """Runs ``steps`` (data steps) from ``state``; returns (state, losses,
-    grad norms, ms a step, the host clock at each step's end). Each step's
-    metrics are read at its end, so the host clock times a finished step;
-    a step's ms leave out its checkpoint snapshot, its end takes it in."""
+def train_steps(step_fn, box, batch_at, steps, rm=None):
+    """Runs ``steps`` (data steps, the batch ``batch_at(step)``) from the
+    state in ``box``, a one-element list that it empties: the caller then
+    holds no reference to that state, and each step's input state is freed
+    as the next begins. Returns (state, losses, grad norms, ms a step, the
+    host clock at each step's end). Each step's metrics are read at its
+    end, so the host clock times a finished step; a step's ms take in its
+    batch's making and leave out its checkpoint snapshot, its end takes
+    it in."""
+    state = box.pop()
     losses, gnorms, ms, ends = [], [], [], []
     for step in steps:
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, data.batch_at(step))
+        state, metrics = step_fn(state, batch_at(step))
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -3327,14 +3362,14 @@ def train_phase():
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         t0 = time.perf_counter()
-        state = init_train_state(gen, cfg, opt, "cuda")
+        box = [init_train_state(gen, cfg, opt, "cuda")]
         torch.cuda.synchronize()
         rec["init_s"] = time.perf_counter() - t0
-        rec["params"] = sum(p.numel() for p in tree_leaves(state["params"]))
+        rec["params"] = sum(p.numel() for p in tree_leaves(box[0]["params"]))
         rm = ckpt_mod.RestartManager(ckpt_dir, every=TRAIN_CKPT, keep=1)
         t0 = time.perf_counter()
         state, losses, gnorms, ms, ends = train_steps(
-            step_fn, state, data, range(TRAIN_STEPS), rm)
+            step_fn, box, data.batch_at, range(TRAIN_STEPS), rm)
         rec["train_s"] = ends[-1] - t0
         t0 = time.perf_counter()
         rm.wait()
@@ -3376,14 +3411,15 @@ def train_phase():
         gen.manual_seed(1)
         fresh = init_train_state(gen, cfg, opt, "cuda")
         t0 = time.perf_counter()
-        state, start = rm.restore_or_none(fresh)
+        box = [None]
+        box[0], start = rm.restore_or_none(fresh)
         torch.cuda.synchronize()
         rec["restore_s"] = time.perf_counter() - t0
         del fresh
-        if start != TRAIN_CKPT or int(state["step"]) != TRAIN_CKPT:
+        if start != TRAIN_CKPT or int(box[0]["step"]) != TRAIN_CKPT:
             raise AssertionError(f"train: restored step {start}")
         state, r_losses, r_gnorms, _, _ = train_steps(
-            step_fn, state, data, range(TRAIN_CKPT, TRAIN_STEPS))
+            step_fn, box, data.batch_at, range(TRAIN_CKPT, TRAIN_STEPS))
         equal_params = all(torch.equal(a, b) for a, b in zip(
             tree_leaves(state["params"]), tree_leaves(trained)))
         rec["restart"] = {
@@ -3524,6 +3560,9 @@ KV_ARCHS = ("tinyllama-1.1b", MOE) + KV_FAMILIES
 # 4, each leg's decode chunk as long as its request (a chunk runs all its
 # steps, a finished request's too)
 KV_BEAM_NEW, KV_SPEC_NEW = 3, 2
+# (b)'s olmoe depth: 4 of its 16 layers (its lut_xla legs' time is linear
+# in the layers)
+KV_MOE_LAYERS = 4
 # the reference's bound on int8 against f32 cache logits
 # (tests/test_perf_features.py)
 KV_CORRCOEF = 0.999
@@ -3601,19 +3640,7 @@ def int8_serve(tag, cfg, params, per_step):
     if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
         raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
                              f"syncs per token > 1/{eng.decode_chunk}")
-    torch.cuda.synchronize()
-    reset_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._decode_chunk(sampling=False)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    chunk = read_counts()
-    want = dict({n: 0 for n in chunk},
-                **{n: c * eng.decode_chunk for n, c in per_step.items()})
-    if chunk != want:
-        raise AssertionError(f"{tag}: an int8 decode chunk launched {chunk},"
-                             f" not {want}")
+    chunk = checked_decode_chunk(tag, eng, per_step)
     return eng, reqs, {"serve": st, "launches": launches,
                        "decode_chunk_launches": chunk,
                        "outputs": [r.output for r in reqs]}
@@ -3627,6 +3654,17 @@ def added_kernels(f32, int8):
              for n in names}
     return sorted(((n, d) for n, d in delta.items() if d),
                   key=lambda nd: -nd[1])
+
+
+def decode_steps(params, cfg, toks, start, cache):
+    """One per-slot decode step (s = 1, a [1] ``cache_pos``) for each token
+    of ``toks`` [1, S] from position ``start`` on, into ``cache`` (filled
+    up to ``start``): the list of their logits, each [1, 1, V]."""
+    from repro_torch.models import api
+    return [api.forward(params, {"tokens": toks[:, p:p + 1]}, cfg,
+                        caches=cache,
+                        cache_pos=torch.full((1,), p, device="cuda"))[0]
+            for p in range(start, toks.shape[1])]
 
 
 def int8_forward(cfg, params):
@@ -3653,11 +3691,8 @@ def int8_forward(cfg, params):
         0, cfg.vocab_size, (1, 128)), device="cuda")
 
     def decode(c, cache, out):
-        for p in range(120, 128):
-            out.append(api.forward(
-                params, {"tokens": toks[:, p:p + 1]}, c, caches=cache,
-                cache_pos=torch.full((1,), p, device="cuda"))[0])
-        return torch.cat(out, dim=1)
+        return torch.cat(out + decode_steps(params, c, toks, 120, cache),
+                         dim=1)
 
     def run(c, dtype):
         cache = api.init_cache(c, 1, 128, dtype=dtype, device="cuda")
@@ -3709,6 +3744,55 @@ def int8_forward(cfg, params):
         raise AssertionError(f"kvint8: int8 vs f32 cache decode logits, "
                              f"float tables, after an exact prefill: "
                              f"corrcoef {cc} <= {KV_CORRCOEF} ({out})")
+    return out
+
+
+def cache_dtype_forward(cfg, params):
+    """(c)'s check of zamba2-7b's int8 streams: a teacher-forced forward
+    through the kernels (120 tokens prefilled at offset 0 into a batch-1
+    cache, then 8 per-slot decode steps) on an f32, a bf16 and an int8
+    cache, with per_row tables (the served ones) and float tables (None).
+    For the bf16 and the int8 cache against the f32 one: the 8 decode
+    positions' logits (corrcoef, max |diff|, argmax equal), and the
+    prefill's last position, whose logits pick a stream's first token
+    (max |diff|, argmax equal); the f32 cache's top-2 margin there and at
+    the first decode position. A record: int8 within bf16's deviation is
+    judged from the numbers (PERF.md §6)."""
+    from repro_torch.models import api
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+
+    def run(c, dtype):
+        cache = api.init_cache(c, 1, 128, dtype=dtype, device="cuda")
+        last = api.forward(params, {"tokens": toks[:, :120]}, c,
+                           caches=cache, cache_pos=0)[0][:, -1:]
+        return torch.cat([last] + decode_steps(params, c, toks, 120, cache),
+                         dim=1)[0].double()  # [9, V]: 119, 120-127
+
+    def margin(row):
+        top2 = torch.topk(row, 2).values
+        return (top2[0] - top2[1]).item()
+
+    out = {}
+    for tq in (None, "per_row"):
+        c = cfg.with_quant(mpgemm_mode="lut_pallas", table_quant=tq)
+        f32 = run(c, torch.float32)
+        r = {"max_abs_logit": f32.abs().max().item(),
+             "f32_top2_margin_prefill_last": margin(f32[0]),
+             "f32_top2_margin_first_decode": margin(f32[1])}
+        for name, dtype in (("bf16", torch.bfloat16), ("int8", "int8")):
+            x = run(c, dtype)
+            d, ref = x[1:], f32[1:]
+            r[name] = {
+                "corrcoef": torch.corrcoef(torch.stack(
+                    [d.flatten(), ref.flatten()]))[0, 1].item(),
+                "max_abs_diff": (d - ref).abs().max().item(),
+                "argmax_equal": int((d.argmax(-1) == ref.argmax(-1)).sum()),
+                "prefill_last_max_abs_diff": (x[0] - f32[0]).abs().max()
+                .item(),
+                "prefill_last_argmax_equal": bool(x[0].argmax()
+                                                  == f32[0].argmax())}
+        out[str(tq)] = r
     return out
 
 
@@ -3863,9 +3947,9 @@ def kvint8_phase():
     gc_cuda()
     rec["tinyllama_s"] = time.perf_counter() - t_start
 
-    # (b) olmoe-1b-7b
+    # (b) olmoe-1b-7b, its depth cut to KV_MOE_LAYERS
     t0 = time.perf_counter()
-    cfg = moe_config()
+    cfg = moe_config().replace(n_layers=KV_MOE_LAYERS)
     c8 = cfg.replace(kv_cache_dtype="int8")
     params, init_s = made(cfg)
     experts = 3 * cfg.n_layers
@@ -3898,10 +3982,13 @@ def kvint8_phase():
             "fused_lut_mpgemm": n, "row_scale": n})
         r.update(init_s=init_s, decode_step_wall_ms=decode_step_wall(eng8),
                  cache_bytes=check_cache_bytes(f"kvint8 {arch}", cfg,
-                                               params),
-                 seconds=time.perf_counter() - t0)
+                                               params))
+        del eng8
+        if cfg.family == "hybrid":
+            r["cache_dtypes"] = cache_dtype_forward(cfg, params)
+        r["seconds"] = time.perf_counter() - t0
         rec[arch] = r
-        del eng8, params
+        del params
         gc_cuda()
     rec["seconds"] = time.perf_counter() - t_start
     return rec
@@ -3915,7 +4002,9 @@ def kvint8_lines(rec):
         r = rec[arch]
         st, ag = r["serve"], r.get("agreement_vs_f32")
         lines.append(
-            f"kvint8: {arch}, int8 KV cache, phase 4's requests: "
+            f"kvint8: {arch}"
+            + (f" ({KV_MOE_LAYERS} of its 16 layers)" if arch == MOE else "")
+            + ", int8 KV cache, phase 4's requests: "
             f"{st['decode_tokens']} tokens, decode {st['decode_tok_s']:.1f} "
             f"tok/s, host syncs/token {st['host_syncs_per_token']:.4f}; "
             f"launches {r['launches']}; an int8 decode chunk under torch's "
@@ -3929,6 +4018,21 @@ def kvint8_lines(rec):
                f"{ag['tokens']} tokens equal, agreeing prefixes "
                f"{ag['agreeing_prefix']}" if ag else "")
             + f"; params made in {r['init_s']:.1f} s")
+    for tq, z in rec["zamba2-7b"]["cache_dtypes"].items():
+        lines.append(
+            f"kvint8: zamba2-7b teacher-forced forward (120 tokens "
+            f"prefilled, 8 decode steps; {tq} tables, the kernels) against "
+            f"the f32 cache's: " + "; ".join(
+                f"{n} cache: decode logits corrcoef {z[n]['corrcoef']:.6f}, "
+                f"max |diff| {z[n]['max_abs_diff']:.4g}, argmax equal at "
+                f"{z[n]['argmax_equal']} of 8; the prefill's last position "
+                f"max |diff| {z[n]['prefill_last_max_abs_diff']:.4g}, argmax "
+                + ("equal" if z[n]["prefill_last_argmax_equal"]
+                   else "differs") for n in ("bf16", "int8"))
+            + f"; the f32 cache's top-2 margin "
+            f"{z['f32_top2_margin_prefill_last']:.4g} at the prefill's last "
+            f"position, {z['f32_top2_margin_first_decode']:.4g} at the first "
+            f"decode step (max |logit| {z['max_abs_logit']:.4g})")
     for what in ("decode_step", "prefill_chunk"):
         p32, p8 = a["profile_f32"][what], a["profile_int8"][what]
         lines.append(
@@ -3983,6 +4087,315 @@ def kvint8_lines(rec):
                  f"{rec[MOE]['seconds']:.1f}, " + ", ".join(
                      f"{arch} {rec[arch]['seconds']:.1f}"
                      for arch in KV_FAMILIES) + ")")
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 16: QAT training on the SSM, hybrid, VLM and audio families
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 10
+FAMILY_SEQ = 256
+# the legs, in order: arch -> (layers kept, None for all; batch; optimizer;
+# microbatches)
+FAMILY_LEGS = {
+    "falcon-mamba-7b": (4, 4, "adamw", 1),
+    "zamba2-7b": (13, 4, "adafactor", 1),
+    "llama-3.2-vision-11b": (5, 2, "adamw", 1),
+    "whisper-tiny": (None, 8, "adamw", 2),
+}
+# lr_schedule(FAMILY_LR, warmup=FAMILY_WARMUP, total=FAMILY_STEPS)
+FAMILY_LR, FAMILY_WARMUP = 3e-4, 3
+# the least fall (nats) of step 0's batch's loss over the steps: a no-op
+# update gives 0, a wrong-signed one a rise
+FAMILY_FIXED_DROP = 0.05
+# the leg that first trains with the 8-bit AdamW, a record (no gate): the
+# reference's INT8 m and v diverge (PERF.md §6)
+FAMILY_8BIT = "falcon-mamba-7b"
+# the engine leg of falcon-mamba-7b's trained weights: requests x new tokens
+FAMILY_SERVE = (2, 8)
+
+
+def family_config(arch, layers):
+    """``arch`` at full width as phase 16 trains it: f32 activations, W2
+    symmetric K=4 QAT (the config's quant block), its depth cut to
+    ``layers`` (None: whole)."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch).replace(activation_dtype=torch.float32)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def family_batch(cfg, data, step):
+    """``data``'s batch at ``step``; for the VLM and whisper with the stub
+    frontend's input beside the tokens: [batch, n, d_model] normal draws ×
+    0.1 made on the card from seed 1000 + step."""
+    batch = data.batch_at(step)
+    if cfg.family in ("vlm", "audio"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 + step)
+        vlm = cfg.family == "vlm"
+        n = cfg.n_image_tokens if vlm else cfg.n_audio_frames
+        batch["image_embeds" if vlm else "audio_frames"] = 0.1 * torch.randn(
+            data.batch, n, cfg.d_model, generator=gen, device="cuda")
+    return batch
+
+
+def family_forward(tag, cfg, params):
+    """A teacher-forced forward of the trained, packed weights: 128 tokens
+    prefilled at offset 0 into a batch-1 f32 cache (the engine's prefill
+    chunk; with the stub frontend's input, ``stub_inputs``, for the VLM
+    and whisper), then 8 per-slot decode steps (positions 128-135),
+    through the kernels (lut_pallas, the launch counts set to 0 just
+    before and read just after) and the plain LUT path (lut_xla), per_row:
+    logits [1, 136, V] finite and equal bit for bit, every kernel of the
+    per_row path launched (the staged pair in the prefill, the fused
+    lookup and its row scale in the decode steps)."""
+    from repro_torch.models import api
+    s = 136
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, s)), device="cuda")
+    extra = (dict([stub_inputs(cfg)]) if cfg.family in ("vlm", "audio")
+             else {})
+
+    def run(mode):
+        c = cfg.with_quant(mpgemm_mode=mode, table_quant="per_row")
+        cache = api.init_cache(c, 1, s, dtype=torch.float32, device="cuda")
+        prefill = api.forward(params, dict(extra, tokens=toks[:, :128]), c,
+                              caches=cache, cache_pos=0)[0]
+        return torch.cat([prefill] + decode_steps(params, c, toks, 128,
+                                                  cache), dim=1)
+
+    reset_counts()
+    a = run("lut_pallas")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    b = run("lut_xla")
+    if (tuple(a.shape) != (1, s, cfg.vocab_size)
+            or not (torch.isfinite(a).all() and torch.isfinite(b).all())):
+        raise AssertionError(f"{tag}: bad logits {tuple(a.shape)}")
+    diff = (a - b).abs().max().item()
+    if diff != 0.0:
+        raise AssertionError(f"{tag}: kernels and plain path disagree, max "
+                             f"|logit diff| {diff}")
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"{tag}: a kernel never ran: {launches}")
+    return {"parity_max_abs_diff": diff,
+            "max_abs_logit": a.abs().max().item(), "launches": launches}
+
+
+def family_engine(tag, cfg, params):
+    """The trained, packed weights through phase 4's engine
+    (``SERVE_KW``): ``FAMILY_SERVE`` requests (phase 4's first prompts)
+    with the launch counts set to 0 just before and read just after: every
+    request finishes its tokens, every kernel of the per_row path ran, <=
+    1/decode_chunk host syncs a token; one more decode chunk under torch's
+    sync check launches exactly one fused lookup and one row scale per
+    packed projection a step (``projections_per_step``)."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    n_req, n_new = FAMILY_SERVE
+    t0 = time.perf_counter()
+    reset_counts()
+    eng = ServingEngine(cfg, params, **SERVE_KW)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in
+            enumerate(serve_prompts(cfg.vocab_size, seed=2)[:n_req])]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    st = eng.stats()
+    if not all(r.done and len(r.output) == n_new for r in reqs):
+        raise AssertionError(f"{tag}: a request did not finish {n_new} "
+                             "tokens")
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"{tag}: a kernel never ran: {launches}")
+    if st["host_syncs_per_token"] > 1.0 / eng.decode_chunk:
+        raise AssertionError(f"{tag}: {st['host_syncs_per_token']} host "
+                             f"syncs per token > 1/{eng.decode_chunk}")
+    per_step = projections_per_step(cfg)
+    chunk = checked_decode_chunk(tag, eng, {"fused_lut_mpgemm": per_step,
+                                            "row_scale": per_step})
+    return {"outputs": [r.output for r in reqs], "launches": launches,
+            "decode_chunk_launches": chunk,
+            "decode_tok_s": st["decode_tok_s"],
+            "host_syncs_per_token": st["host_syncs_per_token"],
+            "seconds": time.perf_counter() - t0}
+
+
+def family_loss(cfg, params, batch):
+    """The QAT training loss (``make_loss_fn``) of ``params`` on ``batch``,
+    no grad: the fixed batch that phase 16's gate reads before and after
+    the steps."""
+    from repro_torch.training.train_loop import make_loss_fn
+    b = {k: torch.as_tensor(v, device="cuda").to(
+        torch.int64 if k in ("tokens", "labels") else torch.float32)
+         for k, v in batch.items()}
+    with torch.no_grad():
+        loss, _ = make_loss_fn(cfg.with_quant(qat=True))(params, b)
+    return float(loss)
+
+
+def family_train(cfg, opt_name, batch, micro, lr):
+    """``FAMILY_STEPS`` QAT steps of ``cfg`` through ``make_train_step``,
+    float params made on the card from seed 0 (the VLM's gates set to
+    ``XATTN_GATE``), ``SyntheticLM(seed=0)`` batches (``family_batch``),
+    ``opt_name`` with ``lr_schedule(lr, FAMILY_WARMUP, FAMILY_STEPS)``.
+    Returns (the trained params, a record: losses, grad norms, ms a step,
+    the median of steps 2-10 and tokens a second over them, peak device
+    memory from the params' making on, the device memory already held
+    when the run began, and the loss of step 0's batch under the params
+    before the first step and after the last, ``family_loss``)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    opt = opt_mod.make_optimizer(opt_name, lr=opt_mod.lr_schedule(
+        lr, warmup=FAMILY_WARMUP, total=FAMILY_STEPS))
+    step_fn = make_train_step(cfg, opt, microbatches=micro, qat=True)
+    data = SyntheticLM(cfg.vocab_size, batch, FAMILY_SEQ, seed=0)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    # in a box that train_steps empties: the VLM's state (params, m and v:
+    # 25.7 GB) must not outlive its first step
+    box = [init_train_state(gen, cfg, opt, "cuda")]
+    for xp in box[0]["params"].get("xattn_layers", []):
+        xp["gate_attn"].fill_(XATTN_GATE)
+        xp["gate_mlp"].fill_(XATTN_GATE)
+    torch.cuda.synchronize()
+    rec = {"optimizer": opt_name, "lr": lr,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(p.numel() for p in tree_leaves(box[0]["params"])),
+           "base_bytes": base}
+    fixed = family_batch(cfg, data, 0)
+    rec["fixed_before"] = family_loss(cfg, box[0]["params"], fixed)
+    state, losses, gnorms, ms, _ = train_steps(
+        step_fn, box, lambda step: family_batch(cfg, data, step),
+        range(FAMILY_STEPS))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["fixed_after"] = family_loss(cfg, state["params"], fixed)
+    later = sorted(ms[1:])
+    rec.update(losses=losses, grad_norms=gnorms, step_ms=ms,
+               step_ms_median=later[len(later) // 2],
+               tokens_s=(batch * FAMILY_SEQ * (FAMILY_STEPS - 1)
+                         / (sum(ms[1:]) / 1e3)),
+               first3=float(np.mean(losses[:3])),
+               last3=float(np.mean(losses[-3:])))
+    return state["params"], rec
+
+
+def family_train_leg(arch, lr):
+    """One leg of phase 16 (module docstring): ``arch`` at full width, its
+    depth cut as ``FAMILY_LEGS`` says, trained (``family_train``) at base
+    lr ``lr``: every loss and grad norm finite, the mean of the last 3
+    losses below the first 3's, and step 0's batch's loss after the steps
+    at least ``FAMILY_FIXED_DROP`` below its loss before them (a fall that
+    the batches' order cannot make); then its params packed and served (``family_forward``;
+    falcon-mamba-7b also ``family_engine``), the model freed. The
+    ``FAMILY_8BIT`` leg first trains the same model with the 8-bit AdamW,
+    recorded, not gated. Returns the record."""
+    from repro_torch.models import quantized
+    layers, batch, opt_name, micro = FAMILY_LEGS[arch]
+    t_leg = time.perf_counter()
+    cfg = family_config(arch, layers)
+    rec = {"layers": cfg.n_layers, "batch": batch, "seq": FAMILY_SEQ,
+           "microbatches": micro, "steps": FAMILY_STEPS}
+    if arch == FAMILY_8BIT:
+        rec["adamw8bit"] = family_train(cfg, "adamw8bit", batch, micro,
+                                        lr)[1]
+    trained, r = family_train(cfg, opt_name, batch, micro, lr)
+    rec.update(r)
+    if not all(np.isfinite(r["losses"] + r["grad_norms"])):
+        raise AssertionError(f"train {arch}: a loss or grad norm is not "
+                             f"finite: {r['losses']} {r['grad_norms']}")
+    if not (r["last3"] < r["first3"] and r["fixed_after"]
+            < r["fixed_before"] - FAMILY_FIXED_DROP):
+        raise AssertionError(
+            f"train {arch}: the loss did not fall: first 3 {r['first3']}, "
+            f"last 3 {r['last3']}; step 0's batch {r['fixed_before']} -> "
+            f"{r['fixed_after']} (at least {FAMILY_FIXED_DROP} lower "
+            f"wanted); losses {r['losses']}, grad norms {r['grad_norms']}")
+    gc_cuda()
+    scfg = full_config(arch).replace(n_layers=cfg.n_layers)
+    t0 = time.perf_counter()
+    packed = quantized.quantize_params(trained, scfg.quant)
+    torch.cuda.synchronize()
+    rec["quantize_s"] = time.perf_counter() - t0
+    del trained
+    gc_cuda()
+    rec["forward"] = family_forward(f"train {arch}", scfg, packed)
+    if arch == "falcon-mamba-7b":
+        rec["engine"] = family_engine(f"train {arch}", scfg, packed)
+    del packed
+    gc_cuda()
+    rec["seconds"] = time.perf_counter() - t_leg
+    return rec
+
+
+def train_families_phase(lr=FAMILY_LR):
+    """Phase 16: the legs of ``FAMILY_LEGS`` in order at base lr ``lr``,
+    each model freed before the next. Returns the record."""
+    t0 = time.perf_counter()
+    rec = {}
+    for arch in FAMILY_LEGS:
+        gc_cuda()
+        print(f"train families: {arch} leg begins with "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held",
+              flush=True)
+        rec[arch] = family_train_leg(arch, lr)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def train_families_lines(rec):
+    """Phase 16's record as text, one line a leg."""
+    lines = []
+    for arch, (layers, _, _, _) in FAMILY_LEGS.items():
+        r, fw = rec[arch], rec[arch]["forward"]
+        lines.append(
+            f"train families: {arch} ({r['layers']} layers"
+            + ("" if layers is None else ", depth cut")
+            + f", {r['params'] / 1e9:.3f} B params), QAT W2, "
+            f"{r['optimizer']} lr_schedule({r['lr']}, {FAMILY_WARMUP}, "
+            f"{r['steps']}), batch {r['batch']} x seq {r['seq']}"
+            + (f" in {r['microbatches']} microbatches"
+               if r["microbatches"] > 1 else "")
+            + f": median step {r['step_ms_median']:.1f} ms (first "
+            f"{r['step_ms'][0]:.1f}), {r['tokens_s']:.0f} tokens/s over steps "
+            f"2-{r['steps']}; peak device memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB (held before the leg "
+            f"{r['base_bytes'] / 2**30:.2f}); loss {r['losses'][0]:.4f} "
+            f"-> {r['losses'][-1]:.4f} (mean of the first 3 "
+            f"{r['first3']:.4f}, last 3 {r['last3']:.4f}); step 0's batch "
+            f"{r['fixed_before']:.4f} -> {r['fixed_after']:.4f}; grad norms "
+            f"{r['grad_norms'][0]:.4g} -> {r['grad_norms'][-1]:.4g}; "
+            f"packed in {r['quantize_s']:.1f} s; teacher-forced forward "
+            f"(128 prefilled, 8 decode steps) lut_pallas vs lut_xla max "
+            f"|logit diff| {fw['parity_max_abs_diff']} (exact; max |logit| "
+            f"{fw['max_abs_logit']:.4g}), launches {fw['launches']}"
+            + ("" if "engine" not in r else
+               f"; engine, {FAMILY_SERVE[0]} requests x {FAMILY_SERVE[1]} "
+               f"tokens: decode {r['engine']['decode_tok_s']:.1f} tok/s, "
+               f"host syncs/token {r['engine']['host_syncs_per_token']:.4f}"
+               f", launches {r['engine']['launches']}, a decode chunk under "
+               f"torch's sync check {r['engine']['decode_chunk_launches']}")
+            + f"; params made in {r['init_s']:.1f} s; leg "
+            f"{r['seconds']:.1f} s")
+        if "adamw8bit" in r:
+            e = r["adamw8bit"]
+            lines.append(
+                f"train families: {arch}, the same model and data with "
+                f"adamw8bit (a record, no gate): losses "
+                f"{[round(x, 3) for x in e['losses']]}, grad norms "
+                f"{[round(x, 4) for x in e['grad_norms']]}; step 0's batch "
+                f"{e['fixed_before']:.4f} -> {e['fixed_after']:.4f}; median step "
+                f"{e['step_ms_median']:.1f} ms, {e['tokens_s']:.0f} tokens/s;"
+                f" peak device memory {e['peak_bytes'] / 2**30:.2f} GiB")
+    lines.append(f"train families: phase 16 in {rec['seconds']:.1f} s")
     return lines
 
 
@@ -4171,6 +4584,12 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"kvint8": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--train-families":
+        rec = train_families_phase(*map(float, sys.argv[2:3]))
+        for line in train_families_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"train_families": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -4202,6 +4621,7 @@ def main() -> int:
     print("build: table_precompute (ptxas -v): " + "; ".join(
         f"{k}: {', '.join(v)}" for k, v in tp_report.items()), flush=True)
 
+    t0 = time.perf_counter()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     records, err = check_kernels(flush)
     pre_records = precompute_checks(flush)
@@ -4222,9 +4642,11 @@ def main() -> int:
     err["dequant_mpgemm"] = max(err["dequant_mpgemm"], dq_err)
     print(f"kernels: dequant op path (ops.dequant_mpgemm, 10 shapes): "
           f"{dq_launches} launches, max |diff| {dq_err:.3g} vs the f32 "
-          f"dequantized product (<= 1e-4 relative)", flush=True)
+          f"dequantized product (<= 1e-4 relative); phase 3 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 4: the main path, at full width
+    t0 = time.perf_counter()
     cfg = main_config()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -4238,6 +4660,8 @@ def main() -> int:
     eng, main_rec = serve_and_parity("serve", cfg, params)
     for line in serve_lines("serve", cfg, eng, main_rec):
         print(line, flush=True)
+    print(f"serve: phases 4 and 5 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     launches = main_rec["launches"]
 
     # phase 6: the block-paged pool with prefix sharing, at full width
@@ -4343,6 +4767,13 @@ def main() -> int:
     for line in kvint8_lines(kv_rec):
         print(line, flush=True)
 
+    # phase 16: QAT training on the SSM, hybrid, VLM and audio families,
+    # each model made anew and freed after its leg
+    gc_cuda()
+    tf_rec = train_families_phase()
+    for line in train_families_lines(tf_rec):
+        print(line, flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -4429,6 +4860,14 @@ def main() -> int:
             # phase 15's int8-cache serves, by model
             "kvint8_launches": {arch: kv_rec[arch]["launches"][name]
                                 for arch in KV_ARCHS},
+            # phase 16's trained weights: each model's teacher-forced
+            # forward, and falcon-mamba-7b's engine serve
+            "train_families_launches": {
+                arch: dict({"forward": tf_rec[arch]["forward"][
+                    "launches"][name]}, **({"engine": tf_rec[arch][
+                        "engine"]["launches"][name]}
+                        if "engine" in tf_rec[arch] else {}))
+                for arch in FAMILY_LEGS},
             **ssm_models, **xattn_models})
     # the expert-batched wrappers, per_row at the expert shapes (decode
     # C = 8 and prefill C = 24, gate/up and down), each with the launches
@@ -4465,6 +4904,7 @@ def main() -> int:
                    "decoding": decoding_rec, "telemetry": telemetry_rec,
                    "moe": moe_rec, "ssm": ssm_rec, "xattn": xattn_rec,
                    "train": train_rec, "kvint8": kv_rec,
+                   "train_families": tf_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,

@@ -99,6 +99,11 @@ class QuantizedWeight:
             n=self.n, plane_start=self.plane_start + self.num_planes - keep,
             stored_planes=self.stored_planes)
 
+    def storage_bits_per_weight(self) -> float:
+        """Packed bits a weight: a row's bytes over its K weights (an
+        expert stack's rows are one expert's)."""
+        return self.packed.shape[-1] * 8 / self.k_total
+
     def to(self, device) -> "QuantizedWeight":
         move = lambda t: None if t is None else t.to(device)
         return QuantizedWeight(

@@ -105,6 +105,10 @@ def main(argv=None):
                     help="fixed prompt-chunk length of admission prefill")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="per-request sampling temperature (<=0 greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="per-request top-k (0 disables)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="per-request nucleus mass (>=1 disables)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop a slot when it samples this token id")
     ap.add_argument("--decoding", default="greedy",
@@ -216,7 +220,7 @@ def main(argv=None):
         eng.submit(Request(
             uid=i, prompt=rng.integers(0, cfg.vocab_size, plen),
             max_new_tokens=args.max_new, temperature=args.temperature,
-            decoding=args.decoding))
+            top_k=args.top_k, top_p=args.top_p, decoding=args.decoding))
     t0 = time.time()
     chunks = eng.run_to_completion()
     dt = time.time() - t0

@@ -12,8 +12,13 @@ first 10 (only over runs of 20 steps or more).
 
 Runs on the CUDA card in f32 activations; ``--device cpu`` runs on the CPU
 (the tests do this, at ``--reduced`` size). Without a card and without
-``--device cpu`` it stops with an error. The dense and MoE archs train;
-``--mesh`` takes only ``none``: the mesh and its shardings are not ported.
+``--device cpu`` it stops with an error. The dense, MoE, SSM and hybrid
+archs train from ``SyntheticLM`` tokens. The VLM and audio archs are
+refused with a ValueError: their forwards need the stub frontends'
+``image_embeds`` / ``audio_frames``, which token data does not carry (the
+reference's launcher cannot train them either); ``make_train_step`` trains
+them from a batch that has them. ``--mesh`` takes only ``none``: the mesh
+and its shardings are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ from repro_torch.training import checkpoint as ckpt_mod
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.data import Prefetcher, SyntheticLM
 from repro_torch.training.train_loop import init_train_state, make_train_step
+
+# the batch entry each frontend family's forward reads beside the tokens
+FRONTEND_INPUTS = {"vlm": "image_embeds", "audio": "audio_frames"}
 
 
 def main(argv=None):
@@ -65,6 +73,13 @@ def main(argv=None):
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
     cfg = cfg.replace(activation_dtype=torch.float32)
+    if cfg.family in FRONTEND_INPUTS:
+        raise ValueError(
+            f"{args.arch}: the {cfg.family} forward needs "
+            f"batch[{FRONTEND_INPUTS[cfg.family]!r}] (the stub frontend's "
+            "input), and the synthetic token data carries tokens only; "
+            "train it through training.train_loop.make_train_step with a "
+            "batch that has it")
 
     sched = opt_mod.lr_schedule(args.lr, warmup=20, total=args.steps)
     opt = opt_mod.make_optimizer(args.optimizer, lr=sched)

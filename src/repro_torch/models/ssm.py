@@ -37,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
@@ -110,12 +111,20 @@ def _segment_weights(cum):
     """exp(L_t - L_s) for s <= t, 0 above the diagonal: cum [B, c, ...] ->
     [B, c(t), c(s), ...], masked before the exp. In place on the one new
     tensor (134 MB a chunk at falcon-mamba-7b's width), which an
-    out-of-place ``masked_fill`` would copy."""
+    out-of-place ``masked_fill`` would copy. Autograd allows both: it
+    saves the exp's output, which only a later in-place write into the
+    result would break."""
     c = cum.shape[1]
     tri = torch.ones((c, c), dtype=torch.bool, device=cum.device).tril()
     seg = cum[:, :, None] - cum[:, None, :]
     tri = tri.reshape((1, c, c) + (1,) * (cum.dim() - 2))
     return seg.masked_fill_(~tri, float("-inf")).exp_()
+
+
+def _recording(*ts) -> bool:
+    """Whether autograd records ops on ``ts``: the training forward. The
+    serving engine runs with grad enabled on params that need none."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -138,24 +147,44 @@ def mamba_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
     }
 
 
+def _mamba1_chunk(dt_c, x_c, b_c, c_c, a, h, inplace=True):
+    """One chunk of the selective scan: dt_c, x_c [B, c, di], b_c, c_c
+    [B, c, ds], a [di, ds], h [B, di, ds] -> (y [B, c, di], end h)."""
+    cum = torch.cumsum(dt_c[..., None] * a, dim=1)       # [B,c,di,ds]
+    inp = (dt_c * x_c)[..., None] * b_c[:, :, None, :]    # [B,c,di,ds]
+    # Σ_s w[t, s] · inp[s] as one product and one reduction (an einsum
+    # here lowers to ~10^5 tiny batched GEMMs at full width)
+    w = _segment_weights(cum)
+    # in place when serving; autograd saved w for the product's backward
+    w = w.mul_(inp[:, None]) if inplace else w * inp[:, None]
+    hs = torch.exp(cum) * h[:, None] + w.sum(dim=2)
+    return torch.einsum("btdz,btz->btd", hs, c_c), hs[:, -1]
+
+
 def _mamba1_scan(dt, xf, bf, cf, a, h, c: int):
     """The chunked selective scan. dt, xf [B, S, di], bf, cf [B, S, ds],
-    a [di, ds], h [B, di, ds] -> (y [B, S, di], final h)."""
+    a [di, ds], h [B, di, ds] -> (y [B, S, di], final h).
+
+    Serving multiplies each chunk's segment weights in place. The
+    training forward (autograd recording) takes the out-of-place
+    product, which gives the same bits, and recomputes each chunk in the
+    backward pass (``checkpoint``, the reference's ``jax.checkpoint`` of
+    the chunk body): only the chunk inputs and the carried h are kept, not the
+    [B, c, c, di, ds] weights (B × 134 MB a chunk at full width)."""
     s = dt.shape[1]
     pad = (-s) % c  # dt = 0 on the padding: a no-op update
     dt, xf, bf, cf = (_pad_seq(t, pad) for t in (dt, xf, bf, cf))
+    train = _recording(dt, xf, bf, cf, a, h)
     ys = []
     for c0 in range(0, s + pad, c):
-        dt_c, x_c = dt[:, c0:c0 + c], xf[:, c0:c0 + c]
-        b_c, c_c = bf[:, c0:c0 + c], cf[:, c0:c0 + c]
-        cum = torch.cumsum(dt_c[..., None] * a, dim=1)       # [B,c,di,ds]
-        inp = (dt_c * x_c)[..., None] * b_c[:, :, None, :]    # [B,c,di,ds]
-        # Σ_s w[t, s] · inp[s] as one product and one reduction (an
-        # einsum here lowers to ~10^5 tiny batched GEMMs at full width)
-        hs = (torch.exp(cum) * h[:, None]
-              + _segment_weights(cum).mul_(inp[:, None]).sum(dim=2))
-        ys.append(torch.einsum("btdz,btz->btd", hs, c_c))
-        h = hs[:, -1]
+        chunk = (dt[:, c0:c0 + c], xf[:, c0:c0 + c], bf[:, c0:c0 + c],
+                 cf[:, c0:c0 + c], a, h)
+        if train:
+            y, h = checkpoint(_mamba1_chunk, *chunk, False,
+                              use_reentrant=False)
+        else:
+            y, h = _mamba1_chunk(*chunk)
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :s], h
 
 

@@ -19,6 +19,7 @@ snapshot does not depend on the interpreter's string-hash seed.
 
 from __future__ import annotations
 
+import json
 import math
 import random
 import threading
@@ -254,6 +255,10 @@ class MetricsRegistry:
             "labels": dict(self.common_labels),
             "metrics": {n: i.snapshot() for n, i in sorted(insts.items())},
         }
+
+    def to_json(self, indent: int = 2) -> str:
+        """``snapshot()`` as JSON text."""
+        return json.dumps(self.snapshot(), indent=indent)
 
     def prometheus_text(self) -> str:
         """Prometheus text exposition (one HELP / TYPE block a series;

@@ -4,8 +4,10 @@ microbatch gradient accumulation and the int8 gradient-compression hook.
 ``make_train_step(cfg, opt, ...)`` returns ``(state, batch) -> (state,
 metrics)``: a new state (the input state is not modified), metrics as 0-dim
 tensors on the device. The batch is numpy arrays or tensors; they are moved
-to the params' device. Training covers the dense and MoE families; the
-shardings of the reference's ``train_shardings`` wait for a mesh.
+to the params' device. Every family of the registry trains, as in the
+reference: the VLM's batch carries ``image_embeds`` and whisper's
+``audio_frames`` beside the tokens. The shardings of the reference's
+``train_shardings`` wait for a mesh.
 """
 
 from __future__ import annotations
@@ -22,15 +24,6 @@ from repro_torch.models.transformer import lm_loss
 from repro_torch.training.optimizer import Optimizer, global_norm
 
 TrainState = Dict[str, Any]  # {"params", "opt", "step"} (+ "ef")
-
-TRAIN_FAMILIES = ("dense", "moe")
-
-
-def _check_family(cfg: ArchConfig):
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training is ported for the {TRAIN_FAMILIES} "
-            f"families, not {cfg.family!r}")
 
 
 def make_loss_fn(cfg: ArchConfig, lb_coef=0.01, z_coef=0.001):
@@ -50,8 +43,15 @@ def make_loss_fn(cfg: ArchConfig, lb_coef=0.01, z_coef=0.001):
 
 
 def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """The batch on ``device``: integer entries (tokens, labels) as int64,
+    floating ones (the frontends' image embeddings and audio frames) as
+    f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        dtype = torch.float32 if t.is_floating_point() else torch.int64
+        out[k] = t.to(device=device, dtype=dtype)
+    return out
 
 
 def make_train_step(
@@ -64,7 +64,6 @@ def make_train_step(
 ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """Build the train step. QAT fake-quant is applied when the config has a
     quant block (paper §5: the mpGEMM technique on the training forward)."""
-    _check_family(cfg)
     if grad_compression not in (None, "int8"):
         raise ValueError(f"grad_compression {grad_compression!r}: None or "
                          "'int8'")
@@ -130,7 +129,6 @@ def init_train_state(gen: torch.Generator, cfg: ArchConfig, opt: Optimizer,
                      grad_compression: Optional[str] = None) -> TrainState:
     """Float params from ``gen`` on ``device`` (the card unless the caller
     asks for the CPU), the optimizer's state and the step counter."""
-    _check_family(cfg)
     params = api.init_params(gen, cfg, device, serve_quantized=False)
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32,

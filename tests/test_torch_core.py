@@ -70,6 +70,27 @@ def test_packed_bytes_equal_reference(scheme, bits, k_group):
                                np.asarray(JQ.dequantize(jq)), **scale_tol)
 
 
+@pytest.mark.parametrize("scheme,bits", SCHEMES)
+def test_storage_bits_per_weight_matches_reference(scheme, bits):
+    """Packed bits a weight: the reference's for every scheme and K-group
+    (K 64 and a K that ends on a partial byte), a plane-sliced view's too
+    (it reads the same buffer), and an expert stack's per expert."""
+    for k_group, k in ((1, 64), (2, 64), (4, 64), (4, 20), (8, 64)):
+        w = _weights(24, k, seed=bits + k_group)
+        jq = JQ.quantize(jnp.asarray(w), bits, k_group=k_group,
+                         scheme=scheme)
+        tq = TQ.quantize(torch.from_numpy(w), bits, k_group=k_group,
+                         scheme=scheme)
+        assert tq.storage_bits_per_weight() == jq.storage_bits_per_weight()
+        assert (tq.plane_slice(1).storage_bits_per_weight()
+                == jq.plane_slice(1).storage_bits_per_weight())
+    w = np.stack([_weights(24, 64, seed=s) for s in range(3)])
+    stack = TQ.quantize_experts(torch.from_numpy(w), bits, k_group=4,
+                                scheme=scheme)
+    one = JQ.quantize(jnp.asarray(w[0]), bits, k_group=4, scheme=scheme)
+    assert stack.storage_bits_per_weight() == one.storage_bits_per_weight()
+
+
 def test_pack_unpack_roundtrip_and_plane_slice():
     rng = np.random.default_rng(1)
     for k_group in (1, 2, 4, 8):

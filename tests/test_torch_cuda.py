@@ -1152,3 +1152,126 @@ def test_reduced_int8_beam_and_olmoe_spec_on_the_card(cuda):
         if d.startswith("spec"):
             extra = eng.stats()["spec"]["draft_extra_hbm_bytes"]
     assert streams["beam:1"] == streams["greedy"] and extra == 0
+
+
+# the scans' own leaves: their gradients reach them through the recurrence
+TRAIN_SCAN_LEAVES = ("A_log", "D", "conv_w", "conv_b", "dt_proj")
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
+                                  "llama-3.2-vision-11b", "whisper-tiny"])
+def test_train_family_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One QAT momentum step (lr 1e-2) of each reduced training family on
+    the card against the same step on the CPU, same float params (made on
+    the CPU, the VLM's gates 0.5) and batch (2 × 8 tokens, the frontends'
+    inputs normal × 0.1): losses within 1e-5 relative, the grad norm
+    within 1e-4, each leaf's gradient within 1e-4 of its largest
+    |gradient| (the scans' own leaves 1e-3; tests/test_torch_train_
+    families.py's bounds). The step moves a param by lr × its gradient,
+    so the params are held to rtol = atol = 1e-5 plus lr × the leaf's
+    gradient bound (zamba2's embedding gradient is large enough that
+    its bound moves a param by more than 1e-5)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.tree import tree_map, tree_paths
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import make_train_step
+    cfg = registry.get_reduced(arch).replace(activation_dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    params = api.init_params(gen, cfg, "cpu", serve_quantized=False)
+    for xp in params.get("xattn_layers", []):
+        xp["gate_attn"].fill_(0.5)
+        xp["gate_mlp"].fill_(0.5)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, size=(2, 8))
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    for fam, key, n in (("vlm", "image_embeds", cfg.n_image_tokens),
+                        ("audio", "audio_frames", cfg.n_audio_frames)):
+        if cfg.family == fam:
+            batch[key] = (rng.normal(size=(2, n, cfg.d_model))
+                          * 0.1).astype(np.float32)
+    opt = O.make_optimizer("momentum", lr=1e-2)
+    step = make_train_step(cfg, opt, qat=True)
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev), params)
+        return step({"params": p, "opt": opt.init(p),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=dev)}, batch)
+
+    (cs, cm), (gs, gm) = run("cpu"), run(cuda)
+    for k in cm:
+        tol = 1e-4 if k == "grad_norm" else 1e-5
+        assert abs(float(gm[k]) - float(cm[k])) <= tol * abs(float(cm[k])), k
+    bound = {}
+    for (name, got), (_, want) in zip(tree_paths(gs["opt"]["m"]),
+                                      tree_paths(cs["opt"]["m"])):
+        tol = (1e-3 if any(f"['{k}']" in name for k in TRAIN_SCAN_LEAVES)
+               else 1e-4)
+        scale = want.abs().max().item()
+        assert scale > 0, name
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= tol * scale, (name, err / scale)
+        bound[name] = tol * scale
+    for (name, got), (_, want) in zip(tree_paths(gs["params"]),
+                                      tree_paths(cs["params"])):
+        assert torch.allclose(got.cpu(), want, rtol=1e-5,
+                              atol=1e-5 + 1e-2 * bound[name]), name
+
+
+def test_train_family_adamw8bit_on_the_card_equals_the_cpu(cuda):
+    """The 8-bit AdamW (lr 1e-3; m and v of leaves of 2048 or more as INT8
+    codes in blocks of 2048 with f32 scales) applied on the card and on
+    the CPU to the same two steps of reduced falcon-mamba-7b: its float
+    params and its QAT gradients of two batches of 2 × 8 tokens, computed
+    on the CPU, the second batch without the first's half of the
+    vocabulary (embedding rows with no gradient, where the reference's
+    INT8 v of 0 makes the update lr · m / eps). Every m and v code equal,
+    their scales and the params within rtol = atol = 1e-5, after each
+    step. The gradients are given, not taken on each device, and clipping
+    is off: where v's code is 0, lr · m / sqrt(v) turns a gradient's last
+    bits (the card sums in another order; the momentum test holds its
+    gradients and norm) into a large move, and a code one off into a
+    move of a sizeable share of the param."""
+    from repro_torch.configs import registry
+    from repro_torch.core.tree import (tree_leaves, tree_map, tree_paths,
+                                       tree_unflatten)
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_loop import make_loss_fn
+    cfg = registry.get_reduced("falcon-mamba-7b").replace(
+        activation_dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    params = api.init_params(gen, cfg, "cpu", serve_quantized=False)
+    rng = np.random.default_rng(3)
+    half = cfg.vocab_size // 2
+    loss_fn = make_loss_fn(cfg.with_quant(qat=True))
+    opt = O.make_optimizer("adamw8bit", lr=1e-3, grad_clip=None)
+    state = opt.init(params)
+    card = tree_map(lambda t: t.to(cuda), (params, state))
+    n_codes = 0
+    for lo in (0, half):
+        tokens = torch.as_tensor(rng.integers(lo, lo + half, size=(2, 9)))
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss, _ = loss_fn(tree_unflatten(params, leaves),
+                          {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+        grads = tree_unflatten(params, list(torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)))
+        params, state = opt.update(grads, state, params)
+        card = opt.update(tree_map(lambda t: t.to(cuda), grads), card[1],
+                          card[0])
+        for mv in ("m", "v"):
+            for (name, got), (_, want) in zip(tree_paths(card[1][mv]),
+                                              tree_paths(state[mv])):
+                if got.dtype == torch.int8:
+                    n_codes += got.numel()
+                    assert torch.equal(got.cpu(), want), (lo, mv, name)
+                else:
+                    assert torch.allclose(got.cpu(), want, rtol=1e-5,
+                                          atol=1e-5), (lo, mv, name)
+        for (name, got), (_, want) in zip(tree_paths(card[0]),
+                                          tree_paths(params)):
+            assert torch.allclose(got.cpu(), want, rtol=1e-5,
+                                  atol=1e-5), (lo, name)
+    assert n_codes > 0

@@ -199,3 +199,48 @@ def test_sampling_distribution():
     assert (freq - want).abs().max().item() < 0.015
     greedy = tsampler.sample(gen, logits[:3], temperature=0.0)
     assert greedy.tolist() == [0, 0, 0]
+
+
+class _Stop(Exception):
+    pass
+
+
+def _cli_requests(monkeypatch, main, engine_cls, argv):
+    """The requests ``main(argv)`` submits to ``engine_cls``, the serve
+    itself cut off."""
+    got = []
+    monkeypatch.setattr(engine_cls, "submit", lambda self, r: got.append(r))
+
+    def stop(self, *a, **k):
+        raise _Stop
+
+    monkeypatch.setattr(engine_cls, "run_to_completion", stop)
+    with pytest.raises(_Stop):
+        main(argv)
+    return got
+
+
+def test_serve_cli_passes_top_k_and_top_p_as_the_reference(monkeypatch):
+    """``launch/serve.py --top-k --top-p`` set every request's top_k and
+    top_p; the port's CLI submits the reference CLI's requests (prompts,
+    lengths, sampling fields) for the same arguments."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+    argv = ["--reduced", "--requests", "3", "--max-new", "2",
+            "--temperature", "0.8", "--top-k", "5", "--top-p", "0.9",
+            "--decoding", "sample"]
+    want = _cli_requests(monkeypatch, jserve.main, JEngine, argv)
+    got = _cli_requests(monkeypatch, tserve.main, ServingEngine,
+                        argv + ["--device", "cpu"])
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g.prompt),
+                                      np.asarray(w.prompt))
+        for f in ("uid", "max_new_tokens", "temperature", "top_k", "top_p",
+                  "decoding"):
+            assert getattr(g, f) == getattr(w, f), f
+        assert (g.top_k, g.top_p) == (5, 0.9)
+    # the defaults disable both filters, as the reference's do
+    got = _cli_requests(monkeypatch, tserve.main, ServingEngine,
+                        ["--reduced", "--device", "cpu", "--requests", "1"])
+    assert (got[0].top_k, got[0].top_p) == (0, 1.0)

@@ -130,6 +130,23 @@ def test_histogram_and_export_match_the_reference(n):
         assert r1.get(name).value == r2.get(name).value
 
 
+def test_registry_to_json_matches_the_reference():
+    """``MetricsRegistry.to_json`` gives the reference's text for the same
+    instruments and observations, at the default indent and another."""
+    regs = MetricsRegistry(), jmetrics.MetricsRegistry()
+    for r in regs:
+        r.set_common_labels(host="0", arch="tinyllama-1.1b")
+        r.counter("req_total", help="requests").inc(3)
+        r.gauge("slot_occupancy_ratio").set(0.75)
+        h = r.histogram("lat_seconds", help="latency", unit="s")
+        for x in (0.5, 0.125, 2.0, 0.25):
+            h.observe(x)
+    ours, ref = regs
+    assert ours.to_json() == ref.to_json()
+    assert ours.to_json(indent=None) == ref.to_json(indent=None)
+    assert json.loads(ours.to_json()) == ours.snapshot()
+
+
 def test_registry_get_or_create_reset_and_kind_conflict():
     r = MetricsRegistry()
     c1 = r.counter("x_total")

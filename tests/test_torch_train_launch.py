@@ -83,12 +83,6 @@ def test_train_loss_decreases(arch):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2, losses
 
 
-def test_train_refuses_untrained_families():
-    cfg = _cfg("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="training is ported"):
-        make_train_step(cfg, O.make_optimizer("adamw"))
-
-
 def test_train_main_checkpoints_and_resumes(tmp_path, capsys):
     ckpt = str(tmp_path / "ckpt")
     assert train.main(ARGS + ["--steps", "20", "--ckpt-dir", ckpt,
