@@ -56,7 +56,8 @@ exit and no result line):
                the count of the paths' IEEE f32 first versions, 2·M·N·K f32
                and the table adds, as ``bound_f32_ms``; the kernels line
                does not carry it);
-       bound_ms = max(bytes / 3.35 TB/s, ops / peak of their type);
+       bound_ms = max(bytes / 3.35 TB/s, ops / peak of their type)
+                  (``repro_torch.roofline.cost.bound``, ``hw``);
   4. serve   — full-width tinyllama-1.1b, W2 symmetric K=4, random weights
      from a fixed seed made on the card, served through the port's engine
      (lut_pallas, table_quant auto -> per_row, fusion auto, 4 requests with
@@ -344,6 +345,44 @@ exit and no result line):
      (``family_engine``: every kernel launched, <= 1/decode_chunk host
      syncs a token, a decode chunk under torch's sync check launching one
      fused lookup and one row scale per packed projection a step).
+ 17. window  — sliding-window attention on the rolling KV cache
+     (``window_phase``), after phase 16: zamba2-7b at full width, 13 of its
+     81 layers (two invocations of the shared block, as phase 16 (b) cuts
+     it), batch 1, lut_pallas, random weights from seed 0 made on the card,
+     ``window`` = ``shape("long_500k").window`` (8192), f32 caches: (a)
+     with float tables (``table_quant=None``: per_row code flips, which
+     zamba2 amplifies, would hide the attention's own difference), an
+     8192-token prompt prefilled in 128-token chunks into a rolling cache
+     (``api.init_cache(..., window=8192)``: 8192 slots, position p in slot
+     p mod 8192) and into a full-length cache read under the window mask,
+     then 64 greedy s = 1 steps past the wrap on each (``window_stream``):
+     the two streams equal token for token, or diverging at a near tie
+     (phase 6's rule: top-2 logit margin <= 0.15 ends the comparison
+     there, and the run prints where); the largest logit gap over the
+     compared steps printed; the launch counts set to 0 just before the
+     rolling stream and read just after; (b) per_row, one decode step at
+     position 8256 (past the wrap) from clones of the rolling cache
+     through the kernels and through lut_xla: logits bit-equal, its
+     launches counted; every kernel of the per_row path launched over (a)
+     and (b); (c) the rolling cache's bytes equal to ``attn_cache``'s
+     formula here, and at long_500k's full depth in bf16 (meta device:
+     1.53 GB against 97.7 GB without the window); the per_row decode
+     step's wall and busy time (``busy_profile``).
+ 18. cw      — the offline-CW weight store (``cw_phase``): full-width
+     tinyllama-1.1b under lut_xla with per_row tables, its packed tree
+     expanded once (``to_cw_params``, timed): a teacher-forced 128-token
+     forward bit-equal on both trees, phase 4's 4-request greedy serve
+     giving the same streams on both (on the card the engine keeps the
+     tree it is given), the tree bytes of each store, one decode step's
+     wall and busy time on each (``decode_step_profile``); an engine under
+     lut_pallas refuses the CW tree (ValueError). lut_xla launches no
+     kernel, as in the reference.
+
+Phase 4 also prints its profiled decode step as a roofline
+(``roofline_record``: ``repro_torch.roofline.cost.step_cost`` at the
+engine's slots and cached positions, f32 K/V, per_row): the least bytes,
+t_memory, and the ideal time's fraction of the step's wall and of its
+busy time (``Roofline.fraction_of``).
 
 The line before the last is the card's name and power limit; the line
 before that the kernels' JSON record (the two batched wrappers listed
@@ -351,8 +390,9 @@ beside the four kernels, with phase 11's launches and times; each kernel's
 launches and times at falcon-mamba-7b's, zamba2-7b's,
 llama-3.2-vision-11b's and whisper-tiny's shapes under their names, the
 launches of phase 14's serve of the trained weights, phase 15's
-int8-cache serves' by model, and phase 16's forwards and engine serve of
-the trained weights by model); every phase prints its seconds; the
+int8-cache serves' by model, phase 16's forwards and engine serve of
+the trained weights by model, and phase 17's windowed zamba2 stream and
+step); every phase prints its seconds; the
 last line
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
@@ -395,6 +435,11 @@ phase 15 alone (its record as one line of JSON),
 
 phase 16 alone, at base lr LR (default 3e-4; its record as one line of
 JSON),
+
+    python3 chip_smoke.py --window            # phases 1, 2 and 17 only
+    python3 chip_smoke.py --cw                # phases 1, 2 and 18 only
+
+phase 17 or phase 18 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -448,9 +493,6 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
-# dense, published peaks
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 MODES = (None, "per_row", "per_group")
 SHAPES = ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (32000, 2048))
 ROWS = (4, 128)            # decode batch, prefill chunk
@@ -570,10 +612,11 @@ def time_ms(fn, reps, flush):
 
 def bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and
-    Σ operations / peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items()) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    Σ operations / peak rate of their type, at the H100's published
+    rates (``repro_torch.roofline``: 3.35 TB/s; int8 1979, bf16 989, f32
+    67 TOP/s dense)."""
+    from repro_torch.roofline.cost import bound as roofline_bound
+    return roofline_bound(nbytes, ops)
 
 
 def random_weight(gen, n, k):
@@ -652,6 +695,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
     from repro_torch.kernels import ops
     from repro_torch.kernels import table_precompute as tk
     from repro_torch.core import table as T
+    from repro_torch.roofline import cost
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -721,8 +765,9 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                               sums=lambda **c: dequant_sums(
                                   xd, pkd, wsd, **pw, **c))
                 same_bits("dequant_mpgemm", kern, got, f"M={m} N={n} K={k}")
-                nbytes = qw.packed.numel() + 4 * n + 4 * m * k + 4 * m * n
-                b_ms, b_by = bound(nbytes, {"bf16": dk.PASSES * 2 * m * n * k})
+                nbytes, nops = cost.mpgemm_cost("dequant_mpgemm", m, n, k,
+                                                bits=qw.bits)
+                b_ms, b_by = bound(nbytes, nops)
                 records.append({
                     "kernel": "dequant_mpgemm", "m": m, "n": n, "k": k,
                     "table_quant": None,
@@ -773,33 +818,25 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                 if f32:
                     same_bits("fused_lut_mpgemm", fused_call, got, what)
                 # times and bounds: every mode of the two LUT mpGEMMs (the
-                # main path runs per_row)
-                pk_bytes = qw.packed.numel() + 4 * n
-                out_bytes = 4 * m * n
-                entry_ops = {"f32": m * g * e * (KG - 1)}
-                if tq == "per_row":
-                    lut_ops = {"int8": 2 * m * n * k}
-                    table_bytes = m * g * e + 4 * m
-                else:
-                    lut_ops = {"bf16": lk.F32_PASSES * 2 * m * n * k}
-                    table_bytes = (4 * m * g * e if tq is None
-                                   else m * g * e + 4 * m * g)
-                fused_ops = dict(lut_ops, **entry_ops)
+                # main path runs per_row); the fused kernel's row scale is
+                # given on the per_row path (``fused_operands``)
+                lut_cost = cost.mpgemm_cost("lut_mpgemm", m, n, k,
+                                            table_quant=tq, bits=qw.bits)
+                fused_cost = cost.mpgemm_cost(
+                    "fused_lut_mpgemm", m, n, k, table_quant=tq,
+                    bits=qw.bits, row_scale_given=rs is not None)
                 first_ops = {"f32": 2 * m * n * k}  # the IEEE f32 first version
                 recs = {
                     "lut_mpgemm": (
                         staged_call,
                         lambda: lk.lut_mpgemm_plain(*staged, **pw),
-                        library_mm, table_bytes + pk_bytes + out_bytes,
-                        lut_ops, first_ops),
+                        library_mm, *lut_cost, first_ops),
                     "fused_lut_mpgemm": (
                         fused_call,
                         lambda: fk.fused_lut_mpgemm_plain(xp, rs, pkp, wsp,
                                                           **fw),
-                        library_mm, 4 * m * k + (4 * m if rs is not None
-                                                 else 0)
-                        + pk_bytes + out_bytes, fused_ops,
-                        {"f32": first_ops["f32"] + entry_ops["f32"]}),
+                        library_mm, *fused_cost,
+                        {"f32": first_ops["f32"] + fused_cost[1]["f32"]}),
                 }
                 for name, (kern, plain, lib, nbytes, nops, f32_ops) in (
                         recs.items()):
@@ -863,9 +900,9 @@ def precompute_checks(flush, ks=PRECOMPUTE_K, rows=ROWS,
     from repro_torch.core import table as T
     from repro_torch.kernels import ops
     from repro_torch.kernels import table_precompute as tk
+    from repro_torch.roofline import cost
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    e = 1 << (KG - 1)
     basis = T.sign_basis(KG, "cuda")
     records = []
 
@@ -896,14 +933,9 @@ def precompute_checks(flush, ks=PRECOMPUTE_K, rows=ROWS,
                     raise AssertionError(
                         f"table_precompute M={m} K={k} {tq} (row scale "
                         f"given: {given}): not bit-equal to the plain version")
-                computed = tq == "per_group" or (tq == "per_row" and not given)
-                out_bytes = (4 * m * g * e if tq is None else m * g * e + (
-                    4 * m * g if tq == "per_group" else 0 if given else 4 * m))
-                nops = {"f32": m * g * e * (KG - 1) + (0 if tq is None else
-                                                       m * g * e)
-                        + (m * k if computed else 0)}
-                b_ms, b_by = bound(4 * m * k + (4 * m if given else 0)
-                                   + out_bytes, nops)
+                b_ms, b_by = bound(*cost.mpgemm_cost(
+                    "table_precompute", m, None, k, table_quant=tq,
+                    row_scale_given=given))
                 records.append({
                     "kernel": "table_precompute", "m": m, "n": None, "k": k,
                     "table_quant": tq,
@@ -927,7 +959,7 @@ def precompute_checks(flush, ks=PRECOMPUTE_K, rows=ROWS,
             if not tables_equal((got, got), (closed(), closed())):
                 raise AssertionError(f"row_scale M={m} K={k}: not bit-equal "
                                      f"to the closed form")
-            b_ms, b_by = bound(4 * m * k + 4 * m, {"f32": m * k})
+            b_ms, b_by = bound(*cost.mpgemm_cost("row_scale", m, None, k))
             records.append({
                 "kernel": "row_scale", "m": m, "n": None, "k": k,
                 "table_quant": "per_row", "row_scale": "computed",
@@ -4399,6 +4431,316 @@ def train_families_lines(rec):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 17: sliding-window attention, the rolling KV cache
+# ---------------------------------------------------------------------------
+
+WINDOW_ARCH = "zamba2-7b"
+# its depth: 13 of 81 layers, two invocations of the shared block (as
+# phase 16 (b) cuts it)
+WINDOW_LAYERS = 13
+WINDOW_CHUNK = 128         # prefill chunk
+WINDOW_DECODE = 64         # greedy s = 1 steps past the wrap
+
+
+def window_stream(cfg, params, prompt, cache, window):
+    """Greedy decoding of ``prompt`` [1, P] through ``cache`` under the
+    window: the prompt prefilled in WINDOW_CHUNK-token chunks at offsets
+    0, 128, ..., then WINDOW_DECODE s = 1 steps at positions P, P + 1, ...
+    Returns (tokens, the logits that picked them [WINDOW_DECODE + 1, V],
+    seconds)."""
+    from repro_torch.models import api
+    p = prompt.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for off in range(0, p, WINDOW_CHUNK):
+        last = off + WINDOW_CHUNK >= p
+        logits = api.forward(params, {"tokens": prompt[:, off:off
+                                                       + WINDOW_CHUNK]},
+                             cfg, caches=cache, cache_pos=off, head=last,
+                             window=window)[0]
+    rows = [logits[0, -1]]
+    toks = [int(rows[-1].argmax())]
+    for j in range(WINDOW_DECODE):
+        tok = torch.tensor([[toks[-1]]], device="cuda")
+        rows.append(api.forward(params, {"tokens": tok}, cfg, caches=cache,
+                                cache_pos=p + j, window=window)[0][0, -1])
+        toks.append(int(rows[-1].argmax()))
+    torch.cuda.synchronize()
+    return toks, torch.stack(rows), time.perf_counter() - t0
+
+
+def attn_kv_bytes(cache) -> int:
+    """Bytes of a cache tree's attention K/V leaves (the hybrid's "kv")."""
+    from repro_torch.core.tree import tree_leaves
+    kv = cache["kv"] if isinstance(cache, dict) else cache
+    return sum(t.numel() * t.element_size() for t in tree_leaves(kv))
+
+
+def window_phase():
+    """Phase 17 (module docstring): zamba2-7b at full width, 13 of its 81
+    layers, lut_pallas, decoding past the wrap of long_500k's 8192-token
+    rolling window. Returns the record."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import api
+    t_start = time.perf_counter()
+    base = full_config(WINDOW_ARCH).replace(n_layers=WINDOW_LAYERS)
+    shape = base.shape("long_500k")
+    window = shape.window
+    params, made_s = made(base)
+    rec = {"arch": WINDOW_ARCH, "layers": WINDOW_LAYERS, "window": window,
+           "shape": vars(shape), "params_s": made_s}
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, base.vocab_size, (1, window)), device="cuda")
+    s_cache = window + WINDOW_DECODE + 1
+
+    # (a) float tables: the rolling cache against a full-length cache with
+    # the window mask, 64 greedy steps past the wrap
+    cfg_f = base.with_quant(table_quant=None)
+    reset_counts()
+    rolling = api.init_cache(cfg_f, 1, s_cache, torch.float32, "cuda",
+                             window=window)
+    if rolling["kv"][0].shape[2] != window:
+        raise AssertionError(f"window: the rolling cache holds "
+                             f"{rolling['kv'][0].shape[2]} positions, not "
+                             f"{window}")
+    got, got_logits, roll_s = window_stream(cfg_f, params, prompt, rolling,
+                                            window)
+    float_launches = read_counts()
+    full = api.init_cache(cfg_f, 1, s_cache, torch.float32, "cuda")
+    want, want_logits, full_s = window_stream(cfg_f, params, prompt, full,
+                                              window)
+    del full
+    j = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y), None)
+    upto = len(got) if j is None else j + 1
+    gap = (got_logits[:upto] - want_logits[:upto]).abs().max().item()
+    div = None
+    if j is not None:
+        top2 = torch.topk(want_logits[j], 2).values
+        div = {"step": j, "margin": (top2[0] - top2[1]).item()}
+        if div["margin"] > MARGIN:
+            raise AssertionError(
+                f"window: the rolling and full-cache streams diverge at step "
+                f"{j} (position {window + j - 1}) with top-2 margin "
+                f"{div['margin']} > {MARGIN}")
+    if not (torch.isfinite(got_logits).all()
+            and got_logits.shape == (WINDOW_DECODE + 1, base.vocab_size)):
+        raise AssertionError(f"window: bad logits {tuple(got_logits.shape)}")
+    rec["a"] = {"tokens": len(got), "equal_tokens_before_divergence": upto
+                if j is None else j, "divergence": div,
+                "max_logit_gap": gap,
+                "max_abs_logit": want_logits.abs().max().item(),
+                "rolling_s": roll_s, "full_cache_s": full_s,
+                "launches": float_launches}
+
+    # (b) per_row: one decode step past the wrap, kernels vs lut_xla, from
+    # clones of the rolling cache
+    pos = window + WINDOW_DECODE
+    tok = torch.tensor([[got[-1]]], device="cuda")
+    step = {}
+    for mode in ("lut_pallas", "lut_xla"):
+        c = base.with_quant(mpgemm_mode=mode, table_quant="per_row")
+        cache = tree_map(lambda t: t.clone(), rolling)
+        if mode == "lut_pallas":
+            reset_counts()
+        step[mode] = api.forward(params, {"tokens": tok}, c, caches=cache,
+                                 cache_pos=pos, window=window)[0]
+        if mode == "lut_pallas":
+            torch.cuda.synchronize()
+            kernel_launches = read_counts()
+        del cache
+    diff = (step["lut_pallas"] - step["lut_xla"]).abs().max().item()
+    if diff != 0.0:
+        raise AssertionError(f"window: a rolling decode step past the wrap, "
+                             f"kernels vs lut_xla: max |logit diff| {diff}")
+    launches = {n: (float_launches[n] or 0) + (kernel_launches[n] or 0)
+                for n in float_launches}
+    if min(launches[n] for n in PER_ROW_PATH) <= 0:
+        raise AssertionError(f"window: a kernel never ran: {launches}")
+    rec["b"] = {"position": pos, "max_abs_diff": diff,
+                "launches": kernel_launches}
+    rec["launches"] = launches
+
+    # (c) the rolling cache's bytes against attn_cache's formula, here and
+    # at long_500k's full depth; the per_row decode step's wall and busy
+    n_attn = base.n_layers // base.attn_every
+    kv_f32 = n_attn * window * 2 * base.n_kv_heads * base.head_dim * 4
+    if attn_kv_bytes(rolling) != kv_f32:
+        raise AssertionError(f"window: rolling cache of "
+                             f"{attn_kv_bytes(rolling)} bytes, the formula "
+                             f"gives {kv_f32}")
+    full_cfg = full_config(WINDOW_ARCH)
+    meta = lambda w: attn_kv_bytes(api.init_cache(
+        full_cfg, shape.global_batch, shape.seq_len, device="meta",
+        window=w))
+    n_full = full_cfg.n_layers // full_cfg.attn_every
+    formula = lambda s: (n_full * s * 2 * full_cfg.n_kv_heads
+                         * full_cfg.head_dim * 2)
+    rec["c"] = {"kv_bytes_here_f32": kv_f32,
+                "long_500k_bf16_rolling": meta(window),
+                "long_500k_bf16_full": meta(None)}
+    if (rec["c"]["long_500k_bf16_rolling"] != formula(window)
+            or rec["c"]["long_500k_bf16_full"] != formula(shape.seq_len)):
+        raise AssertionError(f"window: long_500k cache bytes {rec['c']} "
+                             f"against the formula")
+    c_k = base.with_quant(table_quant="per_row")
+    cache = tree_map(lambda t: t.clone(), rolling)
+    rec["c"]["decode_step"] = busy_profile(lambda: api.forward(
+        params, {"tokens": tok}, c_k, caches=cache, cache_pos=pos,
+        window=window))
+    del cache, rolling, params
+    gc_cuda()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def window_lines(rec):
+    a, b, c = rec["a"], rec["b"], rec["c"]
+    step = c["decode_step"]
+    busy = ("device busy not measured" if step["busy_ms"] is None else
+            f"device busy {step['busy_ms']:.2f} ms (idle share "
+            f"{step['idle_share']:.3f}) in {step['kernels']} CUDA kernels")
+    agree = ("all agree" if a["divergence"] is None else
+             f"agree up to step {a['divergence']['step']}, a near tie "
+             f"(top-2 margin {a['divergence']['margin']:.4f} <= {MARGIN})")
+    return [
+        f"window: {rec['arch']}, {rec['layers']} layers, window "
+        f"{rec['window']} (long_500k), float tables: an {rec['window']}-token "
+        f"prompt in {WINDOW_CHUNK}-token chunks, then {WINDOW_DECODE} greedy "
+        f"steps past the wrap on the rolling cache ({a['rolling_s']:.1f} s) "
+        f"and on a full-length cache under the window mask "
+        f"({a['full_cache_s']:.1f} s): {a['tokens']} tokens, {agree}; "
+        f"largest logit gap over the compared steps {a['max_logit_gap']:.4g} "
+        f"(max |logit| {a['max_abs_logit']:.4g}); launches {a['launches']}",
+        f"window: per_row, one decode step at position {b['position']} "
+        f"(slot {b['position'] % rec['window']}) from clones of the rolling "
+        f"cache: lut_pallas vs lut_xla max |logit diff| {b['max_abs_diff']} "
+        f"(tolerance 0: exact); launches {b['launches']}",
+        f"window: cache bytes, rolling K/V here {c['kv_bytes_here_f32']} "
+        f"(f32, {rec['layers'] // 6} invocations x {rec['window']} "
+        f"positions, as attn_cache's formula); long_500k at full depth "
+        f"(bf16): rolling "
+        f"{c['long_500k_bf16_rolling']} B against "
+        f"{c['long_500k_bf16_full']} B without the window; per_row decode "
+        f"step past the wrap: wall {step['wall_ms']:.2f} ms, {busy}; phase "
+        f"17 in {rec['seconds']:.1f} s"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the offline-CW weight store
+# ---------------------------------------------------------------------------
+
+def cw_phase():
+    """Phase 18 (module docstring): full-width tinyllama-1.1b under
+    lut_xla, the offline-CW store against the packed store. Returns the
+    record."""
+    from repro_torch.models import api
+    from repro_torch.models import quantized as qz
+    from repro_torch.serving.engine import ServingEngine
+    t_start = time.perf_counter()
+    cfg = main_config().with_quant(mpgemm_mode="lut_xla",
+                                   table_quant="per_row")
+    params, made_s = made(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cw = qz.to_cw_params(params)
+    torch.cuda.synchronize()
+    rec = {"params_s": made_s, "expand_s": time.perf_counter() - t0,
+           "packed_bytes": qz.quantized_bytes(params),
+           "cw_bytes": qz.quantized_bytes(cw)}
+    if not qz.has_cw(cw) or qz.has_cw(params):
+        raise AssertionError("cw: the expanded tree holds no CW weight")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    a = api.forward(params, {"tokens": toks}, cfg)[0]
+    b = api.forward(cw, {"tokens": toks}, cfg)[0]
+    if tuple(a.shape) != (1, 128, cfg.vocab_size) or not torch.isfinite(
+            a).all():
+        raise AssertionError(f"cw: bad logits {tuple(a.shape)}")
+    rec["forward_max_abs_diff"] = (a - b).abs().max().item()
+    if rec["forward_max_abs_diff"] != 0.0:
+        raise AssertionError(f"cw: CW vs packed 128-token forward, max "
+                             f"|logit diff| {rec['forward_max_abs_diff']}")
+    streams = {}
+    for store, tree in (("packed", params), ("cw", cw)):
+        # the engine keeps the tree it is given (store "packed" pins it
+        # anywhere; on the card nothing is converted unless asked)
+        t0 = time.perf_counter()
+        eng, reqs = serve(cfg.with_quant(store=store), tree, seed=2)
+        serve_s = time.perf_counter() - t0
+        if qz.has_cw(eng.params) != (store == "cw"):
+            raise AssertionError(f"cw: the {store} engine converted its tree")
+        streams[store] = [r.output for r in reqs]
+        # one step a decode chunk: the profile covers a single step
+        eng.decode_chunk = 1
+        rec[store] = {"serve": eng.stats(), "serve_s": serve_s,
+                      "decode_step": decode_step_profile(eng)}
+        del eng
+    if streams["cw"] != streams["packed"]:
+        raise AssertionError(f"cw: CW and packed greedy streams differ: "
+                             f"{stream_agreement(streams['cw'], streams['packed'])}")
+    rec["streams_equal"] = True
+    try:
+        ServingEngine(main_config(), cw, **SERVE_KW)
+    except ValueError as e:
+        rec["lut_pallas_refusal"] = str(e)[:120]
+    else:
+        raise AssertionError("cw: lut_pallas accepted the CW tree")
+    del cw, params
+    gc_cuda()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def cw_lines(rec):
+    step = lambda s: (f"wall {rec[s]['decode_step']['wall_ms']:.2f} ms, "
+                      + ("device busy not measured"
+                         if rec[s]["decode_step"]["busy_ms"] is None else
+                         f"busy {rec[s]['decode_step']['busy_ms']:.2f} ms"))
+    return [
+        f"cw: tinyllama-1.1b, lut_xla, per_row: the packed tree "
+        f"{rec['packed_bytes']} B, the CW tree {rec['cw_bytes']} B "
+        f"(expanded in {rec['expand_s']:.2f} s); 128-token forward CW vs "
+        f"packed max |logit diff| {rec['forward_max_abs_diff']} (tolerance "
+        f"0: exact); 4-request greedy serves equal; one decode step, packed "
+        f"{step('packed')}, CW {step('cw')}; decode tok/s packed "
+        f"{rec['packed']['serve']['decode_tok_s']:.1f}, CW "
+        f"{rec['cw']['serve']['decode_tok_s']:.1f}; lut_pallas on the CW "
+        f"tree refused ({rec['lut_pallas_refusal']!r}); phase 18 in "
+        f"{rec['seconds']:.1f} s"]
+
+
+def roofline_record(cfg, params, eng, step):
+    """Phase 4's profiled decode step as a ``Roofline``: ``step_cost``'s
+    useful operations and least bytes at the engine's slots and their
+    cached positions (f32 K/V), against the step's wall and busy time."""
+    from repro_torch.roofline import analysis, cost
+    c = cost.step_cost(cfg, params, eng.max_batch,
+                       [int(p) for p in eng.pos.tolist()], "decode",
+                       table_quant="per_row")
+    r = analysis.analyze(c["ops"], c["min_bytes"], min_bytes=c["min_bytes"])
+    out = {"cost": c, "roofline": r.to_dict(), "t_memory_ms":
+           r.t_memory * 1e3, "t_compute_ms": r.t_compute * 1e3,
+           "fraction_of_wall": r.fraction_of(step["wall_ms"] / 1e3)}
+    out["fraction_of_busy"] = (None if step["busy_ms"] is None else
+                               r.fraction_of(step["busy_ms"] / 1e3))
+    return out
+
+
+def roofline_line(rec):
+    c = rec["cost"]
+    busy = ("not measured" if rec["fraction_of_busy"] is None else
+            f"{rec['fraction_of_busy']:.4f}")
+    return (f"serve: roofline of the profiled decode step (step_cost, "
+            f"{c['tokens']} tokens): least bytes {c['min_bytes']:.0f} (params "
+            f"{c['param_bytes']:.0f}, K/V read {c['kv_read_bytes']:.0f}, "
+            f"written {c['kv_write_bytes']:.0f}), t_memory "
+            f"{rec['t_memory_ms']:.4f} ms, t_compute "
+            f"{rec['t_compute_ms']:.4f} ms ({rec['roofline']['dominant']}); "
+            f"roofline_fraction against the wall "
+            f"{rec['fraction_of_wall']:.4f}, against the busy time {busy}")
+
+
 def main_config():
     from repro_torch.configs import registry
     return registry.get_config("tinyllama-1.1b").replace(
@@ -4590,6 +4932,18 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"train_families": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--window":
+        rec = window_phase()
+        for line in window_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"window": rec, "card": card}))
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--cw":
+        rec = cw_phase()
+        for line in cw_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"cw": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--bitnet":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
@@ -4658,8 +5012,11 @@ def main() -> int:
     # phases 4 and 5: serve, then kernels vs plain LUT path through the
     # whole model
     eng, main_rec = serve_and_parity("serve", cfg, params)
+    main_rec["roofline"] = roofline_record(cfg, params, eng,
+                                           main_rec["decode_step"])
     for line in serve_lines("serve", cfg, eng, main_rec):
         print(line, flush=True)
+    print(roofline_line(main_rec["roofline"]), flush=True)
     print(f"serve: phases 4 and 5 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     launches = main_rec["launches"]
@@ -4774,6 +5131,17 @@ def main() -> int:
     for line in train_families_lines(tf_rec):
         print(line, flush=True)
 
+    # phase 17: sliding-window attention on the rolling KV cache, zamba2-7b
+    gc_cuda()
+    win_rec = window_phase()
+    for line in window_lines(win_rec):
+        print(line, flush=True)
+
+    # phase 18: the offline-CW weight store, tinyllama-1.1b under lut_xla
+    cw_rec = cw_phase()
+    for line in cw_lines(cw_rec):
+        print(line, flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -4862,6 +5230,9 @@ def main() -> int:
                                 for arch in KV_ARCHS},
             # phase 16's trained weights: each model's teacher-forced
             # forward, and falcon-mamba-7b's engine serve
+            # phase 17's windowed zamba2-7b: the float-table stream on the
+            # rolling cache and the per_row step past the wrap
+            "window_launches": win_rec["launches"][name],
             "train_families_launches": {
                 arch: dict({"forward": tf_rec[arch]["forward"][
                     "launches"][name]}, **({"engine": tf_rec[arch][
@@ -4905,6 +5276,7 @@ def main() -> int:
                    "moe": moe_rec, "ssm": ssm_rec, "xattn": xattn_rec,
                    "train": train_rec, "kvint8": kv_rec,
                    "train_families": tf_rec,
+                   "window": win_rec, "cw": cw_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,

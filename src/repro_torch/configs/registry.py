@@ -5,7 +5,9 @@ A copy of the reference's ``ArchConfig`` holding only the fields the dense
 llama-family transformer, the MoE LM, the Mamba1 LM, the Mamba2 +
 shared-attention hybrid, the cross-attention VLM and the encoder-decoder
 audio model read, with the reference's parameter counts for these
-families. Dtypes are torch dtypes.
+families. Dtypes are torch dtypes. ``ArchConfig.shapes()`` gives the
+reference's four input shapes (``ShapeSpec``) with its per-family skip
+rule and the hybrid family's sliding window at ``long_500k``.
 """
 
 from __future__ import annotations
@@ -13,11 +15,21 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+    window: Optional[int] = None   # sliding-window size for long decode
+    skip: Optional[str] = None     # reason if this (arch, shape) is skipped
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +112,30 @@ class ArchConfig:
         q = dict(self.quant or {})
         q.update(kw)
         return self.replace(quant=q)
+
+    def shapes(self) -> List[ShapeSpec]:
+        """The four input shapes. ``long_500k`` decodes at 524288
+        positions: the hybrid family's shared attention through an
+        8192-token rolling window (``kvcache.attn_cache(window=)``), the
+        SSM family with O(1) state, every full-attention family skipped."""
+        sub_quadratic = self.family in ("ssm", "hybrid")
+        long_skip = (None if sub_quadratic else
+                     "full-attention arch: 500k decode needs sub-quadratic "
+                     "attention (DESIGN.md §5)")
+        return [
+            ShapeSpec("train_4k", 4096, 256, "train"),
+            ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+            ShapeSpec("decode_32k", 32768, 128, "decode"),
+            ShapeSpec("long_500k", 524288, 1, "decode",
+                      window=(8192 if self.family == "hybrid" else None),
+                      skip=long_skip),
+        ]
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes():
+            if s.name == name:
+                return s
+        raise KeyError(name)
 
     def _attn_params(self) -> int:
         d, hd = self.d_model, self.head_dim

@@ -18,6 +18,9 @@ A stack of experts' weights (``QuantizedWeight.experts``: packed
 against expert e's weights: one batched kernel launch under ``lut_pallas``
 (``kernels.ops.lut_mpgemm_experts``), the 2-D path per expert in the other
 modes, as the reference vmaps its mpGEMM over the experts.
+
+A weight in the offline-CW store (``QuantizedWeight.cw``, no packed codes)
+runs only under ``lut_xla``; the other modes raise a ValueError.
 """
 
 from __future__ import annotations
@@ -35,6 +38,14 @@ __all__ = ["mpgemm", "precompute_tables", "precompute_expert_tables",
 
 MPGEMM_MODES = ("fp16", "dequant", "lut_xla", "lut_pallas")
 FUSION_MODES = ("auto", "fused", "staged", "tuned")
+
+
+def cw_refusal(mode: str) -> str:
+    """Why ``mode`` cannot run an offline-CW weight."""
+    return (f"mpgemm_mode {mode!r} cannot run offline-CW weights (the "
+            "store has no packed codes; only lut_xla reads it): serve "
+            "them under lut_xla, or convert the packed tree with "
+            "quant['store']='packed'")
 
 
 def resolve_table_quant(table_quant: Optional[str],
@@ -99,6 +110,8 @@ def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",
     table_quant = resolve_table_quant(table_quant, x.device)
     if x.shape[-1] != qw.k_total:
         raise ValueError(f"contract dim {x.shape[-1]} != k_total {qw.k_total}")
+    if qw.is_cw and mode != "lut_xla":
+        raise ValueError(cw_refusal(mode))
     out_dtype = out_dtype or x.dtype
     if qw.experts is not None:
         if x.dim() != 3 or x.shape[0] != qw.experts:

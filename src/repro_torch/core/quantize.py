@@ -16,6 +16,14 @@ metadata is per expert:
   * ``plane_start, stored_planes``          — plane-slice view fields.
 
 The bytes equal the reference quantizers' bytes for the same float weights.
+
+The offline-CW store (``to_cw_format``) keeps, in place of ``packed``, the
+combined-lookup matrix ``cw`` int8 [G·E, N] ([E, G·E, N] for an expert
+stack) that ``kernels.ref.build_cw`` would build from the codes on every
+call: the reference's store for single-device CPU ``lut_xla`` serving,
+8× the packed bytes at W2 / K = 4 and read once instead of expanded each
+step. Only ``lut_xla`` reads it; what needs the codes (``sign_idx``,
+``plane_slice``, ``dequantize``, the kernels) refuses a CW-only weight.
 """
 
 from __future__ import annotations
@@ -26,18 +34,22 @@ from . import packing, reinterpret
 from .table import true_divide
 
 __all__ = ["QuantizedWeight", "quantize_symmetric", "quantize_asymmetric",
-           "quantize_ternary", "quantize", "quantize_experts", "plane_codes",
-           "dequantize", "fake_quant"]
+           "quantize_ternary", "quantize", "quantize_experts", "to_cw_format",
+           "cw_layout", "plane_codes", "dequantize", "fake_quant"]
 
 
 class QuantizedWeight:
     """Packed low-bit weights of one projection (see module docstring)."""
 
     def __init__(self, packed, scale, zero_prime, plane_scales, *, bits,
-                 k_group, k_total, n, plane_start=0, stored_planes=None):
+                 k_group, k_total, n, plane_start=0, stored_planes=None,
+                 cw=None):
         self.packed = packed
         self.scale = scale
         self.zero_prime = zero_prime
+        # the offline-CW store: int8 [G·E, N] (or [E, G·E, N]), with
+        # ``packed`` None (``to_cw_format``)
+        self.cw = cw
         # static metadata: the kernels unroll the bit-serial loop over them
         self.plane_scales = tuple(float(s) for s in plane_scales)
         self.bits = int(bits)
@@ -59,19 +71,32 @@ class QuantizedWeight:
         return self.k_total // self.k_group
 
     @property
+    def is_cw(self) -> bool:
+        """Whether the weight is held only in the offline-CW store."""
+        return self.packed is None
+
+    @property
     def experts(self):
-        """E for a stack of experts' weights (``packed`` [E, N, bytes]),
-        else None."""
-        return self.packed.shape[0] if self.packed.dim() == 3 else None
+        """E for a stack of experts' weights (``packed`` [E, N, bytes] or
+        ``cw`` [E, G·E, N]), else None."""
+        t = self.cw if self.is_cw else self.packed
+        return t.shape[0] if t.dim() == 3 else None
 
     def expert(self, e: int) -> "QuantizedWeight":
         """Expert ``e`` of a stack, as a 2-D weight (views, no copy)."""
         pick = lambda t: None if t is None else t[e]
         return QuantizedWeight(
-            self.packed[e], self.scale[e], pick(self.zero_prime),
+            pick(self.packed), self.scale[e], pick(self.zero_prime),
             self.plane_scales, bits=self.bits, k_group=self.k_group,
             k_total=self.k_total, n=self.n, plane_start=self.plane_start,
-            stored_planes=self.stored_planes)
+            stored_planes=self.stored_planes, cw=pick(self.cw))
+
+    def _need_codes(self, what: str):
+        if self.is_cw:
+            raise ValueError(
+                f"{what} needs the packed store: the offline CW matrix bakes "
+                "every plane into its entries (pin quant['store']='packed' "
+                "before converting)")
 
     @property
     def is_plane_sliced(self) -> bool:
@@ -79,6 +104,7 @@ class QuantizedWeight:
 
     def sign_idx(self):
         """Unpack to (sign, idx) uint8 [N, G, B] of this view's planes."""
+        self._need_codes("sign_idx")
         sign, idx = packing.unpack_group_codes(
             self.packed, self.k_group, self.g, self.stored_planes)
         if self.is_plane_sliced:
@@ -92,6 +118,7 @@ class QuantizedWeight:
             return self
         if keep < 1:
             raise ValueError(f"plane_slice(keep={keep}): need >= 1 plane")
+        self._need_codes("plane_slice")
         return QuantizedWeight(
             self.packed, self.scale, self.zero_prime,
             self.plane_scales[self.num_planes - keep:],
@@ -100,8 +127,11 @@ class QuantizedWeight:
             stored_planes=self.stored_planes)
 
     def storage_bits_per_weight(self) -> float:
-        """Packed bits a weight: a row's bytes over its K weights (an
-        expert stack's rows are one expert's)."""
+        """Stored bits a weight: a packed row's bytes over its K weights (an
+        expert stack's rows are one expert's); in the CW store, a column's
+        G·E int8 entries over its K weights."""
+        if self.is_cw:
+            return self.cw.shape[-2] * 8 / self.k_total
         return self.packed.shape[-1] * 8 / self.k_total
 
     def to(self, device) -> "QuantizedWeight":
@@ -110,12 +140,13 @@ class QuantizedWeight:
             move(self.packed), move(self.scale), move(self.zero_prime),
             self.plane_scales, bits=self.bits, k_group=self.k_group,
             k_total=self.k_total, n=self.n, plane_start=self.plane_start,
-            stored_planes=self.stored_planes)
+            stored_planes=self.stored_planes, cw=move(self.cw))
 
     def __repr__(self):
+        store = ", store=cw" if self.is_cw else ""
         return (f"QuantizedWeight(n={self.n}, k={self.k_total}, "
                 f"bits={self.bits}, k_group={self.k_group}, "
-                f"planes={self.num_planes})")
+                f"planes={self.num_planes}{store})")
 
 
 def _pack_planes(planes, k_group):
@@ -220,6 +251,33 @@ def quantize_experts(w, bits: int, k_group: int = 4,
     return QuantizedWeight(lead(qw.packed), lead(qw.scale),
                            lead(qw.zero_prime), qw.plane_scales, bits=qw.bits,
                            k_group=k_group, k_total=d_in, n=d_out)
+
+
+def to_cw_format(qw: QuantizedWeight) -> QuantizedWeight:
+    """The offline-CW store of a packed weight (the reference's
+    ``to_cw_format``): ``cw`` = ``build_cw(qw, int8)``, [G·E, N], or
+    [E, G·E, N] for an expert stack, and no ``packed``. ``lut_xla`` on it
+    gives the packed weight's bits (``build_cw`` returns the stored
+    matrix). A CW weight is returned as it is."""
+    from repro_torch.kernels.ref import build_cw
+    if qw.is_cw:
+        return qw
+    if qw.experts is None:
+        cw = build_cw(qw, torch.int8)
+    else:
+        cw = torch.stack([build_cw(qw.expert(e), torch.int8)
+                          for e in range(qw.experts)])
+    return QuantizedWeight(None, qw.scale, qw.zero_prime, qw.plane_scales,
+                           bits=qw.bits, k_group=qw.k_group,
+                           k_total=qw.k_total, n=qw.n, cw=cw_layout(cw))
+
+
+def cw_layout(cw: torch.Tensor) -> torch.Tensor:
+    """CW [.., G·E, N] in the memory layout ``build_cw`` gives a packed
+    weight's matrix (G·E contiguous for each column): a float GEMM's
+    kernel, and so its summation order, follows its operand's layout, so
+    the CW store gives the packed store's bits with float tables too."""
+    return cw.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
 def plane_codes(qw: QuantizedWeight) -> torch.Tensor:

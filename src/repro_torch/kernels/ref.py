@@ -46,7 +46,10 @@ def cw_from_codes(sign, idx, plane_scales, k_group: int) -> torch.Tensor:
 
 
 def build_cw(qw: QuantizedWeight, dtype=torch.int8) -> torch.Tensor:
-    """Static combined-lookup weights CW [G*E, N] (entries in [-15, 15])."""
+    """Static combined-lookup weights CW [G*E, N] (entries in [-15, 15]);
+    a weight in the offline-CW store returns its stored matrix."""
+    if qw.cw is not None:
+        return qw.cw.to(dtype)
     sign, idx = qw.sign_idx()
     cw = cw_from_codes(sign, idx, qw.plane_scales, qw.k_group)
     return cw.permute(1, 2, 0).reshape(-1, qw.n).to(dtype)

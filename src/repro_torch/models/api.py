@@ -23,9 +23,11 @@ class _SsmLM:
 
     @staticmethod
     def forward(params, batch, cfg, *, caches=None, cache_pos=0,
-                head: bool = True, page_table=None, token_valid=None):
+                head: bool = True, page_table=None, token_valid=None,
+                window=None):
         """(logits or None, caches, aux). The state is O(1) a slot:
-        nothing is paged, ``cache_pos`` and ``page_table`` go unread."""
+        nothing is paged, ``cache_pos``, ``page_table`` and ``window`` go
+        unread (no attention), as in the reference."""
         h = transformer.embed_apply(params["embed"], batch["tokens"]).to(
             cfg.activation_dtype)
         for i, lp in enumerate(params["layers"]):
@@ -43,7 +45,8 @@ class _SsmLM:
                 caches, {})
 
     @staticmethod
-    def init_cache(cfg, batch, s_cache, dtype=torch.bfloat16, device=None):
+    def init_cache(cfg, batch, s_cache, dtype=torch.bfloat16, device=None,
+                   *, window=None):
         return kvcache.mamba_cache(cfg.n_layers, batch, cfg.d_inner,
                                    cfg.ssm_state, cfg.d_conv, device)
 
@@ -144,16 +147,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
 def forward(params, batch, cfg: ArchConfig, **kw):
     """(logits, caches, aux). ``token_valid`` ([B] real-token counts of a
     right-padded prefill chunk) is read by the SSM and hybrid families and
-    ignored by the dense and MoE ones."""
+    ignored by the dense and MoE ones. ``window`` (sliding-window
+    attention) applies to every family's self-attention; the SSM family
+    has none and ignores it."""
     return _FAMILY[cfg.family].forward(params, batch, cfg, **kw)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int, dtype=None,
-               device="cuda"):
+               device="cuda", *, window=None):
     """The family's cache. ``dtype`` None follows ``cfg.kv_cache_dtype``,
     as the reference's does: "int8" gives the int8 attention cache
-    (``kvcache.attn_cache``), anything else bf16."""
+    (``kvcache.attn_cache``), anything else bf16. ``window``: the
+    attention caches hold min(s_cache, window) positions, a rolling cache
+    below s_cache (``shape("long_500k").window``)."""
     if dtype is None:
         dtype = "int8" if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     return _FAMILY[cfg.family].init_cache(cfg, batch, s_cache, dtype,
-                                          resolve_device(device))
+                                          resolve_device(device),
+                                          window=window)

@@ -87,14 +87,19 @@ def compute_cross_kv(params: Params, enc_out: torch.Tensor, cfg):
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             caches=None, cache_pos=0, head: bool = True, page_table=None,
-            token_valid=None):
+            token_valid=None, window=None):
     """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``.
     With ``audio_frames`` in the batch the encoder runs and its cross K/V
     is computed (and, with caches, written into ``caches["cross_kv"]``, or
     put there in place of the int8 cache's int8 zeros);
     without, the cross K/V is read from the caches. ``cache_pos`` a [B]
     tensor (per-slot decode) gives each slot its own learned positions.
-    ``token_valid`` is ignored (an attention-only stack)."""
+    ``token_valid`` is ignored (an attention-only stack). ``window``
+    applies to the decoder's self-attention (never to the encoder or the
+    cross attention). The reference's whisper forward takes a window and
+    drops it (``src/repro/models/audio.py``), so its windowed forward is
+    its full one and its rolling cache is written past its end; the port
+    applies the window, as the other families do."""
     tokens = batch["tokens"]
     quant, eps = cfg.quant, cfg.norm_eps
     s = tokens.shape[1]
@@ -126,7 +131,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
         a, _ = L.attention_apply(
             lp["attn"], L.layer_norm(lp["attn_norm"], h, eps), cfg,
             kv_cache=lc, cache_pos=cache_pos, use_rope=False, quant=quant,
-            page_table=page_table)
+            page_table=page_table, window=window)
         h = h + a
         xa, _ = L.attention_apply(
             lp["xattn"], L.layer_norm(lp["xattn_norm"], h, eps), cfg,
@@ -142,7 +147,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
-               device=None):
+               device=None, *, window=None):
     cross = (cfg.n_layers, batch, cfg.n_audio_frames, cfg.n_kv_heads,
              cfg.head_dim)
     # the int8 cache's cross K/V are int8 zeros, as the reference makes
@@ -150,6 +155,6 @@ def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
     cdt = torch.int8 if kvcache.is_int8(dtype) else dtype
     return {"kv": kvcache.attn_cache(cfg.n_layers, batch, s_cache,
                                      cfg.n_kv_heads, cfg.head_dim, dtype,
-                                     device),
+                                     device, window=window),
             "cross_kv": (torch.zeros(cross, dtype=cdt, device=device),
                          torch.zeros(cross, dtype=cdt, device=device))}

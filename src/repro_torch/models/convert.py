@@ -8,7 +8,10 @@ reference ``QuantizedWeight`` attributes (leading [L], or [L, E] for a
 stack of experts; the hybrid's ``groups`` and the VLM's ``self_groups``
 carry [G, A]). It imports
 neither JAX nor the reference package: the packed byte format is shared,
-so the buffers load unchanged.
+so the buffers load unchanged. A weight in the offline-CW store (``packed``
+None, ``cw`` int8 [.., G·E, N], e.g. a tree the reference's CPU engine
+expanded) loads as a CW weight, its ``cw`` indexed per layer and expert as
+``packed`` is.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import QuantizedWeight
+from repro_torch.core.quantize import QuantizedWeight, cw_layout
 from repro_torch.models.api import resolve_device
 
 _QW_FIELDS = ("packed", "scale", "plane_scales", "bits", "k_group",
@@ -41,9 +44,6 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
 
 
 def _qw(node, device, index: Optional[tuple] = None) -> QuantizedWeight:
-    if getattr(node, "cw", None) is not None and node.packed is None:
-        raise ValueError("CW-store weights cannot be loaded: convert the "
-                         "packed tree (before the CPU engine's CW expansion)")
     pick = (lambda a: a) if index is None else (
         lambda a: None if a is None else a[index])
     return QuantizedWeight(
@@ -51,7 +51,12 @@ def _qw(node, device, index: Optional[tuple] = None) -> QuantizedWeight:
         _tensor(pick(node.zero_prime), device), node.plane_scales,
         bits=node.bits, k_group=node.k_group, k_total=node.k_total, n=node.n,
         plane_start=getattr(node, "plane_start", 0),
-        stored_planes=getattr(node, "stored_planes", None))
+        stored_planes=getattr(node, "stored_planes", None),
+        cw=_cw(_tensor(pick(getattr(node, "cw", None)), device)))
+
+
+def _cw(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else cw_layout(t)
 
 
 def _convert(node, device, index: Optional[tuple] = None) -> Any:

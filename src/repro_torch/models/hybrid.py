@@ -49,11 +49,11 @@ def _mamba_layer_apply(p, h, cfg, cache, token_valid):
     return h + y
 
 
-def _shared_apply(p, h, cfg, kv, cache_pos, page_table):
+def _shared_apply(p, h, cfg, kv, cache_pos, page_table, window=None):
     a, _ = L.attention_apply(
         p["shared_attn"], L.rms_norm(p["attn_norm"], h, cfg.norm_eps), cfg,
         kv_cache=kv, cache_pos=cache_pos, quant=cfg.quant,
-        page_table=page_table)
+        page_table=page_table, window=window)
     h = h + a
     m = L.mlp_apply(p["shared_mlp"], L.rms_norm(p["mlp_norm"], h,
                                                 cfg.norm_eps), cfg.quant)
@@ -67,12 +67,14 @@ def _layer_cache(tree, *index):
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             caches=None, cache_pos=0, head: bool = True, page_table=None,
-            token_valid=None):
+            token_valid=None, window=None):
     """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``.
     ``token_valid`` [B] (real-token counts of a right-padded prefill chunk)
     is read by the Mamba2 layers; the shared attention needs no mask (a
     padded position writes K/V past the prompt, which decode overwrites
-    before any query reads it)."""
+    before any query reads it). ``window``: sliding-window attention in
+    the shared block (``long_500k``'s 8192; a rolling ``kv`` cache from
+    ``init_cache(..., window=)``)."""
     h = TR.embed_apply(params["embed"], batch["tokens"]).to(
         cfg.activation_dtype)
     for g, group in enumerate(params["groups"]):
@@ -80,7 +82,8 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             lc = None if caches is None else _layer_cache(caches["mamba"], g, a)
             h = _mamba_layer_apply(lp, h, cfg, lc, token_valid)
         kv = None if caches is None else kvcache.layer_cache(caches["kv"], g)
-        h = _shared_apply(params["shared"], h, cfg, kv, cache_pos, page_table)
+        h = _shared_apply(params["shared"], h, cfg, kv, cache_pos, page_table,
+                          window)
     for t, lp in enumerate(params.get("tail", [])):
         lc = None if caches is None else _layer_cache(caches["tail"], t)
         h = _mamba_layer_apply(lp, h, cfg, lc, token_valid)
@@ -91,7 +94,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
-               device=None):
+               device=None, *, window=None):
     n_groups, tail = divmod(cfg.n_layers, cfg.attn_every)
     hd = cfg.d_inner // cfg.ssm_heads
     m = kvcache.mamba2_cache(n_groups * cfg.attn_every, batch, cfg.ssm_heads,
@@ -101,7 +104,7 @@ def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
         "mamba": {k: v.reshape((n_groups, cfg.attn_every) + v.shape[1:])
                   for k, v in m.items()},
         "kv": kvcache.attn_cache(n_groups, batch, s_cache, cfg.n_kv_heads,
-                                 cfg.head_dim, dtype, device),
+                                 cfg.head_dim, dtype, device, window=window),
     }
     if tail:
         caches["tail"] = kvcache.mamba2_cache(

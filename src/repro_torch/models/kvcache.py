@@ -14,7 +14,8 @@ The batch axis is not one fixed axis across these layouts, so
 ``batch_axes`` finds it per leaf from two caches built with batch 1 and
 2, and ``seq_axes`` the sequence axis from two built with different
 capacities (-1: the leaf holds O(1) state a slot, SSM conv and recurrent
-state, which stays slot-indexed under the block-paged pool). Probes are
+state, or a rolling window cache clamped below both probes, which stays
+slot-indexed under the block-paged pool). Probes are
 built on ``torch.device("meta")``, the counterpart of the reference's
 ``jax.eval_shape``: shapes only, no memory.
 
@@ -48,12 +49,26 @@ def is_int8(dtype) -> bool:
 
 
 def attn_cache(n_layers: int, batch: int, s_cache: int, n_kv: int,
-               head_dim: int, dtype=torch.bfloat16, device=None):
+               head_dim: int, dtype=torch.bfloat16, device=None, *,
+               window=None):
     """(k, v), or with ``dtype`` "int8" (or torch.int8) the reference's
     int8 cache (k, v, k_scale, v_scale): int8 codes and f32 absmax scales
     [L, B, S, KV, 1], one a (position, head), which start at ones as the
-    reference's do. Attention dequantizes it a chunk at a time."""
-    shape = (n_layers, batch, s_cache, n_kv, head_dim)
+    reference's do. Attention dequantizes it a chunk at a time.
+
+    With ``window`` the cache holds S = min(s_cache, window) positions:
+    below ``s_cache`` it is a rolling cache, position p in slot p mod
+    window (``layers.attention_apply``). An int8 cache does not roll: the
+    reference writes it at the position itself, clamped to the last
+    window slots past the wrap, so it is refused."""
+    s = min(s_cache, window) if window else s_cache
+    if is_int8(dtype) and s < s_cache:
+        raise ValueError(
+            f"an int8 KV cache cannot be a rolling window cache (window "
+            f"{window} < s_cache {s_cache}): the reference's int8 branch "
+            "writes past the wrap at a clamped offset; use a bf16 cache "
+            "or s_cache <= window")
+    shape = (n_layers, batch, s, n_kv, head_dim)
     if is_int8(dtype):
         sshape = shape[:-1] + (1,)
         return (torch.zeros(shape, dtype=torch.int8, device=device),

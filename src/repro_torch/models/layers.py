@@ -203,16 +203,18 @@ def _write_kv(kv_cache, k, v, write):
 
 
 def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
-                      kv_valid_len=None, chunk: int = 1024,
-                      k_scale=None, v_scale=None) -> torch.Tensor:
+                      window: Optional[int] = None, kv_valid_len=None,
+                      chunk: int = 1024, k_scale=None,
+                      v_scale=None) -> torch.Tensor:
     """q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd].
 
     Online softmax over KV chunks in f32; never builds the [Sq, Skv] score
     matrix. GQA by head grouping. ``kv_valid_len`` masks cache positions at
     or beyond a valid length: an int, [B] (one per row), or [B, Sq] (one per
     query: per-slot decode and the speculative burst, where query j reads
-    the positions up to its own write). Masked scores get exactly zero
-    weight.
+    the positions up to its own write). ``window`` (sliding-window
+    attention) masks keys ``window`` or more positions behind the query
+    (q_pos − kv_pos ≥ window). Masked scores get exactly zero weight.
 
     With per-query valid lengths and Sq > 1 each query runs alone, as a
     decode step's single query does: the batched GEMMs' kernels, and so
@@ -228,7 +230,8 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
     if torch.is_tensor(kv_valid_len) and kv_valid_len.dim() == 2 and sq > 1:
         return torch.cat([chunked_attention(
             q[:, j:j + 1].contiguous(), k, v, q_offset=q_offset + j,
-            causal=causal, kv_valid_len=kv_valid_len[:, j], chunk=chunk,
+            causal=causal, window=window, kv_valid_len=kv_valid_len[:, j],
+            chunk=chunk,
             k_scale=k_scale, v_scale=v_scale)
             for j in range(sq)], dim=1)
     skv, kv = k.shape[1], k.shape[2]
@@ -255,6 +258,9 @@ def chunked_attention(q, k, v, *, q_offset=0, causal: bool = True,
         s = torch.einsum("bsgrh,btgh->bsgrt", qg, kc) * scale
         if causal:
             mask = q_pos[:, None] >= kv_pos[None, :]
+            s = torch.where(mask[None, :, None, None, :], s, neg)
+        if window is not None:
+            mask = q_pos[:, None] - kv_pos[None, :] < window
             s = torch.where(mask[None, :, None, None, :], s, neg)
         if vl is not None:
             vmask = kv_pos[None, :] < vl  # [B or 1, chunk]
@@ -309,13 +315,32 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     table (positions past its reach go to the null block), the slot's
     blocks gather into a [B, nb*bs] view, and the same ``chunked_attention``
     call as the dense branch runs on it (bit-exact with dense when nb*bs ==
-    max_seq; see ``kvcache``). Sliding-window attention is not ported.
+    max_seq; see ``kvcache``).
+
+    ``window`` (sliding-window attention, the self-attention only): a query
+    attends to the keys less than ``window`` positions behind it. A cache
+    exactly ``window`` long (``kvcache.attn_cache(window=)`` below
+    ``s_cache``) is a rolling cache: a chunk at offset p writes slot
+    (p + j) mod window, and attention scores each slot by the global
+    position it holds (``_rolling_positions``, ``_attend_rolling``), as the
+    reference does. So a chunk of s > 1 tokens that wraps overwrites keys
+    its own earlier queries still need, and those queries see fewer than
+    ``window`` keys, as in the reference; s = 1 decode steps are exact.
+    Any other cache, and no cache, take the window mask. Refused, where
+    the reference answers wrongly: the paged pool (NotImplementedError, as
+    the reference raises), per-slot decode (the reference's per-slot
+    branch never reads the window) and an int8 cache written past its
+    end (it does not roll; the reference clamps the write offset).
     """
     if window is not None:
-        raise NotImplementedError(
-            "paged KV cache does not support sliding-window attention"
-            if page_table is not None
-            else "sliding-window attention is not ported")
+        if page_table is not None:
+            raise NotImplementedError(
+                "paged KV cache does not support sliding-window attention")
+        if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+            raise ValueError(
+                "sliding-window attention is not served with per-slot "
+                "decode (cache_pos [B]): the reference's per-slot branch "
+                "ignores the window")
     b, s, _ = x.shape
     hd = cfg.head_dim
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
@@ -338,7 +363,7 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
 
     if kv_cache is None:
         out = chunked_attention(q, k, v, q_offset=cache_pos, causal=causal,
-                                chunk=cfg.attn_chunk)
+                                window=window, chunk=cfg.attn_chunk)
     elif page_table is not None:
         pos2d = positions if per_slot else torch.full(
             (b, 1), cache_pos, dtype=torch.int64, device=x.device) + steps
@@ -384,19 +409,75 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                                 kv_valid_len=positions + 1,
                                 chunk=cfg.attn_chunk, k_scale=cks,
                                 v_scale=cvs)
+    elif (window is not None and len(kv_cache) == 2
+          and kv_cache[0].shape[1] == window):
+        out = _rolling_apply(q, k, v, kv_cache, cache_pos, window)
     else:
+        s_cache = kv_cache[0].shape[1]
+        if window is not None and cache_pos + s > s_cache:
+            raise ValueError(
+                f"sliding-window attention: positions {cache_pos}.."
+                f"{cache_pos + s - 1} run past a {s_cache}-position "
+                + ("int8 cache, which does not roll (the reference clamps "
+                   "the write offset)" if len(kv_cache) == 4 else "cache"))
         # a right-padded tail may overrun the cache
-        n = min(s, kv_cache[0].shape[1] - cache_pos)
+        n = min(s, s_cache - cache_pos)
 
         def write(leaf, vals):
             leaf[:, cache_pos:cache_pos + n] = vals[:, :n].to(leaf.dtype)
         ck, cv, cks, cvs = _write_kv(kv_cache, k, v, write)
         out = chunked_attention(q, ck, cv, q_offset=cache_pos, causal=causal,
-                                kv_valid_len=cache_pos + s,
+                                window=window, kv_valid_len=cache_pos + s,
                                 chunk=cfg.attn_chunk, k_scale=cks,
                                 v_scale=cvs)
     out = out.reshape(b, s, cfg.n_heads * hd)
     return lut_dense(p["wo"], out, quant), kv_cache
+
+
+def _rolling_apply(q, k, v, kv_cache, cache_pos, window: int):
+    """The rolling cache's branch of ``attention_apply``: write the chunk
+    at slots (cache_pos + j) mod window, then attend over every slot by
+    its stored global position."""
+    s = q.shape[1]
+    if s > window:
+        raise ValueError(f"a {s}-token chunk is longer than the "
+                         f"{window}-position rolling cache")
+    steps = torch.arange(s, device=q.device)
+    slot = (cache_pos + steps) % window
+    ck, cv = kv_cache
+    ck[:, slot] = k.to(ck.dtype)
+    cv[:, slot] = v.to(cv.dtype)
+    stored = _rolling_positions(cache_pos + s, window, q.device)
+    return _attend_rolling(q, ck, cv, q_pos=cache_pos + steps,
+                           stored_pos=stored, window=window)
+
+
+def _rolling_positions(next_pos, window: int, device=None) -> torch.Tensor:
+    """The global position each rolling-cache slot holds when the next
+    write is at ``next_pos``: the largest p < next_pos with p mod window
+    equal to the slot (negative: never written)."""
+    slots = torch.arange(window, device=device)
+    return slots + torch.div(next_pos - 1 - slots, window,
+                             rounding_mode="floor") * window
+
+
+def _attend_rolling(q, ck, cv, *, q_pos, stored_pos, window: int):
+    """Attention over a rolling cache [B, window, KV, hd], each slot scored
+    by its stored global position: one f32 softmax over the slots, as the
+    reference's."""
+    b, s, h, hd = q.shape
+    kv = ck.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd).to(torch.float32)
+    sc = torch.einsum("bsgrh,btgh->bsgrt", qg,
+                      ck.to(torch.float32)) * hd ** -0.5
+    valid = (stored_pos[None, :] >= 0) & (stored_pos[None, :]
+                                          <= q_pos[:, None])
+    valid &= q_pos[:, None] - stored_pos[None, :] < window
+    sc = torch.where(valid[None, :, None, None, :], sc,
+                     torch.finfo(torch.float32).min)
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bsgrt,btgh->bsgrh", pr, cv.to(torch.float32))
+    return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 def mlp_apply(p: Params, x: torch.Tensor,

@@ -192,11 +192,11 @@ def dense_block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
 
 
 def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
-                quant=None, page_table=None, aux: bool = True):
+                quant=None, page_table=None, aux: bool = True, window=None):
     a, cache = L.attention_apply(
         p["attn"], TR._norm(p["attn_norm"], h, cfg, cache_pos), cfg,
         kv_cache=cache, cache_pos=cache_pos, quant=quant,
-        page_table=page_table)
+        page_table=page_table, window=window)
     h = h + a
     m, losses = moe_mlp_apply(p["moe"],
                               TR._norm(p["mlp_norm"], h, cfg, cache_pos),
@@ -206,9 +206,9 @@ def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             caches=None, cache_pos=0, head: bool = True, page_table=None,
-            token_valid=None):
+            token_valid=None, window=None):
     """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``
-    (``token_valid`` ignored, as there).
+    (``token_valid`` ignored, ``window`` in every layer, as there).
     Layer i of the caches is dense layer i for i < first_dense_layers, then
     the MoE layers in order. ``head=False`` stops before the final norm
     and LM head and computes no aux losses."""
@@ -222,12 +222,13 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     for i, lp in enumerate(params.get("dense_layers", [])):
         h, _ = TR.block_apply(lp, h, cfg, cache=layer_cache(i),
                               cache_pos=cache_pos, quant=quant,
-                              page_table=page_table)
+                              page_table=page_table, window=window)
     lb = zl = 0.0
     for j, lp in enumerate(params["layers"]):
         h, _, losses = block_apply(lp, h, cfg, cache=layer_cache(nd + j),
                                    cache_pos=cache_pos, quant=quant,
-                                   page_table=page_table, aux=head)
+                                   page_table=page_table, aux=head,
+                                   window=window)
         if head:
             lb, zl = lb + losses["lb_loss"], zl + losses["router_z_loss"]
     if not head:
@@ -239,5 +240,5 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
-               device=None):
-    return TR.init_cache(cfg, batch, s_cache, dtype, device)
+               device=None, *, window=None):
+    return TR.init_cache(cfg, batch, s_cache, dtype, device, window=window)

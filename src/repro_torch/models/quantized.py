@@ -12,7 +12,9 @@ non-gated MLP (``up``, ``down``). Never quantized: the embedding, whisper's
 ``pos_embed``, norms, the VLM's scalar gates, the MoE router, conv taps,
 the SSM's A, D and dt vectors. ``quant["skip"]`` is a path regex of projections that stay
 float (zamba2-7b: ``ssm/(in_proj|out_proj)``, its Mamba2 projections). ``plane_sliced_params`` reads a packed tree at fewer
-bit-planes (the self-speculative draft).
+bit-planes (the self-speculative draft). ``quant["store"] == "cw"`` keeps
+every weight in the offline-CW store (``Q.to_cw_format``), and
+``to_cw_params`` converts a packed tree to it once.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ def quantize_params(params: Dict[str, Any], quant: dict) -> Dict[str, Any]:
         return params  # the float reference path keeps float weights
     kg = quant.get("k_group", 4)
     skip = re.compile(quant["skip"]) if quant.get("skip") else None
+    store = (Q.to_cw_format if quant.get("store") == "cw"
+             else lambda qw: qw)
 
     def walk(node, path):
         if isinstance(node, list):
@@ -53,9 +57,9 @@ def quantize_params(params: Dict[str, Any], quant: dict) -> Dict[str, Any]:
             return node
         if ("w" in node and _QUANTIZABLE.search(path)
                 and not _NEVER.search(path) and node["w"].shape[0] % kg == 0):
-            out = {"qw": Q.quantize(node["w"].T, quant.get("weight_bits", 2),
-                                    k_group=kg,
-                                    scheme=quant.get("scheme", "symmetric"))}
+            out = {"qw": store(Q.quantize(
+                node["w"].T, quant.get("weight_bits", 2), k_group=kg,
+                scheme=quant.get("scheme", "symmetric")))}
             if "b" in node:
                 out["b"] = node["b"]
             return out
@@ -65,9 +69,9 @@ def quantize_params(params: Dict[str, Any], quant: dict) -> Dict[str, Any]:
                 if w.shape[-2] % kg:
                     out[name] = w
                 else:
-                    out[name + "_qw"] = Q.quantize_experts(
+                    out[name + "_qw"] = store(Q.quantize_experts(
                         w, quant.get("weight_bits", 2), k_group=kg,
-                        scheme=quant.get("scheme", "symmetric"))
+                        scheme=quant.get("scheme", "symmetric")))
             return out
         return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
 
@@ -84,9 +88,38 @@ def _tensors(params):
             yield from _tensors(v)
     elif isinstance(params, Q.QuantizedWeight):
         yield from (t for t in (params.packed, params.scale,
-                                params.zero_prime) if t is not None)
+                                params.zero_prime, params.cw)
+                    if t is not None)
     elif torch.is_tensor(params):
         yield params
+
+
+def _map_qw(params, fn):
+    """``params`` with every ``QuantizedWeight`` replaced by ``fn(qw)``;
+    every other leaf shared as it is."""
+    if isinstance(params, dict):
+        return {k: _map_qw(v, fn) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_map_qw(v, fn) for v in params]
+    if isinstance(params, Q.QuantizedWeight):
+        return fn(params)
+    return params
+
+
+def to_cw_params(params):
+    """Every packed ``QuantizedWeight`` of a param tree in the offline-CW
+    store (``Q.to_cw_format``, the reference's ``to_cw_params``): lut_xla
+    then reads each CW matrix instead of expanding the codes every call,
+    for 8× the weight bytes at W2 / K = 4 (G·E int8 entries for K
+    weights), with the same bits."""
+    return _map_qw(params, Q.to_cw_format)
+
+
+def has_cw(params) -> bool:
+    """Whether any weight of the tree is held only in the CW store."""
+    found = []
+    _map_qw(params, lambda qw: found.append(qw.is_cw))
+    return any(found)
 
 
 def plane_sliced_params(params, keep_planes: int):
@@ -96,15 +129,17 @@ def plane_sliced_params(params, keep_planes: int):
     planes, so the tree is a coarser draft model at no extra weight bytes
     (self-speculative decoding's draft). Float leaves (norms, embedding,
     skipped projections) are shared as they are, so draft and target read
-    one embedding and one float LM head."""
-    if isinstance(params, dict):
-        return {k: plane_sliced_params(v, keep_planes)
-                for k, v in params.items()}
-    if isinstance(params, list):
-        return [plane_sliced_params(v, keep_planes) for v in params]
-    if isinstance(params, Q.QuantizedWeight):
-        return params.plane_slice(keep_planes)
-    return params
+    one embedding and one float LM head. A CW-store weight cannot be
+    sliced (its matrix bakes every plane in): ValueError, as in the
+    reference."""
+    def view(qw):
+        if qw.is_cw:
+            raise ValueError(
+                "plane_sliced_params: CW-store weight cannot be "
+                "plane-sliced; keep quant['store']='packed' for the "
+                "self-speculation draft view")
+        return qw.plane_slice(keep_planes)
+    return _map_qw(params, view)
 
 
 def extra_hbm_bytes(view_params, base_params) -> int:

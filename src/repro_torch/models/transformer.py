@@ -67,41 +67,43 @@ def _norm(p: Params, h: torch.Tensor, cfg, cache_pos) -> torch.Tensor:
 
 
 def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
-                quant=None, page_table=None):
+                quant=None, page_table=None, window=None):
     a, cache = L.attention_apply(
         p["attn"], _norm(p["attn_norm"], h, cfg, cache_pos), cfg,
         kv_cache=cache, cache_pos=cache_pos, quant=quant,
-        page_table=page_table)
+        page_table=page_table, window=window)
     h = h + a
     m = L.mlp_apply(p["mlp"], _norm(p["mlp_norm"], h, cfg, cache_pos), quant)
     return h + m, cache
 
 
 def stack_apply(layers, h: torch.Tensor, cfg, *, caches=None, cache_pos=0,
-                quant=None, page_table=None):
+                quant=None, page_table=None, window=None):
     """The layer loop; layer l reads and writes ``caches[*][l]`` in place.
     ``page_table`` ([B, nb], paged caches) is one table for all layers."""
     for i, lp in enumerate(layers):
         lc = None if caches is None else kvcache.layer_cache(caches, i)
         h, _ = block_apply(lp, h, cfg, cache=lc, cache_pos=cache_pos,
-                           quant=quant, page_table=page_table)
+                           quant=quant, page_table=page_table, window=window)
     return h, caches
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             caches=None, cache_pos=0, head: bool = True, page_table=None,
-            token_valid=None):
+            token_valid=None, window=None):
     """(logits [B, S, V] or None, caches, aux). ``head=False`` stops before
     the final norm and LM head, for callers that need only the caches
     (prefill), where the reference's compiler drops the head as dead code.
     With ``page_table`` ([B, nb] int64) ``caches`` is a block pool
     (``kvcache`` module docstring). ``token_valid`` is accepted and
     ignored: a right-padded chunk's pad positions write K/V past the
-    prompt, which decode overwrites before any query reads it."""
+    prompt, which decode overwrites before any query reads it. ``window``:
+    sliding-window attention in every layer (``L.attention_apply``; a
+    rolling cache from ``init_cache(..., window=)``)."""
     h = embed_apply(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
     h, caches = stack_apply(params["layers"], h, cfg, caches=caches,
                             cache_pos=cache_pos, quant=cfg.quant,
-                            page_table=page_table)
+                            page_table=page_table, window=window)
     if not head:
         return None, caches, {}
     h = _norm(params["final_norm"], h, cfg, cache_pos)
@@ -109,6 +111,6 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
-               device=None):
+               device=None, *, window=None):
     return kvcache.attn_cache(cfg.n_layers, batch, s_cache, cfg.n_kv_heads,
-                              cfg.head_dim, dtype, device)
+                              cfg.head_dim, dtype, device, window=window)

@@ -73,11 +73,12 @@ def compute_image_kv(params: Params, image_embeds: torch.Tensor, cfg):
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             caches=None, cache_pos=0, head: bool = True, page_table=None,
-            token_valid=None):
+            token_valid=None, window=None):
     """(logits [B, S, V] or None, caches, aux), as ``transformer.forward``.
     With ``image_embeds`` in the batch the image K/V is computed (and,
     with caches, written into ``caches["image_kv"]``); without, it is read
-    from the caches. ``token_valid`` is ignored (an attention-only stack)."""
+    from the caches. ``token_valid`` is ignored (an attention-only stack);
+    ``window`` applies to the self layers, never to cross attention."""
     h = TR.embed_apply(params["embed"], batch["tokens"]).to(
         cfg.activation_dtype)
     if "image_embeds" in batch:
@@ -94,7 +95,8 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             lc = None if caches is None else (caches["kv"][0][g, a],
                                               caches["kv"][1][g, a])
             h, _ = TR.block_apply(lp, h, cfg, cache=lc, cache_pos=cache_pos,
-                                  quant=cfg.quant, page_table=page_table)
+                                  quant=cfg.quant, page_table=page_table,
+                                  window=window)
         h = _xattn_apply(xp, h, cfg, (image_kv[0][g].to(h.dtype),
                                       image_kv[1][g].to(h.dtype)), cfg.quant)
     if not head:
@@ -104,7 +106,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
-               device=None):
+               device=None, *, window=None):
     if kvcache.is_int8(dtype):
         # the reference's VLM unpacks two cache leaves a layer and fails on
         # the int8 cache's four: the port refuses it up front
@@ -115,7 +117,8 @@ def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
     n_groups = cfg.n_layers // cfg.xattn_every
     n_self = cfg.xattn_every - 1
     k, v = kvcache.attn_cache(n_groups * n_self, batch, s_cache,
-                              cfg.n_kv_heads, cfg.head_dim, dtype, device)
+                              cfg.n_kv_heads, cfg.head_dim, dtype, device,
+                              window=window)
     shape = (n_groups, n_self) + tuple(k.shape[1:])
     image = (n_groups, batch, cfg.n_image_tokens, cfg.n_kv_heads,
              cfg.head_dim)

@@ -151,8 +151,9 @@ class ServingEngine:
         if tuning_cache is not None:
             from repro_torch.core import autotune
             self.tuning_cache = autotune.configure(tuning_cache)
-        self.params = params
         self.device = params["embed"]["table"].device
+        self.params = self._weight_store(cfg, params, spec_draft_planes)
+        params = self.params
         # decoding modes: the spec draft is a plane-sliced view of the same
         # packed buffers (zero extra weight bytes, checked by identity)
         self.spec_k = max(1, int(spec_k))
@@ -224,6 +225,27 @@ class ServingEngine:
                     "KV) that cannot fan out by block reference — disabled")
                 self.prefix_caching = False
         self.reset(seed=seed)
+
+    def _weight_store(self, cfg, params, spec_draft_planes):
+        """The params the engine serves. As the reference's engine does, on
+        the CPU under lut_xla with no ``quant["store"]`` and no
+        self-speculation (whose draft slices the packed planes) the packed
+        weights are expanded once into the offline-CW store, which lut_xla
+        reads without rebuilding CW each step (same bits); ``store="cw"``
+        asks for it anywhere, ``store="packed"`` keeps the planes. A tree
+        holding CW weights serves only under lut_xla: other modes raise
+        here, where the reference's kernels would fail inside a step."""
+        quant = cfg.quant or {}
+        mode = quant.get("mpgemm_mode", "lut_xla")
+        store = quant.get("store")
+        if quant and (store == "cw" or (
+                store is None and mode == "lut_xla"
+                and self.device.type == "cpu"
+                and spec_draft_planes is None)):
+            params = qz.to_cw_params(params)
+        if mode != "lut_xla" and qz.has_cw(params):
+            raise ValueError(f"{cfg.arch_id}: " + mp.cw_refusal(mode))
+        return params
 
     # -- lifecycle ----------------------------------------------------------
     def reset(self, seed: Optional[int] = None):

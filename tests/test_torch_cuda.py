@@ -1275,3 +1275,69 @@ def test_train_family_adamw8bit_on_the_card_equals_the_cpu(cuda):
             assert torch.allclose(got.cpu(), want, rtol=1e-5,
                                   atol=1e-5), (lo, name)
     assert n_codes > 0
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b"])
+def test_rolling_cache_decode_through_the_kernels_equals_lut_xla(cuda, arch):
+    """A rolling window cache (window 8, s_cache 32) past the wrap: a
+    6-token prefill, then s = 1 steps at positions 6..12 through the
+    kernels (lut_pallas, per_row) and through lut_xla, from one cache
+    state: logits equal bit for bit at every step, the kernels launched."""
+    from repro_torch.configs import registry
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import api
+    cfg = registry.get_reduced(arch).replace(
+        activation_dtype=torch.float32).with_quant(table_quant="per_row")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, cuda)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 256, (2, 13)), device=cuda)
+    cache = api.init_cache(cfg, 2, 32, torch.float32, cuda, window=8)
+    c_x = cfg.with_quant(mpgemm_mode="lut_xla")
+    api.forward(params, {"tokens": toks[:, :6]}, c_x, caches=cache,
+                window=8)
+    for p in range(6, 13):
+        outs = {}
+        for mode in ("lut_pallas", "lut_xla"):
+            clone = tree_map(lambda t: t.clone(), cache)
+            before = fk.launches
+            outs[mode] = api.forward(
+                params, {"tokens": toks[:, p:p + 1]},
+                cfg.with_quant(mpgemm_mode=mode), caches=clone,
+                cache_pos=p, window=8)[0]
+            assert (fk.launches > before) == (mode == "lut_pallas")
+        assert torch.isfinite(outs["lut_xla"]).all()
+        assert torch.equal(outs["lut_pallas"], outs["lut_xla"]), p
+        api.forward(params, {"tokens": toks[:, p:p + 1]}, c_x, caches=cache,
+                    cache_pos=p, window=8)
+
+
+def test_cw_tree_is_refused_by_the_kernels_on_the_card(cuda):
+    """A CW-store tree on the card: lut_xla serves it with the packed
+    tree's logits; an engine under lut_pallas refuses it, and so does the
+    mpGEMM op."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.models import quantized as qz
+    from repro_torch.serving.engine import ServingEngine
+    cfg = registry.get_reduced("tinyllama-1.1b").replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_xla",
+                                                   table_quant="per_row")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = api.init_params(gen, cfg, cuda)
+    cw = qz.to_cw_params(params)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 256, (2, 9)), device=cuda)
+    assert torch.equal(api.forward(cw, {"tokens": toks}, cfg)[0],
+                       api.forward(params, {"tokens": toks}, cfg)[0])
+    eng = ServingEngine(cfg, params, max_batch=2, max_seq=32)
+    assert not qz.has_cw(eng.params)  # nothing converted on the card
+    with pytest.raises(ValueError, match="offline-CW"):
+        ServingEngine(cfg.with_quant(mpgemm_mode="lut_pallas"), cw,
+                      max_batch=2, max_seq=32)
+    qw = cw["layers"][0]["attn"]["wq"]["qw"]
+    with pytest.raises(ValueError, match="offline-CW"):
+        mp.mpgemm(torch.randn(2, qw.k_total, device=cuda), qw,
+                  mode="lut_pallas")
