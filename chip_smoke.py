@@ -438,8 +438,9 @@ JSON),
 
     python3 chip_smoke.py --window            # phases 1, 2 and 17 only
     python3 chip_smoke.py --cw                # phases 1, 2 and 18 only
+    python3 chip_smoke.py --tp                # phases 1, 2 and 19 only
 
-phase 17 or phase 18 alone (its record as one line of JSON),
+phase 17, 18 or 19 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -676,7 +677,7 @@ def dequant_sums(a, packed, wscale, *, k_group, planes, plane_scales,
 
 def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                   paths=("dequant",) + MODES, scaled_bound=False, seed=0,
-                  rows=ROWS):
+                  rows=ROWS, whole_k=None):
     """Phase 3 at ``shapes`` ((N, K) pairs) and ``rows`` (M) with weights
     from ``make_weight``, on ``paths``: ``dequant_mpgemm`` and the two LUT
     mpGEMMs in each table mode (phase 8: paper-bitnet-3b's shapes, ternary
@@ -687,6 +688,9 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
     magnitude (phase 8), beside a control with one bf16 term per operand
     (its ratio to the bound is recorded, not checked); otherwise to
     rtol = atol = 1e-4 at every output and 1e-4 of the largest (phase 3). per_row is bit-exact either way.
+    ``whole_k`` {(N, K): K_whole} (phase 19's row-parallel shapes): x is a
+    K-range of a [M, K_whole] row, and the per_row table takes the whole
+    row's scale, given (as a row-parallel rank quantizes it).
     Returns (per-shape records, per-kernel max_abs_err)."""
     from repro_torch.core.quantize import dequantize
     from repro_torch.kernels import dequant_mpgemm as dk
@@ -744,7 +748,15 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
     for m in rows:
         for n, k in shapes:
             g = k // KG
-            x = torch.randn(m, k, generator=gen, device="cuda")
+            kw_ = (whole_k or {}).get((n, k))
+            if kw_ is None:
+                x, rs_whole = torch.randn(m, k, generator=gen,
+                                          device="cuda"), None
+            else:  # the first K-range of a whole row, its scale given
+                xw = torch.randn(m, kw_, generator=gen, device="cuda")
+                x = xw[:, :k].contiguous()
+                rs_whole = ops._closed_form_row_scale(
+                    xw, kw_ // KG, KG).contiguous()
             qw = make_weight(gen, n, k)
             w_bf16 = dequantize(qw).to(torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
@@ -783,7 +795,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
             for tq in (p for p in paths if p != "dequant"):
                 what = f"M={m} N={n} K={k} table_quant={tq}"
                 # the fused kernel's operands, padded as ops pads them
-                xp, rs, pkp, wsp = fused_operands(x, qw, tq)
+                xp, rs, pkp, wsp = fused_operands(x, qw, tq, rs_whole)
                 # table precompute, bit-equal in every mode (timed in
                 # precompute_checks)
                 if not tables_equal(tk.table_precompute(x, KG, tq, rs),
@@ -844,6 +856,7 @@ def check_kernels(flush, shapes=SHAPES, make_weight=random_weight,
                     records.append({
                         "kernel": name, "m": m, "n": n, "k": k,
                         "table_quant": tq,
+                        **({} if kw_ is None else {"whole_k": kw_}),
                         "kernel_ms": time_ms(kern, 10, flush),
                         "plain_ms": time_ms(plain, 3, flush),
                         "library_ms": time_ms(lib, 10, flush),
@@ -1020,10 +1033,11 @@ def precompute_line(r):
             f"{r['kernel_ms'] / r['bound_ms']:.1f}x the bound)")
 
 
-def fused_operands(x, qw, tq):
+def fused_operands(x, qw, tq, rs=None):
     """(x, row scale, packed, wscale) of the fused kernel, padded as
     ``ops.fused_lut_mpgemm`` pads them, x's rows as they are: per_row to
-    the int path's tile, None and per_group to the f32 paths'."""
+    the int path's tile (its row scale ``rs`` where given, else x's own),
+    None and per_group to the f32 paths'."""
     from repro_torch.kernels import fused_lut_mpgemm as fk
     from repro_torch.kernels import lut_mpgemm as lk
     from repro_torch.kernels import ops
@@ -1031,7 +1045,8 @@ def fused_operands(x, qw, tq):
     g = k // KG
     if tq == "per_row":
         _, _, bn, bg = fk.int_tile(m, KG, BITS)
-        rs = ops._closed_form_row_scale(x, g, KG).contiguous()
+        if rs is None:
+            rs = ops._closed_form_row_scale(x, g, KG).contiguous()
     else:
         _, _, bn, bg = lk.f32_tile_for(m, KG, BITS)
         rs = None
@@ -2291,7 +2306,7 @@ def random_experts(gen, e, n, k):
                            k_group=KG, k_total=k, n=n)
 
 
-def expert_kernel_checks(flush, cfg, seed=0):
+def expert_kernel_checks(flush, cfg, seed=0, modes=MODES):
     """Phase 11 (a): both LUT kernels' batched wrappers at olmoe's expert
     shapes, E = 64, C ∈ MOE_ROWS, (N, K) of gate/up and down, every table
     mode, on operands padded as ``ops`` pads them (each expert's C rows to
@@ -2306,7 +2321,9 @@ def expert_kernel_checks(flush, cfg, seed=0):
     experts' packed weights and scales, the activations or table of the
     C real rows, the outputs; 2·E·C·N·K int8 operations per_row, three
     bf16 passes on float tables, plus the table adds where the kernel
-    builds the table). Returns (records, max |diff| a kernel)."""
+    builds the table). ``modes``: the table modes checked (phase 19: per_row
+    at E = 32, a rank's experts). Returns (records, max |diff| a
+    kernel)."""
     from repro_torch.core import table as T
     from repro_torch.core.quantize import dequantize
     from repro_torch.kernels import fused_lut_mpgemm as fk
@@ -2328,7 +2345,7 @@ def expert_kernel_checks(flush, cfg, seed=0):
                                   range(ne)]).to(torch.bfloat16).contiguous()
             library = lambda: torch.bmm(x_bf16, w_bf16)
             pw = dict(k_group=KG, planes=BITS, plane_scales=qw.plane_scales)
-            for tq in MODES:
+            for tq in modes:
                 for name in BATCHED:
                     fused = name == "fused_lut_mpgemm_batched"
                     config, bm, bn, bg = ops._expert_tile(c, KG, BITS, tq,
@@ -2703,7 +2720,8 @@ def near_ties(tag, cfg, params, prompts, got, want):
         j = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), None)
         if j is None:
             continue
-        seq = torch.as_tensor(np.concatenate([p, w[:j]])[None], device="cuda")
+        seq = torch.as_tensor(np.concatenate(
+            [p, np.asarray(w[:j], dtype=np.int64)])[None], device="cuda")
         top2 = torch.topk(api.forward(params, {"tokens": seq}, cfg)[0][0, -1],
                           2).values
         margin = (top2[0] - top2[1]).item()
@@ -4710,6 +4728,496 @@ def cw_lines(rec):
         f"{rec['seconds']:.1f} s"]
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving across a model-axis mesh
+# ---------------------------------------------------------------------------
+
+# (b): tinyllama-1.1b's meshes, 1 x m over ranks on the card (gloo where
+# they share it, NCCL where each has its own); (c): olmoe-1b-7b's, at
+# phase 15's depth (4 of 16 layers)
+TP_MESHES = (2, 4)
+TP_MOE_MESH, TP_MOE_LAYERS = 2, KV_MOE_LAYERS
+# the card's memory, bytes: the ranks' peaks must sum below it
+CARD_BYTES = 80e9
+
+
+def tp_plan(m):
+    """A 1 x m plan as rank 0 sees it, for shapes and the one-device
+    control (no group)."""
+    from repro_torch.distributed.sharding import AxisPlan, Mesh
+    return AxisPlan(Mesh(("data", "model"), (1, m), (0, 0), {}))
+
+
+def tp_shapes(cfg, m):
+    """{projection: ((N, K), K_whole or None)} of a rank of a 1 x m mesh:
+    column-parallel N / m (the head's vocab too); row-parallel K / m of a
+    K_whole row (``wo``, ``down``); attention whole where its KV heads do
+    not divide by m (``sharding.attention_split``)."""
+    from repro_torch.distributed.sharding import attention_split
+    full = projection_shapes(cfg)
+    out = {}
+    for name, (n, k) in full.items():
+        if name in ("wq", "wk", "wv", "wo") and not attention_split(
+                cfg, tp_plan(m)):
+            out[name] = ((n, k), None)
+        elif name in ("wo", "down"):
+            out[name] = ((n, k // m), k)
+        else:
+            out[name] = ((n // m, k), None)
+    return out
+
+
+def tp_kernels(flush, cfg, mcfg):
+    """Phase 19 (a): the kernels at the per-shard shapes of (b) and (c),
+    per_row, M ∈ {4, 128}, against their plain versions bit for bit with
+    phase 3's times, bounds and library calls (``check_kernels``): the
+    column-parallel shapes from whole rows, the row-parallel ones on a
+    K-range with the whole row's scale given; the row scale alone at the
+    row-parallel K-ranges (``precompute_checks``); the batched kernels at
+    a rank's 32 of olmoe's 64 experts (``expert_kernel_checks``)."""
+    shapes, whole = {}, {}
+    for m in TP_MESHES:
+        for (nk, kw) in tp_shapes(cfg, m).values():
+            if nk not in SHAPES:  # phase 3 checks the single-device ones
+                shapes[nk] = None
+                if kw is not None:
+                    whole[nk] = kw
+    shapes[tp_shapes(mcfg, TP_MOE_MESH)["lm_head"][0]] = None
+    records, err = check_kernels(flush, shapes=tuple(shapes),
+                                 paths=("per_row",), whole_k=whole, seed=5)
+    ks = sorted({k for _, k in whole})
+    pre = precompute_checks(flush, ks=ks, rows=(), row_scale_m=ROWS)
+    err["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
+    experts, e_err = expert_kernel_checks(
+        flush, mcfg.replace(num_experts=mcfg.num_experts // TP_MOE_MESH),
+        seed=6, modes=("per_row",))
+    err.update(e_err)
+    return records + pre, experts, err
+
+
+def tp_requests(vocab):
+    """Phase 4's four requests (seed 2), 16 new tokens each."""
+    return [dict(uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(serve_prompts(vocab, 2))]
+
+
+def tp_streams(cfg, params):
+    """Phase 4's serve of ``cfg`` on one device: its streams."""
+    _, reqs = serve(cfg, params, seed=2)
+    return [r.output for r in reqs]
+
+
+# the ranks' probes (``launch.mesh_job``: fn(ctx, *args) on every rank,
+# after its serves, under the plan)
+
+def tp_collectives_probe(ctx, rows, reps):
+    """Every op of ``distributed.collectives`` on the rank's device, of
+    values that say which rank sent them, and the host microseconds of an
+    f32 all-reduce of [rows, 2048] (the mean over ``reps``)."""
+    from repro_torch.distributed import collectives
+    dev, r, out = ctx["device"], ctx["plan"].rank_along("model"), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((5,), float(r + 1), dtype=dtype, device=dev)
+        for op in ("sum", "max"):
+            out[f"all_reduce_{op}_{dtype}"] = collectives.all_reduce(
+                x, op).tolist()
+    for dtype in (torch.float32, torch.int64):
+        x = torch.full((2, 3), r + 1, dtype=dtype, device=dev)
+        out[f"all_gather_{dtype}"] = collectives.all_gather(x, dim=0).tolist()
+    x = torch.randn(rows, 2048, device=dev)
+    collectives.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        collectives.all_reduce(x)
+    torch.cuda.synchronize()
+    out["all_reduce_us"] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def tp_collectives_ok(out, m):
+    """Whether ``tp_collectives_probe``'s values are a 1 x m mesh's."""
+    gathered = [[r + 1] * 3 for r in range(m) for _ in range(2)]
+    return all(out[f"all_reduce_sum_{t}"] == [m * (m + 1) / 2] * 5
+               and out[f"all_reduce_max_{t}"] == [float(m)] * 5
+               for t in (torch.float32, torch.bfloat16)) and all(
+        out[f"all_gather_{t}"] == gathered
+        for t in (torch.float32, torch.int64))
+
+
+def tp_step_probe(ctx, name):
+    """One decode step of the rank's ``name`` engine (a one-step chunk):
+    its wall and device busy time (``decode_step_profile``), and the
+    collectives' calls and host seconds a step."""
+    from repro_torch.distributed import collectives
+    eng = ctx["engines"][name]
+    n, eng.decode_chunk = eng.decode_chunk, 1
+    try:
+        collectives.reset_counters()
+        wall_ms = decode_step_wall(eng)
+        c = collectives.counters()
+        prof = decode_step_profile(eng)
+    finally:
+        eng.decode_chunk = n
+    return {"wall_ms": wall_ms, "busy_ms": prof["busy_ms"],
+            "collective_calls": c["calls"], "collective_s": c["seconds"]}
+
+
+def tp_moe_probe(ctx, cfg, xs):
+    """Each MoE layer's ``moe_mlp_apply`` on its given input x_l."""
+    from repro_torch.models import moe
+    return [moe.moe_mlp_apply(lp["moe"], x.to(ctx["device"]), cfg,
+                              cfg.quant, aux=False)[0].cpu()
+            for lp, x in zip(ctx["params"]["layers"], xs)]
+
+
+def tp_ranks(tag, res, kernels, fails):
+    """Checks on every rank's result of a job: replicated leaves, logits,
+    streams and MoE outputs equal to rank 0's; each serve of ``kernels``
+    {serve: kernel names} launched each of them on every rank; the ranks'
+    peaks summed below the card's memory. A failed check is added to
+    ``fails``. Returns the per-rank record."""
+    first = res[0]
+    for r in res[1:]:
+        if not (r["replicated_digest"] == first["replicated_digest"]
+                and all(torch.equal(v, first["forwards"][k])
+                        for k, v in r["forwards"].items())
+                and all(v["outputs"] == first["serves"][k]["outputs"]
+                        for k, v in r["serves"].items())
+                and all(torch.equal(a, b) for a, b in zip(
+                    r["probes"].get("moe", []),
+                    first["probes"].get("moe", [])))):
+            fails.append(f"{tag}: rank {r['rank']}'s replicated leaves, "
+                         "logits, streams or MoE outputs differ from rank "
+                         "0's")
+    for name, names in kernels.items():
+        for r in res:
+            counts = r["serves"][name]["launches"]
+            if min(counts[n] for n in names) <= 0:
+                fails.append(f"{tag} {name}: rank {r['rank']} launched "
+                             f"{counts}")
+    ranks = [{"rank": r["rank"], "device": r["device"],
+              "backend": r["backend"], "load_s": r["load_s"],
+              "seconds": r["seconds"], "peak_bytes": r["peak_bytes"],
+              "step": r["probes"]["step"],
+              "serves": {name: {k: v[k] for k in (
+                  "launches", "wall_s", "collectives")}
+                  | {"decode_tok_s": v["stats"]["decode_tok_s"],
+                     "host_syncs_per_token": v["stats"][
+                         "host_syncs_per_token"],
+                     "mesh": v["stats"]["mesh"]}
+                  for name, v in r["serves"].items()}} for r in res]
+    peak = sum(r["peak_bytes"] for r in res)
+    if not peak < CARD_BYTES:
+        fails.append(f"{tag}: the ranks' peaks sum to {peak} B")
+    return {"ranks": ranks, "peak_sum_bytes": peak,
+            "replicated_digest": first["replicated_digest"]}
+
+
+def tp_against(tag, got, logits, want, want_logits, ctl, ctl_logits, fails):
+    """The mesh's streams and logits against one device's (agreement, the
+    logit gap) and against the one-device control's, which they must
+    equal bit for bit (``ctl`` None: the logits alone; a failed check is
+    added to ``fails``)."""
+    out = stream_agreement(got, want)
+    out["logits"] = logit_gap(logits, want_logits)
+    out["control_equal"] = {"logits": torch.equal(logits, ctl_logits)}
+    if ctl is not None:
+        out["control_equal"]["streams"] = got == ctl
+    if not all(out["control_equal"].values()):
+        out["control_gap"] = logit_gap(logits, ctl_logits)
+        out["control_streams"] = stream_agreement(got, ctl)
+        fails.append(f"{tag}: the ranks' streams or logits differ from the "
+                     f"one-device control's ({out['control_equal']}, logits "
+                     f"max |diff| {out['control_gap']['max_abs_diff']})")
+    return out
+
+
+def logit_gap(got, want):
+    """Max |diff| and the correlation coefficient of two [1, S, V] logit
+    tensors, and the share of the S positions whose greedy token agrees."""
+    a, b = got.double().flatten(), want.double().flatten()
+    agree = (got.argmax(-1) == want.argmax(-1)).double().mean().item()
+    return {"max_abs_diff": (a - b).abs().max().item(),
+            "corrcoef": torch.corrcoef(torch.stack([a, b]))[0, 1].item(),
+            "argmax_agreement": agree}
+
+
+def tp_phase(flush, main_outputs=None):
+    """Phase 19: the dense and MoE families served across a model-axis
+    mesh, ranks spawned on the card (``launch.mesh.spawn``: ranks share
+    cuda:0 over gloo, as NCCL refuses two ranks on one device; on a host
+    with a card a rank they run NCCL), each running ``launch.mesh_job.run``
+    on weights made here and saved to the build directory: at 1x2
+    tinyllama's job then olmoe's, at 1x4 tinyllama's. (a) ``tp_kernels``;
+    (b) full-width tinyllama-1.1b at 1x2 and 1x4: phase 4's requests
+    per_row and on float tables, and teacher-forced 128-token logits,
+    equal bit for bit to the one-device control's
+    (``sharding.one_device_control``: the mesh's split contractions and
+    head blocks in turn on one device), against one device's: float-table
+    streams equal, per_row streams diverging only at near ties, the logit
+    gap and greedy token agreement recorded; each collective on card
+    tensors (1x2); (c) olmoe-1b-7b (4 layers) at 1x2: each MoE layer's
+    output on the single-device layer's input bit-equal to it, phase 4's
+    greedy streams and the logits equal to the control's, their agreement
+    with one device recorded. Every serve's kernels launched on every
+    rank, the ranks' outputs and replicated leaves equal, their peak
+    device memory summed below the card's, one decode step's wall and busy
+    time on each. Every check runs; the phase fails at its end if any
+    failed."""
+    from repro_torch.distributed.sharding import one_device_control, tree_to
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import mesh_job
+    from repro_torch.models import api, moe
+    t0 = time.perf_counter()
+    fails = []
+    card = torch.device("cuda", 0)
+    rec = {"backends": {m: mesh_mod.choose_backend(m, card)
+                        for m in sorted({*TP_MESHES, TP_MOE_MESH})},
+           "cards": torch.cuda.device_count(),
+           "compute_mode": subprocess.run(
+               ["nvidia-smi", "--query-gpu=compute_mode",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               timeout=60).stdout.strip(),
+           "card": device_line()}
+    print(f"tp: backends {rec['backends']} by mesh size ({rec['cards']} "
+          f"card(s); rank r on cuda:(r % {rec['cards']})), compute mode "
+          f"{rec['compute_mode']}, card {rec['card']}", flush=True)
+    cfg, mcfg = main_config(), moe_config().replace(n_layers=TP_MOE_LAYERS)
+    ta = time.perf_counter()
+    rec["kernels"], rec["expert_kernels"], rec["err"] = tp_kernels(
+        flush, cfg, mcfg)
+    rec["kernels_s"] = time.perf_counter() - ta
+    print(f"tp: (a) in {rec['kernels_s']:.1f} s", flush=True)
+
+    # (b)'s weights, requests and one device's streams and logits
+    fcfg = cfg.with_quant(table_quant=None)
+    params, _ = made(cfg)
+    path = str(_build.BUILD_DIR / "tp_tinyllama.pt")
+    torch.save(tree_to(params, "cpu"), path)
+    reqs = tp_requests(cfg.vocab_size)
+    prompts = [r["prompt"] for r in reqs]
+    cfgs = {"per_row": cfg, "float": fcfg}
+    want = {"per_row": main_outputs or tp_streams(cfg, params),
+            "float": tp_streams(fcfg, params)}
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 128)), device="cuda")
+    want_logits = {name: api.forward(params, {"tokens": toks}, c)[0].cpu()
+                   for name, c in cfgs.items()}
+
+    # (c)'s: each MoE layer's input and output on one device, the streams
+    # and logits of one device and of the control
+    mparams, _ = made(mcfg)
+    mpath = str(_build.BUILD_DIR / "tp_olmoe.pt")
+    torch.save(tree_to(mparams, "cpu"), mpath)
+    layer_io = []
+    apply = moe.moe_mlp_apply
+
+    def record(p, x, *a, **kw):
+        y, losses = apply(p, x, *a, **kw)
+        layer_io.append((x.cpu(), y.cpu()))
+        return y, losses
+
+    mtoks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, mcfg.vocab_size, (1, 128)), device="cuda")
+    moe.moe_mlp_apply = record
+    try:
+        mlogits = api.forward(mparams, {"tokens": mtoks}, mcfg)[0].cpu()
+    finally:
+        moe.moe_mlp_apply = apply
+    mreqs = tp_requests(mcfg.vocab_size)
+    mwant = tp_streams(mcfg, mparams)
+    ctl = one_device_control(mparams, tp_plan(TP_MOE_MESH), mcfg)
+    mctl = (tp_streams(mcfg, ctl),
+            api.forward(ctl, {"tokens": mtoks}, mcfg)[0].cpu())
+    del ctl, mparams
+    moe_job = dict(cfg=mcfg, params=mpath,
+                   forwards={"greedy": (mcfg, mtoks.cpu())},
+                   serves={"greedy": (mcfg, SERVE_KW, mreqs)},
+                   probes={"moe": (tp_moe_probe, (mcfg, [
+                       x for x, _ in layer_io])),
+                       "step": (tp_step_probe, ("greedy",))})
+    assert TP_MOE_MESH in TP_MESHES  # its job runs on that mesh's ranks
+
+    for m in TP_MESHES:
+        tb = time.perf_counter()
+        probes = {"step": (tp_step_probe, ("per_row",))}
+        if m == 2:
+            probes["collectives"] = (tp_collectives_probe, (4, 20))
+        jobs = [dict(cfg=cfg, params=path, probes=probes,
+                     serves={n: (c, SERVE_KW, reqs)
+                             for n, c in cfgs.items()},
+                     forwards={n: (c, toks.cpu())
+                               for n, c in cfgs.items()})]
+        if m == TP_MOE_MESH:
+            jobs.append(moe_job)
+        res = mesh_mod.spawn(mesh_job.run, m, args=(jobs,))
+        rec["spawn_s_1x%d" % m] = time.perf_counter() - tb
+        for r in res:
+            if r[0]["backend"] != rec["backends"][m]:
+                fails.append(f"tp 1x{m}: rank {r[0]['rank']} ran "
+                             f"{r[0]['backend']}")
+            if m == 2 and not tp_collectives_ok(
+                    r[0]["probes"]["collectives"], m):
+                fails.append(f"tp: rank {r[0]['rank']}'s collectives on "
+                             f"card tensors: {r[0]['probes']['collectives']}")
+        if m == 2:
+            rec["collectives"] = res[0][0]["probes"]["collectives"]
+        leg = tp_ranks(f"tp 1x{m}", [r[0] for r in res], {
+            "per_row": PER_ROW_PATH,
+            "float": ("fused_lut_mpgemm", "lut_mpgemm")}, fails)
+        ctl = one_device_control(params, tp_plan(m), cfg)
+        for name, c in cfgs.items():
+            got = res[0][0]["serves"][name]["outputs"]
+            # float tables: the streams must equal one device's, which
+            # says more than the control's would
+            leg[name] = tp_against(
+                f"tp 1x{m} {name}", got, res[0][0]["forwards"][name],
+                want[name], want_logits[name],
+                tp_streams(c, ctl) if name == "per_row" else None,
+                api.forward(ctl, {"tokens": toks}, c)[0].cpu(), fails)
+            if name == "float" and got != want[name]:
+                fails.append(f"tp 1x{m} float: the streams differ from one "
+                             "device's")
+            if name == "per_row":
+                try:
+                    leg[name]["near_ties"] = near_ties(
+                        f"tp 1x{m} {name}", c, params, prompts, got,
+                        want[name])
+                except AssertionError as e:
+                    fails.append(str(e))
+        del ctl
+        leg["seconds"] = time.perf_counter() - tb
+        print(tp_leg_line(f"1x{m}", leg), flush=True)
+        rec[f"1x{m}"] = leg
+        if m != TP_MOE_MESH:
+            continue
+        # (c) olmoe-1b-7b at 1x2, the ranks' second job
+        tag = f"tp olmoe 1x{m}"
+        mres = [r[1] for r in res]
+        leg = tp_ranks(tag, mres, {"greedy": (
+            "fused_lut_mpgemm_batched", "row_scale", "fused_lut_mpgemm")},
+            fails)
+        leg["moe_layers"] = []
+        for j, ((_, y), got) in enumerate(zip(layer_io,
+                                              mres[0]["probes"]["moe"])):
+            leg["moe_layers"].append((got - y).abs().max().item())
+            if not torch.equal(got, y):
+                fails.append(f"{tag}: MoE layer {j}'s output differs from "
+                             f"the single-device layer's (max |diff| "
+                             f"{leg['moe_layers'][-1]})")
+        leg["greedy"] = tp_against(
+            tag, mres[0]["serves"]["greedy"]["outputs"],
+            mres[0]["forwards"]["greedy"], mwant, mlogits, *mctl, fails)
+        leg["seconds"] = mres[0]["seconds"]  # the ranks' job alone
+        print(tp_leg_line(f"olmoe_1x{m}", leg), flush=True)
+        rec[f"olmoe_1x{m}"] = leg
+    for f in (path, mpath):
+        os.remove(f)
+    del params, want_logits
+    gc_cuda()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"tp: phase 19 in {rec['seconds']:.1f} s", flush=True)
+    if fails:
+        raise AssertionError("tp: " + "; ".join(fails))
+    return rec
+
+
+def tp_launches(rec, name, leg=None):
+    """Rank 0's launches of kernel ``name`` in phase 19's main serves:
+    {leg: launches}, or one leg's count as {name: launches}."""
+    serve = lambda key: "greedy" if key.startswith("olmoe") else "per_row"
+    legs = {key: rec[key]["ranks"][0]["serves"][serve(key)]["launches"]
+            for key in [f"1x{m}" for m in TP_MESHES]
+            + [f"olmoe_1x{TP_MOE_MESH}"]}
+    if leg is not None:
+        return legs[leg]
+    return {key: counts[name] for key, counts in legs.items()}
+
+
+def tp_leg_line(key, leg):
+    """One phase 19 leg's record as text (printed as the leg ends)."""
+    parts = []
+    for name in ("per_row", "float", "greedy"):
+        if name not in leg:
+            continue
+        a, g = leg[name], leg[name]["logits"]
+        parts.append(
+            f"{name}: equal to the one-device control's "
+            f"{a['control_equal']}"
+            + (f" (streams {a['control_streams']})"
+               if "control_streams" in a else "") + "; streams "
+            f"{a['equal_tokens']}/{a['tokens']} tokens equal to one device "
+            f"position by position, agreeing prefixes "
+            f"{a['agreeing_prefix']}" + (
+                f", divergences at near ties {a['near_ties']}"
+                if "near_ties" in a else "")
+            + f"; logits vs one device max |diff| {g['max_abs_diff']:.4g}, "
+            f"corrcoef {g['corrcoef']:.6f}, greedy token equal at "
+            f"{g['argmax_agreement']:.3f} of the positions")
+    if "moe_layers" in leg:
+        parts.append(f"MoE layers' outputs vs one device max |diff| "
+                     f"{leg['moe_layers']}")
+    for r in leg["ranks"]:
+        step = r["step"]
+        parts.append(
+            f"rank {r['rank']} ({r['device']}, {r['backend']}): one decode "
+            f"step wall {step['wall_ms']:.1f} ms, busy "
+            + ("not measured" if step["busy_ms"] is None else
+               f"{step['busy_ms']:.2f} ms")
+            + f", {step['collective_calls']:g} collectives "
+            f"{step['collective_s'] * 1e3:.1f} ms a step; " + "; ".join(
+                f"{name} serve {sv['wall_s']:.2f} s, decode "
+                f"{sv['decode_tok_s']:.1f} tok/s, launches "
+                f"{ {k: v for k, v in sv['launches'].items() if v} }, "
+                f"collectives {sv['collectives']['calls']} calls "
+                f"{sv['collectives']['bytes']} B "
+                f"{sv['collectives']['seconds']:.2f} s"
+                for name, sv in r["serves"].items()))
+    parts.append("peaks " + ", ".join(
+        f"rank {r['rank']} {r['peak_bytes'] / 1e9:.2f} GB"
+        for r in leg["ranks"])
+        + f", sum {leg['peak_sum_bytes'] / 1e9:.2f} GB; replicated leaves, "
+        f"logits and streams equal on every rank; leg {leg['seconds']:.1f} s")
+    return f"tp {key}: " + "; ".join(parts)
+
+
+def tp_lines(rec):
+    """Phase 19's record as text: (a), the collectives' probe and the
+    phase seconds (the legs' lines were printed as each leg ended)."""
+    lines = [f"tp (a): per-shard kernels, per_row, bit-exact to the plain "
+             f"versions (row-parallel K-ranges with the whole row's scale "
+             f"given), in {rec['kernels_s']:.1f} s: " + "; ".join(
+                 record_line(r) if r["kernel"] in ("lut_mpgemm",
+                                                   "fused_lut_mpgemm")
+                 else precompute_line(r) for r in rec["kernels"]),
+             "tp (a): batched kernels at 32 experts a rank: " + "; ".join(
+                 f"{r['kernel']} C={r['c']} N={r['n']} K={r['k']}: "
+                 f"{r['kernel_ms']:.4f} ms (plain {r['plain_ms']:.4f}, bf16 "
+                 f"bmm {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+                 f"{r['bound_by']})" for r in rec["expert_kernels"])]
+    c = rec["collectives"]
+    lines.append(
+        f"tp: collectives on card tensors ({rec['backends'][2]}), rank 0 of "
+        f"1x2: all_reduce sum/max f32 "
+        f"{c['all_reduce_sum_torch.float32'][:1]}/"
+        f"{c['all_reduce_max_torch.float32'][:1]}, bf16 "
+        f"{c['all_reduce_sum_torch.bfloat16'][:1]}/"
+        f"{c['all_reduce_max_torch.bfloat16'][:1]}, all_gather f32 "
+        f"{c['all_gather_torch.float32']} and int64 "
+        f"{c['all_gather_torch.int64']}; an f32 [4, 2048] all_reduce "
+        f"{c['all_reduce_us']:.0f} us of host time")
+    lines.append(f"tp: phase 19 in {rec['seconds']:.1f} s ((a) "
+                 f"{rec['kernels_s']:.1f} s; the 1x2 ranks (tinyllama, "
+                 f"then olmoe: its job {rec['olmoe_1x2']['seconds']:.1f} s) "
+                 f"{rec['spawn_s_1x2']:.1f} s and the checks after them "
+                 f"{rec['1x2']['seconds'] - rec['spawn_s_1x2']:.1f} s; the "
+                 f"1x4 ranks {rec['spawn_s_1x4']:.1f} s and the checks "
+                 f"{rec['1x4']['seconds'] - rec['spawn_s_1x4']:.1f} s)")
+    return lines
+
+
 def roofline_record(cfg, params, eng, step):
     """Phase 4's profiled decode step as a ``Roofline``: ``step_cost``'s
     useful operations and least bytes at the engine's slots and their
@@ -4938,6 +5446,14 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"window": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        rec = tp_phase(flush)
+        for line in tp_lines(rec):
+            print(line, flush=True)
+        print(json.dumps({"tp": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--cw":
         rec = cw_phase()
         for line in cw_lines(rec):
@@ -5142,6 +5658,12 @@ def main() -> int:
     for line in cw_lines(cw_rec):
         print(line, flush=True)
 
+    # phase 19: serving across a model-axis mesh, ranks sharing the card
+    gc_cuda()
+    tp_rec = tp_phase(flush, main_rec["outputs"])
+    for line in tp_lines(tp_rec):
+        print(line, flush=True)
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -5233,6 +5755,12 @@ def main() -> int:
             # phase 17's windowed zamba2-7b: the float-table stream on the
             # rolling cache and the per_row step past the wrap
             "window_launches": win_rec["launches"][name],
+            # phase 19: rank 0's launches in each mesh leg's main serve
+            # (per_row; olmoe's greedy), and the kernel at the per-shard
+            # shapes
+            "tp_launches": tp_launches(tp_rec, name),
+            "tp": at_shapes(name, tp_rec["kernels"], tp_rec["err"],
+                            tp_launches(tp_rec, name, "1x2")),
             "train_families_launches": {
                 arch: dict({"forward": tf_rec[arch]["forward"][
                     "launches"][name]}, **({"engine": tf_rec[arch][
@@ -5255,6 +5783,7 @@ def main() -> int:
             "replaces": replaces, "launches": counts[name],
             "path": f"phase 11, olmoe-1b-7b served with fusion={path}",
             "kvint8_launches": kv_rec[MOE]["launches"][name],
+            "tp_launches": tp_launches(tp_rec, name),
             "max_abs_err": moe_rec["err"][name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
@@ -5276,7 +5805,7 @@ def main() -> int:
                    "moe": moe_rec, "ssm": ssm_rec, "xattn": xattn_rec,
                    "train": train_rec, "kvint8": kv_rec,
                    "train_families": tf_rec,
-                   "window": win_rec, "cw": cw_rec,
+                   "window": win_rec, "cw": cw_rec, "tp": tp_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,

@@ -21,6 +21,13 @@ modes, as the reference vmaps its mpGEMM over the experts.
 
 A weight in the offline-CW store (``QuantizedWeight.cw``, no packed codes)
 runs only under ``lut_xla``; the other modes raise a ValueError.
+
+``row_scale`` [M, 1] (per_row tables only): the scale the table is
+quantized with, in place of the one computed from x's row. A row-parallel
+layer under a mesh (``models.layers.lut_dense``) holds a K-range of each
+row and gives the whole row's scale, so its table codes are the
+single-device table's codes on that range (``row_scale`` computes a
+K-range's own).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from .quantize import QuantizedWeight, dequantize
 from .table import Table, precompute_table
 
 __all__ = ["mpgemm", "precompute_tables", "precompute_expert_tables",
-           "resolve_table_quant",
+           "resolve_table_quant", "row_scale",
            "MPGEMM_MODES", "FUSION_MODES"]
 
 MPGEMM_MODES = ("fp16", "dequant", "lut_xla", "lut_pallas")
@@ -58,16 +65,42 @@ def resolve_table_quant(table_quant: Optional[str],
     return table_quant
 
 
+def row_scale(x: torch.Tensor, k_group: int = 4,
+              mode: str = "lut_xla") -> torch.Tensor:
+    """[M, 1] per_row table scale of x's rows (x [..., K] flattened to
+    rows): the row-scale kernel under ``lut_pallas``, its plain version
+    otherwise (``core.table.group_absmax``: max over groups of Σ|x|,
+    clamped at 1e-30, over 127)."""
+    from repro_torch.kernels import table_precompute as tp_kernel
+    x2d = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    if mode == "lut_pallas":
+        return tp_kernel.row_scale(x2d.contiguous(), k_group)
+    return tp_kernel.row_scale_plain(x2d, k_group)
+
+
 def precompute_tables(x: torch.Tensor, k_group: int = 4,
                       table_quant: Optional[str] = "per_row",
-                      mode: str = "lut_xla") -> Table:
+                      mode: str = "lut_xla",
+                      row_scale: Optional[torch.Tensor] = None) -> Table:
     """Independent table-precompute operator, shared by every consumer of x:
-    plain torch ops, or the precompute kernel under ``lut_pallas``."""
+    plain torch ops, or the precompute kernel under ``lut_pallas``. A given
+    ``row_scale`` [M, 1] quantizes a per_row table (module docstring)."""
     table_quant = resolve_table_quant(table_quant, x.device)
     x2d = x.reshape(-1, x.shape[-1])
+    if table_quant != "per_row":
+        row_scale = None
     if mode == "lut_pallas":
         from repro_torch.kernels import ops
-        return ops.table_precompute(x2d, k_group, table_quant)
+        if row_scale is None:
+            return ops.table_precompute(x2d, k_group, table_quant)
+        return ops.table_precompute(x2d, k_group, table_quant,
+                                    row_scale=row_scale)
+    if row_scale is not None:
+        from repro_torch.core.table import quantize_table
+        t = precompute_table(x2d, k_group)
+        return quantize_table(t.values, t.rowsum, k_group, "per_row",
+                              scale=row_scale.to(torch.float32).reshape(
+                                  -1, 1, 1))
     return precompute_table(x2d, k_group, table_quant)
 
 
@@ -100,10 +133,13 @@ def _expert_slice(table: Optional[Table], e: int, experts: int,
 def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",
            table_quant: Optional[str] = "per_row",
            table: Optional[Table] = None, fusion: str = "auto",
-           out_dtype=None) -> torch.Tensor:
+           out_dtype=None,
+           row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[..., n] = Σ_k x[..., k] · W[n, k] with W stored low-bit packed.
 
-    ``table=`` supplies a precomputed shared table (implies staged).
+    ``table=`` supplies a precomputed shared table (implies staged);
+    ``row_scale`` [M, 1] the per_row table's scale (module docstring),
+    read by the LUT modes where they build the table.
     """
     if mode not in MPGEMM_MODES:
         raise ValueError(f"mode {mode!r} not in {MPGEMM_MODES}")
@@ -129,6 +165,8 @@ def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",
             out_dtype=out_dtype) for e in range(qw.experts)])
     lead = x.shape[:-1]
     x2d = x.reshape(-1, qw.k_total)
+    if table_quant != "per_row":
+        row_scale = None
 
     if mode == "fp16":
         w = dequantize(qw).to(x.dtype)
@@ -139,10 +177,13 @@ def mpgemm(x: torch.Tensor, qw: QuantizedWeight, *, mode: str = "lut_xla",
                @ w.to(torch.float32).T)
     elif mode == "lut_xla":
         from repro_torch.kernels import ref
+        if table is None and row_scale is not None:
+            table = precompute_tables(x2d, qw.k_group, table_quant, mode,
+                                      row_scale)
         out = ref.ref_lut_mpgemm_matmul(x2d, qw, table_quant=table_quant,
                                         table=table)
     else:  # lut_pallas
         from repro_torch.kernels import ops
         out = ops.lut_mpgemm(x2d, qw, table_quant=table_quant, table=table,
-                             fusion=fusion)
+                             fusion=fusion, row_scale=row_scale)
     return out.reshape(*lead, qw.n).to(out_dtype)

@@ -40,7 +40,8 @@ __all__ = ["table_precompute", "lut_mpgemm", "fused_lut_mpgemm",
            "dequant_mpgemm", "lut_mpgemm_experts", "fused_lut_mpgemm_experts",
            "expert_table",
            "staged_operands", "pick_blocks", "auto_fusion",
-           "resolve_dispatch", "kernel_plan", "Plan", "FUSION_MODES"]
+           "resolve_dispatch", "kernel_plan", "plan_local_shape", "Plan",
+           "FUSION_MODES"]
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int,
@@ -95,6 +96,27 @@ class Plan(NamedTuple):
     source: str
 
 
+def plan_local_shape(m, n):
+    """Per-shard (m, n) of a global (m, n) mpGEMM under the active plan
+    (``distributed.sharding.plan_scope``), the reference's contract: m
+    divided by the batch axes and n by the model axis where each divides,
+    a dim that does not divide left global (the replicate fallback of
+    ``resolve_physical_spec``). The port's wrappers already hold local
+    tensors, so ``resolve_dispatch`` takes the local shape as it is and
+    never calls this; it is for code that plans from global shapes."""
+    from repro_torch.distributed.sharding import current_plan
+    plan = current_plan()
+    if plan is None:
+        return m, n
+    dp = plan.axis_size("batch")
+    mp = plan.axis_size("model")
+    if dp > 1 and m % dp == 0:
+        m //= dp
+    if mp > 1 and n % mp == 0:
+        n //= mp
+    return m, n
+
+
 def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto",
                      table_quant: Optional[str] = "per_row",
                      experts: int = 0) -> Plan:
@@ -114,7 +136,11 @@ def resolve_dispatch(m, n, g, k_group, planes, *, fusion="auto",
     experts, one batched launch (``lut_mpgemm_experts``). The fusion is
     decided at (m, n, g) all the same; "tuned" runs as "auto", since the
     tuning cache holds 2-D shapes, whose tile and S do not fit the batched
-    launch; the key gets an "e<E>." prefix."""
+    launch; the key gets an "e<E>." prefix.
+
+    Under a mesh the shape is the rank's local one, as the wrappers hold
+    it: nothing here divides it again (``plan_local_shape`` is for global
+    shapes)."""
     if fusion not in FUSION_MODES:
         raise ValueError(f"fusion {fusion!r} not in {FUSION_MODES}")
     tuned = (autotune.lookup_tuned(m, n, g, k_group, planes,
@@ -222,14 +248,20 @@ def _rowsum(x, qw):
 
 
 def table_precompute(a: torch.Tensor, k_group: int = 4,
-                     table_quant: Optional[str] = "per_row") -> Table:
+                     table_quant: Optional[str] = "per_row",
+                     row_scale: Optional[torch.Tensor] = None) -> Table:
     """Kernel-backed independent precompute operator (§3.1.1): one launch,
-    the per_row row scale included, and ``rowsum``'s sum."""
+    the per_row row scale included unless given (``row_scale`` [M, 1]: a
+    row-parallel layer's whole-row scale on its K-range), and ``rowsum``'s
+    sum."""
     m, k_total = a.shape
     g = k_total // k_group
     e = 1 << (k_group - 1)
     af = a.to(torch.float32).contiguous()
-    values, scale = tp_kernel.table_precompute(af, k_group, table_quant)
+    values, scale = tp_kernel.table_precompute(
+        af, k_group, table_quant,
+        None if row_scale is None or table_quant != "per_row"
+        else row_scale.to(torch.float32).reshape(m, 1).contiguous())
     rowsum = af.sum(-1)
     values = values.reshape(m, g, e)
     if table_quant is None:
@@ -240,10 +272,14 @@ def table_precompute(a: torch.Tensor, k_group: int = 4,
 def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
                      table_quant: Optional[str] = "per_row",
                      tile: Optional[int] = None,
-                     splits: Optional[int] = None) -> torch.Tensor:
+                     splits: Optional[int] = None,
+                     row_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Single-kernel precompute→lookup mpGEMM (the table stays on chip);
     ``tile`` and ``splits`` replace the kernel's own plan (None keeps
-    it)."""
+    it). ``row_scale`` [M, 1] (per_row): the scale to quantize the table
+    with, in place of the one launch that computes it from x (a
+    row-parallel layer's whole-row scale on its K-range)."""
     _check_not_plane_sliced(qw, "fused_lut_mpgemm")
     m = x.shape[0]
     kg, planes = qw.k_group, qw.num_planes
@@ -255,14 +291,24 @@ def fused_lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
         _, _, bn, bg = lut_kernel.f32_tile_for(m, kg, planes, tile)
     xp = _aligned(_pad_to(xp, bg * kg, 1).contiguous())
     # padded groups are zeros: they leave the row scale's max as it is
-    row_scale = (tp_kernel.row_scale(xp, kg) if table_quant == "per_row"
-                 else None)
+    row_scale = _given_or_computed(row_scale, xp, kg, table_quant)
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = fused_kernel.fused_lut_mpgemm(
         xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,
         planes=planes, plane_scales=qw.plane_scales, tile=tile,
         splits=splits)[:m, :qw.n]
     return ref.zero_point_correction(out, qw, _rowsum(x, qw))
+
+
+def _given_or_computed(row_scale, xp, k_group, table_quant):
+    """The per_row row scale: the given one as the kernels take it
+    (contiguous f32 [M, 1]), else one launch of the row-scale kernel on
+    the padded x; None for float tables."""
+    if table_quant != "per_row":
+        return None
+    if row_scale is None:
+        return tp_kernel.row_scale(xp, k_group)
+    return row_scale.to(torch.float32).reshape(xp.shape[0], 1).contiguous()
 
 
 def staged_operands(table: Table, qw: QuantizedWeight,
@@ -298,13 +344,15 @@ def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
                table_quant: Optional[str] = "per_row",
                table: Optional[Table] = None,
                fusion: str = "auto", tile: Optional[int] = None,
-               splits: Optional[int] = None) -> torch.Tensor:
+               splits: Optional[int] = None,
+               row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LUT mpGEMM through the kernels. ``fusion`` picks the single fused
     kernel or the staged ``table_precompute`` + ``lut_mpgemm`` pair;
     "auto" asks the LMMA rule, "tuned" the tuning cache
     (``resolve_dispatch``). ``tile`` and ``splits`` replace the plan's. A
     supplied ``table`` (shared across consumers) always runs staged, with
-    the plan's tile and S."""
+    the plan's tile and S. ``row_scale`` [M, 1] (per_row): the table's
+    given row scale, fused or staged."""
     _check_not_plane_sliced(qw, "lut_mpgemm")
     m = x.shape[0]
     g, kg, planes = qw.g, qw.k_group, qw.num_planes
@@ -313,10 +361,13 @@ def lut_mpgemm(x: torch.Tensor, qw: QuantizedWeight, *,
     tile = plan.tile if tile is None else tile
     splits = plan.splits if splits is None else splits
     if table is None and plan.fusion == "fused":
+        kw = {} if row_scale is None else {"row_scale": row_scale}
         return fused_lut_mpgemm(x, qw, table_quant=table_quant, tile=tile,
-                                splits=splits)
+                                splits=splits, **kw)
     if table is None:
-        table = table_precompute(x, kg, table_quant)
+        table = (table_precompute(x, kg, table_quant) if row_scale is None
+                 else table_precompute(x, kg, table_quant,
+                                       row_scale=row_scale))
     out = lut_kernel.lut_mpgemm(
         *staged_operands(table, qw, tile), k_group=kg, planes=planes,
         plane_scales=qw.plane_scales, tile=tile, splits=splits)[:m, :qw.n]
@@ -377,12 +428,13 @@ def expert_table(x: torch.Tensor, k_group: int = 4,
 
 
 def fused_lut_mpgemm_experts(x: torch.Tensor, qw: QuantizedWeight, *,
-                             table_quant: Optional[str] = "per_row"
+                             table_quant: Optional[str] = "per_row",
+                             row_scale: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """E experts' fused precompute→lookup mpGEMMs, x [E, C, K] against a
     stack of weights ([E, N, bytes]) -> f32 [E, C, N]: one row-scale
-    launch over the padded rows (per_row) and one launch of
-    ``fused_lut_mpgemm_batched``."""
+    launch over the padded rows (per_row; none where ``row_scale`` [E, C,
+    1] is given) and one launch of ``fused_lut_mpgemm_batched``."""
     _check_not_plane_sliced(qw, "fused_lut_mpgemm_experts")
     e, c, _ = x.shape
     kg, planes = qw.k_group, qw.num_planes
@@ -390,8 +442,10 @@ def fused_lut_mpgemm_experts(x: torch.Tensor, qw: QuantizedWeight, *,
     cp = _up(max(c, 1), bm)
     xp = _pad_to(_pad_to(x.to(torch.float32), cp, 1), bg * kg, 2)
     xp = _aligned(xp.reshape(e * cp, -1).contiguous())
-    row_scale = (tp_kernel.row_scale(xp, kg) if table_quant == "per_row"
-                 else None)
+    if row_scale is not None:  # padded rows: the clamped scale of a zero row
+        row_scale = _pad_to(row_scale.to(torch.float32).reshape(e, c, 1), cp,
+                            1, value=1e-30 / 127.0).reshape(e * cp, 1)
+    row_scale = _given_or_computed(row_scale, xp, kg, table_quant)
     pkp, wsp = _pad_packed(qw, xp.shape[1] // kg, bn)
     out = fused_kernel.fused_lut_mpgemm_batched(
         xp, row_scale, pkp, wsp, k_group=kg, table_quant=table_quant,

@@ -45,6 +45,21 @@ the metrics snapshot (JSON, or Prometheus text for a ``.prom`` path), and
         --prefill-chunk 128 --fusion tuned --tuning-cache tc.json \
         --pretune --trace-out trace.json --dispatch-log dispatch.json
 
+Model-axis mesh: ``--tp N`` (or ``--mesh 1xN``; the two are mutually
+exclusive, and ``D > 1`` is refused: the data axis is not ported) serves
+the dense and MoE archs across N ranks, tensor-parallel layers and
+expert-parallel MoE (``distributed.sharding``). Started by torchrun, each
+rank joins the group torchrun describes; otherwise the ranks are spawned
+here (``launch.mesh.spawn``, ranks on ``cuda:(r % device_count)``, NCCL
+where each has a card of its own, gloo where they share one; with
+``--device cpu`` on the CPU over gloo)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --tp 2
+
+Every rank serves the same requests with the same seed; rank 0 prints
+the single-device lines and one mesh line.
+
 Runs on the CUDA card; ``--device cpu`` runs every kernel's plain version
 on the CPU instead (the tests do this, at ``--reduced`` size). Without a
 card and without ``--device cpu`` it stops with an error.
@@ -53,14 +68,19 @@ card and without ``--device cpu`` it stops with an error.
 from __future__ import annotations
 
 import argparse
+import builtins
 import json
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.core.mpgemm import FUSION_MODES, MPGEMM_MODES
+from repro_torch.distributed.sharding import shard_params
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
 from repro_torch.obs import dispatch as dispatch_obs
 from repro_torch.obs.trace import Tracer
@@ -86,7 +106,8 @@ def scheme_name(quant: dict) -> str:
     return name
 
 
-def main(argv=None):
+def main(argv=None, rank_device=None):
+    """The serve; ``rank_device``: a spawned rank's device."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=registry.list_archs(),
@@ -158,7 +179,55 @@ def main(argv=None):
                          "the arch's); the ternary scheme has no such choice")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DXM",
+                    help="serving mesh 'data x model', e.g. 1x2: shards the "
+                         "packed weights and KV heads over M ranks (D > 1 "
+                         "is not ported). Default: one device")
+    ap.add_argument("--tp", type=int, default=None, metavar="N",
+                    help="tensor-parallel shortcut for --mesh 1xN")
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.tp is not None:
+        ap.error("--mesh and --tp are mutually exclusive")
+    model = None
+    if args.mesh is not None:
+        try:
+            data, model = (int(v) for v in args.mesh.lower().split("x"))
+        except ValueError:
+            ap.error(f"--mesh wants 'DxM' (e.g. 1x2), got {args.mesh!r}")
+        if data > 1:
+            ap.error(f"--mesh {args.mesh}: " + mesh_mod.DATA_AXIS_REFUSAL)
+    elif args.tp is not None:
+        model = args.tp
+    if model is not None and model < 1:
+        ap.error(f"the model axis needs >= 1 rank, got {model}")
+    if model is None or model == 1 or dist.is_initialized():
+        return _serve(ap, args, model, rank_device)
+    device = mesh_mod.from_env(args.device)
+    if device is not None:  # a rank torchrun started
+        return _serve(ap, args, model, device)
+    if mesh_mod.rank_device(0, args.device).type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build_all()  # here, once: the ranks load the libraries
+    mesh_mod.spawn(_serve_rank, model, device=args.device,
+                   args=(list(sys.argv[1:] if argv is None else argv),))
+    return 0
+
+
+def _serve_rank(rank, device, argv):
+    """A spawned rank's serve (``launch.mesh.spawn``): ``main`` on the
+    group the spawn set up, on the rank's ``device``."""
+    return main(argv, device)
+
+
+def _serve(ap, args, model, rank_device):
+    """The serve of ``main``, on one device or as one rank of the mesh
+    (on ``rank_device``)."""
+    plan = None
+    if model is not None:
+        plan = mesh_mod.make_plan(mesh_mod.make_serving_mesh(
+            data=1, model=model, device=rank_device))
+    rank0 = plan is None or plan.mesh.coord("model") == 0
+    print = builtins.print if rank0 else (lambda *a, **k: None)
     if args.prefix_cache and args.cache_block_size is None:
         ap.error("--prefix-cache requires --cache-block-size")
     try:
@@ -170,7 +239,7 @@ def main(argv=None):
         ap.error("--decoding spec needs a quantized mode: the draft is a "
                  "bit-plane slice of the packed weights")
 
-    device = api.resolve_device(args.device)
+    device = rank_device or api.resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
@@ -183,10 +252,20 @@ def main(argv=None):
 
     print(f"init + quantize ({args.mode}, {scheme_name(cfg.quant)}) on "
           f"{device} ...")
+    if plan is not None:
+        m = plan.mesh
+        print(f"serving mesh {m.sizes['data']}x{m.sizes['model']} (data x "
+              f"model) over {m.sizes['model']} ranks, backend {m.backend}, "
+              f"rank 0 on {m.device}")
     quantized = args.mode != "fp16"
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = api.init_params(gen, cfg, device, serve_quantized=quantized)
+    if plan is not None:
+        # this rank's blocks alone from here on: the whole tree, built on
+        # every rank's device with one seed, is dropped before the engine
+        # allocates its caches
+        params = shard_params(params, plan, cfg)
     if not quantized:
         cfg = cfg.replace(quant=None)
     if args.fusion == "tuned" and args.tuning_cache is None \
@@ -202,7 +281,8 @@ def main(argv=None):
                         num_cache_blocks=args.num_cache_blocks,
                         prefix_cache=args.prefix_cache, spec_k=args.spec_k,
                         spec_draft_planes=spec_draft_planes,
-                        tuning_cache=args.tuning_cache, tracer=tracer)
+                        tuning_cache=args.tuning_cache, tracer=tracer,
+                        plan=plan)
     if args.pretune:
         if eng.tuning_cache is None:  # tune in memory for this process
             from repro_torch.core import autotune
@@ -248,6 +328,11 @@ def main(argv=None):
     if dm.kind == decoding.BEAM:
         print(f"beam: width {dm.beam_width}, length alpha "
               f"{eng.beam_length_alpha}")
+    if st["mesh"] is not None:
+        ms = st["mesh"]
+        print(f"mesh: {ms['shape']}, backend {ms['backend']}, rank 0's "
+              f"collectives {ms['collective_calls']} calls, "
+              f"{ms['collective_bytes']} bytes, {ms['collective_s']:.2f} s")
     if tracer is not None:
         tracer.save(args.trace_out)
         print(f"trace: {len(tracer)} events -> {args.trace_out} (open at "

@@ -17,8 +17,10 @@ archs train from ``SyntheticLM`` tokens. The VLM and audio archs are
 refused with a ValueError: their forwards need the stub frontends'
 ``image_embeds`` / ``audio_frames``, which token data does not carry (the
 reference's launcher cannot train them either); ``make_train_step`` trains
-them from a batch that has them. ``--mesh`` takes only ``none``: the mesh
-and its shardings are not ported.
+them from a batch that has them. ``--mesh`` takes only ``none``: the port
+serves across a model-axis mesh (``launch/serve.py --tp``), but training
+under a mesh (``train_shardings``, FSDP) waits for the data-axis slice,
+ROADMAP.md queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -58,15 +60,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--mesh", default="none",
-                    help="none (the only value: the mesh and its shardings "
-                         "wait for the port's distributed slice)")
+                    help="none (the only value: training under a mesh waits "
+                         "for the data-axis slice, ROADMAP.md queue 1 item "
+                         "9)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: the mesh and its shardings are not "
-                 "ported (they wait for the distributed slice); use --mesh "
-                 "none")
+        ap.error(f"--mesh {args.mesh}: training under a mesh (its "
+                 "train_shardings, FSDP) is not ported: it waits for the "
+                 "data-axis slice, the rest of the distributed slice "
+                 "(ROADMAP.md queue 1 item 9); use --mesh none (serving "
+                 "runs across a model-axis mesh: launch/serve.py --tp)")
 
     device = api.resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,12 +1,19 @@
 """Model API for the reference's six families (dense, MoE, SSM, hybrid,
 VLM, audio): param init (float or packed serving weights), forward and
-cache init, dispatched on ``cfg.family``."""
+cache init, dispatched on ``cfg.family``.
+
+``forward`` and ``init_cache`` take the mesh plan from
+``distributed.sharding.plan_scope`` (params sharded by ``shard_params``):
+the dense and MoE families run across the model axis; the others under a
+mesh raise a ValueError (ROADMAP.md queue 1 item 9). A plan whose model
+axis has one rank is the single-device path."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.registry import ArchConfig
+from repro_torch.distributed.sharding import model_split
 from repro_torch.models import audio, hybrid, kvcache, layers as L, moe
 from repro_torch.models import quantized, ssm, transformer, vlm
 
@@ -144,12 +151,24 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
     return params
 
 
+MESH_FAMILIES = ("dense", "moe")
+
+
+def _check_mesh(cfg: ArchConfig):
+    if model_split() is not None and cfg.family not in MESH_FAMILIES:
+        raise ValueError(
+            f"{cfg.arch_id}: the {cfg.family} family does not run under a "
+            "model-axis mesh yet (only dense and MoE do): ROADMAP.md queue "
+            "1 item 9")
+
+
 def forward(params, batch, cfg: ArchConfig, **kw):
     """(logits, caches, aux). ``token_valid`` ([B] real-token counts of a
     right-padded prefill chunk) is read by the SSM and hybrid families and
     ignored by the dense and MoE ones. ``window`` (sliding-window
     attention) applies to every family's self-attention; the SSM family
     has none and ignores it."""
+    _check_mesh(cfg)
     return _FAMILY[cfg.family].forward(params, batch, cfg, **kw)
 
 
@@ -160,6 +179,7 @@ def init_cache(cfg: ArchConfig, batch: int, s_cache: int, dtype=None,
     (``kvcache.attn_cache``), anything else bf16. ``window``: the
     attention caches hold min(s_cache, window) positions, a rolling cache
     below s_cache (``shape("long_500k").window``)."""
+    _check_mesh(cfg)
     if dtype is None:
         dtype = "int8" if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     return _FAMILY[cfg.family].init_cache(cfg, batch, s_cache, dtype,

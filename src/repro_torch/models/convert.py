@@ -93,7 +93,7 @@ def _unstack(node, device, dims, prefix=()):
             for i in range(dims[0])]
 
 
-def from_jax_params(np_tree, cfg, device="cuda"):
+def from_jax_params(np_tree, cfg, device="cuda", *, plan=None):
     """Reference param tree (numpy leaves) -> the port's param tree on
     ``device`` (the card unless the caller asks for the CPU): each stacked
     layer stack becomes a list of layer dicts. The MoE family has two:
@@ -103,9 +103,18 @@ def from_jax_params(np_tree, cfg, device="cuda"):
     dicts, its ``tail`` [T, ...] a list; its ``shared`` block is one dict.
     The VLM's ``self_groups`` [G, xattn_every - 1, ...] become G lists, its
     ``xattn_layers`` [G, ...] a list (each cross layer's scalar gates 0-dim
-    tensors); whisper's ``enc_layers`` and ``dec_layers`` lists."""
+    tensors); whisper's ``enc_layers`` and ``dec_layers`` lists.
+
+    With ``plan`` (a model-axis mesh) the tree is converted on the CPU and
+    this rank's blocks (``distributed.sharding.shard_params``) go to
+    ``device``: one set of reference weights carried into every rank."""
     device = resolve_device(device)
     stacks = _stacks(cfg)
-    return {k: (_unstack(v, device, stacks[k]) if k in stacks
-                else _convert(v, device))
+    at = torch.device("cpu") if plan is not None else device
+    tree = {k: (_unstack(v, at, stacks[k]) if k in stacks
+                else _convert(v, at))
             for k, v in np_tree.items()}
+    if plan is None:
+        return tree
+    from repro_torch.distributed.sharding import shard_params, tree_to
+    return tree_to(shard_params(tree, plan, cfg), device)

@@ -7,10 +7,18 @@ parameter form: float ``{"w": [in, out]}`` is a dense GEMM, packed
 ``{"qw": QuantizedWeight}`` is an mpGEMM in the configured mode.
 Projections sharing an input (QKV; gate+up) share one precomputed lookup
 table when the staged pipeline runs (§3.1.1).
+
+Under a model-axis mesh (``distributed.sharding.shard_params`` marks each
+linear's ``"tp"``) a projection runs on this rank's block: column-parallel
+on its output channels with no collective, row-parallel on its K-range
+with the partial products summed over the ranks, or whole. Attention runs
+on the rank's local heads, so ``wo`` takes its input split; a consumer
+whose layout disagrees with its producer's slices or gathers its input.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -19,6 +27,8 @@ import torch
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.quantize import fake_quant
 from repro_torch.core.table import true_divide
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import model_split
 from repro_torch.models import kvcache
 
 Params = Dict[str, Any]
@@ -75,10 +85,34 @@ def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = True,
 # ---------------------------------------------------------------------------
 
 def lut_dense(p: Params, x: torch.Tensor, quant: Optional[dict] = None,
-              table=None) -> torch.Tensor:
+              table=None, *, x_split: bool = False) -> torch.Tensor:
     """y = x @ W (+b). A float W under ``quant["qat"]`` (the training
     forward) is fake-quantized per output channel along the input axis
-    first, whatever ``quant["skip"]`` says, as in the reference."""
+    first, whatever ``quant["skip"]`` says, as in the reference.
+
+    Under a mesh, ``x_split``: x holds this rank's block of its last dim
+    (a column-parallel producer's output). A row-parallel W
+    (``p["tp"] == "row"``) takes x's block (sliced here where x is whole)
+    and sums its partial product over the model axis (``_row_parallel``);
+    any other W takes x whole (gathered here where x is split). The
+    output is this rank's block of channels where W is column-parallel,
+    else whole. A linear with ``"blocks"`` (a mesh's control on one
+    device, ``sharding.one_device_control``) runs its ranks' blocks in
+    turn."""
+    if "blocks" in p:
+        mode, parts = p["blocks"]
+        if mode == "col":
+            return torch.cat([lut_dense(b, x, quant, table) for b in parts],
+                             dim=-1)
+        k = x.shape[-1] // len(parts)
+        return _row_parallel(parts, [x[..., r * k:(r + 1) * k]
+                                     for r in range(len(parts))], quant,
+                             collectives.reduce_parts)
+    if p.get("tp") == "row":
+        return _row_parallel([p], [x if x_split else _k_block(x)], quant,
+                             lambda ts, op: collectives.all_reduce(ts[0], op))
+    if x_split:
+        x = collectives.all_gather(x, dim=-1)
     if "qw" in p:
         q = quant or {}
         y = mp.mpgemm(x, p["qw"], mode=q.get("mpgemm_mode", "lut_xla"),
@@ -93,6 +127,44 @@ def lut_dense(p: Params, x: torch.Tensor, quant: Optional[dict] = None,
         y = (x.to(torch.float32) @ w).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
+    return y
+
+
+def _k_block(x: torch.Tensor) -> torch.Tensor:
+    """This rank's contiguous block of x's last dim over the model axis."""
+    plan = model_split()
+    m, r = plan.axis_size("model"), plan.rank_along("model")
+    k = x.shape[-1] // m
+    return x[..., r * k:(r + 1) * k]
+
+
+def _row_parallel(parts, xs, quant: Optional[dict], reduce) -> torch.Tensor:
+    """A row-parallel projection: each W block's f32 partial product on
+    its K-range of x (``parts`` and ``xs`` pair up: this rank's one, or a
+    control's m), reduced over the ranks by ``reduce(tensors, op)``, then
+    the bias once. A per_row INT8 table is quantized with the whole row's
+    scale, the max of the K-ranges' row scales (exact: the scale is a
+    monotone function of the row's largest group sum), so its codes are
+    the single-device codes on each range."""
+    q = quant or {}
+    if "qw" in parts[0]:
+        mode = q.get("mpgemm_mode", "lut_xla")
+        tq = mp.resolve_table_quant(q.get("table_quant", "per_row"),
+                                    xs[0].device)
+        rs = None
+        if tq == "per_row" and mode in ("lut_xla", "lut_pallas"):
+            rs = reduce([mp.row_scale(x, p["qw"].k_group, mode)
+                         for p, x in zip(parts, xs)], "max")
+        ys = [mp.mpgemm(x, p["qw"], mode=mode, table_quant=tq,
+                        fusion=q.get("fusion", "auto"),
+                        out_dtype=torch.float32, row_scale=rs)
+              for p, x in zip(parts, xs)]
+    else:
+        ys = [x.to(torch.float32) @ p["w"].to(x.dtype).to(torch.float32)
+              for p, x in zip(parts, xs)]
+    y = reduce(ys, "sum").to(xs[0].dtype)
+    if "b" in parts[0]:
+        y = y + parts[0]["b"].to(y.dtype)
     return y
 
 
@@ -343,18 +415,24 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
                 "ignores the window")
     b, s, _ = x.shape
     hd = cfg.head_dim
+    attend = chunked_attention
+    if "heads" in p:  # a mesh's control: the ranks' head blocks in turn
+        attend = functools.partial(_head_blocks, p["heads"])
     per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
     # float projections (quant["skip"]: olmoe's attention) read no table;
     # in cross-attention only wq reads it, as in the reference
     tbl = make_table(x, quant) if "qw" in p["wq"] else None
-    q = lut_dense(p["wq"], x, quant, tbl).reshape(b, s, cfg.n_heads, hd)
+    # under a mesh: this rank's heads (the whole heads where attention
+    # runs replicated)
+    heads_split = p["wq"].get("tp") == "col"
+    q = lut_dense(p["wq"], x, quant, tbl).reshape(b, s, -1, hd)
     if xattn_kv is not None:
         k, v = xattn_kv
-        out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        out = out.reshape(b, s, cfg.n_heads * hd)
-        return lut_dense(p["wo"], out, quant), kv_cache
-    k = lut_dense(p["wk"], x, quant, tbl).reshape(b, s, cfg.n_kv_heads, hd)
-    v = lut_dense(p["wv"], x, quant, tbl).reshape(b, s, cfg.n_kv_heads, hd)
+        out = attend(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        out = out.reshape(b, s, -1)
+        return lut_dense(p["wo"], out, quant, x_split=heads_split), kv_cache
+    k = lut_dense(p["wk"], x, quant, tbl).reshape(b, s, -1, hd)
+    v = lut_dense(p["wv"], x, quant, tbl).reshape(b, s, -1, hd)
     steps = torch.arange(s, device=x.device)
     positions = cache_pos[:, None] + steps if per_slot else cache_pos + steps
     if use_rope:
@@ -362,8 +440,8 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
         k = rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        out = chunked_attention(q, k, v, q_offset=cache_pos, causal=causal,
-                                window=window, chunk=cfg.attn_chunk)
+        out = attend(q, k, v, q_offset=cache_pos, causal=causal,
+                     window=window, chunk=cfg.attn_chunk)
     elif page_table is not None:
         pos2d = positions if per_slot else torch.full(
             (b, 1), cache_pos, dtype=torch.int64, device=x.device) + steps
@@ -376,15 +454,15 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
         if per_slot:
             if ksg is None:
                 kg, vg = kg.to(q.dtype), vg.to(q.dtype)
-            out = chunked_attention(q, kg, vg, causal=False,
-                                    kv_valid_len=pos2d + 1,
-                                    chunk=cfg.attn_chunk, k_scale=ksg,
-                                    v_scale=vsg)
+            out = attend(q, kg, vg, causal=False,
+                         kv_valid_len=pos2d + 1,
+                         chunk=cfg.attn_chunk, k_scale=ksg,
+                         v_scale=vsg)
         else:
-            out = chunked_attention(q, kg, vg, q_offset=cache_pos,
-                                    causal=causal, kv_valid_len=cache_pos + s,
-                                    chunk=cfg.attn_chunk, k_scale=ksg,
-                                    v_scale=vsg)
+            out = attend(q, kg, vg, q_offset=cache_pos,
+                         causal=causal, kv_valid_len=cache_pos + s,
+                         chunk=cfg.attn_chunk, k_scale=ksg,
+                         v_scale=vsg)
     elif per_slot:
         wpos = positions
         if s > 1:
@@ -405,10 +483,10 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
         ck, cv, cks, cvs = _write_kv(kv_cache, k, v, write)
         if cks is None:
             ck, cv = ck.to(q.dtype), cv.to(q.dtype)
-        out = chunked_attention(q, ck, cv, causal=False,
-                                kv_valid_len=positions + 1,
-                                chunk=cfg.attn_chunk, k_scale=cks,
-                                v_scale=cvs)
+        out = attend(q, ck, cv, causal=False,
+                     kv_valid_len=positions + 1,
+                     chunk=cfg.attn_chunk, k_scale=cks,
+                     v_scale=cvs)
     elif (window is not None and len(kv_cache) == 2
           and kv_cache[0].shape[1] == window):
         out = _rolling_apply(q, k, v, kv_cache, cache_pos, window)
@@ -426,12 +504,29 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
         def write(leaf, vals):
             leaf[:, cache_pos:cache_pos + n] = vals[:, :n].to(leaf.dtype)
         ck, cv, cks, cvs = _write_kv(kv_cache, k, v, write)
-        out = chunked_attention(q, ck, cv, q_offset=cache_pos, causal=causal,
-                                window=window, kv_valid_len=cache_pos + s,
-                                chunk=cfg.attn_chunk, k_scale=cks,
-                                v_scale=cvs)
-    out = out.reshape(b, s, cfg.n_heads * hd)
-    return lut_dense(p["wo"], out, quant), kv_cache
+        out = attend(q, ck, cv, q_offset=cache_pos, causal=causal,
+                     window=window, kv_valid_len=cache_pos + s,
+                     chunk=cfg.attn_chunk, k_scale=cks,
+                     v_scale=cvs)
+    out = out.reshape(b, s, -1)
+    return lut_dense(p["wo"], out, quant, x_split=heads_split), kv_cache
+
+
+def _head_blocks(m: int, q, k, v, *, k_scale=None, v_scale=None,
+                 **kw) -> torch.Tensor:
+    """``chunked_attention`` over m blocks of heads in turn, each on
+    contiguous copies of its q / k / v (and scale) blocks, concatenated:
+    the calls a 1 x m mesh's ranks make on their local heads and caches
+    (``sharding.one_device_control``), whose batched GEMMs' kernels, and
+    so their summation order, follow the number of heads."""
+    def blk(t, r):
+        if t is None:
+            return None
+        n = t.shape[2] // m
+        return t[:, :, r * n:(r + 1) * n].contiguous()
+    return torch.cat([chunked_attention(
+        blk(q, r), blk(k, r), blk(v, r), k_scale=blk(k_scale, r),
+        v_scale=blk(v_scale, r), **kw) for r in range(m)], dim=2)
 
 
 def _rolling_apply(q, k, v, kv_cache, cache_pos, window: int):
@@ -494,4 +589,4 @@ def mlp_apply(p: Params, x: torch.Tensor,
         h = torch.nn.functional.gelu(
             lut_dense(p["up"], x, quant, tbl).to(torch.float32),
             approximate="tanh").to(x.dtype)
-    return lut_dense(p["down"], h, quant)
+    return lut_dense(p["down"], h, quant, x_split=p["up"].get("tp") == "col")

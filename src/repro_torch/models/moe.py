@@ -1,7 +1,8 @@
 """Mixture-of-Experts LM (olmoe, kimi-k2) with sort-based dispatch.
 
-The port of the reference's ``models/moe.py`` (its single-device path; the
-expert-parallel ``shard_map`` dispatch is not ported). Routing is
+The port of the reference's ``models/moe.py`` (its single-device path, and
+its quantized path under a mesh; the float experts' ``shard_map`` dispatch,
+training's, is not ported). Routing is
 token-choice top-k with an f32 router that is never quantized. Dispatch
 builds no [T, E] one-hot: the T·k assignments are sorted by expert id
 (stable, so a token's assignments and equal ids keep their order), each
@@ -22,6 +23,13 @@ Nothing here waits for the card: counts come from a scatter-add, not
 ``bincount``, and dropped assignments go to a trash row, not through a
 boolean mask.
 
+Under a model-axis mesh (``distributed.sharding``: the expert stacks split
+along E, ``experts["tp"] == "expert"``, the router replicated) every rank
+routes all tokens and builds the whole [E, C, D] buffer, as the
+reference's quantized path does, runs its E/m experts, and the ranks'
+expert outputs are gathered in expert order: the combine is then the
+single-device one, in the same order.
+
 Aux outputs: the load-balance loss (Switch-style E·Σ f_e·P_e) and the
 router-z loss, averaged over the MoE layers. A forward without its head
 (``head=False``: prefill, caches only) skips them.
@@ -36,6 +44,8 @@ import torch
 
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.quantize import fake_quant
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import model_split
 from repro_torch.models import kvcache, layers as L
 from repro_torch.models import transformer as TR
 
@@ -145,7 +155,15 @@ def moe_mlp_apply(p: Params, x: torch.Tensor, cfg, quant=None, *,
     # kept assignments own distinct slots; dropped ones go to the trash row
     disp = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=dev)
     disp[torch.where(keep, slot, e * cap)] = xf[tok]
-    out = _expert_ffn(p["experts"], disp[:-1].reshape(e, cap, d), quant)
+    buf = disp[:-1].reshape(e, cap, d)
+    if p["experts"].get("tp") == "expert":  # this rank's E/m experts
+        plan = model_split()
+        el = e // plan.axis_size("model")
+        r = plan.rank_along("model")
+        out = collectives.all_gather(_expert_ffn(
+            p["experts"], buf[r * el:(r + 1) * el], quant), dim=0)
+    else:
+        out = _expert_ffn(p["experts"], buf, quant)
     out = out.reshape(e * cap, d)
 
     # ---- combine: each token's k contributions in increasing expert id ----

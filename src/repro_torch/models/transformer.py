@@ -3,6 +3,12 @@
 embedding → L × block (a Python loop over the per-layer param dicts, the
 counterpart of the reference's ``lax.scan`` over stacked layers) → final
 norm → LM head; ``lm_loss`` is the training loss.
+
+Under a model-axis mesh (``distributed.sharding``) the embedding table and
+the LM head are split over the vocab: a rank looks up the tokens in its
+rows and the ranks' rows are summed (one nonzero term a token: exact),
+and each rank's logits of its vocab block are gathered, so every rank
+returns the whole logits and samples the same token.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import local_kv_heads, model_split
 from repro_torch.models import kvcache, layers as L
 
 Params = Dict[str, Any]
@@ -24,11 +32,23 @@ def embed_init(gen, vocab: int, d_model: int, dtype=torch.float32,
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    table = p["table"]
+    if p.get("tp") != "vocab":
+        return table[tokens]
+    # this rank's vocab rows [r·V/m, (r+1)·V/m): its tokens' rows, zeros
+    # for the others, summed over the ranks in f32 (exact)
+    v = table.shape[0]
+    local = tokens - model_split().rank_along("model") * v
+    inside = (local >= 0) & (local < v)
+    rows = table[local.clamp(0, v - 1)].to(torch.float32)
+    rows = torch.where(inside[..., None], rows, 0.0)
+    return collectives.all_reduce(rows, "sum").to(table.dtype)
 
 
 def head_apply(p: Params, h: torch.Tensor, quant=None) -> torch.Tensor:
-    return L.lut_dense(p, h, quant)
+    """Logits [.., V]; a vocab-split head's blocks gathered in rank order."""
+    y = L.lut_dense(p, h, quant)
+    return collectives.all_gather(y, dim=-1) if p.get("tp") == "col" else y
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -112,5 +132,8 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 def init_cache(cfg, batch: int, s_cache: int, dtype=torch.bfloat16,
                device=None, *, window=None):
-    return kvcache.attn_cache(cfg.n_layers, batch, s_cache, cfg.n_kv_heads,
-                              cfg.head_dim, dtype, device, window=window)
+    """The attention cache; under a mesh of this rank's KV heads
+    (``sharding.local_kv_heads``)."""
+    return kvcache.attn_cache(cfg.n_layers, batch, s_cache,
+                              local_kv_heads(cfg), cfg.head_dim, dtype,
+                              device, window=window)

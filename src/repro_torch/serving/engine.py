@@ -66,6 +66,15 @@ Telemetry adds no device round-trip; with no tracer each site costs one
 check. ``tuning_cache`` activates the measured plans ``fusion="tuned"``
 reads (``core.autotune``); ``pretune()`` fills it.
 
+Model-axis mesh (``plan``, the reference's ``plan=``): the engine shards
+the params (``distributed.sharding.shard_params``) and runs every forward
+and cache allocation under ``plan_scope``. Every rank runs this host logic
+on the same inputs: its forwards return whole logits (the head's vocab
+blocks gathered), its caches hold its KV heads, its generator has the
+same seed, so every rank samples the same tokens. ``host_syncs_per_token``
+counts the engine's own reads, as on one device; the collectives' calls,
+bytes and host seconds are reported under ``stats()["mesh"]``.
+
 Decoding modes (``serving/decoding.py``) are per-slot state: a request's
 ``decoding`` is ``greedy``/``sample``, ``beam:W`` (W slots of one group,
 forked every step) or ``spec:draftNb`` (self-speculation: K tokens drafted
@@ -82,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 import warnings
 from collections import deque
@@ -93,6 +103,9 @@ import torch
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (AxisPlan, plan_scope,
+                                              shard_params)
 from repro_torch.models import api, kvcache
 from repro_torch.models import quantized as qz
 from repro_torch.obs import dispatch as dispatch_obs
@@ -120,6 +133,15 @@ class Request:
     spec_stats: Optional[Dict[str, int]] = None
 
 
+def _in_plan(method):
+    """Runs an engine method under the engine's ``plan_scope``."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with plan_scope(self.plan):
+            return method(self, *args, **kw)
+    return run
+
+
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  max_seq: int = 512, seed: int = 0, decode_chunk: int = 8,
@@ -132,8 +154,10 @@ class ServingEngine:
                  tuning_cache: Optional[str] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 kv_cache_dtype: Optional[str] = None):
+                 kv_cache_dtype: Optional[str] = None,
+                 plan: Optional[AxisPlan] = None):
         self.cfg = cfg
+        self.plan = plan
         self.tracer = tracer
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._h_chunk_s = self.metrics.histogram(
@@ -151,6 +175,8 @@ class ServingEngine:
         if tuning_cache is not None:
             from repro_torch.core import autotune
             self.tuning_cache = autotune.configure(tuning_cache)
+        if plan is not None:  # this rank's blocks
+            params = shard_params(params, plan, cfg)
         self.device = params["embed"]["table"].device
         self.params = self._weight_store(cfg, params, spec_draft_planes)
         params = self.params
@@ -199,8 +225,10 @@ class ServingEngine:
             self.num_cache_blocks = int(num_cache_blocks)
         # per-leaf batch and sequence axes of the cache tree, probed on the
         # meta device (shapes only): SSM leaves have no sequence axis
-        probe = lambda batch, seq: api.init_cache(
-            cfg, batch, seq, dtype=self._cache_dtype, device="meta")
+        def probe(batch, seq):
+            with plan_scope(plan):
+                return api.init_cache(cfg, batch, seq,
+                                      dtype=self._cache_dtype, device="meta")
         self._slot_probe = probe(1, max_seq)
         self._axes = kvcache.batch_axes(self._slot_probe, probe(2, max_seq))
         seq_axes = kvcache.seq_axes(probe(1, 16), probe(1, 32))
@@ -248,6 +276,7 @@ class ServingEngine:
         return params
 
     # -- lifecycle ----------------------------------------------------------
+    @_in_plan
     def reset(self, seed: Optional[int] = None):
         """Clear queue, slots, device state and counters."""
         seed = self._seed if seed is None else seed
@@ -333,6 +362,7 @@ class ServingEngine:
         return (contextlib.nullcontext() if self.tracer is None
                 else self.tracer.annotation(name))
 
+    @_in_plan
     def _prefill(self, prompt: np.ndarray, start: int, caches,
                  page_row=None, *, uid: int = -1,
                  slot: int = -1) -> Tuple[int, int]:
@@ -367,6 +397,7 @@ class ServingEngine:
         self.prefill_s += (t1 - t0) / 1e9
         return t0, t1
 
+    @_in_plan
     def _decode_chunk(self, sampling: bool):
         """``decode_chunk`` steps for the whole pool, all on the device.
         Returns device tensors toks / valid [N, B]."""
@@ -399,6 +430,7 @@ class ServingEngine:
             valid[step] = can
         return toks, valid
 
+    @_in_plan
     def _forward(self, params, tokens, cache_pos):
         """A per-slot forward over the pool's caches; logits [B, s, V]."""
         return api.forward(params, {"tokens": tokens}, self.cfg,
@@ -866,6 +898,7 @@ class ServingEngine:
             n += 1
         return n
 
+    @_in_plan
     def step(self) -> bool:
         """One chunk cycle: admit, decode N tokens per slot, retire."""
         admitted = self._admit()
@@ -1032,6 +1065,7 @@ class ServingEngine:
         return ticks
 
     # -- kernel autotuning -----------------------------------------------------
+    @_in_plan
     def pretune(self, *, repeats: int = 2, max_candidates: int = 4,
                 verbose: bool = False) -> int:
         """Measure-tune every mpGEMM shape this engine dispatches: each
@@ -1083,8 +1117,7 @@ class ServingEngine:
             "peak_active_slots": self.peak_active_slots,
             "slot_occupancy": self._h_occupancy.mean,
             "paged": self.paged,
-            # single-device engine: no mesh (the reference's plan=None)
-            "mesh": None,
+            "mesh": self._mesh_stats(),
             "cache_hbm_bytes": sum(c.numel() * c.element_size()
                                    for c in tree_leaves(self.caches)),
             "admit_attempts": self.admit_attempts,
@@ -1135,6 +1168,24 @@ class ServingEngine:
             out["dispatch"] = {k: s[k] for k in
                                ("decisions", "tuned", "heuristic", "forced")}
         return out
+
+    def _mesh_stats(self) -> Optional[dict]:
+        """None on one device (the reference's plan=None); under a mesh its
+        shape, backend and this rank's coordinate, and the collectives'
+        counters of this process (``distributed.collectives``: calls,
+        bytes, host seconds inside them). Nothing is staged through host
+        memory: every backend takes the card's tensors (the collectives
+        module docstring)."""
+        if self.plan is None:
+            return None
+        mesh = self.plan.mesh
+        c = collectives.counters()
+        return {"shape": mesh.sizes, "backend": mesh.backend,
+                "rank": dict(zip(mesh.axis_names, mesh.coords)),
+                "collective_calls": c["calls"],
+                "collective_bytes": c["bytes"],
+                "collective_s": c["seconds"],
+                "host_staged_bytes": 0}
 
     def metrics_snapshot(self) -> dict:
         """JSON-able registry snapshot with ``stats()`` mirrored in as

@@ -1341,3 +1341,41 @@ def test_cw_tree_is_refused_by_the_kernels_on_the_card(cuda):
     with pytest.raises(ValueError, match="offline-CW"):
         mp.mpgemm(torch.randn(2, qw.k_total, device=cuda), qw,
                   mode="lut_pallas")
+
+
+def _collectives_probe(ctx):
+    """Every op of ``distributed.collectives`` on this rank's device, of
+    values that say which rank sent them."""
+    from repro_torch.distributed import collectives
+    r, out = ctx["plan"].rank_along("model"), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((5,), float(r + 1), dtype=dtype, device=ctx["device"])
+        for op in ("sum", "max"):
+            out[f"all_reduce_{op}_{dtype}"] = collectives.all_reduce(x, op)
+    for dtype in (torch.float32, torch.int64):
+        x = torch.full((2, 3), r + 1, dtype=dtype, device=ctx["device"])
+        out[f"all_gather_{dtype}"] = collectives.all_gather(x, dim=0)
+    return {k: v.cpu() for k, v in out.items()}, collectives.counters()
+
+
+def test_gloo_collectives_take_card_tensors(cuda, monkeypatch):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    card; the ranks see only the first card): all_reduce (sum and max, f32
+    and bf16) and all_gather (f32 and int64) of tensors on the card give
+    every rank the right values."""
+    import os
+    from repro_torch.launch import mesh, mesh_job
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    res = mesh.spawn(mesh_job.run, 2, args=([{"probes": {
+        "collectives": (_collectives_probe, ())}}],))
+    for (out,) in res:
+        assert out["backend"] == "gloo" and out["device"] == "cuda:0"
+        c, counters = out["probes"]["collectives"]
+        for dtype in (torch.float32, torch.bfloat16):
+            assert c[f"all_reduce_sum_{dtype}"].tolist() == [3.0] * 5
+            assert c[f"all_reduce_max_{dtype}"].tolist() == [2.0] * 5
+        for dtype in (torch.float32, torch.int64):
+            assert c[f"all_gather_{dtype}"].tolist() == [[1] * 3] * 2 + [
+                [2] * 3] * 2
+        assert counters["calls"] == 4 + 2
