@@ -186,12 +186,13 @@ exit and no result line):
      drops differ).
  12. ssm     — the SSM and hybrid families at full width (``ssm_phase``),
      random weights from seed 0 made on the card layer by layer, per_row
-     tables, lut_pallas, fusion auto: falcon-mamba-7b (64 Mamba1 layers,
-     d_model 4096, d_inner 8192, dt_rank 256, state 16, vocab 65024, every
-     projection and the head W2) and zamba2-7b (81 Mamba2 layers in 13
-     groups of 6 and a tail of 3, each group followed by one shared
-     attention + MLP block, MHA 32/32, d_ff 14336, vocab 32000; the Mamba2
-     in/out projections float, the shared block and the head W2). (a)
+     tables, lut_pallas, fusion auto, depth cut (``SERVE_DEPTH``):
+     falcon-mamba-7b (16 of its 64 Mamba1 layers, d_model 4096, d_inner
+     8192, dt_rank 256, state 16, vocab 65024, every projection and the
+     head W2) and zamba2-7b (13 of its 81 Mamba2 layers: 2 groups of 6 and
+     a tail of 1, each group followed by one shared attention + MLP block,
+     MHA 32/32, d_ff 14336, vocab 32000; the Mamba2 in/out projections
+     float, the shared block and the head W2). (a)
      phase 3's checks and times (``check_kernels``, every table mode and
      ``dequant_mpgemm``, M ∈ {4, 128}) at their packed projections' (N,
      K): (16384, 4096), (288, 8192), (8192, 256), (4096, 8192), (65024,
@@ -215,8 +216,9 @@ exit and no result line):
      profiled as in phase 4.
  13. xattn   — the VLM and audio families at full width (``xattn_phase``),
      random weights from seed 0 made on the card layer by layer, per_row
-     tables, lut_pallas, fusion auto: llama-3.2-vision-11b (40 layers in 8
-     groups of 4 self layers and a gated cross layer, d_model 4096, GQA
+     tables, lut_pallas, fusion auto: llama-3.2-vision-11b (10 of its 40
+     layers, ``SERVE_DEPTH``: 2 groups of 4 self layers and a gated cross
+     layer, d_model 4096, GQA
      32/8, d_ff 14336, vocab 128256, 1601 image tokens; the gates, 0 after
      init, set to 0.5) and whisper-tiny (4 encoder and 4 decoder layers,
      d_model 384, 6 heads, d_ff 1536, vocab 51865, 1500 frames), every
@@ -277,7 +279,8 @@ exit and no result line):
      and one f32 absmax scale a position and head, quantized and
      dequantized by plain torch ops, as the reference's are plain ``jnp``)
      at full width, after phase 14, each model made anew from seed 0 and
-     freed after its part (``kvint8_phase``): (a) tinyllama-1.1b: phase
+     freed after its part (``kvint8_phase``): (a) tinyllama-1.1b (11 of
+     its 22 layers, ``KV_TINY_LAYERS``): phase
      4's requests on an f32 and an int8 cache (``int8_serve``: the int8
      serve's launch counts set to 0 just before and read just after, every
      kernel of the per_row path launched, <= 1/decode_chunk host syncs a
@@ -305,8 +308,8 @@ exit and no result line):
      burst's tokens); a lut_xla decode step timed. Its depth is cut to 4 of
      its 16 layers (``KV_MOE_LAYERS``): its lut_xla legs run 64 experts'
      plain lookups one at a time, in a time linear in the layers. (c)
-     whisper-tiny and zamba2-7b: one int8 serve each (``int8_serve``), the
-     cache bytes against the formula (whisper's cross K/V int8 zeros,
+     whisper-tiny and zamba2-7b (``SERVE_DEPTH``): one int8 serve each
+     (``int8_serve``), the cache bytes against the formula (whisper's cross K/V int8 zeros,
      zamba2's Mamba2 state f32); for zamba2 a teacher-forced forward (120
      tokens prefilled, 8 decode steps, the kernels) on f32, bf16 and int8
      caches with per_row and float tables (``cache_dtype_forward``): the
@@ -377,6 +380,27 @@ exit and no result line):
      wall and busy time on each (``decode_step_profile``); an engine under
      lut_pallas refuses the CW tree (ValueError). lut_xla launches no
      kernel, as in the reference.
+ 19. tp      — the model-axis mesh (``tp_phase``): ranks spawned on the
+     card (they share it over gloo; each on its own card over NCCL),
+     the per-shard kernels, full-width tinyllama-1.1b (4 of its 22
+     layers, ``MESH_LAYERS``) at 1x2 and 1x4 and olmoe-1b-7b (4 of 16
+     layers) at 1x2, logits and streams held bit for bit to the
+     one-device control (``sharding.one_device_control``).
+ 20. dp      — the data axis (``dp_phase``): (e) the per-shard kernels at
+     a data rank's decode rows (M = 2); (a) each rank's own build at 1x2
+     (``launch/serve.py``'s ``build_params``): its peak device memory
+     beside its shard, the per-rank bound (the shard and the largest float
+     subtree made whole) and the one-device build's peak, its blocks
+     bit-equal to the whole build's; (b) tinyllama-1.1b (full width, 4
+     layers) at 2x1 and 2x2: phase 4's requests per_row and with float
+     tables (at 2x1 also sampled, phase 6's paged pool with prefix caching
+     reusing its 879 prompt tokens, beam:2), teacher-forced logits, equal
+     bit for bit to the control (the data ranks' row blocks in turn); (c)
+     olmoe-1b-7b (4 layers) at 2x2: streams equal to the control's, each
+     MoE layer's keep mask on the data ranks' rows equal to one device's
+     on the whole batch; (d) per rank and serve: launches, host syncs a
+     token, collectives by axis, a decode step's wall and busy time,
+     decode tok/s beside one device's.
 
 Phase 4 also prints its profiled decode step as a roofline
 (``roofline_record``: ``repro_torch.roofline.cost.step_cost`` at the
@@ -439,8 +463,9 @@ JSON),
     python3 chip_smoke.py --window            # phases 1, 2 and 17 only
     python3 chip_smoke.py --cw                # phases 1, 2 and 18 only
     python3 chip_smoke.py --tp                # phases 1, 2 and 19 only
+    python3 chip_smoke.py --dp                # phases 1, 2 and 20 only
 
-phase 17, 18 or 19 alone (its record as one line of JSON),
+phase 17, 18, 19 or 20 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -2665,15 +2690,26 @@ def moe_lines(cfg, eng, rec):
 # attention-free, every projection W2) and zamba2-7b (Mamba2 groups, float
 # Mamba projections, one shared W2 attention + MLP block)
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+# the depth phases 12, 13 and 15 serve these archs at (full width), so
+# that the script keeps to its time limit: falcon-mamba-7b 16 of its 64
+# layers, zamba2-7b 13 of its 81 (two invocations of the shared block, as
+# phases 16 and 17 cut it), llama-3.2-vision-11b 10 of its 40 (two cross
+# layers)
+SERVE_DEPTH = {"falcon-mamba-7b": 16, "zamba2-7b": 13,
+               "llama-3.2-vision-11b": 10}
 
 
-def full_config(arch):
-    """An arch at full width as phases 12 and 13 serve it: f32
-    activations, lut_pallas, fusion auto."""
+def full_config(arch, whole=False):
+    """An arch at full width as phases 12, 13 and 15 serve it (depth cut
+    by ``SERVE_DEPTH`` unless ``whole``): f32 activations, lut_pallas,
+    fusion auto."""
     from repro_torch.configs import registry
-    return registry.get_config(arch).replace(
+    cfg = registry.get_config(arch).replace(
         activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
                                                    fusion="auto")
+    if arch in SERVE_DEPTH and not whole:
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
+    return cfg
 
 
 def packed_shapes(cfg):
@@ -3613,6 +3649,8 @@ KV_BEAM_NEW, KV_SPEC_NEW = 3, 2
 # (b)'s olmoe depth: 4 of its 16 layers (its lut_xla legs' time is linear
 # in the layers)
 KV_MOE_LAYERS = 4
+# tinyllama-1.1b's depth in phase 15 (full width), for the time limit
+KV_TINY_LAYERS = 11
 # the reference's bound on int8 against f32 cache logits
 # (tests/test_perf_features.py)
 KV_CORRCOEF = 0.999
@@ -3967,8 +4005,8 @@ def kvint8_phase():
     t_start = time.perf_counter()
     rec = {}
 
-    # (a) tinyllama-1.1b
-    cfg = main_config()
+    # (a) tinyllama-1.1b, KV_TINY_LAYERS of its 22 layers
+    cfg = main_config().replace(n_layers=KV_TINY_LAYERS)
     c8 = cfg.replace(kv_cache_dtype="int8")
     params, init_s = made(cfg)
     per_step = (len(projection_shapes(cfg)) - 1) * cfg.n_layers + 1
@@ -4587,7 +4625,7 @@ def window_phase():
         raise AssertionError(f"window: rolling cache of "
                              f"{attn_kv_bytes(rolling)} bytes, the formula "
                              f"gives {kv_f32}")
-    full_cfg = full_config(WINDOW_ARCH)
+    full_cfg = full_config(WINDOW_ARCH, whole=True)
     meta = lambda w: attn_kv_bytes(api.init_cache(
         full_cfg, shape.global_batch, shape.seq_len, device="meta",
         window=w))
@@ -4737,6 +4775,10 @@ def cw_lines(rec):
 # phase 15's depth (4 of 16 layers)
 TP_MESHES = (2, 4)
 TP_MOE_MESH, TP_MOE_LAYERS = 2, KV_MOE_LAYERS
+# tinyllama-1.1b's depth in phases 19 (b) and 20 (b): 4 of its 22 layers
+# at full width (gloo's host time a step grows with the layers), so that
+# the script keeps to its time limit
+MESH_LAYERS = 4
 # the card's memory, bytes: the ranks' peaks must sum below it
 CARD_BYTES = 80e9
 
@@ -4943,14 +4985,15 @@ def logit_gap(got, want):
             "argmax_agreement": agree}
 
 
-def tp_phase(flush, main_outputs=None):
+def tp_phase(flush):
     """Phase 19: the dense and MoE families served across a model-axis
     mesh, ranks spawned on the card (``launch.mesh.spawn``: ranks share
     cuda:0 over gloo, as NCCL refuses two ranks on one device; on a host
     with a card a rank they run NCCL), each running ``launch.mesh_job.run``
     on weights made here and saved to the build directory: at 1x2
     tinyllama's job then olmoe's, at 1x4 tinyllama's. (a) ``tp_kernels``;
-    (b) full-width tinyllama-1.1b at 1x2 and 1x4: phase 4's requests
+    (b) full-width tinyllama-1.1b (``MESH_LAYERS`` of its 22 layers) at
+    1x2 and 1x4: phase 4's requests
     per_row and on float tables, and teacher-forced 128-token logits,
     equal bit for bit to the one-device control's
     (``sharding.one_device_control``: the mesh's split contractions and
@@ -4984,7 +5027,8 @@ def tp_phase(flush, main_outputs=None):
     print(f"tp: backends {rec['backends']} by mesh size ({rec['cards']} "
           f"card(s); rank r on cuda:(r % {rec['cards']})), compute mode "
           f"{rec['compute_mode']}, card {rec['card']}", flush=True)
-    cfg, mcfg = main_config(), moe_config().replace(n_layers=TP_MOE_LAYERS)
+    cfg = main_config().replace(n_layers=MESH_LAYERS)
+    mcfg = moe_config().replace(n_layers=TP_MOE_LAYERS)
     ta = time.perf_counter()
     rec["kernels"], rec["expert_kernels"], rec["err"] = tp_kernels(
         flush, cfg, mcfg)
@@ -4999,7 +5043,7 @@ def tp_phase(flush, main_outputs=None):
     reqs = tp_requests(cfg.vocab_size)
     prompts = [r["prompt"] for r in reqs]
     cfgs = {"per_row": cfg, "float": fcfg}
-    want = {"per_row": main_outputs or tp_streams(cfg, params),
+    want = {"per_row": tp_streams(cfg, params),
             "float": tp_streams(fcfg, params)}
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (1, 128)), device="cuda")
@@ -5216,6 +5260,614 @@ def tp_lines(rec):
                  f"1x4 ranks {rec['spawn_s_1x4']:.1f} s and the checks "
                  f"{rec['1x4']['seconds'] - rec['spawn_s_1x4']:.1f} s)")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the data axis: per-rank builds and data-parallel serving
+# ---------------------------------------------------------------------------
+
+# (b): tinyllama-1.1b's meshes, data x model; (c): olmoe-1b-7b's, at
+# phase 15's depth (4 of its 16 layers); (e): a data rank's decode rows at
+# phase 4's 4 slots over 2 data ranks
+DP_MESHES = ((2, 1), (2, 2))
+DP_MOE_MESH = (2, 2)
+DP_M = 2
+# (b)'s sampled leg: phase 4's prompts, its seed and sampling params
+DP_SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.95)
+DP_SAMPLE_SEED = 5
+
+
+def dp_plan(d, m, coords=(0, 0)):
+    """A d x m plan as the rank at ``coords`` sees it (no group): shapes,
+    blocks and the one-device control."""
+    from repro_torch.distributed.sharding import AxisPlan, Mesh
+    return AxisPlan(Mesh(("data", "model"), (d, m), coords, {}))
+
+
+def tree_leaves_of(tree):
+    """(path, leaf) of a param tree (``core.tree.tree_paths``), a packed
+    weight as its children, the marks (``"tp"``...) as leaves too."""
+    from repro_torch.core.quantize import QuantizedWeight
+    from repro_torch.core.tree import tree_paths
+    for path, leaf in tree_paths(tree):
+        if isinstance(leaf, QuantizedWeight):
+            for c in ("packed", "scale", "zero_prime", "cw"):
+                if getattr(leaf, c) is not None:
+                    yield f"{path}.{c}", getattr(leaf, c)
+        else:
+            yield path, leaf
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every leaf of a param tree, its path, dtype, shape and
+    bytes, and its marks."""
+    import hashlib
+    h = hashlib.sha256()
+    for path, leaf in tree_leaves_of(tree):
+        if torch.is_tensor(leaf):
+            t = leaf.detach().contiguous().cpu()
+            h.update(f"{path}:{t.dtype}:{tuple(t.shape)}".encode())
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(f"{path}={leaf!r}".encode())
+    return h.hexdigest()
+
+
+def tree_bytes(tree) -> int:
+    return sum(leaf.numel() * leaf.element_size()
+               for _, leaf in tree_leaves_of(tree) if torch.is_tensor(leaf))
+
+
+def float_leaf_bytes(cfg) -> dict:
+    """Bytes of the largest float subtrees a build makes whole before it
+    cuts them (in the per-rank bound): the embedding, one layer's float
+    projections before they are packed, the head."""
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    d, hd = cfg.d_model, cfg.head_dim
+    proj = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+            + 3 * d * cfg.d_ff)
+    return {"embed": cfg.vocab_size * d * item, "layer": proj * item,
+            "head": cfg.vocab_size * d * item}
+
+
+def dp_build_probe(ctx, cfg):
+    """(a) on a rank: ``launch/serve.py``'s build (``build_params``: the
+    rank's blocks, each layer cut as it is made); its peak device memory
+    from the params' making on (``max_memory_allocated`` over what the
+    rank held before), the shard's bytes and its digest."""
+    from repro_torch.launch import serve as serve_mod
+    dev = ctx["device"]
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = serve_mod.build_params(cfg, dev, True, ctx["plan"])
+    torch.cuda.synchronize(dev)
+    out = {"seconds": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+           "resident_bytes": torch.cuda.memory_allocated(dev) - base,
+           "shard_bytes": tree_bytes(params), "digest": tree_digest(params)}
+    del params
+    gc_cuda()
+    return out
+
+
+def quantize_working_bytes(cfg):
+    """Device bytes packing the LM head takes beside its float weight
+    (``core.quantize``: the rows in blocks, the packed parts joined), on
+    this process's card alone."""
+    from repro_torch.core import quantize as Q
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    w = torch.randn(cfg.d_model, cfg.vocab_size, generator=gen,
+                    device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qw = Q.quantize(w.T, cfg.quant["weight_bits"], k_group=4)
+    torch.cuda.synchronize()
+    out = torch.cuda.max_memory_allocated() - base
+    del qw, w
+    gc_cuda()
+    return out
+
+
+def dp_build(cfg):
+    """(a): the per-rank build at 1x2 against the one-device build. Every
+    rank's blocks bit-equal (digest) to ``shard_params`` of the whole
+    build's tree; each rank's peak below the one-device build's peak.
+    Recorded beside the peak: the per-rank bound (the shard and the
+    largest float subtree made whole), and that bound with what the rank
+    holds once built in place of the shard and the packing's own working
+    memory (measured alone, ``quantize_working_bytes``): the packing needs
+    memory beside the float weight it packs, so the bound alone
+    cannot hold at the head."""
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import mesh_job
+    from repro_torch.launch import serve as serve_mod
+    fails, rec = [], {}
+    t0 = time.perf_counter()
+    res = mesh_mod.spawn(mesh_job.run, 2, args=([{"probes": {
+        "build": (dp_build_probe, (cfg,))}}],))
+    rec["spawn_s"] = time.perf_counter() - t0
+    gc_cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    whole = serve_mod.build_params(cfg, torch.device("cuda"), True)
+    torch.cuda.synchronize()
+    rec["one_device_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rec["one_device_bytes"] = tree_bytes(whole)
+    want = [tree_digest(shard_params(whole, dp_plan(1, 2, (0, m)), cfg))
+            for m in range(2)]
+    del whole
+    gc_cuda()
+    rec["float_leaf_bytes"] = float_leaf_bytes(cfg)
+    largest = max(rec["float_leaf_bytes"].values())
+    rec["quantize_working_bytes"] = quantize_working_bytes(cfg)
+    rec["ranks"] = []
+    for r in res:
+        b = r[0]["probes"]["build"]
+        bound = b["shard_bytes"] + largest
+        limit = b["resident_bytes"] + largest + rec["quantize_working_bytes"]
+        rank = dict({k: b[k] for k in ("seconds", "peak_bytes",
+                                       "resident_bytes", "shard_bytes")},
+                    rank=r[0]["rank"], bound_bytes=bound, limit_bytes=limit,
+                    within_bound=b["peak_bytes"] <= bound,
+                    digest_equal=b["digest"] == want[r[0]["coords"][1]])
+        rec["ranks"].append(rank)
+        if not rank["digest_equal"]:
+            fails.append(f"dp (a): rank {r[0]['rank']}'s blocks differ from "
+                         "the whole build's")
+        if not b["peak_bytes"] < rec["one_device_peak_bytes"]:
+            fails.append(f"dp (a): rank {r[0]['rank']}'s peak "
+                         f"{b['peak_bytes']} B is not below the one-device "
+                         f"build's {rec['one_device_peak_bytes']} B")
+    return rec, fails
+
+
+def dp_requests(vocab, **kw):
+    """Phase 4's four requests (seed 2), 16 new tokens each, ``kw`` on
+    each."""
+    return [dict(uid=i, prompt=p, max_new_tokens=16, **kw)
+            for i, p in enumerate(serve_prompts(vocab, 2))]
+
+
+def dp_serves(cfg, fcfg, d, m):
+    """{name: (cfg, engine kwargs, requests)} of a d x m tinyllama leg:
+    greedy per_row and float tables at every mesh; at 2x1 also the seeded
+    sampled leg, phase 6's paged pool with prefix caching and a beam:2
+    leg."""
+    vocab = cfg.vocab_size
+    out = {"per_row": (cfg, SERVE_KW, dp_requests(vocab)),
+           "float": (fcfg, SERVE_KW, dp_requests(vocab))}
+    if (d, m) == (2, 1):
+        out["sample"] = (cfg, dict(SERVE_KW, seed=DP_SAMPLE_SEED),
+                         dp_requests(vocab, **DP_SAMPLE))
+        out["paged"] = (cfg, dict(SERVE_KW, cache_block_size=16,
+                                  num_cache_blocks=96, prefix_cache=True),
+                        [dict(uid=i, prompt=p, max_new_tokens=16)
+                         for i, p in enumerate(paged_prompts(vocab))])
+        out["beam"] = (cfg, SERVE_KW, dp_requests(vocab, decoding="beam:2"))
+    return out
+
+
+def engine_streams(cfg, params, engine_kw, requests):
+    """A single-device engine's streams (and beams) of ``requests``; its
+    stats."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    eng = ServingEngine(cfg, params, **engine_kw)
+    reqs = [Request(**r) for r in requests]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    del eng
+    return [r.output for r in reqs], [r.beams for r in reqs], st
+
+
+def dp_moe_probe(ctx, cfg, xs):
+    """(c) on a rank: each MoE layer on this data rank's rows of its input
+    x_l (the whole batch's): its output rows and the whole batch's keep
+    mask."""
+    from repro_torch.distributed.sharding import local_rows
+    from repro_torch.models import moe
+    rows = local_rows(ctx["plan"], xs[0].shape[0])
+    out = []
+    for lp, x in zip(ctx["params"]["layers"], xs):
+        y, aux = moe.moe_mlp_apply(lp["moe"], x[rows].to(ctx["device"]),
+                                   cfg, cfg.quant, aux=False, with_keep=True)
+        out.append((y.cpu(), aux["keep"].cpu()))
+    return out
+
+
+def dp_leg_record(tag, res, serves, kernels, fails):
+    """Every rank's record of a leg: the ranks' streams and logits equal
+    (rank (0, 0)'s), replicated leaves equal within each model
+    coordinate, each serve's kernels launched on every rank, host syncs
+    at most one a chunk, the peaks summed below the card's memory; per
+    rank the launches, collectives by axis, serve wall, decode tok/s and
+    a decode step's wall and busy time."""
+    first = res[0]
+    for r in res[1:]:
+        same_model = [x for x in res if x["coords"][1] == r["coords"][1]]
+        if r["replicated_digest"] != same_model[0]["replicated_digest"]:
+            fails.append(f"{tag}: rank {r['rank']}'s replicated leaves "
+                         "differ from its model coordinate's")
+        if not (all(torch.equal(v, first["forwards"][k])
+                    for k, v in r["forwards"].items())
+                and all(v["outputs"] == first["serves"][k]["outputs"]
+                        for k, v in r["serves"].items())):
+            fails.append(f"{tag}: rank {r['rank']}'s logits or streams "
+                         "differ from rank 0's")
+    for name in serves:
+        for r in res:
+            sv = r["serves"][name]
+            counts = sv["launches"]
+            if min(counts[n] for n in kernels.get(name, PER_ROW_PATH)) <= 0:
+                fails.append(f"{tag} {name}: rank {r['rank']} launched "
+                             f"{counts}")
+            if sv["stats"]["host_syncs_per_token"] > 1 / SERVE_KW[
+                    "decode_chunk"]:
+                fails.append(f"{tag} {name}: rank {r['rank']} host syncs a "
+                             f"token {sv['stats']['host_syncs_per_token']}")
+    ranks = [{"rank": r["rank"], "coords": r["coords"], "device": r["device"],
+              "backend": r["backend"], "seconds": r["seconds"],
+              "load_s": r["load_s"], "peak_bytes": r["peak_bytes"],
+              "step": r["probes"].get("step"),
+              "serves": {name: {k: v[k] for k in (
+                  "launches", "wall_s", "collectives")}
+                  | {"decode_tok_s": v["stats"]["decode_tok_s"],
+                     "host_syncs_per_token": v["stats"][
+                         "host_syncs_per_token"],
+                     "prefill_tokens_reused": v["stats"][
+                         "prefill_tokens_reused"],
+                     "slots": v["stats"]["mesh"]["slots"]}
+                  for name, v in r["serves"].items()}} for r in res]
+    peak = sum(r["peak_bytes"] for r in res)
+    if not peak < CARD_BYTES:
+        fails.append(f"{tag}: the ranks' peaks sum to {peak} B")
+    return {"ranks": ranks, "peak_sum_bytes": peak}
+
+
+def dp_phase(flush):
+    """Phase 20: the data axis. Ranks are spawned on the card
+    (``launch.mesh.spawn``: they share cuda:0 over gloo; on a host with a
+    card a rank, NCCL), each running ``launch.mesh_job.run`` on a d x m
+    mesh and building its own blocks (``launch/serve.py``'s
+    ``build_params``). (e) first: the per-shard kernels at the data
+    ranks' decode rows (M = 2). (a) the per-rank build at 1x2
+    (``dp_build``), the whole model. (b) full-width tinyllama-1.1b
+    (``MESH_LAYERS`` of its 22 layers) at 2x1 and 2x2: phase 4's
+    requests with per_row and float tables (at 2x1 also a seeded
+    sampled leg, phase 6's paged pool with prefix caching and a beam:2
+    leg) and teacher-forced 128-token logits of 2 rows, equal bit for bit
+    to the one-device control (``sharding.one_device_control``: the data
+    ranks' row blocks in turn, within each the model ranks' blocks);
+    against one device: float-table streams equal, per_row parting only
+    at near ties, the logit gap and greedy agreement recorded; the paged
+    serve reusing exactly one device's prompt tokens. (c) olmoe-1b-7b (4
+    of 16 layers) at 2x2, the 2x2 ranks' second job: greedy streams and
+    logits equal to the control's, each MoE layer's keep mask on the data
+    ranks' rows equal to one device's on the whole batch. (d) per serve
+    and rank: launches, host syncs a token, collectives by axis, a decode
+    step's wall and busy time, the aggregate decode tok/s beside one
+    device's. Every check runs; the phase fails at its end if any
+    failed."""
+    from repro_torch.distributed.sharding import one_device_control
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import mesh_job
+    from repro_torch.models import api, moe
+    t0 = time.perf_counter()
+    fails = []
+    card = torch.device("cuda", 0)
+    rec = {"backends": {f"{d}x{m}": mesh_mod.choose_backend(d * m, card)
+                        for d, m in DP_MESHES},
+           "card": device_line()}
+    print(f"dp: backends {rec['backends']} ({torch.cuda.device_count()} "
+          f"card(s)), card {rec['card']}", flush=True)
+    cfg = main_config()
+    mcfg = moe_config().replace(n_layers=KV_MOE_LAYERS)
+
+    # (e) the per-shard kernels at M = 2
+    ta = time.perf_counter()
+    records, rec["err"] = check_kernels(flush, paths=("per_row",),
+                                        rows=(DP_M,), seed=7)
+    pre = precompute_checks(flush, rows=(), row_scale_m=(DP_M,))
+    rec["err"]["row_scale"] = 0.0  # bit-equal, or precompute_checks raised
+    rec["kernels"] = [r for r in records if r["kernel"] == "fused_lut_mpgemm"
+                      ] + pre
+    rec["kernels_s"] = time.perf_counter() - ta
+    print(dp_kernels_line(rec), flush=True)
+
+    # (a) the per-rank build
+    ta = time.perf_counter()
+    rec["build"], f = dp_build(cfg)
+    fails += f
+    rec["build"]["seconds"] = time.perf_counter() - ta
+    print(dp_build_line(rec["build"]), flush=True)
+
+    # one device: its weights, streams, logits and decode tok/s, at (b)'s
+    # depth
+    cfg = cfg.replace(n_layers=MESH_LAYERS)
+    fcfg = cfg.with_quant(table_quant=None)
+    params, _ = made(cfg)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 128)), device="cuda")
+    logit_cfgs = {"per_row": cfg, "float": fcfg}
+    want_logits = {n: api.forward(params, {"tokens": toks}, c)[0].cpu()
+                   for n, c in logit_cfgs.items()}
+    want, one_tok_s = {}, {}
+    for name, (c, kw, reqs) in dp_serves(cfg, fcfg, 2, 1).items():
+        out, beams, st = engine_streams(c, params, kw, reqs)
+        want[name] = (out, beams)
+        one_tok_s[name] = st["decode_tok_s"]
+        if name == "paged":
+            rec["one_device_reused"] = st["prefill_tokens_reused"]
+    rec["one_device_decode_tok_s"] = one_tok_s
+
+    # (c)'s one-device layer inputs, keep masks and outputs, streams and
+    # logits, and its control's
+    mparams, _ = made(mcfg)
+    mtoks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, mcfg.vocab_size, (2, 64)), device="cuda")
+    layer_io = []
+    apply = moe.moe_mlp_apply
+
+    def record(p, x, *a, **kw):
+        y, losses = apply(p, x, *a, with_keep=True, **kw)
+        layer_io.append((x.cpu(), y.cpu(), losses.pop("keep").cpu()))
+        return y, losses
+
+    moe.moe_mlp_apply = record
+    try:
+        mlogits = api.forward(mparams, {"tokens": mtoks}, mcfg)[0].cpu()
+    finally:
+        moe.moe_mlp_apply = apply
+    mreqs = dp_requests(mcfg.vocab_size)
+    mwant = engine_streams(mcfg, mparams, SERVE_KW, mreqs)[0]
+    ctl = one_device_control(mparams, dp_plan(*DP_MOE_MESH), mcfg)
+    mctl = (engine_streams(mcfg, ctl, SERVE_KW, mreqs)[0],
+            api.forward(ctl, {"tokens": mtoks}, mcfg)[0].cpu())
+    del ctl, mparams
+    gc_cuda()
+    moe_job = dict(cfg=mcfg, build=True,
+                   forwards={"greedy": (mcfg, mtoks.cpu())},
+                   serves={"greedy": (mcfg, SERVE_KW, mreqs)},
+                   probes={"moe": (dp_moe_probe, (mcfg, [
+                       x for x, _, _ in layer_io])),
+                       "step": (tp_step_probe, ("greedy",))})
+
+    for d, m in DP_MESHES:
+        tag, tb = f"dp {d}x{m}", time.perf_counter()
+        serves = dp_serves(cfg, fcfg, d, m)
+        jobs = [dict(cfg=cfg, build=True, serves=serves,
+                     forwards={n: (c, toks.cpu())
+                               for n, c in logit_cfgs.items()},
+                     probes={"step": (tp_step_probe, ("per_row",))})]
+        if (d, m) == DP_MOE_MESH:
+            jobs.append(moe_job)
+        res = mesh_mod.spawn(mesh_job.run, d * m, args=(jobs, d))
+        spawn_s = time.perf_counter() - tb
+        leg = dp_leg_record(tag, [r[0] for r in res], serves, {
+            "float": ("fused_lut_mpgemm", "lut_mpgemm")}, fails)
+        leg["spawn_s"] = spawn_s
+        ctl = one_device_control(params, dp_plan(d, m), cfg)
+        got0 = res[0][0]
+        for name, (c, kw, reqs) in serves.items():
+            got = got0["serves"][name]["outputs"]
+            ctl_out, ctl_beams, ctl_st = engine_streams(c, ctl, kw, reqs)
+            ctl_logits = None
+            if name in logit_cfgs:
+                ctl_logits = api.forward(ctl, {"tokens": toks},
+                                         c)[0].cpu()
+            leg[name] = dp_against(
+                f"{tag} {name}", got, got0["forwards"].get(name),
+                want[name][0], want_logits.get(name), ctl_out, ctl_logits,
+                fails)
+            if name == "float" and got != want[name][0]:
+                fails.append(f"{tag} float: the streams differ from one "
+                             "device's")
+            if name == "per_row":
+                try:
+                    leg[name]["near_ties"] = near_ties(
+                        f"{tag} {name}", c, params,
+                        [r["prompt"] for r in reqs], got, want[name][0])
+                except AssertionError as e:
+                    fails.append(str(e))
+            if name == "beam":
+                gb = got0["serves"][name]["beams"]
+                leg[name]["beams_equal_control"] = [
+                    [t for t, _ in a] for a in gb] == [
+                    [t for t, _ in b] for b in ctl_beams]
+                if not leg[name]["beams_equal_control"]:
+                    fails.append(f"{tag} beam: the hypotheses differ from "
+                                 "the control's")
+            if name == "paged":
+                reused = got0["serves"][name]["stats"][
+                    "prefill_tokens_reused"]
+                leg[name]["prefill_tokens_reused"] = reused
+                if not reused == rec["one_device_reused"] == \
+                        ctl_st["prefill_tokens_reused"] == 5 * 144 + 159:
+                    fails.append(f"{tag} paged: {reused} prompt tokens "
+                                 f"reused; one device "
+                                 f"{rec['one_device_reused']}, the control "
+                                 f"{ctl_st['prefill_tokens_reused']}, the "
+                                 f"rule {5 * 144 + 159}")
+        del ctl
+        gc_cuda()
+        leg["seconds"] = time.perf_counter() - tb
+        print(dp_leg_line(tag, leg, rec["one_device_decode_tok_s"]),
+              flush=True)
+        rec[f"{d}x{m}"] = leg
+        if (d, m) != DP_MOE_MESH:
+            continue
+        # (c) olmoe-1b-7b at 2x2, the ranks' second job
+        tag = f"dp olmoe {d}x{m}"
+        mres = [r[1] for r in res]
+        leg = dp_leg_record(tag, mres, moe_job["serves"], {"greedy": (
+            "fused_lut_mpgemm_batched", "row_scale", "fused_lut_mpgemm")},
+            fails)
+        leg["moe_layers"] = []
+        for j, (x, y, keep) in enumerate(layer_io):
+            out = {"keep_equal": True, "max_abs_diff": 0.0}
+            for r in mres:
+                gy, gkeep = r["probes"]["moe"][j]
+                rows = slice(r["coords"][0], r["coords"][0] + 1)
+                out["keep_equal"] &= torch.equal(gkeep, keep)
+                out["max_abs_diff"] = max(out["max_abs_diff"], (
+                    gy - y[rows]).abs().max().item())
+            out["dropped"] = int((~keep).sum())
+            leg["moe_layers"].append(out)
+            if not out["keep_equal"]:
+                fails.append(f"{tag}: MoE layer {j}'s keep mask differs "
+                             "from one device's on the whole batch")
+        leg["greedy"] = dp_against(
+            tag, mres[0]["serves"]["greedy"]["outputs"],
+            mres[0]["forwards"]["greedy"], mwant, mlogits, *mctl, fails)
+        leg["seconds"] = mres[0]["seconds"]  # the ranks' job alone
+        print(dp_leg_line(tag, leg, None), flush=True)
+        rec[f"olmoe_{d}x{m}"] = leg
+    del params, want_logits
+    gc_cuda()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"dp: phase 20 in {rec['seconds']:.1f} s ((e) "
+          f"{rec['kernels_s']:.1f} s, (a) {rec['build']['seconds']:.1f} s, "
+          + ", ".join(f"{d}x{m} {rec[f'{d}x{m}']['seconds']:.1f} s"
+                      for d, m in DP_MESHES) + ")", flush=True)
+    if fails:
+        raise AssertionError("dp: " + "; ".join(fails))
+    return rec
+
+
+def dp_against(tag, got, logits, want, want_logits, ctl, ctl_logits, fails):
+    """The mesh's streams (and logits, where the leg has them) against the
+    one-device control's, which they must equal bit for bit, and one
+    device's (agreement, the logit gap: recorded)."""
+    out = stream_agreement(got, want)
+    out["control_equal"] = {"streams": got == ctl}
+    if logits is not None:
+        out["logits"] = logit_gap(logits, want_logits)
+        out["control_equal"]["logits"] = torch.equal(logits, ctl_logits)
+    if not all(out["control_equal"].values()):
+        out["control_streams"] = stream_agreement(got, ctl)
+        if logits is not None:
+            out["control_gap"] = logit_gap(logits, ctl_logits)
+        fails.append(f"{tag}: the ranks' streams or logits differ from the "
+                     f"one-device control's ({out['control_equal']})")
+    return out
+
+
+def dp_kernels_line(rec):
+    return ("dp (e): the per-shard kernels at a data rank's decode rows (M = "
+            f"{DP_M}), per_row, bit-exact to the plain versions, in "
+            f"{rec['kernels_s']:.1f} s: " + "; ".join(
+                record_line(r) if r["kernel"] == "fused_lut_mpgemm"
+                else precompute_line(r) for r in rec["kernels"]))
+
+
+def dp_build_line(b):
+    gb = lambda x: f"{x / 1e9:.3f} GB"
+    return ("dp (a): per-rank build at 1x2 (launch/serve.py build_params), "
+            f"{b['seconds']:.1f} s: " + "; ".join(
+                f"rank {r['rank']} peak {gb(r['peak_bytes'])} from the "
+                f"params' making on, shard {gb(r['shard_bytes'])} (held "
+                f"once built {gb(r['resident_bytes'])}), the per-rank bound "
+                f"{gb(r['bound_bytes'])} ("
+                + ("within" if r["within_bound"] else "above") + "; with "
+                f"the packing's working memory {gb(r['limit_bytes'])}), "
+                "blocks "
+                + ("bit-equal" if r["digest_equal"] else "UNEQUAL")
+                + " to the whole build's" for r in b["ranks"])
+            + f"; the one-device build's peak "
+            f"{gb(b['one_device_peak_bytes'])} (tree "
+            f"{gb(b['one_device_bytes'])}); float subtrees "
+            + ", ".join(f"{k} {gb(v)}" for k, v in
+                        b["float_leaf_bytes"].items())
+            + f"; packing the head takes {gb(b['quantize_working_bytes'])} "
+            "beside its float weight")
+
+
+def dp_leg_line(tag, leg, one_tok_s):
+    """One phase 20 leg's record as text."""
+    parts = []
+    for name in ("per_row", "float", "sample", "paged", "beam", "greedy"):
+        if name not in leg:
+            continue
+        a = leg[name]
+        g = a.get("logits")
+        parts.append(
+            f"{name}: equal to the one-device control's {a['control_equal']}"
+            f"; streams {a['equal_tokens']}/{a['tokens']} tokens equal to "
+            f"one device, agreeing prefixes {a['agreeing_prefix']}"
+            + (f", divergences at near ties {a['near_ties']}"
+               if a.get("near_ties") else "")
+            + (f", {a['prefill_tokens_reused']} prompt tokens reused"
+               if "prefill_tokens_reused" in a else "")
+            + ("" if g is None else
+               f"; 128-token logits vs one device max |diff| "
+               f"{g['max_abs_diff']:.4g}, corrcoef {g['corrcoef']:.6f}, "
+               f"greedy token equal at {g['argmax_agreement']:.3f}"))
+    if "moe_layers" in leg:
+        parts.append("MoE layers on the data ranks' rows: keep masks equal "
+                     "to one device's on the whole batch "
+                     f"{[x['keep_equal'] for x in leg['moe_layers']]}, "
+                     f"dropped {[x['dropped'] for x in leg['moe_layers']]}, "
+                     "outputs vs one device max |diff| "
+                     f"{[x['max_abs_diff'] for x in leg['moe_layers']]}")
+    for r in leg["ranks"]:
+        step = r["step"]
+        parts.append(
+            f"rank {r['rank']} {r['coords']} ({r['backend']}): one decode "
+            f"step wall {step['wall_ms']:.1f} ms, busy "
+            + ("not measured" if step["busy_ms"] is None else
+               f"{step['busy_ms']:.2f} ms")
+            + f", {step['collective_calls']:g} collectives "
+            f"{step['collective_s'] * 1e3:.1f} ms a step; " + "; ".join(
+                f"{name} {sv['wall_s']:.2f} s, decode "
+                f"{sv['decode_tok_s']:.1f} tok/s (all slots), host syncs a "
+                f"token {sv['host_syncs_per_token']:.4f}, launches "
+                f"{ {k: v for k, v in sv['launches'].items() if v} }, "
+                f"collectives " + ", ".join(
+                    f"{ax} {c['calls']} calls {c['bytes']} B "
+                    f"{c['seconds']:.2f} s"
+                    for ax, c in sv["collectives"]["by_axis"].items())
+                for name, sv in r["serves"].items()))
+    if one_tok_s is not None:
+        parts.append(f"one device in this phase: decode tok/s {one_tok_s}")
+    parts.append("peaks " + ", ".join(
+        f"rank {r['rank']} {r['peak_bytes'] / 1e9:.2f} GB"
+        for r in leg["ranks"]) + f"; leg {leg['seconds']:.1f} s")
+    return f"{tag}: " + "; ".join(parts)
+
+
+def dp_summary(rec, name):
+    """Kernel ``name`` in phase 20: rank (0, 0)'s launches in each leg's
+    main serve, and where (e) timed it, its records at M = 2 summed."""
+    out = {"launches": dp_launches(rec, name)}
+    rs = [r for r in rec["kernels"] if r["kernel"] == name]
+    if rs:
+        out.update(max_abs_err=rec["err"][name], **{
+            o: float(sum(r[key] for r in rs)) for o, key in (
+                ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))},
+            bound_by=max(("bytes", "operations"), key=lambda by: sum(
+                r["bound_ms"] for r in rs if r["bound_by"] == by)),
+            shapes=[[r["m"], r.get("n"), r["k"]] for r in rs])
+    return out
+
+
+def dp_launches(rec, name):
+    """Rank (0, 0)'s launches of kernel ``name`` in phase 20's main serves:
+    {leg: launches} (tinyllama's per_row serve, olmoe's greedy)."""
+    out = {f"{d}x{m}": rec[f"{d}x{m}"]["ranks"][0]["serves"]["per_row"][
+        "launches"][name] for d, m in DP_MESHES}
+    d, m = DP_MOE_MESH
+    out[f"olmoe_{d}x{m}"] = rec[f"olmoe_{d}x{m}"]["ranks"][0]["serves"][
+        "greedy"]["launches"][name]
+    return out
 
 
 def roofline_record(cfg, params, eng, step):
@@ -5454,6 +6106,12 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"tp": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        rec = dp_phase(flush)
+        print(json.dumps({"dp": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--cw":
         rec = cw_phase()
         for line in cw_lines(rec):
@@ -5660,9 +6318,13 @@ def main() -> int:
 
     # phase 19: serving across a model-axis mesh, ranks sharing the card
     gc_cuda()
-    tp_rec = tp_phase(flush, main_rec["outputs"])
+    tp_rec = tp_phase(flush)
     for line in tp_lines(tp_rec):
         print(line, flush=True)
+
+    # phase 20: the data axis, per-rank builds and data-parallel serving
+    gc_cuda()
+    dp_rec = dp_phase(flush)
 
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
@@ -5761,6 +6423,9 @@ def main() -> int:
             "tp_launches": tp_launches(tp_rec, name),
             "tp": at_shapes(name, tp_rec["kernels"], tp_rec["err"],
                             tp_launches(tp_rec, name, "1x2")),
+            # phase 20: rank (0, 0)'s launches in each data-axis leg's main
+            # serve, and the kernel at a data rank's decode rows (M = 2)
+            "dp": dp_summary(dp_rec, name),
             "train_families_launches": {
                 arch: dict({"forward": tf_rec[arch]["forward"][
                     "launches"][name]}, **({"engine": tf_rec[arch][
@@ -5784,6 +6449,7 @@ def main() -> int:
             "path": f"phase 11, olmoe-1b-7b served with fusion={path}",
             "kvint8_launches": kv_rec[MOE]["launches"][name],
             "tp_launches": tp_launches(tp_rec, name),
+            "dp_launches": dp_launches(dp_rec, name),
             "max_abs_err": moe_rec["err"][name],
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
@@ -5806,6 +6472,7 @@ def main() -> int:
                    "train": train_rec, "kvint8": kv_rec,
                    "train_families": tf_rec,
                    "window": win_rec, "cw": cw_rec, "tp": tp_rec,
+                   "dp": dp_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,

@@ -164,14 +164,36 @@ def _clip_ratios(device) -> torch.Tensor:
     return torch.cat([lo * (1 - t) + hi * t, hi[None]])
 
 
+# rows a symmetric quantization works on at a time, as elements: its
+# temporaries ([rows, K] f32 codes and errors, planes) stay a few MB
+QUANT_CHUNK_ELEMENTS = 1 << 21
+
+
 def quantize_symmetric(w: torch.Tensor, bits: int,
                        k_group: int = 4) -> QuantizedWeight:
     """MSE-optimal symmetric quantization onto the odd grid {±1, ±3, ...}·s'.
 
     w: float [N, K] (output-major). The per-row scale is picked from a grid
     of clip ratios r·absmax/qmax, r ∈ [0.6, 1.0], minimizing the squared
-    reconstruction error; z' = 0.
+    reconstruction error; z' = 0. Rows are independent, so a large w is
+    quantized in blocks of rows (``QUANT_CHUNK_ELEMENTS``): the working
+    memory stays a few MB beside w, not several copies of it (a
+    full-width LM head's are 0.26 GB each).
     """
+    n, k = w.shape
+    rows = max(64, QUANT_CHUNK_ELEMENTS // max(1, k) // 64 * 64)
+    if n <= rows:
+        return _quantize_symmetric(w, bits, k_group)
+    parts = [_quantize_symmetric(w[i:i + rows], bits, k_group)
+             for i in range(0, n, rows)]
+    return QuantizedWeight(
+        torch.cat([p.packed for p in parts]),
+        torch.cat([p.scale for p in parts]), None, parts[0].plane_scales,
+        bits=bits, k_group=k_group, k_total=k, n=n)
+
+
+def _quantize_symmetric(w: torch.Tensor, bits: int,
+                        k_group: int) -> QuantizedWeight:
     n, k = w.shape
     wf = w.to(torch.float32)
     qmax = (1 << bits) - 1

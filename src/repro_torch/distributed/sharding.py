@@ -56,10 +56,10 @@ import torch
 from repro_torch.core.quantize import QuantizedWeight
 
 __all__ = ["Mesh", "AxisPlan", "plan_scope", "current_plan", "model_split",
-           "param_spec_tree", "resolve_physical_spec", "packed_group_bytes",
-           "shard_params", "one_device_control", "attention_split",
-           "local_kv_heads", "tree_to",
-           "DEFAULT_RULES"]
+           "data_split", "for_batch", "local_rows", "param_spec_tree",
+           "resolve_physical_spec", "packed_group_bytes", "shard_params",
+           "one_device_control", "attention_split", "local_kv_heads",
+           "tree_to", "DEFAULT_RULES"]
 
 _state = threading.local()
 
@@ -103,7 +103,9 @@ class AxisPlan:
     def resolve(self, logical: Optional[str]):
         if logical is None:
             return None
-        if logical == "batch":
+        if logical == "batch":  # () : the batch replicated
+            if not self.batch:
+                return None
             return self.batch if len(self.batch) > 1 else self.batch[0]
         return getattr(self, logical)
 
@@ -146,6 +148,36 @@ def model_split() -> Optional[AxisPlan]:
     None: a 1x1 plan is the single-device path."""
     plan = current_plan()
     return plan if plan is not None and plan.axis_size("model") > 1 else None
+
+
+def data_split() -> Optional[AxisPlan]:
+    """The active plan where it splits the batch over more than one data
+    rank, else None."""
+    plan = current_plan()
+    return plan if plan is not None and plan.axis_size("batch") > 1 else None
+
+
+def for_batch(plan: Optional[AxisPlan], b: int) -> Optional[AxisPlan]:
+    """``plan`` for a batch of ``b`` rows: its data axis splits the batch
+    only where it divides b; otherwise the batch is replicated over it
+    (``batch=()``), as ``resolve_physical_spec`` replicates a dim its axis
+    does not divide (a batch-1 prefill, a pool of 3 slots on 2 data
+    ranks)."""
+    if plan is None or b % plan.axis_size("batch") == 0:
+        return plan
+    return dataclasses.replace(plan, batch=())
+
+
+def local_rows(plan: Optional[AxisPlan], b: int) -> slice:
+    """This rank's contiguous rows of a batch of ``b`` under ``plan``
+    (``for_batch``'s): block r of the data axis's D, all rows where the
+    batch is replicated."""
+    d = 1 if plan is None else plan.axis_size("batch")
+    if d == 1 or b % d:
+        return slice(0, b)
+    n = b // d
+    r = plan.rank_along("batch")
+    return slice(r * n, (r + 1) * n)
 
 
 # ---------------------------------------------------------------------------
@@ -390,11 +422,10 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
     raises with its path. A plan whose model axis has one rank returns
     ``params`` itself: the single-device path. A node sharded already
     (one that has ``"tp"``) is kept as it is, so sharding twice is
-    sharding once."""
+    sharding once. The serving plan has no FSDP axis, so the data axis
+    replicates every leaf: a rank keeps the blocks of its model
+    coordinate whatever its data coordinate."""
     m = plan.axis_size("model")
-    if plan.axis_size("batch") > 1:
-        raise ValueError("shard_params: a data axis > 1 is not ported "
-                         "(ROADMAP.md queue 1 item 9, the data-axis slice)")
     if m == 1:
         return params
     r = plan.rank_along("model")
@@ -494,8 +525,8 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
 
 
 def one_device_control(params, plan: AxisPlan, cfg):
-    """The control of ``plan``'s model axis on one device: ``params``
-    whole, each linear that ``shard_params`` splits column- or
+    """The control of ``plan``'s mesh on one device. Model axis:
+    ``params`` whole, each linear that ``shard_params`` splits column- or
     row-parallel given ``"blocks"``: (its mode, the m ranks' blocks of
     it), which ``layers.lut_dense`` contracts as the ranks do, in turn on
     one device: column blocks from the whole x, concatenated; row blocks on
@@ -505,9 +536,14 @@ def one_device_control(params, plan: AxisPlan, cfg):
     contiguous copies of their cache blocks (``layers._head_blocks``); the
     caches hold every head. The embedding and the expert stacks stay whole
     (a lookup, and an expert's GEMMs on one rank, change no bit when
-    split). So every kernel runs at the ranks' shapes, and a mesh's logits
-    and streams must equal this tree's bit for bit; where they differ from
-    one device's, the difference is this arithmetic's."""
+    split). Data axis (D > 1): the tree gets ``"rows"``: D, and the dense
+    and MoE forwards run a batch that D divides as D row blocks in turn,
+    each at a data rank's row count on its rows of the caches, the
+    logits concatenated in data order; an MoE layer routes the blocks'
+    tokens together (``moe.moe_mlp_blocks``), as the ranks do over the
+    data axis. So every kernel runs at the ranks' shapes, and a mesh's
+    logits and streams must equal this tree's bit for bit; where they
+    differ from one device's, the difference is this arithmetic's."""
     m = plan.axis_size("model")
     ranks = [shard_params(params, AxisPlan(dataclasses.replace(
         plan.mesh, coords=(0, r), groups={})), cfg) for r in range(m)]
@@ -528,7 +564,9 @@ def one_device_control(params, plan: AxisPlan, cfg):
             out["heads"] = m
         return out
 
-    return walk(params, ranks)
+    ctl = walk(params, ranks)
+    d = plan.axis_size("batch")
+    return ctl if d == 1 else dict(ctl, rows=d)
 
 
 def tree_to(params, device):

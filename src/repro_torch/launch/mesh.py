@@ -2,9 +2,14 @@
 
 ``make_serving_mesh(data=1, model=None)`` builds the (data, model) mesh
 over the ranks of the initialized process group, the reference's
-``launch/mesh.py`` over its devices; ``make_plan`` its ``AxisPlan``. Only
-the model axis is ported: a mesh with ``data > 1`` raises (ROADMAP.md
-queue 1 item 9, the data-axis slice).
+``launch/mesh.py`` over its devices; ``make_plan`` its ``AxisPlan``. Rank
+r sits at (r // model, r % model): data-major, as the reference's
+``make_mesh((data, model), ...)`` orders its devices. Each axis line has
+a process group of its own (``data`` model groups of ``model`` ranks,
+``model`` data groups of ``data`` ranks; an axis that spans every rank
+uses the world group); ``Mesh.groups`` holds this rank's group of each
+axis. FSDP, sequence parallelism and training under a mesh are not
+ported: ``make_plan(fsdp=True)`` raises (ROADMAP.md queue 1 item 9).
 
 Ranks. ``init_rank`` joins rank r to the group: its device is
 ``cuda:(r % device_count)``, or the CPU where the caller asks for it (a
@@ -35,9 +40,8 @@ from repro_torch.distributed.sharding import AxisPlan, Mesh
 __all__ = ["make_serving_mesh", "make_plan", "rank_device", "choose_backend",
            "init_rank", "from_env", "spawn", "free_port", "DATA_AXIS_REFUSAL"]
 
-DATA_AXIS_REFUSAL = ("a data axis > 1 (data-parallel serving, FSDP, "
-                     "sequence parallelism) is not ported: ROADMAP.md queue "
-                     "1 item 9, the data-axis slice")
+DATA_AXIS_REFUSAL = ("FSDP, sequence parallelism and training under a "
+                     "mesh are not ported: ROADMAP.md queue 1 item 9")
 
 
 def make_serving_mesh(*, data: int = 1, model: Optional[int] = None,
@@ -45,20 +49,33 @@ def make_serving_mesh(*, data: int = 1, model: Optional[int] = None,
     """A (data, model) mesh over the ranks of the process group (one rank,
     a 1x1 mesh, when none is initialized), recording this rank's
     ``device`` (``init_rank``'s). ``model=None`` uses every rank not
-    consumed by ``data``."""
-    if data > 1:
-        raise ValueError(f"mesh {data}x{model}: " + DATA_AXIS_REFUSAL)
+    consumed by ``data``. Every rank must call it, in the same order
+    with the same sizes: it makes every axis line's group."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if model is None:
         model = world // max(1, data)
-    if data * model != world:
+    if data < 1 or data * model != world:
         raise ValueError(f"mesh {data}x{model} needs {data * model} ranks, "
                          f"have {world}")
-    group = dist.group.WORLD if model > 1 else None
+    groups = {"data": None, "model": None}
+    for axis, size, lines in (
+            ("model", model, [[d * model + j for j in range(model)]
+                              for d in range(data)]),
+            ("data", data, [[d * model + j for d in range(data)]
+                            for j in range(model)])):
+        if size == 1:
+            continue
+        if size == world:
+            groups[axis] = dist.group.WORLD
+            continue
+        for line in lines:  # every rank makes every group, in one order
+            group = dist.new_group(line)
+            if rank in line:
+                groups[axis] = group
     backend = dist.get_backend() if dist.is_initialized() else None
-    return Mesh(("data", "model"), (data, model), (0, rank),
-                {"data": None, "model": group}, backend, device)
+    return Mesh(("data", "model"), (data, model),
+                (rank // model, rank % model), groups, backend, device)
 
 
 def make_plan(mesh: Mesh, *, fsdp: bool = False) -> AxisPlan:

@@ -1,15 +1,20 @@
-"""The rank worker of a model-axis mesh: what a spawned rank
-(``launch.mesh.spawn``) runs to load one set of weights, keep its blocks
-and serve, so that it imports this package and nothing else.
+"""The rank worker of a mesh: what a spawned rank (``launch.mesh.spawn``)
+runs to load one set of weights, keep its blocks and serve, so that it
+imports this package and nothing else.
 
-``run(rank, device, jobs)`` runs each job of a list in turn. A job loads
+``run(rank, device, jobs, data=1)`` runs each job of a list in turn, on a
+``data`` x (world / data) mesh. A job loads
 one set of global weights (``params``: a ``torch.save``'d param tree; or
 ``np_tree``: a pickled numpy tree of the reference's, through
 ``convert.from_jax_params(..., plan=)``), keeps this rank's blocks
-(``distributed.sharding.shard_params``) on ``device`` and runs, under the
-plan:
+(``distributed.sharding.shard_params``) on ``device``, or (``build``)
+makes them there as ``launch/serve.py`` does (``build_params``: random
+from seed 0, each layer cut to the rank's blocks as it is made), and
+runs, under the plan:
 
-  * ``forwards``: {name: (cfg, tokens [B, S])} teacher-forced logits;
+  * ``forwards``: {name: (cfg, tokens [B, S])} teacher-forced logits,
+    the whole batch's: under a data axis that divides B a rank runs its
+    rows (``sharding.local_rows``) and the logits are gathered over it;
   * ``serves``: {name: (cfg, engine kwargs, requests as dicts)} through
     ``ServingEngine(plan=...)``: each request's tokens (and beams), the
     engine's stats, the kernels' launches (counts set to 0 just before the
@@ -21,8 +26,10 @@ plan:
     function of a module the rank can import.
 
 Every result comes back from every rank, tensors on the CPU, with the
-hash of the leaves the rank holds whole (``replicated_digest``: equal on
-every rank) and the rank's peak device memory in the job.
+rank's mesh coordinate, the hash of the leaves the rank holds whole
+(``replicated_digest``: equal on every rank of a model coordinate, and
+on every rank where the model axis has one) and the rank's peak device
+memory in the job.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ import torch
 
 from repro_torch.core.quantize import QuantizedWeight
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import plan_scope, shard_params, tree_to
+from repro_torch.distributed.sharding import (for_batch, local_rows,
+                                              plan_scope, shard_params,
+                                              tree_to)
 from repro_torch.launch import mesh as mesh_mod
 
 __all__ = ["run", "replicated_digest", "kernel_counts", "reset_kernel_counts"]
@@ -129,6 +138,10 @@ def _serve(cfg, engine_kw, requests, params, plan, device):
 
 def _load(job, plan, device):
     """This rank's blocks of the job's global weights on ``device``."""
+    if job.get("build"):
+        from repro_torch.launch.serve import build_params
+        return build_params(job["cfg"], device, job["cfg"].quant is not None,
+                            plan)
     if "np_tree" in job:
         from repro_torch.models.convert import from_jax_params
         with open(job["np_tree"], "rb") as f:
@@ -138,32 +151,46 @@ def _load(job, plan, device):
     return tree_to(shard_params(params, plan, job["cfg"]), device)
 
 
-def run(rank: int, device: torch.device, jobs):
-    """Each job of ``jobs`` (module docstring) on this rank, its weights
-    freed before the next; returns their results."""
+def run(rank: int, device: torch.device, jobs, data: int = 1):
+    """Each job of ``jobs`` (module docstring) on this rank of a ``data``
+    x (world / data) mesh, its weights freed before the next; returns
+    their results."""
     plan = mesh_mod.make_plan(mesh_mod.make_serving_mesh(
-        data=1, model=torch.distributed.get_world_size(), device=device))
+        data=data, model=torch.distributed.get_world_size() // data,
+        device=device))
     return [_job(rank, device, job, plan) for job in jobs]
 
 
-def _job(rank, device, job, plan):
+def forward(params, tokens, cfg, plan, device):
+    """Teacher-forced logits of the whole batch ``tokens`` under ``plan``:
+    this rank's rows where the data axis divides the batch, gathered over
+    it in data order."""
+    from repro_torch.distributed import collectives
     from repro_torch.models import api
+    p = for_batch(plan, tokens.shape[0])
+    with plan_scope(p):
+        logits = api.forward(params, {"tokens": tokens[local_rows(
+            p, tokens.shape[0])].to(device)}, cfg)[0]
+        return collectives.all_gather(logits, dim=0, axis="data")
+
+
+def _job(rank, device, job, plan):
     t0 = time.perf_counter()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     params = None
     res: Dict[str, Any] = {"rank": rank, "device": str(device),
-                           "backend": plan.mesh.backend}
-    if "params" in job or "np_tree" in job:
+                           "backend": plan.mesh.backend,
+                           "coords": plan.mesh.coords}
+    if "params" in job or "np_tree" in job or job.get("build"):
         params = _load(job, plan, device)
         _sync(device)
         res["load_s"] = time.perf_counter() - t0
         res["replicated_digest"] = replicated_digest(params)
     res["forwards"] = {}
     for name, (cfg, tokens) in job.get("forwards", {}).items():
-        with plan_scope(plan):
-            res["forwards"][name] = api.forward(
-                params, {"tokens": tokens.to(device)}, cfg)[0].to("cpu")
+        res["forwards"][name] = forward(params, tokens, cfg, plan,
+                                        device).to("cpu")
     engines, res["serves"] = {}, {}
     for name, (cfg, kw, reqs) in job.get("serves", {}).items():
         engines[name], res["serves"][name] = _serve(cfg, kw, reqs, params,

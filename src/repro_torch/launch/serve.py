@@ -45,20 +45,23 @@ the metrics snapshot (JSON, or Prometheus text for a ``.prom`` path), and
         --prefill-chunk 128 --fusion tuned --tuning-cache tc.json \
         --pretune --trace-out trace.json --dispatch-log dispatch.json
 
-Model-axis mesh: ``--tp N`` (or ``--mesh 1xN``; the two are mutually
-exclusive, and ``D > 1`` is refused: the data axis is not ported) serves
-the dense and MoE archs across N ranks, tensor-parallel layers and
-expert-parallel MoE (``distributed.sharding``). Started by torchrun, each
-rank joins the group torchrun describes; otherwise the ranks are spawned
-here (``launch.mesh.spawn``, ranks on ``cuda:(r % device_count)``, NCCL
-where each has a card of its own, gloo where they share one; with
-``--device cpu`` on the CPU over gloo)::
+Mesh: ``--mesh DxM`` (``--tp N`` is ``--mesh 1xN``; the two are mutually
+exclusive) serves the dense and MoE archs across D·M ranks: M model
+ranks a data rank, tensor-parallel layers and expert-parallel MoE
+(``distributed.sharding``), and D data ranks, each decoding its own
+max_batch / D slots (``serving.engine``). Each rank builds its own blocks
+alone (``api.init_params(plan=)``): no rank's device ever holds the
+whole model. Started by torchrun, each rank joins the group torchrun
+describes; otherwise the ranks are spawned here (``launch.mesh.spawn``,
+ranks on ``cuda:(r % device_count)``, NCCL where each has a card of its
+own, gloo where they share one; with ``--device cpu`` on the CPU over
+gloo)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
-        --device cpu --tp 2
+        --device cpu --mesh 2x2
 
-Every rank serves the same requests with the same seed; rank 0 prints
-the single-device lines and one mesh line.
+Every rank serves the same requests with the same seed; rank (0, 0)
+prints the single-device lines and one mesh line.
 
 Runs on the CUDA card; ``--device cpu`` runs every kernel's plain version
 on the CPU instead (the tests do this, at ``--reduced`` size). Without a
@@ -79,7 +82,6 @@ import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.core.mpgemm import FUSION_MODES, MPGEMM_MODES
-from repro_torch.distributed.sharding import shard_params
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
 from repro_torch.obs import dispatch as dispatch_obs
@@ -180,35 +182,35 @@ def main(argv=None, rank_device=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default=None, metavar="DXM",
-                    help="serving mesh 'data x model', e.g. 1x2: shards the "
-                         "packed weights and KV heads over M ranks (D > 1 "
-                         "is not ported). Default: one device")
+                    help="serving mesh 'data x model', e.g. 2x2: shards the "
+                         "packed weights and KV heads over M ranks and the "
+                         "decode slots over D. Default: one device")
     ap.add_argument("--tp", type=int, default=None, metavar="N",
                     help="tensor-parallel shortcut for --mesh 1xN")
     args = ap.parse_args(argv)
     if args.mesh is not None and args.tp is not None:
         ap.error("--mesh and --tp are mutually exclusive")
-    model = None
+    mesh = None
     if args.mesh is not None:
         try:
             data, model = (int(v) for v in args.mesh.lower().split("x"))
         except ValueError:
-            ap.error(f"--mesh wants 'DxM' (e.g. 1x2), got {args.mesh!r}")
-        if data > 1:
-            ap.error(f"--mesh {args.mesh}: " + mesh_mod.DATA_AXIS_REFUSAL)
+            ap.error(f"--mesh wants 'DxM' (e.g. 2x2), got {args.mesh!r}")
+        mesh = (data, model)
     elif args.tp is not None:
-        model = args.tp
-    if model is not None and model < 1:
-        ap.error(f"the model axis needs >= 1 rank, got {model}")
-    if model is None or model == 1 or dist.is_initialized():
-        return _serve(ap, args, model, rank_device)
+        mesh = (1, args.tp)
+    if mesh is not None and min(mesh) < 1:
+        ap.error(f"each mesh axis needs >= 1 rank, got {mesh}")
+    world = 1 if mesh is None else mesh[0] * mesh[1]
+    if world == 1 or dist.is_initialized():
+        return _serve(ap, args, mesh, rank_device)
     device = mesh_mod.from_env(args.device)
     if device is not None:  # a rank torchrun started
-        return _serve(ap, args, model, device)
+        return _serve(ap, args, mesh, device)
     if mesh_mod.rank_device(0, args.device).type == "cuda":
         from repro_torch.kernels import _build
         _build.build_all()  # here, once: the ranks load the libraries
-    mesh_mod.spawn(_serve_rank, model, device=args.device,
+    mesh_mod.spawn(_serve_rank, world, device=args.device,
                    args=(list(sys.argv[1:] if argv is None else argv),))
     return 0
 
@@ -219,14 +221,24 @@ def _serve_rank(rank, device, argv):
     return main(argv, device)
 
 
-def _serve(ap, args, model, rank_device):
+def build_params(cfg, device, quantized: bool, plan=None):
+    """The serve's weights: random from seed 0, packed per ``cfg.quant``
+    where ``quantized``; under a mesh ``plan`` this rank's blocks alone,
+    each layer cut to them as it is made (``api.init_params(plan=)``)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return api.init_params(gen, cfg, device, serve_quantized=quantized,
+                           plan=plan)
+
+
+def _serve(ap, args, mesh, rank_device):
     """The serve of ``main``, on one device or as one rank of the mesh
     (on ``rank_device``)."""
     plan = None
-    if model is not None:
+    if mesh is not None:
         plan = mesh_mod.make_plan(mesh_mod.make_serving_mesh(
-            data=1, model=model, device=rank_device))
-    rank0 = plan is None or plan.mesh.coord("model") == 0
+            data=mesh[0], model=mesh[1], device=rank_device))
+    rank0 = plan is None or plan.mesh.coords == (0, 0)
     print = builtins.print if rank0 else (lambda *a, **k: None)
     if args.prefix_cache and args.cache_block_size is None:
         ap.error("--prefix-cache requires --cache-block-size")
@@ -255,17 +267,10 @@ def _serve(ap, args, model, rank_device):
     if plan is not None:
         m = plan.mesh
         print(f"serving mesh {m.sizes['data']}x{m.sizes['model']} (data x "
-              f"model) over {m.sizes['model']} ranks, backend {m.backend}, "
-              f"rank 0 on {m.device}")
+              f"model) over {m.sizes['data'] * m.sizes['model']} ranks, "
+              f"backend {m.backend}, rank 0 on {m.device}")
     quantized = args.mode != "fp16"
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = api.init_params(gen, cfg, device, serve_quantized=quantized)
-    if plan is not None:
-        # this rank's blocks alone from here on: the whole tree, built on
-        # every rank's device with one seed, is dropped before the engine
-        # allocates its caches
-        params = shard_params(params, plan, cfg)
+    params = build_params(cfg, device, quantized, plan)
     if not quantized:
         cfg = cfg.replace(quant=None)
     if args.fusion == "tuned" and args.tuning_cache is None \
@@ -332,7 +337,10 @@ def _serve(ap, args, model, rank_device):
         ms = st["mesh"]
         print(f"mesh: {ms['shape']}, backend {ms['backend']}, rank 0's "
               f"collectives {ms['collective_calls']} calls, "
-              f"{ms['collective_bytes']} bytes, {ms['collective_s']:.2f} s")
+              f"{ms['collective_bytes']} bytes, {ms['collective_s']:.2f} s "
+              "(" + ", ".join(f"{a} {c['calls']}"
+                              for a, c in ms["collectives_by_axis"].items())
+              + f"); rank 0's slots {ms['slots']}")
     if tracer is not None:
         tracer.save(args.trace_out)
         print(f"trace: {len(tracer)} events -> {args.trace_out} (open at "

@@ -4,16 +4,17 @@ cache init, dispatched on ``cfg.family``.
 
 ``forward`` and ``init_cache`` take the mesh plan from
 ``distributed.sharding.plan_scope`` (params sharded by ``shard_params``):
-the dense and MoE families run across the model axis; the others under a
-mesh raise a ValueError (ROADMAP.md queue 1 item 9). A plan whose model
-axis has one rank is the single-device path."""
+the dense and MoE families run across the model and data axes; the
+others under a mesh raise a ValueError (ROADMAP.md queue 1 item 9). A 1x1
+plan is the single-device path."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.registry import ArchConfig
-from repro_torch.distributed.sharding import model_split
+from repro_torch.distributed.sharding import (data_split, model_split,
+                                              shard_params)
 from repro_torch.models import audio, hybrid, kvcache, layers as L, moe
 from repro_torch.models import quantized, ssm, transformer, vlm
 
@@ -76,7 +77,7 @@ def resolve_device(name) -> torch.device:
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
-                serve_quantized: bool = True):
+                serve_quantized: bool = True, plan=None):
     """Random params from ``gen``, made on ``device`` (the card unless the
     caller asks for the CPU). With serve_quantized and a quant config,
     projections are packed per cfg.quant layer by layer, so full-width
@@ -84,17 +85,35 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
     dicts (the hybrid's ``groups``: G lists of ``attn_every`` layers; the
     VLM's ``self_groups``: G lists of ``xattn_every - 1``, beside its G
     ``xattn_layers``; whisper's ``enc_layers`` and ``dec_layers``). The
-    VLM's gates are 0.0, as the reference's init leaves them."""
+    VLM's gates are 0.0, as the reference's init leaves them.
+
+    With a mesh ``plan`` (the dense and MoE families) this rank's blocks
+    alone: the embedding, each layer once packed, and the head are cut to
+    the rank's blocks (``sharding.shard_params`` on that subtree) before
+    the next is drawn, in the whole build's order of draws, so the tree
+    equals ``shard_params(init_params(...), plan, cfg)`` leaf for leaf and
+    the device never holds more than the rank's shard and one float
+    subtree."""
     device = resolve_device(device)
     dtype = cfg.param_dtype
     pack = serve_quantized and cfg.quant
+    if plan is not None:
+        _check_mesh(cfg, plan)
+
+    def cut(key, node):
+        """``node`` as this rank's blocks, at the path ``key`` (its index
+        in a stack changes no rule)."""
+        if plan is None:
+            return node
+        return shard_params({key: node}, plan, cfg)[key]
 
     def finish(tree):
-        return quantized.quantize_params(tree, cfg.quant) if pack else tree
+        tree = quantized.quantize_params(tree, cfg.quant) if pack else tree
+        return cut("layers", [tree])[0]
 
     params = {
-        "embed": transformer.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                        dtype, device),
+        "embed": cut("embed", transformer.embed_init(
+            gen, cfg.vocab_size, cfg.d_model, dtype, device)),
         "final_norm": L.norm_init(cfg.d_model, dtype, device),
     }
     if cfg.family == "moe":
@@ -145,21 +164,26 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
         params["layers"] = [
             finish(transformer.block_init(gen, cfg, dtype, device))
             for _ in range(cfg.n_layers)]
-    params["lm_head"] = finish({"lm_head": L.dense_init(
-        gen, cfg.d_model, cfg.vocab_size, dtype=dtype,
-        device=device)})["lm_head"]
+    head = {"lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                    dtype=dtype, device=device)}
+    params["lm_head"] = cut("lm_head", (quantized.quantize_params(
+        head, cfg.quant) if pack else head)["lm_head"])
     return params
 
 
 MESH_FAMILIES = ("dense", "moe")
 
 
-def _check_mesh(cfg: ArchConfig):
-    if model_split() is not None and cfg.family not in MESH_FAMILIES:
+def _check_mesh(cfg: ArchConfig, plan=None):
+    """Raise where ``plan`` (default: the active plan) splits the model or
+    the batch and the family does not run under a mesh."""
+    split = (model_split() is not None or data_split() is not None
+             if plan is None else
+             plan.axis_size("model") > 1 or plan.axis_size("batch") > 1)
+    if split and cfg.family not in MESH_FAMILIES:
         raise ValueError(
             f"{cfg.arch_id}: the {cfg.family} family does not run under a "
-            "model-axis mesh yet (only dense and MoE do): ROADMAP.md queue "
-            "1 item 9")
+            "mesh yet (only dense and MoE do): ROADMAP.md queue 1 item 9")
 
 
 def forward(params, batch, cfg: ArchConfig, **kw):

@@ -105,9 +105,11 @@ def from_jax_params(np_tree, cfg, device="cuda", *, plan=None):
     ``xattn_layers`` [G, ...] a list (each cross layer's scalar gates 0-dim
     tensors); whisper's ``enc_layers`` and ``dec_layers`` lists.
 
-    With ``plan`` (a model-axis mesh) the tree is converted on the CPU and
-    this rank's blocks (``distributed.sharding.shard_params``) go to
-    ``device``: one set of reference weights carried into every rank."""
+    With ``plan`` (a data x model mesh) the tree is converted on the CPU
+    and only this rank's blocks (``distributed.sharding.shard_params``:
+    its model coordinate's, every leaf whole over the data axis) go to
+    ``device``, so no rank's device holds the whole tree: one set of
+    reference weights carried into every rank."""
     device = resolve_device(device)
     stacks = _stacks(cfg)
     at = torch.device("cpu") if plan is not None else device

@@ -30,6 +30,18 @@ reference's quantized path does, runs its E/m experts, and the ranks'
 expert outputs are gathered in expert order: the combine is then the
 single-device one, in the same order.
 
+Under a data axis a rank holds its own rows of the batch, yet the
+reference routes globally: its quantized experts never take the
+``shard_map`` path, so capacity and drops come from all B·S tokens. So a
+rank routes its tokens, gathers every data rank's top-k ids and weights
+(one small int64 collective a layer: [T, 2k + E + 1] with the router's
+probabilities and log-sum-exp for the aux losses, f32 bits carried as
+int64), takes the global positions and capacity from them, and writes
+only its own kept tokens into the [E, C, D] buffer. An expert FFN's rows
+are independent, so each of its tokens gets one device's bits; the keep
+mask is one device's. The mesh's one-device control routes its row
+blocks together the same way (``moe_mlp_blocks``).
+
 Aux outputs: the load-balance loss (Switch-style E·Σ f_e·P_e) and the
 router-z loss, averaged over the MoE layers. A forward without its head
 (``head=False``: prefill, caches only) skips them.
@@ -45,7 +57,7 @@ import torch
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.quantize import fake_quant
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import model_split
+from repro_torch.distributed.sharding import data_split, model_split
 from repro_torch.models import kvcache, layers as L
 from repro_torch.models import transformer as TR
 
@@ -54,7 +66,7 @@ Params = Dict[str, Any]
 
 def _expert_init(gen, e: int, d_in: int, d_out: int, dtype, device):
     w = torch.randn(e, d_in, d_out, generator=gen, device=device,
-                    dtype=torch.float32) / math.sqrt(d_in)
+                    dtype=torch.float32).div_(math.sqrt(d_in))  # no copy
     return w.to(dtype)
 
 
@@ -123,22 +135,69 @@ def _expert_ffn(w: Params, x: torch.Tensor, quant) -> torch.Tensor:
 
 
 def moe_mlp_apply(p: Params, x: torch.Tensor, cfg, quant=None, *,
-                  aux: bool = True):
+                  aux: bool = True, with_keep: bool = False):
     """x [B, S, D] -> (y [B, S, D], {"lb_loss", "router_z_loss"} or {}).
     Every one of the B·S tokens is routed and takes capacity, pad tokens
-    too, as in the reference: t = B·S sets the capacity."""
-    b, s, d = x.shape
-    t = b * s
-    e, k = cfg.num_experts, cfg.top_k
-    xf = x.reshape(t, d)
-    dev = x.device
+    too, as in the reference: t = B·S sets the capacity (under a data
+    axis, the B·S tokens of every data rank). ``with_keep`` adds "keep":
+    the [T, k] mask of the kept assignments, T the batch's tokens in
+    every data rank."""
+    ys, out = moe_mlp_blocks(p, [x], cfg, quant, aux=aux,
+                             with_keep=with_keep)
+    return ys[0], out
 
-    logits = xf.to(torch.float32) @ p["router"]["w"].to(torch.float32)
+
+def _route(router: Params, xf: torch.Tensor, k: int, aux: bool):
+    """(probs [T, E], top_p [T, k], top_i [T, k], lse [T] or None) of
+    tokens xf [T, D] through the f32 router."""
+    logits = xf.to(torch.float32) @ router["w"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     # top-k as jax.lax.top_k: descending, the lower expert id first on ties
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :k], top_i[:, :k]
     top_p = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, top_p, top_i, (torch.logsumexp(logits, dim=-1)
+                                 if aux else None)
+
+
+def _gather_routes(probs, top_p, top_i, lse):
+    """Every data rank's routing, in data order: one int64 collective
+    carrying the f32 values' bits."""
+    f32 = lambda t: t.view(torch.int32).to(torch.int64)
+    k, e = top_i.shape[1], probs.shape[1]
+    parts = [top_i, f32(top_p)] + ([] if lse is None else
+                                   [f32(probs), f32(lse[:, None])])
+    g = collectives.all_gather(torch.cat(parts, dim=1), dim=0, axis="data")
+    back = lambda t: t.to(torch.int32).view(torch.float32)
+    return (None if lse is None else back(g[:, 2 * k:2 * k + e]),
+            back(g[:, k:2 * k]), g[:, :k].contiguous(),
+            None if lse is None else back(g[:, -1]))
+
+
+def moe_mlp_blocks(p: Params, xs, cfg, quant=None, *, aux: bool = True,
+                   with_keep: bool = False):
+    """``moe_mlp_apply`` over the row blocks ``xs`` of one batch (each
+    [b_r, S, D]) -> (their outputs, losses). One block is the batch, or
+    under a data axis (``sharding.data_split``) this rank's rows, whose
+    routing is gathered from every data rank; several are the mesh's
+    control running the data ranks' blocks on one device. Each block's
+    router and shared expert run at its row count; capacity, keep mask
+    and dispatch are the whole batch's, and only the tokens held here are
+    written into the expert buffer and combined."""
+    e, k = cfg.num_experts, cfg.top_k
+    d = xs[0].shape[-1]
+    dev = xs[0].device
+    xfs = [x.reshape(-1, d) for x in xs]
+    routes = [_route(p["router"], xf, k, aux) for xf in xfs]
+    xf = xfs[0] if len(xs) == 1 else torch.cat(xfs)
+    probs, top_p, top_i, lse = routes[0] if len(xs) == 1 else (
+        None if z[0] is None else torch.cat(z) for z in zip(*routes))
+    t_own, lo = xf.shape[0], 0
+    split = data_split()
+    if split is not None:
+        lo = split.rank_along("batch") * t_own
+        probs, top_p, top_i, lse = _gather_routes(probs, top_p, top_i, lse)
+    t = top_i.shape[0]
 
     # ---- sort-based dispatch ----------------------------------------------
     eid = top_i.reshape(-1)                               # [T·k]
@@ -152,9 +211,15 @@ def moe_mlp_apply(p: Params, x: torch.Tensor, cfg, quant=None, *,
     keep = pos_in_e < cap
     slot = sorted_eid * cap + torch.clamp_max(pos_in_e, cap - 1)
     tok = order // k                                      # source token
-    # kept assignments own distinct slots; dropped ones go to the trash row
-    disp = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=dev)
-    disp[torch.where(keep, slot, e * cap)] = xf[tok]
+    # kept assignments own distinct slots; dropped ones, and under a data
+    # axis the other ranks' tokens, go to the trash row
+    disp = torch.zeros(e * cap + 1, d, dtype=xf.dtype, device=dev)
+    if t_own == t:
+        disp[torch.where(keep, slot, e * cap)] = xf[tok]
+    else:
+        mine = (tok >= lo) & (tok < lo + t_own)
+        disp[torch.where(keep & mine, slot, e * cap)] = xf[
+            (tok - lo).clamp(0, t_own - 1)]
     buf = disp[:-1].reshape(e, cap, d)
     if p["experts"].get("tp") == "expert":  # this rank's E/m experts
         plan = model_split()
@@ -171,22 +236,30 @@ def moe_mlp_apply(p: Params, x: torch.Tensor, cfg, quant=None, *,
                * top_p.reshape(-1)[order][:, None])       # [T·k, D], sorted
     rank = torch.empty_like(order)
     rank[order] = torch.arange(t * k, device=dev)         # sorted position
-    picks = contrib[rank.reshape(t, k).sort(dim=1).values]  # [T, k, D]
-    y = torch.zeros(t, d, dtype=torch.float32, device=dev)
+    ranks = rank.reshape(t, k)
+    if t_own != t:  # this rank's tokens
+        ranks = ranks[lo:lo + t_own]
+    picks = contrib[ranks.sort(dim=1).values]             # [T_own, k, D]
+    y = torch.zeros(t_own, d, dtype=torch.float32, device=dev)
     for j in range(k):
         y = y + picks[:, j]
 
     if "shared_mlp" in p:
-        y = y + L.mlp_apply(p["shared_mlp"], xf, quant).to(torch.float32)
+        sh = [L.mlp_apply(p["shared_mlp"], x, quant) for x in xfs]
+        y = y + (sh[0] if len(sh) == 1 else torch.cat(sh)).to(torch.float32)
 
     losses = {}
     if aux:
         f_e = counts.to(torch.float32) / (t * k) * e      # mean of one-hots
         p_e = probs.mean(dim=0)
         losses = {"lb_loss": e * torch.sum(f_e / e * p_e),
-                  "router_z_loss": torch.square(
-                      torch.logsumexp(logits, dim=-1)).mean()}
-    return y.reshape(b, s, d).to(x.dtype), losses
+                  "router_z_loss": torch.square(lse).mean()}
+    if with_keep:
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        losses["keep"] = kept.reshape(t, k)
+    ys = y.to(xs[0].dtype).split([xf_.shape[0] for xf_ in xfs])
+    return [yb.reshape(x.shape) for yb, x in zip(ys, xs)], losses
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +282,20 @@ def dense_block_init(gen, cfg, dtype=torch.float32, device=None) -> Params:
                          dtype, device)
 
 
-def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
-                quant=None, page_table=None, aux: bool = True, window=None):
-    a, cache = L.attention_apply(
+def _attention_half(p: Params, h: torch.Tensor, cfg, *, cache=None,
+                    cache_pos=0, quant=None, page_table=None, window=None):
+    """h + the block's attention; the cache is written in place."""
+    a, _ = L.attention_apply(
         p["attn"], TR._norm(p["attn_norm"], h, cfg, cache_pos), cfg,
         kv_cache=cache, cache_pos=cache_pos, quant=quant,
         page_table=page_table, window=window)
-    h = h + a
+    return h + a
+
+
+def block_apply(p: Params, h: torch.Tensor, cfg, *, cache=None, cache_pos=0,
+                quant=None, page_table=None, aux: bool = True, window=None):
+    h = _attention_half(p, h, cfg, cache=cache, cache_pos=cache_pos,
+                        quant=quant, page_table=page_table, window=window)
     m, losses = moe_mlp_apply(p["moe"],
                               TR._norm(p["mlp_norm"], h, cfg, cache_pos),
                               cfg, quant, aux=aux)
@@ -229,31 +309,45 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     (``token_valid`` ignored, ``window`` in every layer, as there).
     Layer i of the caches is dense layer i for i < first_dense_layers, then
     the MoE layers in order. ``head=False`` stops before the final norm
-    and LM head and computes no aux losses."""
-    h = TR.embed_apply(params["embed"], batch["tokens"]).to(
-        cfg.activation_dtype)
+    and LM head and computes no aux losses. A data-axis control's row
+    blocks (``transformer.row_blocks``) run each layer in turn, and its
+    MoE layers route them together (``moe_mlp_blocks``)."""
+    blocks = TR.row_blocks(params, batch["tokens"], caches, cache_pos,
+                           page_table)
     nd, quant = cfg.first_dense_layers, cfg.quant
+    hs = [TR.embed_apply(params["embed"], b["tokens"]).to(
+        cfg.activation_dtype) for b in blocks]
 
-    def layer_cache(i):
-        return None if caches is None else kvcache.layer_cache(caches, i)
+    def kw(b, i):
+        return dict(cache=None if b["caches"] is None
+                    else kvcache.layer_cache(b["caches"], i),
+                    cache_pos=b["cache_pos"], quant=quant,
+                    page_table=b["page_table"], window=window)
 
     for i, lp in enumerate(params.get("dense_layers", [])):
-        h, _ = TR.block_apply(lp, h, cfg, cache=layer_cache(i),
-                              cache_pos=cache_pos, quant=quant,
-                              page_table=page_table, window=window)
+        hs = [TR.block_apply(lp, h, cfg, **kw(b, i))[0]
+              for h, b in zip(hs, blocks)]
     lb = zl = 0.0
     for j, lp in enumerate(params["layers"]):
-        h, _, losses = block_apply(lp, h, cfg, cache=layer_cache(nd + j),
-                                   cache_pos=cache_pos, quant=quant,
-                                   page_table=page_table, aux=head,
-                                   window=window)
+        hs = [_attention_half(lp, h, cfg, **kw(b, nd + j))
+              for h, b in zip(hs, blocks)]
+        xs = [TR._norm(lp["mlp_norm"], h, cfg, b["cache_pos"])
+              for h, b in zip(hs, blocks)]
+        if len(xs) == 1:
+            m, losses = moe_mlp_apply(lp["moe"], xs[0], cfg, quant, aux=head)
+            ms = [m]
+        else:
+            ms, losses = moe_mlp_blocks(lp["moe"], xs, cfg, quant, aux=head)
+        hs = [h + m for h, m in zip(hs, ms)]
         if head:
             lb, zl = lb + losses["lb_loss"], zl + losses["router_z_loss"]
     if not head:
         return None, caches, {}
-    h = TR._norm(params["final_norm"], h, cfg, cache_pos)
+    logits = [TR.head_apply(params["lm_head"], TR._norm(
+        params["final_norm"], h, cfg, b["cache_pos"]), quant)
+        for h, b in zip(hs, blocks)]
     n_moe = cfg.n_layers - nd
-    return (TR.head_apply(params["lm_head"], h, quant), caches,
+    return (logits[0] if len(logits) == 1 else torch.cat(logits), caches,
             {"lb_loss": lb / n_moe, "router_z_loss": zl / n_moe})
 
 

@@ -8,7 +8,11 @@ Under a model-axis mesh (``distributed.sharding``) the embedding table and
 the LM head are split over the vocab: a rank looks up the tokens in its
 rows and the ranks' rows are summed (one nonzero term a token: exact),
 and each rank's logits of its vocab block are gathered, so every rank
-returns the whole logits and samples the same token.
+returns the whole logits and samples the same token. Under a data axis a
+rank's forward takes its own rows of the batch (the engine's slots); the
+mesh's one-device control (``"rows"``: D in the tree,
+``sharding.one_device_control``) runs a batch D divides as D row blocks
+in turn (``row_blocks``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ Params = Dict[str, Any]
 def embed_init(gen, vocab: int, d_model: int, dtype=torch.float32,
                device=None) -> Params:
     t = torch.randn(vocab, d_model, generator=gen, device=device,
-                    dtype=torch.float32) * 0.02
+                    dtype=torch.float32).mul_(0.02)  # in place: no copy
     return {"table": t.to(dtype)}
 
 
@@ -108,6 +112,32 @@ def stack_apply(layers, h: torch.Tensor, cfg, *, caches=None, cache_pos=0,
     return h, caches
 
 
+def row_blocks(params: Params, tokens, caches=None, cache_pos=0,
+               page_table=None):
+    """The forward's arguments as the row blocks it runs in turn: D blocks
+    of B / D rows where the tree is a data-axis control (``"rows"``: D)
+    and D divides the batch, else one block holding the arguments
+    themselves. A block's dense caches are the rows' views along the
+    batch axis (1; written in place), a paged pool stays whole with the
+    rows' page-table rows, a per-slot ``cache_pos`` keeps its rows."""
+    d, b = params.get("rows", 1), tokens.shape[0]
+    blk = dict(tokens=tokens, caches=caches, cache_pos=cache_pos,
+               page_table=page_table)
+    if d == 1 or b % d:
+        return [blk]
+    n, out = b // d, []
+    for r in range(d):
+        rows = slice(r * n, (r + 1) * n)
+        out.append(dict(
+            tokens=tokens[rows], page_table=(None if page_table is None
+                                             else page_table[rows]),
+            cache_pos=(cache_pos[rows] if torch.is_tensor(cache_pos)
+                       and cache_pos.dim() == 1 else cache_pos),
+            caches=(caches if caches is None or page_table is not None
+                    else tuple(c.narrow(1, r * n, n) for c in caches))))
+    return out
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             caches=None, cache_pos=0, head: bool = True, page_table=None,
             token_valid=None, window=None):
@@ -119,7 +149,15 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     ignored: a right-padded chunk's pad positions write K/V past the
     prompt, which decode overwrites before any query reads it. ``window``:
     sliding-window attention in every layer (``L.attention_apply``; a
-    rolling cache from ``init_cache(..., window=)``)."""
+    rolling cache from ``init_cache(..., window=)``). A data-axis control
+    runs its row blocks in turn (``row_blocks``)."""
+    blocks = row_blocks(params, batch["tokens"], caches, cache_pos,
+                        page_table)
+    if len(blocks) > 1:
+        one = {k: v for k, v in params.items() if k != "rows"}
+        outs = [forward(one, {"tokens": blk.pop("tokens")}, cfg, head=head,
+                        window=window, **blk)[0] for blk in blocks]
+        return (torch.cat(outs) if head else None), caches, {}
     h = embed_apply(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
     h, caches = stack_apply(params["layers"], h, cfg, caches=caches,
                             cache_pos=cache_pos, quant=cfg.quant,

@@ -39,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.serving.sampler import categorical
+from repro_torch.serving.sampler import categorical, uniform
 
 __all__ = ["NORMAL", "BEAM", "SPEC", "DecodingMode", "parse", "beam_select",
            "speculative_accept", "rank_hypotheses", "stable_topk"]
@@ -159,7 +159,7 @@ def rank_hypotheses(scores, lengths, alpha: float):
 # ---------------------------------------------------------------------------
 
 def speculative_accept(gen, draft_toks, q_logits, p_logits, tgt_raw_argmax,
-                       greedy, *, sampling: bool):
+                       greedy, *, sampling: bool, rows=None):
     """Leviathan / Chen rejection sampling over a drafted block, vectorized.
 
     Args:
@@ -178,6 +178,9 @@ def speculative_accept(gen, draft_toks, q_logits, p_logits, tgt_raw_argmax,
       sampling:   whether any row samples. False (every row greedy) takes
                   the argmax shortcut and draws nothing; the full branch
                   gives greedy rows the same values.
+      rows:       (start, total) where the rows are a data rank's of a
+                  batch of ``total``: the whole batch's noise is drawn
+                  (``sampler.uniform``).
 
     Returns ``(accept, repl, bonus)``:
       accept [B, K] bool: draft token j survives verification;
@@ -201,8 +204,7 @@ def speculative_accept(gen, draft_toks, q_logits, p_logits, tgt_raw_argmax,
     p_k = p_dist[:, :k]
     p_tok = torch.gather(p_k, -1, draft_toks[..., None])[..., 0]
     q_tok = torch.gather(q_dist, -1, draft_toks[..., None])[..., 0]
-    u = torch.rand(draft_toks.shape, generator=gen,
-                   device=draft_toks.device)
+    u = uniform(gen, draft_toks.shape, draft_toks.device, rows)
     accept = torch.where(greedy[:, None], acc_greedy,
                          u * q_tok.clamp_min(1e-30) < p_tok)
 
@@ -210,9 +212,10 @@ def speculative_accept(gen, draft_toks, q_logits, p_logits, tgt_raw_argmax,
     res = (p_k - q_dist).clamp_min(0.0)
     mass = res.sum(dim=-1, keepdim=True)
     res = torch.where(mass > 0.0, res / mass.clamp_min(1e-30), p_k)
-    r_stoch = categorical(gen, torch.log(res.clamp_min(1e-30)))
+    r_stoch = categorical(gen, torch.log(res.clamp_min(1e-30)), rows)
     repl = torch.where(greedy[:, None], tgt_argmax, r_stoch)
 
-    bonus_stoch = categorical(gen, torch.log(p_dist[:, k].clamp_min(1e-30)))
+    bonus_stoch = categorical(gen, torch.log(p_dist[:, k].clamp_min(1e-30)),
+                              rows)
     bonus = torch.where(greedy, tgt_raw_argmax[:, k], bonus_stoch)
     return accept, repl, bonus

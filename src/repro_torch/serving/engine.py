@@ -66,14 +66,34 @@ Telemetry adds no device round-trip; with no tracer each site costs one
 check. ``tuning_cache`` activates the measured plans ``fusion="tuned"``
 reads (``core.autotune``); ``pretune()`` fills it.
 
-Model-axis mesh (``plan``, the reference's ``plan=``): the engine shards
-the params (``distributed.sharding.shard_params``) and runs every forward
-and cache allocation under ``plan_scope``. Every rank runs this host logic
-on the same inputs: its forwards return whole logits (the head's vocab
-blocks gathered), its caches hold its KV heads, its generator has the
-same seed, so every rank samples the same tokens. ``host_syncs_per_token``
+Mesh (``plan``, the reference's ``plan=``): the engine shards the params
+(``distributed.sharding.shard_params``; a tree sharded already is kept)
+and runs every forward and cache allocation under ``plan_scope``. Every
+rank runs this host logic on the same inputs, so the queue, slots,
+admissions, retirements, page table and prefix cache are global and
+identical on every rank. Model axis: its forwards return whole logits
+(the head's vocab blocks gathered), its caches hold its KV heads, its
+generator has the same seed. Data axis (D ranks): slot s belongs to data
+rank s // (B / D), where D divides ``max_batch`` (else every data rank
+owns every slot: the batch replicated, as the reference's
+``resolve_physical_spec`` replicates it). A rank's device state, its
+dense cache rows and its decode forwards hold its own B / D slots; every
+rank draws the whole batch's sampling noise from the one seed and keeps
+its rows (``sampler.uniform``), so a slot samples what it samples on one
+device. A decode chunk's tokens, validity, liveness (and beam parents,
+scores and spec counters) are gathered over the data axis in one
+collective before the chunk's one host read. A beam group's W slots are
+placed inside one data shard, so its forks stay on its rank. The paged
+pool holds every block on every data rank with the page table global, as
+the reference's does: every data rank prefills each admission into its
+own copy (a batch-1 prefill is replicated over data), so shared prefix
+blocks are equal everywhere; a pending divergence block, whose last
+position the origin slot's owner writes in its first decode chunk, is
+copied from that rank to the others before its entry becomes shareable.
+With the dense cache only the owner prefills. ``host_syncs_per_token``
 counts the engine's own reads, as on one device; the collectives' calls,
-bytes and host seconds are reported under ``stats()["mesh"]``.
+bytes and host seconds (in all and by axis) are reported under
+``stats()["mesh"]``.
 
 Decoding modes (``serving/decoding.py``) are per-slot state: a request's
 ``decoding`` is ``greedy``/``sample``, ``beam:W`` (W slots of one group,
@@ -104,8 +124,8 @@ from repro_torch.configs.registry import ArchConfig
 from repro_torch.core import mpgemm as mp
 from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (AxisPlan, plan_scope,
-                                              shard_params)
+from repro_torch.distributed.sharding import (AxisPlan, for_batch,
+                                              plan_scope, shard_params)
 from repro_torch.models import api, kvcache
 from repro_torch.models import quantized as qz
 from repro_torch.obs import dispatch as dispatch_obs
@@ -157,7 +177,30 @@ class ServingEngine:
                  kv_cache_dtype: Optional[str] = None,
                  plan: Optional[AxisPlan] = None):
         self.cfg = cfg
-        self.plan = plan
+        self.max_batch = max_batch
+        # the data axis: D data ranks own B / D slots each where D divides
+        # B, else every slot (the batch replicated over data). ``plan`` runs
+        # the decode forwards, ``_slot_plan`` a batch-1 prefill (replicated)
+        d = 1 if plan is None else plan.axis_size("batch")
+        self._dp = d if max_batch % d == 0 else 1
+        self.local_batch = max_batch // self._dp
+        self._lo = (plan.rank_along("batch") * self.local_batch
+                    if self._dp > 1 else 0)
+        self.plan = for_batch(plan, max_batch)
+        self._slot_plan = for_batch(plan, 1)
+        # the whole batch's sampling noise, this rank's rows kept
+        self._draw = (self._lo, max_batch) if self._dp > 1 else None
+        # beam groups stay inside one of these contiguous slot blocks: the
+        # data shards, or a data-axis control's row blocks
+        self._shards = self._dp if plan is not None else (
+            params.get("rows", 1) if max_batch % params.get("rows", 1) == 0
+            else 1)
+        if plan is not None and (plan.axis_size("model") > 1 or d > 1) \
+                and cfg.family not in api.MESH_FAMILIES:
+            raise ValueError(
+                f"{cfg.arch_id}: the {cfg.family} family does not run "
+                "under a mesh yet (only dense and MoE do): ROADMAP.md "
+                "queue 1 item 9")
         self.tracer = tracer
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._h_chunk_s = self.metrics.histogram(
@@ -192,7 +235,6 @@ class ServingEngine:
                                                        int(spec_draft_planes))
             self.draft_extra_hbm_bytes = qz.extra_hbm_bytes(
                 self.draft_params, params)
-        self.max_batch = max_batch
         self.max_seq = max_seq
         self.decode_chunk = max(1, decode_chunk)
         self.prefill_chunk = max(1, min(prefill_chunk, max_seq))
@@ -226,7 +268,7 @@ class ServingEngine:
         # per-leaf batch and sequence axes of the cache tree, probed on the
         # meta device (shapes only): SSM leaves have no sequence axis
         def probe(batch, seq):
-            with plan_scope(plan):
+            with plan_scope(self.plan):
                 return api.init_cache(cfg, batch, seq,
                                       dtype=self._cache_dtype, device="meta")
         self._slot_probe = probe(1, max_seq)
@@ -280,10 +322,11 @@ class ServingEngine:
     def reset(self, seed: Optional[int] = None):
         """Clear queue, slots, device state and counters."""
         seed = self._seed if seed is None else seed
-        b, dev = self.max_batch, self.device
+        # host state: every slot; device state: this rank's slots
+        nb, b, dev = self.max_batch, self.local_batch, self.device
         self.queue: Deque[Request] = deque()
-        self.slots: List[Optional[Request]] = [None] * b
-        self.page_table = None
+        self.slots: List[Optional[Request]] = [None] * nb
+        self.page_table = self._local_pt = None
         if self.paged:
             self._alloc = blockpool.BlockAllocator(self.num_cache_blocks,
                                                    metrics=self.metrics)
@@ -291,9 +334,9 @@ class ServingEngine:
                                                   metrics=self.metrics)
                             if self.prefix_caching else None)
             # divergence entries whose last position is unwritten until the
-            # origin slot's first decode chunk
-            self._pending_keys: set = set()
-            self._slot_blocks: List[List[int]] = [[] for _ in range(b)]
+            # origin slot's first decode chunk: key -> (block, origin slot)
+            self._pending_keys: Dict[Any, Tuple[int, int]] = {}
+            self._slot_blocks: List[List[int]] = [[] for _ in range(nb)]
             # pooled leaves: (num_blocks, block_size) in place of (batch,
             # seq); slot-resident leaves: dense [.., max_batch, ..]
             # leaves start at a fresh cache's constant value: zeros, the
@@ -308,8 +351,11 @@ class ServingEngine:
                 lambda p, d, pooled, f: torch.full(
                     (p if pooled else d).shape, f, dtype=p.dtype, device=dev),
                 pool, dense, self._pooled, fill)
-            self.page_table = torch.zeros((b, self.blocks_per_slot),
+            # global rows; this rank's forwards read its own (a view)
+            self.page_table = torch.zeros((nb, self.blocks_per_slot),
                                           dtype=torch.int64, device=dev)
+            self._local_pt = (self.page_table if self._dp == 1 else
+                              self.page_table[self._lo:self._lo + b])
         else:
             self.caches = api.init_cache(self.cfg, b, self.max_seq,
                                          dtype=self._cache_dtype, device=dev)
@@ -328,10 +374,10 @@ class ServingEngine:
         self.spec_accepted = zeros(torch.int64)  # drafts accepted, emitted
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(seed)
-        self._sampling = [False] * b         # host mirror: temperature > 0
+        self._sampling = [False] * nb        # host mirror: temperature > 0
         # host mirrors of the decoding state
-        self._slot_kind = [decoding.NORMAL] * b
-        self._beam_hist: List[List[int]] = [[] for _ in range(b)]
+        self._slot_kind = [decoding.NORMAL] * nb
+        self._beam_hist: List[List[int]] = [[] for _ in range(nb)]
         self._beam_groups: Dict[int, Dict[str, Any]] = {}  # leader -> group
         self.spec_verify_steps = 0      # totals of retired spec requests
         self.spec_accepted_tokens = 0
@@ -362,26 +408,33 @@ class ServingEngine:
         return (contextlib.nullcontext() if self.tracer is None
                 else self.tracer.annotation(name))
 
-    @_in_plan
     def _prefill(self, prompt: np.ndarray, start: int, caches,
-                 page_row=None, *, uid: int = -1,
-                 slot: int = -1) -> Tuple[int, int]:
+                 page_row=None, *, uid: int = -1, slot: int = -1,
+                 run: bool = True) -> Tuple[int, int]:
         """Prefill ``prompt[start:-1]`` in fixed [1, C] chunks (the tail
         right-padded) into ``caches`` at offsets start, start + C, ...; the
         LM head is skipped (only the caches are kept). Each chunk's host
         time (its enqueue: prefill does not sync) goes to the prefill
         histogram and, with a tracer, a ``prefill_chunk`` span of request
-        ``uid`` in ``slot``. Returns the (start, end) ``perf_counter_ns``."""
+        ``uid`` in ``slot``. Returns the (start, end) ``perf_counter_ns``.
+        A batch-1 prefill is replicated over the data axis
+        (``_slot_plan``); ``run=False`` (a data rank that does not own the
+        dense slot) counts the chunks without running them."""
         plen, c = int(prompt.size), self.prefill_chunk
         t0 = tc = time.perf_counter_ns()
         for j in range(start, plen - 1, c):
             vl = min(c, plen - 1 - j)
+            self.prefill_dispatches += 1
+            self.prefill_tokens += vl
+            if not run:
+                continue
             buf = np.zeros((1, c), np.int64)
             buf[0, :vl] = prompt[j:j + vl]
             # a right-padded tail: its real tokens, so SSM state ends there
             valid = (None if vl == c
                      else self._to_device(np.array([vl], np.int64)))
-            with self._annotate("prefill_chunk"):
+            with self._annotate("prefill_chunk"), \
+                    plan_scope(self._slot_plan):
                 api.forward(self.params, {"tokens": self._to_device(buf)},
                             self.cfg, caches=caches, cache_pos=j, head=False,
                             page_table=page_row, token_valid=valid)
@@ -391,17 +444,15 @@ class ServingEngine:
                 self.tracer.complete("prefill_chunk", tc, tn, cat="prefill",
                                      uid=uid, slot=slot, offset=j, valid=vl)
             tc = tn
-            self.prefill_dispatches += 1
-            self.prefill_tokens += vl
         t1 = time.perf_counter_ns()
         self.prefill_s += (t1 - t0) / 1e9
         return t0, t1
 
     @_in_plan
     def _decode_chunk(self, sampling: bool):
-        """``decode_chunk`` steps for the whole pool, all on the device.
-        Returns device tensors toks / valid [N, B]."""
-        n, b, dev = self.decode_chunk, self.max_batch, self.device
+        """``decode_chunk`` steps for the whole pool (this rank's slots),
+        all on the device. Returns device tensors toks / valid [N, B]."""
+        n, b, dev = self.decode_chunk, self.local_batch, self.device
         toks = torch.empty((n, b), dtype=torch.int64, device=dev)
         valid = torch.empty((n, b), dtype=torch.bool, device=dev)
         # a pool with no sampling slot takes the sampler's argmax shortcut
@@ -411,8 +462,8 @@ class ServingEngine:
             logits, _, _ = api.forward(
                 self.params, {"tokens": self.last_tok[:, None]}, self.cfg,
                 caches=self.caches, cache_pos=self.pos,
-                page_table=self.page_table)
-            nxt = sample(self.gen, logits[:, -1], **kw)
+                page_table=self._local_pt)
+            nxt = sample(self.gen, logits[:, -1], rows=self._draw, **kw)
             # emit iff live and the cache has room for this token
             can = self.active & (self.pos + 1 < self.max_seq)
             hit_cap = self.active & ~can
@@ -435,7 +486,7 @@ class ServingEngine:
         """A per-slot forward over the pool's caches; logits [B, s, V]."""
         return api.forward(params, {"tokens": tokens}, self.cfg,
                            caches=self.caches, cache_pos=cache_pos,
-                           page_table=self.page_table)[0]
+                           page_table=self._local_pt)[0]
 
     def _copy_blocks(self, src: List[int], dst: List[int]):
         """Pool blocks ``src`` -> ``dst`` on every pooled leaf, along its
@@ -460,8 +511,8 @@ class ServingEngine:
         and own every later block."""
         src = dst = None
         if self.paged:
-            src = self.page_table[parent].reshape(-1)
-            dst = torch.where(do_copy[:, None], self.page_table,
+            src = self._local_pt[parent].reshape(-1)
+            dst = torch.where(do_copy[:, None], self._local_pt,
                               0).reshape(-1)
 
         def fork(c, ax, pooled):
@@ -477,7 +528,8 @@ class ServingEngine:
         """``decode_chunk`` steps of a pool holding beam or spec slots (the
         reference's ``_decode_general_impl``), all on the device. Returns
         device tensors toks / valid [N, B, S_e] (S_e = spec_k + 1 when the
-        pool holds spec slots, else 1) and the beam parent map [N, B].
+        pool holds spec slots, else 1) and the beam parent map [N, B] (as
+        global slot indices).
 
         A spec slot's step: (1) draft K tokens one at a time with the
         plane-sliced view, writing provisional KV at pos .. pos+K-1; (2) one
@@ -490,7 +542,7 @@ class ServingEngine:
         ``beam_select``, and the caches fork to match. ``sampling`` (the
         host mirror: any slot samples) decides the sampler's and
         ``speculative_accept``'s greedy shortcut without a device sync."""
-        n, b, dev = self.decode_chunk, self.max_batch, self.device
+        n, b, dev = self.decode_chunk, self.local_batch, self.device
         k_spec = self.spec_k
         s_e = k_spec + 1 if has_spec else 1
         toks = torch.empty((n, b, s_e), dtype=torch.int64, device=dev)
@@ -517,7 +569,8 @@ class ServingEngine:
                     d = torch.argmax(dl, dim=-1)
                     if sampling:
                         ml = mask_logits(dl, **kw)
-                        d = torch.where(greedy, d, categorical(self.gen, ml))
+                        d = torch.where(greedy, d, categorical(
+                            self.gen, ml, self._draw))
                         q_logits.append(ml)
                     d_toks.append(d)
                     last, dpos = d, dpos + 1
@@ -533,13 +586,13 @@ class ServingEngine:
                                      for j in range(k_spec + 1)], dim=1)
                 accept, repl, bonus = decoding.speculative_accept(
                     self.gen, d_toks, q, p, torch.argmax(vlogits, dim=-1),
-                    greedy, sampling=sampling)
+                    greedy, sampling=sampling, rows=self._draw)
             else:
                 logits1 = self._forward(self.params, self.last_tok[:, None],
                                         self.pos)[:, -1]
 
             # position-0 token per mode
-            tok0 = sample(self.gen, logits1, **kw)
+            tok0 = sample(self.gen, logits1, rows=self._draw, **kw)
             parent, beam_score = self_idx, self.beam_score
             if has_beam:
                 is_beam = self.mode == decoding.BEAM
@@ -595,7 +648,7 @@ class ServingEngine:
             self.spec_steps = self.spec_steps + ran_spec.to(torch.int64)
             self.spec_accepted = self.spec_accepted + torch.where(
                 ran_spec, acc_emitted, 0)
-            parents[step] = parent
+            parents[step] = parent + self._lo
         return toks, valid, parents
 
     # -- host loop (chunk boundaries only) ----------------------------------
@@ -613,10 +666,13 @@ class ServingEngine:
                     f"self-speculative decoding unsupported for family "
                     f"{self.cfg.family!r}: its cache holds cumulative "
                     "(SSM/conv) state that cannot rewind rejected drafts")
-        if dm.kind == decoding.BEAM and dm.beam_width > self.max_batch:
+        shard = self.max_batch // self._shards
+        if dm.kind == decoding.BEAM and dm.beam_width > shard:
             raise ValueError(
                 f"beam width {dm.beam_width} exceeds max_batch "
-                f"{self.max_batch}: the W hypotheses are W pool slots")
+                f"{self.max_batch}" + (f" / {self._shards} data shards"
+                                       if self._shards > 1 else "")
+                + ": the W hypotheses are W pool slots of one shard")
         req.output = []
         self.queue.append(req)
 
@@ -628,21 +684,33 @@ class ServingEngine:
             prompt = prompt[-max(1, self.max_seq - req.max_new_tokens):]
         return prompt
 
+    def _local(self, i: int) -> Optional[int]:
+        """Slot ``i``'s row in this rank's device state, None where another
+        data rank owns it."""
+        j = i - self._lo
+        return j if 0 <= j < self.local_batch else None
+
     def _admit_one(self, i: int, req: Request):
         """Dense admission: prefill ``prompt[:-1]`` into a zeroed batch-1
-        cache, then copy it into slot ``i`` leaf by leaf."""
+        cache, then copy it into slot ``i`` leaf by leaf (on the data rank
+        that owns the slot)."""
         prompt = self._truncate(req)
-        slot_caches = api.init_cache(self.cfg, 1, self.max_seq,
-                                     dtype=self._cache_dtype,
-                                     device=self.device)
+        j = self._local(i)
+        slot_caches = None
+        if j is not None:
+            with plan_scope(self._slot_plan):
+                slot_caches = api.init_cache(self.cfg, 1, self.max_seq,
+                                             dtype=self._cache_dtype,
+                                             device=self.device)
         with self._annotate("admit"):
             t0, t1 = self._prefill(prompt, 0, slot_caches, uid=req.uid,
-                                   slot=i)
+                                   slot=i, run=j is not None)
         if self.tracer is not None:
             self.tracer.complete("admit", t0, t1, uid=req.uid, slot=i,
                                  prompt_len=int(prompt.size),
                                  mode=req.decoding, paged=False)
-        kvcache.merge_batch(self.caches, slot_caches, i, self._axes)
+        if j is not None:
+            kvcache.merge_batch(self.caches, slot_caches, j, self._axes)
         self._set_slot(i, req, prompt)
 
     def _set_slot(self, i: int, req: Request, prompt: np.ndarray, *,
@@ -655,19 +723,21 @@ class ServingEngine:
         plen = int(prompt.size)
         live = req.max_new_tokens > 0
         kind = decoding.parse(req.decoding).kind
-        self.pos[i] = plen - 1
-        self.budget[i] = req.max_new_tokens
-        self.last_tok[i] = int(prompt[-1])
-        self.active[i] = live
-        self.temperature[i] = float(req.temperature)
-        self.top_k[i] = int(req.top_k)
-        self.top_p[i] = float(req.top_p)
-        self.mode[i] = kind
-        self.beam_group[i] = (-1 if kind != decoding.BEAM
-                              else i if leader is None else leader)
-        self.beam_score[i] = 0.0 if leader is None else decoding.NEG
-        self.spec_steps[i] = 0
-        self.spec_accepted[i] = 0
+        j = self._local(i)
+        if j is not None:  # this rank's slot: its device state
+            self.pos[j] = plen - 1
+            self.budget[j] = req.max_new_tokens
+            self.last_tok[j] = int(prompt[-1])
+            self.active[j] = live
+            self.temperature[j] = float(req.temperature)
+            self.top_k[j] = int(req.top_k)
+            self.top_p[j] = float(req.top_p)
+            self.mode[j] = kind
+            self.beam_group[j] = (-1 if kind != decoding.BEAM
+                                  else i if leader is None else leader)
+            self.beam_score[j] = 0.0 if leader is None else decoding.NEG
+            self.spec_steps[j] = 0
+            self.spec_accepted[j] = 0
         self._sampling[i] = req.temperature > 0
         self._slot_kind[i] = kind
         self._beam_hist[i] = []
@@ -757,7 +827,8 @@ class ServingEngine:
                                 cow=cow_src is not None,
                                 tokens_reused=min(start, plen - 1))
         # pooled leaves: the pool itself; slot-resident ones: a zeroed
-        # batch-1 view, copied into slot i after the prefill
+        # batch-1 view, copied into slot i after the prefill (a mesh's
+        # families have none)
         view = tree_map(
             lambda c, z, pooled: c if pooled else torch.zeros(
                 z.shape, dtype=z.dtype, device=self.device),
@@ -788,7 +859,7 @@ class ServingEngine:
                 # this slot's first decode chunk writes position plen-1
                 key = blockpool.chain_key(prompt)
                 self._prefix.put(key, row[m_share])
-                self._pending_keys.add(key)
+                self._pending_keys[key] = (row[m_share], i)
         if not live:
             # nothing to generate: give the reservation back now (blocks
             # the prefix cache registered keep its own ref)
@@ -800,7 +871,8 @@ class ServingEngine:
         deactivate it."""
         if self.paged:
             self._release(i)
-        self.active[i] = False
+        if self._local(i) is not None:
+            self.active[self._local(i)] = False
         self.slots[i] = None
         self._slot_kind[i] = decoding.NORMAL
         self._beam_hist[i] = []
@@ -854,16 +926,26 @@ class ServingEngine:
                 row = lead_row[:m_share] + blocks
                 self._slot_blocks[m] = list(row)
                 self._set_page_row(m, row)
-            else:
+            elif self._local(m) is not None:  # the group's data rank
                 kvcache.merge_batch(
-                    self.caches, kvcache.slice_batch(self.caches, lead,
-                                                     self._axes),
-                    m, self._axes)
+                    self.caches, kvcache.slice_batch(
+                        self.caches, self._local(lead), self._axes),
+                    self._local(m), self._axes)
             self._set_slot(m, req, prompt, leader=lead)
             stamped.append(m)
         self._beam_groups[lead] = {"req": req, "slots": list(slots_w),
                                    "live": set(slots_w), "finished": []}
         return True
+
+    def _free_slots(self, width: int) -> Optional[List[int]]:
+        """The first ``width`` free slots inside one shard (the first shard
+        that has them: a beam group stays on one data rank), or None."""
+        per = self.max_batch // self._shards
+        for lo in range(0, self.max_batch, per):
+            free = [i for i in range(lo, lo + per) if self.slots[i] is None]
+            if len(free) >= width:
+                return free
+        return None
 
     def _admit(self) -> int:
         """FIFO admission into free slots; a request waits at the head of
@@ -875,8 +957,8 @@ class ServingEngine:
             dm = decoding.parse(req.decoding)
             beam = dm.kind == decoding.BEAM and req.max_new_tokens > 0
             width = dm.beam_width if beam else 1
-            free = [i for i, r in enumerate(self.slots) if r is None]
-            if len(free) < width:
+            free = self._free_slots(width)
+            if free is None:
                 break
             self.admit_attempts += 1
             if beam:
@@ -935,7 +1017,10 @@ class ServingEngine:
         n = toks.shape[0]
         if self.paged:
             # each pending divergence entry's origin slot has now written
-            # the entry's last position: fully shareable from here on
+            # the entry's last position: fully shareable from here on (on
+            # every data rank, once the owner's copy has reached them)
+            if self._dp > 1 and self._pending_keys:
+                self._share_blocks(self._pending_keys.values())
             self._pending_keys.clear()
         for step in range(n):
             if has_beam:
@@ -959,6 +1044,39 @@ class ServingEngine:
         self._retire(occupied, alive, scores, sst, sacc)
         return True
 
+    def _share_blocks(self, entries):
+        """Each (block, origin slot) of ``entries``: the block as the data
+        rank that owns the slot holds it, copied to every data rank's pool
+        (one all-gather over the data axis a pooled leaf)."""
+        entries = sorted(entries)
+        per = self.local_batch
+        ids = self._to_device(np.asarray([b for b, _ in entries], np.int64))
+        owner = [slot // per for _, slot in entries]
+
+        def share(c, ax, pooled):
+            if not pooled:
+                return
+            got = collectives.all_gather(c.index_select(ax, ids)[None],
+                                         dim=0, axis="data")
+            c.index_copy_(ax, ids, torch.cat([
+                got[o].narrow(ax, n, 1) for n, o in enumerate(owner)], ax))
+        tree_map(share, self.caches, self._axes, self._pooled)
+
+    def _host(self, parts, dtype):
+        """THE once-per-chunk sync: ``parts`` [(device tensor, its slot
+        axis)] as host arrays over every slot, one copy. Under a data
+        split every rank's parts are gathered first, in one collective,
+        and each part's shards joined along its slot axis."""
+        flat = torch.cat([t.reshape(-1).to(dtype) for t, _ in parts])
+        if self._dp > 1:
+            flat = collectives.all_gather(flat[None], dim=0, axis="data")
+        host = flat.cpu().numpy().reshape(self._dp, -1)
+        sizes = np.cumsum([t.numel() for t, _ in parts])[:-1]
+        shards = [np.split(h, sizes) for h in host]
+        return [np.concatenate([sh[n].reshape(t.shape) for sh in shards],
+                               axis=ax)
+                for n, (t, ax) in enumerate(parts)]
+
     def _run_chunk(self, has_beam: bool, has_spec: bool, sampling: bool):
         """One decode chunk and THE sync that reads it back: host arrays
         toks / valid [N, B, S_e], the beam parents [N, B], liveness [B],
@@ -967,33 +1085,22 @@ class ServingEngine:
         parent = scores = sst = sacc = None
         if not (has_beam or has_spec):
             toks, valid = self._decode_chunk(sampling)
-            n, b = toks.shape
-            # THE once-per-chunk sync: tokens, validity and liveness in one
-            # copy
-            host = torch.cat([toks.reshape(-1),
-                              valid.reshape(-1).to(torch.int64),
-                              self.active.to(torch.int64)]).cpu().numpy()
-            toks = host[:n * b].reshape(n, b, 1)
-            valid = host[n * b:2 * n * b].reshape(n, b, 1).astype(bool)
-            alive = host[2 * n * b:].astype(bool)
+            # tokens, validity and liveness in one copy
+            toks, valid, alive = self._host(
+                [(toks, 1), (valid, 1), (self.active, 0)], torch.int64)
+            toks, valid = toks[..., None], valid[..., None].astype(bool)
         else:
             toks, valid, parent = self._decode_general(has_beam, has_spec,
                                                        sampling)
-            n, b, s_e = toks.shape
-            # still one sync: the parent map, the beam scores and the spec
-            # counters ride in the same copy (float64 holds them exactly)
-            parts = (toks, valid, parent, self.active, self.beam_score,
-                     self.spec_steps, self.spec_accepted)
-            host = torch.cat([t.reshape(-1).to(torch.float64)
-                              for t in parts]).cpu().numpy()
-            sizes = np.cumsum([t.numel() for t in parts])[:-1]
-            toks, valid, parent, alive, scores, sst, sacc = np.split(
-                host, sizes)
-            toks = toks.astype(np.int64).reshape(n, b, s_e)
-            valid = valid.astype(bool).reshape(n, b, s_e)
-            parent = parent.astype(np.int64).reshape(n, b)
-            alive = alive.astype(bool)
-        return toks, valid, parent, alive, scores, sst, sacc
+            # still one copy: the parent map, the beam scores and the spec
+            # counters ride along (float64 holds them exactly)
+            toks, valid, parent, alive, scores, sst, sacc = self._host(
+                [(toks, 1), (valid, 1), (parent, 1), (self.active, 0),
+                 (self.beam_score, 0), (self.spec_steps, 0),
+                 (self.spec_accepted, 0)], torch.float64)
+            toks, valid = toks.astype(np.int64), valid.astype(bool)
+            parent = parent.astype(np.int64)
+        return toks, valid, parent, alive.astype(bool), scores, sst, sacc
 
     def _retire(self, occupied: List[int], alive, scores, sst, sacc):
         """Retire the occupied slots the chunk left dead: a request's slot
@@ -1069,7 +1176,8 @@ class ServingEngine:
     def pretune(self, *, repeats: int = 2, max_candidates: int = 4,
                 verbose: bool = False) -> int:
         """Measure-tune every mpGEMM shape this engine dispatches: each
-        packed weight's shape at M = ``max_batch`` (a decode step) and M =
+        packed weight's shape at M = ``local_batch`` (a decode step: this
+        data rank's slots) and M =
         ``prefill_chunk`` (a prefill chunk), missing from the tuning cache,
         which is then saved where it has a path. Only ``lut_pallas`` has
         kernel knobs: any other mode warns and returns 0. Returns the
@@ -1086,7 +1194,7 @@ class ServingEngine:
                           f"{q.get('mpgemm_mode')!r} (no kernel knobs)")
             return 0
         n = autotune.pretune_params(
-            self.params, [self.max_batch, self.prefill_chunk], cache=cache,
+            self.params, [self.local_batch, self.prefill_chunk], cache=cache,
             table_quant=mp.resolve_table_quant(q.get("table_quant", "auto"),
                                                self.device),
             repeats=repeats, max_candidates=max_candidates, verbose=verbose)
@@ -1132,8 +1240,10 @@ class ServingEngine:
             live = [i for i in range(self.max_batch)
                     if self.slots[i] is not None
                     and self._slot_kind[i] == decoding.SPEC]
-            sst = self.spec_steps.cpu().numpy()
-            sacc = self.spec_accepted.cpu().numpy()
+            with plan_scope(self.plan):  # every slot's counters
+                sst, sacc = self._host([(self.spec_steps, 0),
+                                        (self.spec_accepted, 0)],
+                                       torch.int64)
             vs = self.spec_verify_steps + int(sum(sst[i] for i in live))
             at = self.spec_accepted_tokens + int(sum(sacc[i] for i in live))
             out["spec"] = {
@@ -1171,20 +1281,22 @@ class ServingEngine:
 
     def _mesh_stats(self) -> Optional[dict]:
         """None on one device (the reference's plan=None); under a mesh its
-        shape, backend and this rank's coordinate, and the collectives'
-        counters of this process (``distributed.collectives``: calls,
-        bytes, host seconds inside them). Nothing is staged through host
-        memory: every backend takes the card's tensors (the collectives
-        module docstring)."""
+        shape, backend, this rank's coordinate and slots, and the
+        collectives' counters of this process (``distributed.collectives``:
+        calls, bytes, host seconds inside them; in all and by axis).
+        Nothing is staged through host memory: every backend takes the
+        card's tensors (the collectives module docstring)."""
         if self.plan is None:
             return None
         mesh = self.plan.mesh
         c = collectives.counters()
         return {"shape": mesh.sizes, "backend": mesh.backend,
                 "rank": dict(zip(mesh.axis_names, mesh.coords)),
+                "slots": [self._lo, self._lo + self.local_batch],
                 "collective_calls": c["calls"],
                 "collective_bytes": c["bytes"],
                 "collective_s": c["seconds"],
+                "collectives_by_axis": c["by_axis"],
                 "host_staged_bytes": 0}
 
     def metrics_snapshot(self) -> dict:

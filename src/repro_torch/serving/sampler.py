@@ -4,7 +4,10 @@ Parameters are python scalars or per-slot [B] tensors. Sentinels, as in
 the reference: ``temperature <= 0`` is greedy for that slot, ``top_k == 0``
 disables top-k, ``top_p >= 1`` disables the nucleus cut. Random draws come
 from an explicit ``torch.Generator`` (Gumbel-max over the masked logits),
-so no call here waits for the device.
+so no call here waits for the device. ``rows`` (start, total): the rows
+given are rows start.. of a batch of ``total`` split over data ranks;
+the whole batch's noise is drawn and these rows kept, so a row draws
+what it draws on one device and every later draw stays in step.
 """
 
 from __future__ import annotations
@@ -48,21 +51,31 @@ def mask_logits(logits, *, temperature=0.0, top_k=0, top_p=1.0):
     return torch.where((xm < cutoff) & (tp[:, None] < 1.0), -torch.inf, xm)
 
 
-def categorical(gen: torch.Generator, logits):
+def uniform(gen: torch.Generator, shape, device, rows=None):
+    """U[0, 1) noise of ``shape``; with ``rows`` (start, total) the rows
+    start.. of the noise of a [total, ...] batch."""
+    if rows is None:
+        return torch.rand(shape, generator=gen, device=device)
+    start, total = rows
+    return torch.rand((total,) + tuple(shape[1:]), generator=gen,
+                      device=device)[start:start + shape[0]]
+
+
+def categorical(gen: torch.Generator, logits, rows=None):
     """One draw per row from softmax(logits) over the last axis
     (Gumbel-max)."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = uniform(gen, logits.shape, logits.device, rows)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample(gen: torch.Generator, logits, *, temperature=0.0, top_k=0,
-           top_p=1.0):
+           top_p=1.0, rows=None):
     """logits [B, V] -> tokens [B] (int64)."""
     lf = logits.to(torch.float32)
     greedy = torch.argmax(lf, dim=-1)
     if _static_scalars(temperature, top_k, top_p) and temperature <= 0.0:
         return greedy
     x = mask_logits(lf, temperature=temperature, top_k=top_k, top_p=top_p)
-    sampled = categorical(gen, x)
+    sampled = categorical(gen, x, rows)
     temp = _per_row(temperature, lf.shape[0], torch.float32, lf.device)
     return torch.where(temp <= 0.0, greedy, sampled)

@@ -70,6 +70,21 @@ def test_packed_bytes_equal_reference(scheme, bits, k_group):
                                np.asarray(JQ.dequantize(jq)), **scale_tol)
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_symmetric_quantization_in_row_blocks_equals_the_reference(
+        monkeypatch, bits):
+    """A weight larger than ``QUANT_CHUNK_ELEMENTS`` is quantized in blocks
+    of 64 rows here (the last one short): the reference's packed bytes and
+    scales, as in one block."""
+    w = _weights(200, 64, seed=bits)
+    jq = JQ.quantize(jnp.asarray(w), bits, k_group=4)
+    monkeypatch.setattr(TQ, "QUANT_CHUNK_ELEMENTS", 64 * 64)
+    tq = TQ.quantize(torch.from_numpy(w), bits, k_group=4)
+    np.testing.assert_array_equal(tq.packed.numpy(), np.asarray(jq.packed))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+    assert (tq.n, tq.k_total) == (200, 64)
+
+
 @pytest.mark.parametrize("scheme,bits", SCHEMES)
 def test_storage_bits_per_weight_matches_reference(scheme, bits):
     """Packed bits a weight: the reference's for every scheme and K-group

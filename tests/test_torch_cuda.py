@@ -1379,3 +1379,57 @@ def test_gloo_collectives_take_card_tensors(cuda, monkeypatch):
             assert c[f"all_gather_{dtype}"].tolist() == [[1] * 3] * 2 + [
                 [2] * 3] * 2
         assert counters["calls"] == 4 + 2
+
+
+def _data_collectives_probe(ctx):
+    """The data axis's ops on this rank's card tensors, of values that say
+    which data rank sent them."""
+    from repro_torch.distributed import collectives
+    d, out = ctx["plan"].rank_along("batch"), {}
+    for dtype in (torch.float32, torch.int64):
+        x = torch.full((2, 3), d + 1, dtype=dtype, device=ctx["device"])
+        out[f"all_gather_{dtype}"] = collectives.all_gather(x, dim=0,
+                                                            axis="data")
+        out[f"all_reduce_{dtype}"] = collectives.all_reduce(x, axis="data")
+    return {k: v.cpu() for k, v in out.items()}, collectives.counters()
+
+
+def test_gloo_data_axis_collectives_and_a_2x1_forward(cuda, monkeypatch):
+    """Two data ranks on one card over gloo: the data axis's all_gather
+    and all_reduce of f32 and int64 card tensors (blocks in data order,
+    counted under "data"), and a per_row forward of reduced tinyllama
+    through the kernels, each rank building its own blocks
+    (``mesh_job``'s ``build``) and running its row of the batch, equal
+    bit for bit to the 2x1 one-device control's."""
+    import os
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh, mesh_job, serve
+    from repro_torch.models import api
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    cfg = registry.get_reduced("tinyllama-1.1b").replace(
+        activation_dtype=torch.float32).with_quant(mpgemm_mode="lut_pallas",
+                                                   table_quant="per_row")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 12)))
+    res = mesh.spawn(mesh_job.run, 2, args=([
+        {"probes": {"collectives": (_data_collectives_probe, ())}},
+        {"cfg": cfg, "build": True, "forwards": {"per_row": (cfg, toks)}}],
+        2))
+    for out, fwd in res:
+        assert out["backend"] == "gloo" and out["device"] == "cuda:0"
+        c, counters = out["probes"]["collectives"]
+        for dtype in (torch.float32, torch.int64):
+            assert c[f"all_gather_{dtype}"].tolist() == [[1] * 3] * 2 + [
+                [2] * 3] * 2
+            assert c[f"all_reduce_{dtype}"].tolist() == [[3] * 3] * 2
+        assert counters["by_axis"]["data"]["calls"] == 4
+        assert counters["by_axis"]["model"]["calls"] == 0
+        assert torch.equal(fwd["forwards"]["per_row"],
+                           res[0][1]["forwards"]["per_row"])
+    params = serve.build_params(cfg, cuda, True)
+    plan = sharding.AxisPlan(sharding.Mesh(("data", "model"), (2, 1), (0, 0),
+                                           {}))
+    want = api.forward(sharding.one_device_control(params, plan, cfg),
+                       {"tokens": toks.to(cuda)}, cfg)[0]
+    assert torch.equal(res[0][1]["forwards"]["per_row"], want.cpu())

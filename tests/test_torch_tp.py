@@ -23,8 +23,9 @@ heads, so 1x4 runs attention whole and splits the MLP, embedding and head):
   * engine streams at 1x2 (greedy, sampled with the same seed, beam, spec,
     the paged pool with prefix caching) equal to the single-device
     engine's, and equal on every rank;
-  * ``launch/serve.py --tp 2 --device cpu``; the refusals (a data axis,
-    the SSM, hybrid, VLM and audio families).
+  * ``launch/serve.py --tp 2 --device cpu``; the refusals (FSDP, a
+    sequence axis, the SSM, hybrid, VLM and audio families under any
+    mesh).
 """
 
 import pickle
@@ -388,26 +389,38 @@ def test_serve_entry_point_tp2_on_cpu(capfd):
 
 
 def test_refusals():
+    """What the data-axis slice leaves refused: FSDP, a sequence axis, and
+    the SSM, hybrid, VLM and audio families under a mesh, whether it
+    splits the model or the batch (a data axis and ``--mesh 2x1`` are
+    served: tests/test_torch_dp.py)."""
+    from repro_torch.distributed import collectives
     from repro_torch.launch import serve
     with pytest.raises(ValueError, match="queue 1 item 9"):
-        mesh_mod.make_serving_mesh(data=2, model=1)
-    with pytest.raises(ValueError, match="queue 1 item 9"):
         mesh_mod.make_plan(mesh_mod.make_serving_mesh(), fsdp=True)
-    with pytest.raises(SystemExit):
-        serve.main(["--reduced", "--device", "cpu", "--mesh", "2x1"])
+    seq_plan = SH.AxisPlan(mesh=SH.Mesh(("data", "model"), (2, 1), (0, 0),
+                                        {}), seq="data")
+    with SH.plan_scope(seq_plan):
+        for op in (collectives.sp_scatter, collectives.sp_gather):
+            with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+                op(torch.zeros(2, 4))
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--mesh", "1x2",
                     "--tp", "2"])
-    plan = SH.AxisPlan(mesh=SH.Mesh(("data", "model"), (1, 2), (0, 0),
-                                    {"data": None, "model": None}))
     from repro_torch.serving.engine import ServingEngine
-    for arch in ("falcon-mamba-7b", "zamba2-7b", "llama-3.2-vision-11b",
-                 "whisper-tiny"):
-        cfg = _cfg(arch)
-        params = tapi.init_params(torch.Generator().manual_seed(0), cfg,
-                                  "cpu")
-        with pytest.raises(ValueError, match="queue 1 item 9"):
-            ServingEngine(cfg, params, plan=plan, max_batch=1, max_seq=16)
+    for shape in ((1, 2), (2, 1), (2, 2)):
+        plan = SH.AxisPlan(mesh=SH.Mesh(("data", "model"), shape, (0, 0),
+                                        {"data": None, "model": None}))
+        for arch in ("falcon-mamba-7b", "zamba2-7b", "llama-3.2-vision-11b",
+                     "whisper-tiny"):
+            cfg = _cfg(arch)
+            params = tapi.init_params(torch.Generator().manual_seed(0), cfg,
+                                      "cpu")
+            with pytest.raises(ValueError, match="queue 1 item 9"):
+                ServingEngine(cfg, params, plan=plan, max_batch=2,
+                              max_seq=16)
+            with pytest.raises(ValueError, match="queue 1 item 9"):
+                tapi.init_params(torch.Generator().manual_seed(0), cfg,
+                                 "cpu", plan=plan)
 
 
 def test_a_rank_without_a_card_raises(monkeypatch):
