@@ -385,7 +385,9 @@ exit and no result line):
      the per-shard kernels, full-width tinyllama-1.1b (4 of its 22
      layers, ``MESH_LAYERS``) at 1x2 and 1x4 and olmoe-1b-7b (4 of 16
      layers) at 1x2, logits and streams held bit for bit to the
-     one-device control (``sharding.one_device_control``).
+     one-device control (``sharding.one_device_control``). Phases 19-21
+     spawn each world size's ranks once and run on them in turn
+     (``rank_pool``).
  20. dp      — the data axis (``dp_phase``): (e) the per-shard kernels at
      a data rank's decode rows (M = 2); (a) each rank's own build at 1x2
      (``launch/serve.py``'s ``build_params``): its peak device memory
@@ -401,6 +403,14 @@ exit and no result line):
      on the whole batch; (d) per rank and serve: launches, host syncs a
      token, collectives by axis, a decode step's wall and busy time,
      decode tok/s beside one device's.
+ 21. train mesh — training under a (data, model) mesh
+     (``train_mesh_phase``): full-width tinyllama-1.1b (2 layers) QAT, 4
+     steps of 8 x 128 tokens, on one device and on ranks spawned on the
+     card at 2x1 and 2x2 with and without FSDP (ZeRO-3 over the data
+     axis), int8 gradient compression and Adafactor at 2x1, a 2x2
+     checkpoint restored on the mesh and on one device, and the mesh's
+     trained weights packed and run through lut_pallas = lut_xla; FSDP on
+     equals FSDP off bit for bit, the mesh within 1e-3 of one device.
 
 Phase 4 also prints its profiled decode step as a roofline
 (``roofline_record``: ``repro_torch.roofline.cost.step_cost`` at the
@@ -416,9 +426,8 @@ llama-3.2-vision-11b's and whisper-tiny's shapes under their names, the
 launches of phase 14's serve of the trained weights, phase 15's
 int8-cache serves' by model, phase 16's forwards and engine serve of
 the trained weights by model, and phase 17's windowed zamba2 stream and
-step); every phase prints its seconds; the
-last line
-``{"ok": true, "device": {...}}``. Per-shape details go to
+step), after a line with the whole script's seconds (every phase also
+prints its own); the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chip_smoke.json`` in the kernels' build directory
 (``src/repro_torch/build/``).
 
@@ -464,8 +473,9 @@ JSON),
     python3 chip_smoke.py --cw                # phases 1, 2 and 18 only
     python3 chip_smoke.py --tp                # phases 1, 2 and 19 only
     python3 chip_smoke.py --dp                # phases 1, 2 and 20 only
+    python3 chip_smoke.py --train-mesh        # phases 1, 2 and 21 only
 
-phase 17, 18, 19 or 20 alone (its record as one line of JSON),
+phase 17, 18, 19, 20 or 21 alone (its record as one line of JSON),
 
     python3 chip_smoke.py --bound-seeds       # phases 1, 2 and 8 (a)'s
                                               # bf16 checks for 3 seeds
@@ -501,6 +511,7 @@ so one call can run them on an older checkout beside this one.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -4782,6 +4793,118 @@ MESH_LAYERS = 4
 # the card's memory, bytes: the ranks' peaks must sum below it
 CARD_BYTES = 80e9
 
+# ranks kept up across phases 19-21, one pool a world size: a spawn's
+# ranks take ~20 s to come up on the card (PERF.md §6), so each world's
+# ranks start once and run each phase's function in turn; main() stops
+# them at its end
+_POOLS = {}
+
+
+def pool_entry(rank, world, init_method, device, tasks, done, out_dir):
+    """A pool rank: joins the group once (``launch.mesh.init_rank``), then
+    runs each task ``(fn, args)`` of ``tasks`` as ``fn(rank, device,
+    *args)`` until it gets None, the result saved under ``out_dir`` and
+    ``(rank, path, error)`` put on ``done``."""
+    import traceback
+    from repro_torch.launch import mesh as mesh_mod
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = mesh_mod.init_rank(rank, world, init_method, device)
+    try:
+        for n in itertools.count():
+            task = tasks.get()
+            if task is None:
+                return
+            try:
+                path = os.path.join(out_dir, f"rank{rank}_{n}.pt")
+                fn, args = task
+                torch.save(fn(rank, dev, *args), path)
+                done.put((rank, path, None))
+            except BaseException:
+                done.put((rank, None, traceback.format_exc()))
+                raise
+            finally:
+                gc_cuda()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+class RankPool:
+    """``world`` ranks spawned once (``launch.mesh.spawn``'s ranks, kept
+    up): ``run(fn, args)`` is ``spawn(fn, world, args=args)`` on them,
+    their results in rank order; a rank that fails or exits fails
+    ``run`` and the pool is stopped."""
+
+    def __init__(self, world, device="cuda"):
+        import tempfile
+        import torch.multiprocessing as mp
+        from repro_torch.launch import mesh as mesh_mod
+        mesh_mod.rank_device(0, device)  # raise here, not in every rank
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.dir = tempfile.TemporaryDirectory(prefix="pool")
+        self.tasks = [ctx.SimpleQueue() for _ in range(world)]
+        self.done = ctx.Queue()
+        init = f"tcp://localhost:{mesh_mod.free_port()}"
+        self.procs = [ctx.Process(target=pool_entry, args=(
+            r, world, init, device, self.tasks[r], self.done,
+            self.dir.name)) for r in range(world)]
+        self.closed = False
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, args=()):
+        import queue
+        for q in self.tasks:
+            q.put((fn, tuple(args)))
+        paths = {}
+        while len(paths) < self.world:
+            try:
+                rank, path, err = self.done.get(timeout=5)
+            except queue.Empty:
+                gone = [p.exitcode for p in self.procs if not p.is_alive()]
+                if gone:
+                    self.close()
+                    raise RuntimeError(f"a pool rank exited: {gone}")
+                continue
+            if err is not None:
+                self.close()
+                raise RuntimeError(f"pool rank {rank} failed:\n{err}")
+            paths[rank] = path
+        out = [torch.load(paths[r], weights_only=False)
+               for r in range(self.world)]
+        for path in paths.values():
+            os.remove(path)
+        return out
+
+    def close(self):
+        """Stops the ranks: each ends its loop, or is terminated where it
+        does not within 30 s (a rank in a collective whose peer failed)."""
+        if self.closed:
+            return
+        self.closed = True
+        for q, p in zip(self.tasks, self.procs):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        self.dir.cleanup()
+
+
+def rank_pool(world) -> RankPool:
+    """The pool of ``world`` ranks on the card, started at its first
+    use."""
+    if world not in _POOLS:
+        _POOLS[world] = RankPool(world)
+    return _POOLS[world]
+
+
+def close_pools():
+    while _POOLS:
+        _POOLS.popitem()[1].close()
+
 
 def tp_plan(m):
     """A 1 x m plan as rank 0 sees it, for shapes and the one-device
@@ -5096,7 +5219,7 @@ def tp_phase(flush):
                                for n, c in cfgs.items()})]
         if m == TP_MOE_MESH:
             jobs.append(moe_job)
-        res = mesh_mod.spawn(mesh_job.run, m, args=(jobs,))
+        res = rank_pool(m).run(mesh_job.run, (jobs,))
         rec["spawn_s_1x%d" % m] = time.perf_counter() - tb
         for r in res:
             if r[0]["backend"] != rec["backends"][m]:
@@ -5383,12 +5506,11 @@ def dp_build(cfg):
     memory beside the float weight it packs, so the bound alone
     cannot hold at the head."""
     from repro_torch.distributed.sharding import shard_params
-    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import mesh_job
     from repro_torch.launch import serve as serve_mod
     fails, rec = [], {}
     t0 = time.perf_counter()
-    res = mesh_mod.spawn(mesh_job.run, 2, args=([{"probes": {
+    res = rank_pool(2).run(mesh_job.run, ([{"probes": {
         "build": (dp_build_probe, (cfg,))}}],))
     rec["spawn_s"] = time.perf_counter() - t0
     gc_cuda()
@@ -5649,7 +5771,7 @@ def dp_phase(flush):
                      probes={"step": (tp_step_probe, ("per_row",))})]
         if (d, m) == DP_MOE_MESH:
             jobs.append(moe_job)
-        res = mesh_mod.spawn(mesh_job.run, d * m, args=(jobs, d))
+        res = rank_pool(d * m).run(mesh_job.run, (jobs, d))
         spawn_s = time.perf_counter() - tb
         leg = dp_leg_record(tag, [r[0] for r in res], serves, {
             "float": ("fused_lut_mpgemm", "lut_mpgemm")}, fails)
@@ -5868,6 +5990,622 @@ def dp_launches(rec, name):
     out[f"olmoe_{d}x{m}"] = rec[f"olmoe_{d}x{m}"]["ranks"][0]["serves"][
         "greedy"]["launches"][name]
     return out
+
+
+# phase 21: training under a (data, model) mesh, ranks sharing the card
+TM_STEPS = 4               # AdamW steps of (a)-(c) and (e)
+TM_STEPS_D = 2             # (d)'s steps: int8 and Adafactor legs
+# depth: 2 of 22 layers (phases 19 and 20 run MESH_LAYERS = 4): ranks on
+# one card move a step's gradients over gloo (at 4 layers a 2x1 step took
+# 1.76 s for its 1.23 GB, and the phase 240 s of the script's budget:
+# PERF.md §6, training under a mesh)
+TM_LAYERS = 2
+TM_BATCH, TM_SEQ = 8, 128
+TM_CKPT = 3                # (e): the 2x2 FSDP run's checkpoint
+TM_LR = 3e-4               # launch/train.py's schedule: 20 warmup steps
+TM_HELD = 0.55             # a 2x1 FSDP rank's held state / one device's
+# the legs of each spawn: (optimizer, compression, fsdp); a no-FSDP leg
+# runs before its FSDP twin, which must equal it bit for bit
+TM_LEGS = {1: (("adamw", None, False), ("adamw", None, True),
+               ("adamw", "int8", False), ("adamw", "int8", True),
+               ("adafactor", None, False), ("adafactor", None, True)),
+           2: (("adamw", None, False), ("adamw", None, True))}
+
+
+def train_mesh_config():
+    """Phase 21's model: full-width tinyllama-1.1b at ``TM_LAYERS`` of its
+    22 layers, W2 symmetric QAT, f32 activations."""
+    return train_config().replace(n_layers=TM_LAYERS)
+
+
+def tm_key(model, opt, comp, fsdp):
+    return (f"2x{model} {opt}" + (f" {comp}" if comp else "")
+            + (" fsdp" if fsdp else ""))
+
+
+def tm_optimizer(name):
+    """``name`` at ``launch/train.py``'s schedule (``lr_schedule(3e-4,
+    warmup=20)``): at a constant 3e-4 from step 1 AdamW moves every
+    weight by ~lr whatever its gradient, so a near-zero gradient summed
+    in another order (a mesh's) flips its step, and the 2x1 loss had
+    parted from one device's by 3.5e-3 at step 5 (PERF.md §6, training
+    under a mesh)."""
+    from repro_torch.training import optimizer as opt_mod
+    return opt_mod.make_optimizer(name, lr=opt_mod.lr_schedule(
+        TM_LR, warmup=20, total=TM_STEPS))
+
+
+def tm_steps(comp, opt_name):
+    """A leg's steps: (d)'s int8 and Adafactor legs take fewer."""
+    return TM_STEPS if comp is None and opt_name == "adamw" else TM_STEPS_D
+
+
+def tm_batches(cfg):
+    from repro_torch.training.data import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, TM_BATCH, TM_SEQ, seed=0)
+    return [data.batch_at(s) for s in range(TM_STEPS)]
+
+
+def tm_bytes(tree):
+    from repro_torch.core.tree import tree_leaves
+    out = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, dict):
+            out += sum(t.numel() * t.element_size() for t in leaf.values())
+        elif torch.is_tensor(leaf):
+            out += leaf.numel() * leaf.element_size()
+    return out
+
+
+def tm_checksum(t) -> int:
+    """A 64-bit checksum of a tensor's bits on its device: the sum of its
+    words (as int64) times odd weights, mod 2^64. Two tensors whose bits
+    differ in one word never share it."""
+    v = t.detach().contiguous().reshape(-1)
+    if v.numel() == 0:
+        return 0
+    v = v.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                1: torch.int8}[v.element_size()]).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) * 2 + 1
+    return int((v * w * 0x9E3779B1).sum())
+
+
+def tm_state_leaves(state, specs):
+    """(name, leaf, spec) of every tensor of a train state: params, each
+    optimizer leaf (its param's spec where it mirrors it, else
+    replicated), ef, step."""
+    from repro_torch.core.tree import tree_map_with_path, tree_paths
+    out = [(f"params{p}", t, s) for (p, t), s in zip(
+        tree_paths(state["params"]), specs)]
+    for k, sub in state["opt"].items():
+        if k == "step":
+            out.append(("opt.step", sub, ()))
+            continue
+        objs = []  # the state of each param leaf (a tensor, or a dict)
+        tree_map_with_path(lambda p, _, x: objs.append((p, x)),
+                           state["params"], sub)
+        for (p, leaf), s in zip(objs, specs):
+            if isinstance(leaf, dict):
+                out += [(f"opt.{k}{p}.{c}", t, ()) for c, t in leaf.items()]
+            else:
+                out.append((f"opt.{k}{p}", leaf,
+                            s if leaf.dim() == len(s) else ()))
+    if "ef" in state:
+        out += [(f"ef{p}", t, s) for (p, t), s in zip(
+            tree_paths(state["ef"]), specs)]
+    out.append(("step", state["step"], ()))
+    return out
+
+
+def tm_grad_check(step, state, batch, cfg, plan, specs, device, rank):
+    """Step 0's gradients of the mesh (this rank's blocks gathered whole)
+    against one device's, on rank 0: each leaf's max |diff| over its own
+    max |g|, the largest and its leaf; the mesh's and one device's
+    loss."""
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    g, met = step.grads(state, batch)
+    whole = [SH.whole_of(t, s, plan) for t, s in zip(tree_leaves(g), specs)]
+    del g
+    if rank != 0:
+        return None
+    opt = tm_optimizer("adamw")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    one = init_train_state(gen, cfg, opt, device)
+    g1, met1 = make_train_step(cfg, opt).grads(one, batch)
+    worst, where = 0.0, None
+    for (path, a), b in zip(tree_paths(g1), whole):
+        r = ((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+        if r > worst:
+            worst, where = r, path
+    return {"max_rel_to_leaf_max": worst, "leaf": where,
+            "loss": float(met["loss"]), "one_device_loss": float(
+                met1["loss"])}
+
+
+def tm_ef_want(step, state, batch, plan, specs):
+    """This rank's blocks of the int8 compression of the whole step-0
+    gradient (its blocks gathered whole, compressed from a zero ef)."""
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as SH
+    g, _ = step.grads(state, batch)
+    whole = [SH.whole_of(t, s, plan) for t, s in zip(tree_leaves(g), specs)]
+    _, ef = compression.compress_decompress_tree(tree_unflatten(g, whole))
+    return [SH.block_of(e, s, plan) for e, s in zip(tree_leaves(ef), specs)]
+
+
+def tm_serve(cfg, params, device):
+    """(f): the mesh-trained params packed (W2 per_row) and run
+    teacher-forced through lut_pallas and lut_xla: 128 tokens of one row
+    (the staged path) and one token of 4 rows (the fused path); the
+    pallas logits must equal lut_xla's bit for bit; the per_row path's
+    launches, counted from 0 over the two lut_pallas forwards."""
+    from repro_torch.launch import mesh_job
+    from repro_torch.models import api, quantized
+    scfg = main_config().replace(n_layers=TM_LAYERS)
+    t0 = time.perf_counter()
+    packed = quantized.quantize_params(params, scfg.quant)
+    torch.cuda.synchronize(device)
+    out = {"quantize_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(3)
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                            device=device) for shape in ((1, 128), (4, 1))]
+    pallas = scfg.with_quant(mpgemm_mode="lut_pallas", table_quant="per_row")
+    xla = scfg.with_quant(mpgemm_mode="lut_xla", table_quant="per_row")
+    with torch.no_grad():
+        torch.cuda.synchronize(device)
+        mesh_job.reset_kernel_counts()
+        got = [api.forward(packed, {"tokens": t}, pallas)[0] for t in toks]
+        torch.cuda.synchronize(device)
+        out["launches"] = mesh_job.kernel_counts()
+        want = [api.forward(packed, {"tokens": t}, xla)[0] for t in toks]
+    out["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    out["max_abs_diff"] = max((a - b).abs().max().item()
+                              for a, b in zip(got, want))
+    out["finite"] = all(bool(torch.isfinite(a).all()) for a in got)
+    return out
+
+
+def tm_rank(rank, device, model, legs, ckpt_dir):
+    """One rank of phase 21's 2 x ``model`` spawn: each leg of ``legs`` in
+    turn (``train_mesh_phase``); returns its records."""
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 param_specs)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_enter = time.time()
+    cfg = train_mesh_config()
+    mesh = mesh_mod.make_serving_mesh(data=2, model=model, device=device)
+    batches = tm_batches(cfg)
+    out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+           "legs": {}, "t_enter": t_enter, "mesh_s": time.time() - t_enter}
+    kept = {}
+    for opt_name, comp, fsdp in legs:
+        key = tm_key(model, opt_name, comp, fsdp)
+        rec = out["legs"][key] = {}
+        t_leg = time.perf_counter()
+        plan = mesh_mod.make_plan(mesh, fsdp=fsdp)
+        gc_cuda()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        opt = tm_optimizer(opt_name)
+        step = make_train_step(cfg, opt, plan=plan, grad_compression=comp)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        state = init_train_state(gen, cfg, opt, device,
+                                 grad_compression=comp, plan=plan)
+        torch.cuda.synchronize(device)
+        rec["init_s"] = time.perf_counter() - t0
+        specs = param_specs(state["params"], plan, cfg)
+        rec["held_bytes"] = (tm_bytes(state["params"])
+                             + tm_bytes(state["opt"]))
+        if fsdp and opt_name == "adamw" and comp is None:
+            rec["grads"] = tm_grad_check(step, state, batches[0], cfg, plan,
+                                         specs, device, rank)
+        ef_want = (tm_ef_want(step, state, batches[0], plan, specs)
+                   if fsdp and comp == "int8" else None)
+        rm = None
+        if fsdp and model == 2:  # (e): the 2x2 FSDP run checkpoints
+            if rank == 0:
+                shutil_rm(ckpt_dir)
+            torch.distributed.barrier()
+            rm = ckpt_mod.RestartManager(ckpt_dir, every=TM_CKPT, keep=1,
+                                         plan=plan, cfg=cfg)
+        losses, gnorms, ms, colls = [], [], [], []
+        for s in range(tm_steps(comp, opt_name)):
+            collectives.reset_counters()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, met = step(state, batches[s])
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(met["grad_norm"]))
+            colls.append(collectives.counters())
+            if ef_want is not None:
+                rec["ef_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(state["ef"]), ef_want))
+                ef_want = None
+            if rm is not None:
+                rm.maybe_save(s + 1, state)
+                if s + 1 == TM_CKPT:
+                    rec["ckpt_sums"] = [tm_checksum(t) for _, t, _ in
+                                        tm_state_leaves(state, specs)]
+        rec.update(losses=losses, grad_norms=gnorms, step_ms=ms,
+                   collectives=colls,
+                   peak_bytes=torch.cuda.max_memory_allocated(device))
+        rec["replicated_sums"] = [
+            tm_checksum(t) for _, t, s in tm_state_leaves(state, specs)
+            if plan.resolve("batch") not in s]
+        if not fsdp:
+            kept[(opt_name, comp)] = state
+        else:
+            ref = kept.pop((opt_name, comp), None)
+            if ref is not None:  # its data blocks of the no-FSDP state
+                diff = [name for (name, a, s), (_, b, _) in zip(
+                    tm_state_leaves(state, specs),
+                    tm_state_leaves(ref, specs))
+                    if not torch.equal(a, SH.block_of(b, tuple(
+                        x if x == "data" else None for x in s), plan))]
+                rec["equal_to_no_fsdp"] = not diff
+                rec["first_difference"] = diff[:3]
+            del ref
+        if rm is not None:
+            t0 = time.perf_counter()
+            rm.wait()
+            gen = torch.Generator(device=device)
+            gen.manual_seed(1)
+            st, start = rm.restore_or_none(
+                init_train_state(gen, cfg, opt, device, plan=plan))
+            r_losses, r_gnorms = [], []
+            for s in range(start, TM_STEPS):
+                st, met = step(st, batches[s])
+                r_losses.append(float(met["loss"]))
+                r_gnorms.append(float(met["grad_norm"]))
+            rec["restart"] = {
+                "start": start, "losses": r_losses, "grad_norms": r_gnorms,
+                "params_equal": all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(st["params"]),
+                    tree_leaves(state["params"])))}
+            del st
+            rec["restart_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            whole = [SH.whole_of(t, s, plan) for t, s in zip(
+                tree_leaves(state["params"]), specs)]
+            if rank == 0:
+                rec["serve"] = tm_serve(cfg, tree_unflatten(
+                    state["params"], whole), device)
+            del whole
+            torch.distributed.barrier()
+            rec["serve_s"] = time.perf_counter() - t0
+        del state
+        rec["leg_s"] = time.perf_counter() - t_leg
+    out["t_exit"] = time.time()
+    return out
+
+
+def shutil_rm(path):
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def train_mesh_phase():
+    """Phase 21: training under a (data, model) mesh. Full-width
+    tinyllama-1.1b (``TM_LAYERS`` of 22 layers), W2 symmetric QAT, f32
+    activations, float params from seed 0 made on the card,
+    ``SyntheticLM(seed=0)`` batches of 8 x 128, 4 steps (2 in (d)) at
+    ``launch/train.py``'s schedule (``tm_optimizer``), under
+    ``torch.use_deterministic_algorithms(True)``. (a) one device
+    (``make_train_step``): AdamW, AdamW with int8 compression, Adafactor.
+    Ranks on the card (``rank_pool``, ``launch.mesh.spawn``'s ranks kept
+    up from phases 19 and 20; they share the card over gloo, or each has
+    a card of its own over NCCL), every leg of a world size in one run
+    on its ranks: (b) 2x1 (data) AdamW with
+    and without FSDP; (c) 2x2, the model split by KV heads, with and
+    without FSDP; (d) at 2x1 int8 compression and Adafactor, with and
+    without FSDP; (e) the 2x2 FSDP run checkpoints at step 3
+    (``RestartManager(plan=)``: the whole state, rank 0 writing): a fresh
+    state restored on the same mesh reruns step 4, and the checkpoint
+    restored on one device here holds every rank's step-3 blocks; (f) the
+    2x2 run's gathered params packed (W2 per_row) and run teacher-forced
+    through lut_pallas and lut_xla on its rank 0 (``tm_serve``).
+
+    Checks (each fails the phase at its end): an FSDP run's state equals
+    its no-FSDP twin's bit for bit (every param, m, v, ef and Adafactor
+    leaf: each rank's blocks against the same data blocks of the twin);
+    each leaf a rank holds whole equal on every data rank of its model
+    coordinate (a 64-bit checksum, ``tm_checksum``); against one device:
+    step 0's loss within 1e-5 relative, step 0's gathered gradients (the
+    AdamW FSDP legs) within 1e-4 of each leaf's max |g|, the 4 losses
+    within 1e-3 relative (largest gaps recorded); int8: each rank's ef
+    after step 1 equal to its blocks of the compression of the whole
+    step-0 gradient; restart: bit-equal losses, grad norms and final
+    params, the one-device restore equal to the ranks' step-3 blocks
+    (64-bit checksums);
+    (f): lut_pallas = lut_xla bit for bit, every per_row kernel launched;
+    memory: each rank's held state (params + optimizer state) at 2x1 FSDP
+    at most 0.55 of one device's. Recorded: ms a step (median of steps
+    2-4, host clock, the loss read), tokens a second, collective calls and
+    bytes by axis in a step, each rank's peak device memory beside one
+    device's."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 param_specs)
+    t_phase = time.perf_counter()
+    fails = []
+    card = torch.device("cuda", 0)
+    cfg = train_mesh_config()
+    rec = {"arch": cfg.arch_id, "layers": cfg.n_layers, "batch": TM_BATCH,
+           "seq": TM_SEQ, "steps": TM_STEPS, "lr": TM_LR,
+           "card": device_line(),
+           "backends": {f"2x{m}": mesh_mod.choose_backend(2 * m, card)
+                        for m in TM_LEGS}}
+    print(f"train_mesh: backends {rec['backends']} "
+          f"({torch.cuda.device_count()} card(s)), card {rec['card']}",
+          flush=True)
+    batches = tm_batches(cfg)
+    ckpt_dir = str(_build.BUILD_DIR / "train_mesh_ckpt")
+
+    # (a) one device
+    rec["one_device"] = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for opt_name, comp in (("adamw", None), ("adamw", "int8"),
+                               ("adafactor", None)):
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            opt = tm_optimizer(opt_name)
+            step = make_train_step(cfg, opt, grad_compression=comp)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            state = init_train_state(gen, cfg, opt, "cuda",
+                                     grad_compression=comp)
+            one = {"held_bytes": tm_bytes(state["params"])
+                   + tm_bytes(state["opt"]),
+                   "params": sum(t.numel() for t in
+                                 tree_leaves(state["params"]))}
+            losses, gnorms, ms = [], [], []
+            for s in range(TM_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batches[s])
+                losses.append(float(met["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                gnorms.append(float(met["grad_norm"]))
+            one.update(losses=losses, grad_norms=gnorms, step_ms=ms,
+                       peak_bytes=torch.cuda.max_memory_allocated())
+            rec["one_device"][opt_name + (f" {comp}" if comp else "")] = one
+            del state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc_cuda()
+    for line in tm_one_device_lines(rec):
+        print(line, flush=True)
+
+    # (b)-(f) the ranks' runs
+    for model, legs in TM_LEGS.items():
+        started = 2 * model not in _POOLS
+        t0 = time.time()
+        res = rank_pool(2 * model).run(tm_rank, (model, legs, ckpt_dir))
+        rec[f"2x{model}"] = {
+            "run_s": time.time() - t0, "ranks": res,
+            "pool_started": started,
+            "legs_s": (max(r["t_exit"] for r in res)
+                       - min(r["t_enter"] for r in res))}
+        for opt_name, comp, fsdp in legs:  # rank 0's gaps to one device
+            leg = res[0]["legs"][tm_key(model, opt_name, comp, fsdp)]
+            one = rec["one_device"][opt_name + (f" {comp}" if comp else "")]
+            leg["loss_gaps"] = [abs(a - b) / abs(b) for a, b in zip(
+                leg["losses"], one["losses"])]
+        for line in tm_world_lines(rec, model):
+            print(line, flush=True)
+        gc_cuda()
+
+    # (e) the checkpoint restored on one device: every rank's step-3 blocks
+    ranks = rec["2x2"]["ranks"]
+    try:
+        opt = tm_optimizer("adamw")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        t0 = time.perf_counter()
+        restored, start = ckpt_mod.RestartManager(ckpt_dir).restore_or_none(
+            init_train_state(gen, cfg, opt, "cuda"))
+        rec["one_device_restore_s"] = time.perf_counter() - t0
+        rec["one_device_restore_step"] = start
+        ok = start == TM_CKPT and int(restored["step"]) == TM_CKPT
+        for r in ranks:
+            plan = SH.AxisPlan(SH.Mesh(("data", "model"), (2, 2),
+                                       r["coords"], {}), fsdp="data")
+            blocks = SH.shard_train_state(restored, plan, cfg)
+            specs = param_specs(blocks["params"], plan, cfg)
+            sums = [tm_checksum(t) for _, t, _ in
+                    tm_state_leaves(blocks, specs)]
+            ok &= sums == r["legs"][tm_key(2, "adamw", None, True)][
+                "ckpt_sums"]
+            del blocks
+        rec["one_device_restore_equal"] = ok
+        del restored
+    finally:
+        shutil_rm(ckpt_dir)
+    gc_cuda()
+    if not rec["one_device_restore_equal"]:
+        fails.append("train_mesh (e): the one-device restore differs from "
+                     "the ranks' step-3 blocks")
+
+    # the checks
+    for model, legs in TM_LEGS.items():
+        ranks = rec[f"2x{model}"]["ranks"]
+        for opt_name, comp, fsdp in legs:
+            key = tm_key(model, opt_name, comp, fsdp)
+            r0 = ranks[0]["legs"][key]
+            gaps = r0["loss_gaps"]
+            if gaps[0] > 1e-5 or max(gaps) > 1e-3:
+                fails.append(f"train_mesh {key}: losses part from one "
+                             f"device's: gaps {gaps}")
+            for r in ranks:
+                leg = r["legs"][key]
+                if leg["losses"] != r0["losses"] or \
+                        leg["grad_norms"] != r0["grad_norms"]:
+                    fails.append(f"train_mesh {key}: rank {r['rank']}'s "
+                                 "metrics differ from rank 0's")
+                if not all(np.isfinite(leg["losses"] + leg["grad_norms"])):
+                    fails.append(f"train_mesh {key}: a loss or grad norm is "
+                                 "not finite")
+                if fsdp and leg.get("equal_to_no_fsdp") is not True:
+                    fails.append(f"train_mesh {key}: rank {r['rank']}'s "
+                                 "state differs from the no-FSDP run's: "
+                                 f"{leg.get('first_difference')}")
+                if comp == "int8" and fsdp and not leg.get("ef_bit_equal"):
+                    fails.append(f"train_mesh {key}: rank {r['rank']}'s ef "
+                                 "is not its blocks of the whole gradient's "
+                                 "compression")
+            for c in range(model):  # the data ranks of a model coordinate
+                sums = [r["legs"][key]["replicated_sums"] for r in ranks
+                        if r["coords"][1] == c]
+                if any(s != sums[0] for s in sums):
+                    fails.append(f"train_mesh {key}: the replicated leaves "
+                                 f"of model coordinate {c} differ between "
+                                 "data ranks")
+            g = r0.get("grads")
+            if g is not None:
+                if g["max_rel_to_leaf_max"] > 1e-4 or abs(
+                        g["loss"] - g["one_device_loss"]) > 1e-5 * abs(
+                            g["one_device_loss"]):
+                    fails.append(f"train_mesh {key}: step 0's gradients "
+                                 f"against one device: {g}")
+        held = [r["legs"][tm_key(1, "adamw", None, True)]["held_bytes"]
+                for r in ranks] if model == 1 else []
+        if held and max(held) > TM_HELD * rec["one_device"]["adamw"][
+                "held_bytes"]:
+            fails.append(f"train_mesh 2x1 fsdp: held bytes {held} above "
+                         f"{TM_HELD} of one device's "
+                         f"{rec['one_device']['adamw']['held_bytes']}")
+    leg = rec["2x2"]["ranks"][0]["legs"][tm_key(2, "adamw", None, True)]
+    for r in rec["2x2"]["ranks"]:
+        rs = r["legs"][tm_key(2, "adamw", None, True)]["restart"]
+        if not (rs["start"] == TM_CKPT and rs["params_equal"]
+                and rs["losses"] == leg["losses"][TM_CKPT:]
+                and rs["grad_norms"] == leg["grad_norms"][TM_CKPT:]):
+            fails.append(f"train_mesh (e): rank {r['rank']}'s restart is not "
+                         f"bit-equal: {rs}")
+    sv = leg["serve"]
+    rec["launches"] = sv["launches"]
+    if not (sv["bit_equal"] and sv["finite"]):
+        fails.append(f"train_mesh (f): lut_pallas logits differ from "
+                     f"lut_xla's ({sv['max_abs_diff']})")
+    if min(sv["launches"][n] for n in PER_ROW_PATH) <= 0:
+        fails.append(f"train_mesh (f): a per_row kernel never launched: "
+                     f"{sv['launches']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    for line in train_mesh_lines(rec):
+        print(line, flush=True)
+    if fails:
+        raise AssertionError("train_mesh: " + "; ".join(fails))
+    return rec
+
+
+def tm_median(ms):
+    rest = sorted(ms[1:])
+    return rest[len(rest) // 2]
+
+
+def tm_one_device_lines(rec):
+    """Phase 21 (a)'s lines."""
+    tok = TM_BATCH * TM_SEQ
+    lines = []
+    for name, one in rec["one_device"].items():
+        med = tm_median(one["step_ms"])
+        lines.append(
+            f"train_mesh (a) one device, {name}: losses "
+            f"{[round(x, 5) for x in one['losses']]}, {med:.1f} ms a step "
+            f"(median of steps 2-{TM_STEPS}), {tok / med * 1e3:.0f} tok/s, held "
+            f"{one['held_bytes'] / 1e9:.3f} GB, peak "
+            f"{one['peak_bytes'] / 1e9:.3f} GB")
+    return lines
+
+
+def train_mesh_lines(rec):
+    """Phase 21's last lines ((e), (f), its seconds), after (a)'s
+    (``tm_one_device_lines``) and the legs' (``tm_world_lines``)."""
+    lines = []
+    leg = rec["2x2"]["ranks"][0]["legs"][tm_key(2, "adamw", None, True)]
+    rs, sv = leg["restart"], leg["serve"]
+    lines.append(
+        f"train_mesh (e): restored on 2x2 at step {rs['start']}, steps "
+        f"{rs['start'] + 1}-{TM_STEPS} "
+        f"bit-equal on every rank: {rs['params_equal']}; restored on one "
+        f"device in {rec['one_device_restore_s']:.1f} s, equal to every "
+        f"rank's step-3 blocks: {rec['one_device_restore_equal']}")
+    lines.append(
+        f"train_mesh (f): the 2x2 run's params packed W2 per_row in "
+        f"{sv['quantize_s']:.1f} s; lut_pallas = lut_xla bit for bit: "
+        f"{sv['bit_equal']}; launches {sv['launches']}")
+    lines.append(f"train_mesh: phase 21 in {rec['seconds']:.1f} s, card "
+                 f"{rec['card']}")
+    return lines
+
+
+def tm_world_lines(rec, model):
+    """The lines of phase 21's 2 x ``model`` legs."""
+    tok = TM_BATCH * TM_SEQ
+    lines = []
+    w = rec[f"2x{model}"]
+    for opt_name, comp, fsdp in TM_LEGS[model]:
+        key = tm_key(model, opt_name, comp, fsdp)
+        r0 = w["ranks"][0]["legs"][key]
+        med = tm_median(r0["step_ms"])
+        c = r0["collectives"][-1]["by_axis"]
+        extra = ""
+        if "grads" in r0 and r0["grads"] is not None:
+            extra += (f"; step 0's gradients within "
+                      f"{r0['grads']['max_rel_to_leaf_max']:.3g} of "
+                      f"each leaf's max |g| ({r0['grads']['leaf']})")
+        if "equal_to_no_fsdp" in r0:
+            extra += ("; = no FSDP bit for bit" if
+                      r0["equal_to_no_fsdp"] else "; != no FSDP")
+        if "ef_bit_equal" in r0:
+            extra += f"; ef = whole compression: {r0['ef_bit_equal']}"
+        lines.append(
+            f"train_mesh {key}: {med:.1f} ms a step, "
+            f"{tok / med * 1e3:.0f} tok/s; largest loss gap to one "
+            f"device {max(r0['loss_gaps']):.3g} (step 0 "
+            f"{r0['loss_gaps'][0]:.3g}); a step's collectives: model "
+            f"{c['model']['calls']} calls / {c['model']['bytes'] / 1e6:.1f}"
+            f" MB, data {c['data']['calls']} calls / "
+            f"{c['data']['bytes'] / 1e6:.1f} MB; held "
+            + ", ".join(f"{r['legs'][key]['held_bytes'] / 1e9:.3f}"
+                        for r in w["ranks"])
+            + " GB, peak " + ", ".join(
+                f"{r['legs'][key]['peak_bytes'] / 1e9:.3f}"
+                for r in w["ranks"]) + " GB by rank" + extra)
+    r0 = w["ranks"][0]
+    legs = r0["legs"].values()
+    extra = "".join(f", {k} {v[k]:.1f} s" for v in legs
+                    for k in ("restart_s", "serve_s") if k in v)
+    where = ("its ranks started for it" if w["pool_started"] else
+             "its ranks up from an earlier phase")
+    lines.append(f"train_mesh 2x{model}: legs in {w['legs_s']:.1f} s of "
+                 f"a {w['run_s']:.1f} s run ({where}); the mesh made in "
+                 f"{max(r['mesh_s'] for r in w['ranks']):.1f} s, rank 0's "
+                 f"legs " + ", ".join(f"{v['leg_s']:.1f}" for v in legs)
+                 + f" s{extra}; backend {r0['backend']}, losses "
+                 f"{[round(x, 5) for x in r0['legs'][key]['losses']]}")
+    return lines
 
 
 def roofline_record(cfg, params, eng, step):
@@ -6112,6 +6850,10 @@ def main() -> int:
         rec = dp_phase(flush)
         print(json.dumps({"dp": rec, "card": card}))
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--train-mesh":
+        rec = train_mesh_phase()
+        print(json.dumps({"train_mesh": rec, "card": card}))
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--cw":
         rec = cw_phase()
         for line in cw_lines(rec):
@@ -6326,6 +7068,11 @@ def main() -> int:
     gc_cuda()
     dp_rec = dp_phase(flush)
 
+    # phase 21: training under a (data, model) mesh, ranks sharing the card
+    gc_cuda()
+    tm_rec = train_mesh_phase()
+    close_pools()
+
     def on_path(r):
         """The records at the shapes the main path gives each kernel:
         dequant_mpgemm's op path at all ten; the per_row precompute, row
@@ -6426,6 +7173,9 @@ def main() -> int:
             # phase 20: rank (0, 0)'s launches in each data-axis leg's main
             # serve, and the kernel at a data rank's decode rows (M = 2)
             "dp": dp_summary(dp_rec, name),
+            # phase 21 (f): the 2x2 mesh-trained weights' teacher-forced
+            # lut_pallas forwards
+            "train_mesh_launches": tm_rec["launches"][name],
             "train_families_launches": {
                 arch: dict({"forward": tf_rec[arch]["forward"][
                     "launches"][name]}, **({"engine": tf_rec[arch][
@@ -6472,11 +7222,13 @@ def main() -> int:
                    "train": train_rec, "kvint8": kv_rec,
                    "train_families": tf_rec,
                    "window": win_rec, "cw": cw_rec, "tp": tp_rec,
-                   "dp": dp_rec,
+                   "dp": dp_rec, "train_mesh": tm_rec,
                    "ptxas": ptxas,
                    "mma_ptxas": mma_report,
                    "mma_instructions": mma,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s, "
+          "the kernels' build included", flush=True)
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6486,4 +7238,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_pools()
+    sys.exit(rc)

@@ -327,18 +327,31 @@ def dequantize(qw: QuantizedWeight) -> torch.Tensor:
 # QAT fake-quant (straight-through estimator)
 # ---------------------------------------------------------------------------
 
-def _fq_symmetric(w: torch.Tensor, bits: int) -> torch.Tensor:
+def fq_scale(w: torch.Tensor, bits: int, scheme: str = "symmetric",
+             *, stat=None, k=None) -> torch.Tensor:
+    """The fake-quant scale a row of ``w`` (last axis): absmax / (2^b − 1)
+    (symmetric), or the mean |w| (ternary). ``stat`` gives the row
+    statistic instead (the whole row's absmax, or its |w| sum over ``k``
+    entries, of a row split over ranks)."""
+    if scheme == "ternary":
+        mean = (w.abs().mean(dim=-1, keepdim=True) if stat is None
+                else true_divide(stat, float(k)))
+        return mean.clamp_min(1e-30)
+    amax = w.abs().amax(dim=-1, keepdim=True) if stat is None else stat
+    return true_divide(amax.clamp_min(1e-30), (1 << bits) - 1)
+
+
+def _fq_symmetric(w: torch.Tensor, bits: int, s=None) -> torch.Tensor:
     """Absmax symmetric quantization onto the odd grid, per row of the last
     axis (no clip-ratio search: that is the serving quantizer's)."""
     qmax = (1 << bits) - 1
-    s = true_divide(w.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30),
-                    qmax)
+    s = fq_scale(w, bits) if s is None else s
     q = torch.clamp(torch.round((w / s + qmax) / 2.0), 0, qmax)
     return s * (2.0 * q - qmax)
 
 
-def _fq_ternary(w: torch.Tensor) -> torch.Tensor:
-    s = w.abs().mean(dim=-1, keepdim=True).clamp_min(1e-30)
+def _fq_ternary(w: torch.Tensor, s=None) -> torch.Tensor:
+    s = fq_scale(w, 2, "ternary") if s is None else s
     return s * torch.clamp(torch.round(w / s), -1, 1)
 
 
@@ -348,18 +361,23 @@ class _FakeQuant(torch.autograd.Function):
     identity, the reference's ``stop_gradient`` straight-through estimator."""
 
     @staticmethod
-    def forward(ctx, w, bits, scheme):
+    def forward(ctx, w, bits, scheme, scale):
         wf = w.to(torch.float32)
-        wq = _fq_ternary(wf) if scheme == "ternary" else _fq_symmetric(wf, bits)
+        wq = (_fq_ternary(wf, scale) if scheme == "ternary"
+              else _fq_symmetric(wf, bits, scale))
         return w + (wq.to(w.dtype) - w)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None, None
+        return grad, None, None, None
 
 
-def fake_quant(w: torch.Tensor, bits: int,
-               scheme: str = "symmetric") -> torch.Tensor:
+def fake_quant(w: torch.Tensor, bits: int, scheme: str = "symmetric",
+               scale=None) -> torch.Tensor:
     """STE fake-quant along the last axis (one scale a row): the forward
-    uses the quantized value, the gradient passes through unchanged."""
-    return _FakeQuant.apply(w, bits, scheme)
+    uses the quantized value, the gradient passes through unchanged.
+    ``scale`` ([.., 1], f32): the rows' scales as given (``fq_scale`` of
+    the whole rows where a rank holds a block of each), else this
+    tensor's own."""
+    return _FakeQuant.apply(w, bits, scheme,
+                            None if scale is None else scale.detach())

@@ -4,9 +4,14 @@ Quantizing gradients to INT8 (blockwise absmax over blocks of 1024 — the
 same primitive as the paper's table quantization) cuts the data-parallel
 all-reduce's traffic 4× against f32. The quantization error is carried in
 an error-feedback buffer and re-added the next step (EF-SGD style), which
-keeps convergence. The port has no data-parallel mesh yet: the train step
-applies the compress/decompress round trip to its local gradient, as the
-reference's does before the all-reduce consumes it.
+keeps convergence. The train step applies the compress/decompress round
+trip to the gradient summed over the data ranks, as the reference's step
+does to its (pjit-summed) gradient. Under a mesh each rank holds blocks
+of each gradient and of ``ef`` (sharded as the params): every group is
+compressed whole on every rank (its blocks gathered, ``whole``) and each
+rank keeps its blocks of the result (``local``), so a rank's compressed
+gradient and residual are, bit for bit, its blocks of the whole
+compression, also where a 1024-block crosses a shard boundary.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ def init_error_feedback(params):
 
 
 @torch.no_grad()
-def compress_decompress_tree(grads, ef: Optional = None) -> Tuple:
+def compress_decompress_tree(grads, ef: Optional = None, *, whole=None,
+                             local=None) -> Tuple:
     """Returns (compressed grads, new error-feedback tree): each tensor's
     g + e through the int8 round trip, and the residual g + e − that; a
     tensor under 1024 elements passes uncompressed with a zero residual.
@@ -53,7 +59,12 @@ def compress_decompress_tree(grads, ef: Optional = None) -> Tuple:
     taken together, concatenated in stack order (the stacked array's
     row-major order). Blocks, the size rule and the results are then the
     reference's, also where one layer's leaf is under 1024 elements or
-    not a multiple of it."""
+    not a multiple of it.
+
+    Under a mesh, ``whole(i, t)`` gives leaf i's whole tensor from this
+    rank's block ``t`` (a collective: every rank calls it for every leaf
+    in order) and ``local(i, t)`` this rank's block of a whole one; a
+    group is compressed whole and each leaf's block kept."""
     if ef is None:
         ef = init_error_feedback(grads)
     named, efs = tree_paths(grads), tree_leaves(ef)
@@ -62,16 +73,20 @@ def compress_decompress_tree(grads, ef: Optional = None) -> Tuple:
         groups.setdefault(re.sub(r"\[\d+\]", "[*]", path), []).append(i)
     out_g, out_e = [None] * len(named), [None] * len(named)
     for idx in groups.values():
-        g = torch.cat([named[i][1].reshape(-1).to(torch.float32)
-                       for i in idx])
-        gf = g + torch.cat([efs[i].reshape(-1) for i in idx])
+        gs, es = [named[i][1] for i in idx], [efs[i] for i in idx]
+        if whole is not None:
+            gs = [whole(i, t) for i, t in zip(idx, gs)]
+            es = [whole(i, t) for i, t in zip(idx, es)]
+        g = torch.cat([t.reshape(-1).to(torch.float32) for t in gs])
+        gf = g + torch.cat([e.reshape(-1) for e in es])
         if g.numel() < _BLOCK:  # tiny tensors not worth compressing
             deq, res = gf, torch.zeros_like(gf)
         else:
             deq = _quantize_int8(gf)
             res = gf - deq
-        sizes = [named[i][1].numel() for i in idx]
-        for i, d, r in zip(idx, deq.split(sizes), res.split(sizes)):
-            out_g[i] = d.reshape(named[i][1].shape)
-            out_e[i] = r.reshape(named[i][1].shape)
+        sizes = [t.numel() for t in gs]
+        keep = (lambda i, t: t) if local is None else local
+        for i, t, d, r in zip(idx, gs, deq.split(sizes), res.split(sizes)):
+            out_g[i] = keep(i, d.reshape(t.shape))
+            out_e[i] = keep(i, r.reshape(t.shape))
     return tree_unflatten(grads, out_g), tree_unflatten(grads, out_e)

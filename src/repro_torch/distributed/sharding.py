@@ -59,7 +59,9 @@ __all__ = ["Mesh", "AxisPlan", "plan_scope", "current_plan", "model_split",
            "data_split", "for_batch", "local_rows", "param_spec_tree",
            "resolve_physical_spec", "packed_group_bytes", "shard_params",
            "one_device_control", "attention_split", "local_kv_heads",
-           "tree_to", "DEFAULT_RULES"]
+           "tree_to", "strip_marks", "with_marks", "leaf_specs", "specs_for", "mirrors", "map_by_param",
+           "train_specs", "block_of", "whole_of", "shard_train_state",
+           "gather_train_state", "MARKS", "DEFAULT_RULES"]
 
 _state = threading.local()
 
@@ -70,7 +72,9 @@ _QW_CHILDREN = ("packed", "scale", "zero_prime", "cw")
 class Mesh:
     """A small mesh record: axis names and sizes, this rank's coordinate
     along each axis, each axis's process group (None where the axis has
-    size 1), the backend the groups run on and this rank's device."""
+    size 1), the backend the groups run on and this rank's device;
+    ``lanes``: per axis, more groups over the same ranks, which a large
+    transfer is split over (``collectives``)."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
@@ -78,6 +82,8 @@ class Mesh:
     groups: Dict[str, Any]
     backend: Optional[str] = None
     device: Optional[torch.device] = None
+    lanes: Dict[str, Tuple[Any, ...]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -352,23 +358,22 @@ def _block(t: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
     return t.narrow(dim, index * size, size).clone()
 
 
-def _linear_mode(node, phys) -> Optional[str]:
-    """"col", "row" or None for a linear ``{"w"}`` / ``{"qw"}`` from its
-    main leaf's resolved spec (an expert stack: "expert" or None)."""
+def _linear_mode(node, phys, model_ax="model") -> Optional[str]:
+    """"col", "row" or None for a linear ``{"w"}`` / ``{"qw"}`` from where
+    its main leaf's resolved spec holds the model axis (an expert stack:
+    "expert" or None)."""
+    on = lambda spec, i: spec[i] == model_ax
     if "w" in node:
         spec = phys["w"]
         if len(spec) == 3:
-            return "expert" if spec[0] is not None else None
-        return "col" if spec[1] is not None else (
-            "row" if spec[0] is not None else None)
+            return "expert" if on(spec, 0) else None
+        return "col" if on(spec, 1) else ("row" if on(spec, 0) else None)
     qw, spec = node["qw"], phys["qw"]
     if qw.is_cw:  # cw [G·E, N]
         s = spec["cw"]
-        return "col" if s[1] is not None else (
-            "row" if s[0] is not None else None)
+        return "col" if on(s, 1) else ("row" if on(s, 0) else None)
     s = spec["packed"]
-    return "col" if s[0] is not None else (
-        "row" if s[1] is not None else None)
+    return "col" if on(s, 0) else ("row" if on(s, 1) else None)
 
 
 def _row_groups_whole(qw: QuantizedWeight, m: int) -> bool:
@@ -411,6 +416,9 @@ def _shard_qw(qw: QuantizedWeight, mode: str, m: int,
 _ATTN = re.compile(r"(^|/)(attn|xattn|shared_attn)$")
 
 
+MARKS = ("tp", "fsdp")
+
+
 def shard_params(params, plan: AxisPlan, cfg, rules=None):
     """This rank's blocks of a param tree (global tensors in, local out),
     the counterpart of the reference's ``named_sharding_tree`` plus
@@ -419,16 +427,26 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
     linear dict gets ``"tp"``: "col", "row" (absent: replicated), the
     embedding "vocab", an expert stack "expert" (module docstring). A
     ``QuantizedWeight``'s children are split together. An unmatched leaf
-    raises with its path. A plan whose model axis has one rank returns
-    ``params`` itself: the single-device path. A node sharded already
-    (one that has ``"tp"``) is kept as it is, so sharding twice is
-    sharding once. The serving plan has no FSDP axis, so the data axis
-    replicates every leaf: a rank keeps the blocks of its model
-    coordinate whatever its data coordinate."""
+    raises with its path. A plan whose model axis has one rank and no
+    FSDP axis returns ``params`` itself: the single-device path. A node
+    sharded already (one that has ``"tp"`` or ``"fsdp"``) is kept as it
+    is, so sharding twice is sharding once.
+
+    FSDP (a plan with ``fsdp="data"``, ``launch.mesh.make_plan(fsdp=
+    True)``: training's ZeRO-3): a float weight or the embedding table
+    whose resolved spec holds the data axis keeps also its block along
+    that dim, and its dict gets ``"fsdp"``: {leaf: dim}
+    (``collectives.fsdp_gather_tree`` joins the blocks before use). The
+    serving plan has no FSDP axis, so the data axis replicates every leaf:
+    a rank keeps the blocks of its model coordinate whatever its data
+    coordinate."""
     m = plan.axis_size("model")
-    if m == 1:
+    dsz = plan.axis_size("fsdp")
+    if m == 1 and dsz == 1:
         return params
     r = plan.rank_along("model")
+    dr = plan.rank_along("fsdp")
+    model_ax, fsdp_ax = plan.resolve("model"), plan.resolve("fsdp")
     sizes = plan.mesh.sizes
     spec_tree = param_spec_tree(params, rules)
     attn_split = attention_split(cfg, plan)
@@ -445,11 +463,19 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
         return resolve_physical_spec(tuple(node.shape),
                                      [plan.resolve(a) for a in spec], sizes)
 
+    def fsdp_dim(phys) -> Optional[int]:
+        """The dim a float leaf's resolved spec splits over the data axis
+        under an FSDP plan, else None."""
+        if dsz == 1 or fsdp_ax not in phys:
+            return None
+        return phys.index(fsdp_ax)
+
     def linear(node, spec, path, forced):
         """A linear dict {"w" | "qw", "b"?} -> its local block and mode."""
         key = "w" if "w" in node else "qw"
-        mode = _linear_mode(node, {key: phys_of(node[key], spec[key])})
-        if forced is not False:
+        phys = phys_of(node[key], spec[key])
+        mode = _linear_mode(node, {key: phys}, model_ax) if m > 1 else None
+        if m > 1 and forced is not False:
             if forced is None:
                 mode = None
             elif mode != forced:
@@ -460,23 +486,29 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
         if mode == "row" and key == "qw" and not _row_groups_whole(
                 node["qw"], m):
             mode = None
-        if mode is None:
+        fdim = fsdp_dim(phys) if key == "w" else None
+        if mode is None and fdim is None:
             return dict(node)
         out = {}
         if key == "w":
-            dim = {"col": 1, "row": 0, "expert": 0}[mode]
-            out["w"] = _block(node["w"], dim, m, r)
+            w = node["w"]
+            if mode is not None:
+                w = _block(w, {"col": 1, "row": 0}[mode], m, r)
+            out["w"] = w if fdim is None else _block(w, fdim, dsz, dr)
         else:
             out["qw"] = _shard_qw(node["qw"], mode, m, r)
         if "b" in node:
             out["b"] = (_block(node["b"], 0, m, r) if mode == "col"
                         else node["b"])
-        out["tp"] = mode
+        if mode is not None:
+            out["tp"] = mode
+        if fdim is not None:
+            out["fsdp"] = {"w": fdim}
         return out
 
     def walk(node, spec, path, forced=False):
-        if isinstance(node, dict) and "tp" in node:  # sharded already
-            return node
+        if isinstance(node, dict) and any(k in node for k in MARKS):
+            return node  # sharded already
         if isinstance(node, list):
             return [walk(v, s, f"{path}/{i}", forced)
                     for i, (v, s) in enumerate(zip(node, spec))]
@@ -493,9 +525,14 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
             return experts(node, spec, path)
         if path.endswith("embed") and "table" in node:
             phys = phys_of(node["table"], spec["table"])
-            if phys[0] is None:
-                return dict(node)
-            return {"table": _block(node["table"], 0, m, r), "tp": "vocab"}
+            table, out = node["table"], {}
+            if m > 1 and phys[0] == model_ax:
+                table, out["tp"] = _block(table, 0, m, r), "vocab"
+            fdim = fsdp_dim(phys)
+            if fdim is not None:
+                table = _block(table, fdim, dsz, dr)
+                out["fsdp"] = {"table": fdim}
+            return dict({"table": table}, **out) if out else dict(node)
         sub_forced = forced
         if _ATTN.search(path):
             sub_forced = "attn" if attn_split else None
@@ -509,11 +546,13 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
 
     def experts(node, spec, path):
         """An expert stack (float [E, in, out] or packed ``*_qw``): split
-        along E where every one of its leaves resolves so, else whole."""
-        split = all(phys_of(v, spec[k])[0 if torch.is_tensor(v) else
-                                        "packed" if v.packed is not None
-                                        else "cw"][0] is not None
-                    for k, v in node.items())
+        along E where every one of its leaves resolves so, else whole (no
+        FSDP split: MoE training under a mesh is refused)."""
+        split = m > 1 and all(
+            phys_of(v, spec[k])[0 if torch.is_tensor(v) else
+                                "packed" if v.packed is not None
+                                else "cw"][0] == model_ax
+            for k, v in node.items())
         if not split:
             return dict(node)
         out = {k: (_block(v, 0, m, r) if torch.is_tensor(v)
@@ -522,6 +561,170 @@ def shard_params(params, plan: AxisPlan, cfg, rules=None):
         return out
 
     return walk(params, spec_tree, "")
+
+
+# ---------------------------------------------------------------------------
+# the train state under a mesh: specs, blocks, and the whole state again
+# ---------------------------------------------------------------------------
+
+def strip_marks(tree):
+    """A sharded param tree without its ``"tp"`` / ``"fsdp"`` marks: the
+    tensors alone, in the same order (the train state holds this)."""
+    if isinstance(tree, list):
+        return [strip_marks(v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: strip_marks(v) for k, v in tree.items() if k not in MARKS}
+    return tree
+
+
+def with_marks(plain, marked):
+    """``plain`` (``strip_marks`` of a tree shaped like ``marked``) with
+    ``marked``'s marks put back, for the layers to read."""
+    if isinstance(marked, list):
+        return [with_marks(p, v) for p, v in zip(plain, marked)]
+    if isinstance(marked, dict):
+        out = {k: with_marks(plain[k], v) for k, v in marked.items()
+               if k not in MARKS}
+        out.update({k: marked[k] for k in MARKS if k in marked})
+        return out
+    return plain
+
+
+def leaf_specs(marked, plan: AxisPlan):
+    """The physical spec (a tuple of axis names or None per dim) of each
+    leaf of ``strip_marks(marked)``, in tree order, read from the marks:
+    "col" splits a weight's dim 1 and its bias over the model axis, "row"
+    a weight's dim 0, "vocab" the table's rows, "expert" every leaf's E;
+    ``"fsdp"`` {leaf: dim} that dim over the data axis."""
+    model_ax, fsdp_ax = plan.resolve("model"), plan.resolve("fsdp")
+    out = []
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+            return
+        mode, dims = node.get("tp"), node.get("fsdp", {})
+        for k, v in node.items():
+            if k in MARKS:
+                continue
+            if not torch.is_tensor(v):
+                walk(v)
+                continue
+            spec = [None] * v.dim()
+            at = {("col", "w"): 1, ("col", "b"): 0, ("row", "w"): 0,
+                  ("vocab", "table"): 0}.get((mode, k))
+            if mode == "expert":
+                at = 0
+            if at is not None:
+                spec[at] = model_ax
+            if k in dims:
+                spec[dims[k]] = fsdp_ax
+            out.append(tuple(spec))
+
+    walk(marked)
+    return out
+
+
+def specs_for(params, marked, plan: AxisPlan):
+    """``leaf_specs`` of ``marked`` in the leaf order of ``params`` (a tree
+    with the same paths, in any key order: a converted tree's)."""
+    from repro_torch.core.tree import tree_paths
+    by_path = dict(zip((p for p, _ in tree_paths(strip_marks(marked))),
+                       leaf_specs(marked, plan)))
+    return [by_path[p] for p, _ in tree_paths(params)]
+
+
+def mirrors(leaf, spec) -> bool:
+    """The reference's rule: an optimizer leaf takes its param's spec
+    where it is an array of the param's rank, else it is replicated (an
+    int8 ``{"q", "s"}`` pair, Adafactor's factored vectors)."""
+    return torch.is_tensor(leaf) and leaf.dim() == len(spec)
+
+
+def map_by_param(fn, params, sub, specs):
+    """``fn(spec, state leaf)`` over a tree following ``params``'s leaves
+    (an optimizer sub-tree, whose leaf may be a dict), ``specs`` in
+    order."""
+    from repro_torch.core.tree import tree_map
+    it = iter(specs)
+    return tree_map(lambda _, s: fn(next(it), s), params, sub)
+
+
+def train_specs(state, specs):
+    """The train state's spec tree, the reference's ``train_shardings``
+    rule over per-leaf param ``specs``: params by spec, each optimizer
+    leaf its param's spec where it mirrors it (``mirrors``), a dict leaf
+    ``{k: ()}`` and anything else ``()`` (replicated), ``ef`` as the
+    params, ``step`` ``()``."""
+    from repro_torch.core.tree import tree_unflatten
+    params = state["params"]
+    rep = lambda s: {k: () for k in s} if isinstance(s, dict) else ()
+    out = {"params": tree_unflatten(params, list(specs)), "step": ()}
+    out["opt"] = {k: (() if k == "step" else map_by_param(
+        lambda spec, s: spec if mirrors(s, spec) else rep(s), params, v,
+        specs)) for k, v in state["opt"].items()}
+    if "ef" in state:
+        out["ef"] = out["params"]
+    return out
+
+
+def block_of(t: torch.Tensor, spec, plan: AxisPlan) -> torch.Tensor:
+    """This rank's block of a whole tensor ``t`` under ``spec``."""
+    sizes = plan.mesh.sizes
+    for i, ax in enumerate(spec):
+        if ax is not None:
+            t = t.narrow(i, plan.mesh.coord(ax) * (t.shape[i] // sizes[ax]),
+                         t.shape[i] // sizes[ax])
+    return t.clone() if any(a is not None for a in spec) else t
+
+
+def whole_of(t: torch.Tensor, spec, plan: AxisPlan) -> torch.Tensor:
+    """The whole tensor of this rank's block ``t`` under ``spec``, its
+    blocks gathered over each axis in rank order (every rank of the
+    axes must call it). Runs under ``plan``."""
+    from repro_torch.distributed import collectives
+    axis = {plan.resolve("model"): "model", plan.resolve("fsdp"): "data"}
+    with plan_scope(plan):
+        for i, ax in enumerate(spec):
+            if ax is not None:
+                t = collectives.all_gather(t.detach(), dim=i, axis=axis[ax])
+    return t
+
+
+def shard_train_state(state, plan: AxisPlan, cfg):
+    """This rank's blocks of a whole train state: params by
+    ``shard_params`` (marks stripped), the optimizer leaves that mirror
+    their param and ``ef`` by its spec, replicated leaves and ``step``
+    whole."""
+    marked = shard_params(state["params"], plan, cfg)
+    specs = leaf_specs(marked, plan)
+    params = state["params"]
+    out = dict(state, params=strip_marks(marked))
+    out["opt"] = {k: (v if k == "step" else map_by_param(
+        lambda spec, s: block_of(s, spec, plan) if mirrors(s, spec) else s,
+        params, v, specs)) for k, v in state["opt"].items()}
+    if "ef" in state:
+        out["ef"] = map_by_param(lambda spec, s: block_of(s, spec, plan),
+                                params, state["ef"], specs)
+    return out
+
+
+def gather_train_state(state, plan: AxisPlan, specs):
+    """The whole train state from this rank's blocks (``shard_train_state``
+    's inverse), each sharded leaf's blocks joined in rank order, on every
+    rank: every rank of the mesh must call it. ``specs``: each param
+    leaf's physical spec, in leaf order (``train_loop.param_specs``)."""
+    params = state["params"]
+    join = lambda spec, s: whole_of(s, spec, plan) if mirrors(s, spec) \
+        else s
+    out = dict(state, params=map_by_param(join, params, params, specs))
+    out["opt"] = {k: (v if k == "step" else map_by_param(join, params, v,
+                                                        specs))
+                  for k, v in state["opt"].items()}
+    if "ef" in state:
+        out["ef"] = map_by_param(join, params, state["ef"], specs)
+    return out
 
 
 def one_device_control(params, plan: AxisPlan, cfg):

@@ -1,15 +1,21 @@
-"""The serving mesh, its plan, and the ranks' process groups.
+"""Meshes, their plans, and the ranks' process groups.
 
 ``make_serving_mesh(data=1, model=None)`` builds the (data, model) mesh
 over the ranks of the initialized process group, the reference's
-``launch/mesh.py`` over its devices; ``make_plan`` its ``AxisPlan``. Rank
+``launch/mesh.py`` over its devices; ``make_production_mesh()`` the
+reference's (16, 16) one, which needs 256 ranks; ``make_plan`` its
+``AxisPlan``, FSDP (ZeRO-3) mapped onto ``"data"`` unless ``fsdp=False``
+(the reference's default: training takes it, serving passes False). Rank
 r sits at (r // model, r % model): data-major, as the reference's
 ``make_mesh((data, model), ...)`` orders its devices. Each axis line has
 a process group of its own (``data`` model groups of ``model`` ranks,
 ``model`` data groups of ``data`` ranks; an axis that spans every rank
 uses the world group); ``Mesh.groups`` holds this rank's group of each
-axis. FSDP, sequence parallelism and training under a mesh are not
-ported: ``make_plan(fsdp=True)`` raises (ROADMAP.md queue 1 item 9).
+axis; under gloo each axis line also has ``GLOO_LANES`` - 1 more groups
+(``Mesh.lanes``), over which ``collectives`` splits a large transfer.
+Not ported: the multi-pod mesh's ``pod`` axis (``POD_AXIS_REFUSAL``),
+sequence parallelism (``collectives.sp_scatter`` refuses a ``seq`` axis)
+and a pipeline axis.
 
 Ranks. ``init_rank`` joins rank r to the group: its device is
 ``cuda:(r % device_count)``, or the CPU where the caller asks for it (a
@@ -37,11 +43,27 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import AxisPlan, Mesh
 
-__all__ = ["make_serving_mesh", "make_plan", "rank_device", "choose_backend",
-           "init_rank", "from_env", "spawn", "free_port", "DATA_AXIS_REFUSAL"]
+__all__ = ["make_serving_mesh", "make_production_mesh", "make_plan",
+           "GLOO_LANES", "rank_device", "choose_backend", "init_rank",
+           "from_env", "spawn", "free_port", "POD_AXIS_REFUSAL"]
 
-DATA_AXIS_REFUSAL = ("FSDP, sequence parallelism and training under a "
-                     "mesh are not ported: ROADMAP.md queue 1 item 9")
+POD_AXIS_REFUSAL = ("the multi-pod (2, 16, 16) mesh's pod axis is not "
+                    "ported: ROADMAP.md queue 1 item 9 step 5")
+# groups an axis line has under gloo, which moves one group's data on one
+# connection: a transfer from ``collectives.LANE_BYTES`` on is split over
+# them (NCCL has one group an axis line). chip_smoke.py phase 21 on one
+# H100 took 123 s with 8, 136 s with 4 and 165 s with 1 (PERF.md §6)
+GLOO_LANES = 8
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Optional[torch.device] = None) -> Mesh:
+    """The reference's production mesh: (16, 16) over ("data", "model"),
+    256 ranks; raises with the rank count on any other world. The
+    multi-pod (2, 16, 16) mesh is refused (``POD_AXIS_REFUSAL``)."""
+    if multi_pod:
+        raise ValueError(POD_AXIS_REFUSAL)
+    return make_serving_mesh(data=16, model=16, device=device)
 
 
 def make_serving_mesh(*, data: int = 1, model: Optional[int] = None,
@@ -50,7 +72,8 @@ def make_serving_mesh(*, data: int = 1, model: Optional[int] = None,
     a 1x1 mesh, when none is initialized), recording this rank's
     ``device`` (``init_rank``'s). ``model=None`` uses every rank not
     consumed by ``data``. Every rank must call it, in the same order
-    with the same sizes: it makes every axis line's group."""
+    with the same sizes: it makes every axis line's group, and under
+    gloo its ``GLOO_LANES`` - 1 lanes."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if model is None:
@@ -59,6 +82,9 @@ def make_serving_mesh(*, data: int = 1, model: Optional[int] = None,
         raise ValueError(f"mesh {data}x{model} needs {data * model} ranks, "
                          f"have {world}")
     groups = {"data": None, "model": None}
+    backend = dist.get_backend() if dist.is_initialized() else None
+    extra = GLOO_LANES - 1 if backend == "gloo" else 0
+    lane_groups = {}
     for axis, size, lines in (
             ("model", model, [[d * model + j for j in range(model)]
                               for d in range(data)]),
@@ -68,21 +94,30 @@ def make_serving_mesh(*, data: int = 1, model: Optional[int] = None,
             continue
         if size == world:
             groups[axis] = dist.group.WORLD
-            continue
-        for line in lines:  # every rank makes every group, in one order
-            group = dist.new_group(line)
-            if rank in line:
-                groups[axis] = group
-    backend = dist.get_backend() if dist.is_initialized() else None
+        else:
+            for line in lines:  # every rank makes every group, in one order
+                group = dist.new_group(line)
+                if rank in line:
+                    groups[axis] = group
+        mine = []
+        for _ in range(extra):
+            for line in lines:
+                group = dist.new_group(line)
+                if rank in line:
+                    mine.append(group)
+        if mine:
+            lane_groups[axis] = tuple(mine)
     return Mesh(("data", "model"), (data, model),
-                (rank // model, rank % model), groups, backend, device)
+                (rank // model, rank % model), groups, backend, device,
+                lane_groups)
 
 
-def make_plan(mesh: Mesh, *, fsdp: bool = False) -> AxisPlan:
-    if fsdp:
-        raise ValueError("fsdp: " + DATA_AXIS_REFUSAL)
+def make_plan(mesh: Mesh, *, fsdp: bool = True) -> AxisPlan:
+    """The reference's plan: batch over "data", the model and experts over
+    "model", FSDP over "data" unless ``fsdp=False``."""
     return AxisPlan(mesh=mesh, batch=("data",), model="model",
-                    expert="model", fsdp=None, seq=None, stage=None)
+                    expert="model", fsdp="data" if fsdp else None, seq=None,
+                    stage=None)
 
 
 def rank_device(rank: int, device="cuda") -> torch.device:

@@ -1,6 +1,8 @@
 """The rank worker of a mesh: what a spawned rank (``launch.mesh.spawn``)
-runs to load one set of weights, keep its blocks and serve, so that it
-imports this package and nothing else.
+runs to load one set of weights, keep its blocks and serve, or to train
+(``train``: ``launch/train.py``'s run with its arguments, on the rank's
+device, under the training plan), so that it imports this package and
+nothing else.
 
 ``run(rank, device, jobs, data=1)`` runs each job of a list in turn, on a
 ``data`` x (world / data) mesh. A job loads
@@ -49,7 +51,8 @@ from repro_torch.distributed.sharding import (for_batch, local_rows,
                                               tree_to)
 from repro_torch.launch import mesh as mesh_mod
 
-__all__ = ["run", "replicated_digest", "kernel_counts", "reset_kernel_counts"]
+__all__ = ["run", "train", "replicated_digest", "kernel_counts",
+           "reset_kernel_counts"]
 
 
 def replicated_digest(params) -> str:
@@ -157,8 +160,16 @@ def run(rank: int, device: torch.device, jobs, data: int = 1):
     their results."""
     plan = mesh_mod.make_plan(mesh_mod.make_serving_mesh(
         data=data, model=torch.distributed.get_world_size() // data,
-        device=device))
+        device=device), fsdp=False)
     return [_job(rank, device, job, plan) for job in jobs]
+
+
+def train(rank: int, device: torch.device, argv) -> int:
+    """A spawned rank's training run: ``launch/train.py``'s ``main(argv)``
+    on the group the spawn set up, on the rank's ``device``; its exit
+    code."""
+    from repro_torch.launch import train as train_mod
+    return train_mod.main(argv, device)
 
 
 def forward(params, tokens, cfg, plan, device):

@@ -237,7 +237,7 @@ def _serve(ap, args, mesh, rank_device):
     plan = None
     if mesh is not None:
         plan = mesh_mod.make_plan(mesh_mod.make_serving_mesh(
-            data=mesh[0], model=mesh[1], device=rank_device))
+            data=mesh[0], model=mesh[1], device=rank_device), fsdp=False)
     rank0 = plan is None or plan.mesh.coords == (0, 0)
     print = builtins.print if rank0 else (lambda *a, **k: None)
     if args.prefix_cache and args.cache_block_size is None:

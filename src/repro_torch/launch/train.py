@@ -1,7 +1,8 @@
 """End-to-end training entry point.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
-        --steps 30 --batch 8 --seq 256 [--ckpt-dir ckpt --ckpt-every 10]
+        --steps 30 --batch 8 --seq 256 [--ckpt-dir ckpt --ckpt-every 10] \\
+        [--mesh 2x1]
 
 Wires together: config → float params → optimizer → train step (the QAT
 forward unless ``--no-qat``) → data pipeline → checkpoint/restart manager.
@@ -17,21 +18,42 @@ archs train from ``SyntheticLM`` tokens. The VLM and audio archs are
 refused with a ValueError: their forwards need the stub frontends'
 ``image_embeds`` / ``audio_frames``, which token data does not carry (the
 reference's launcher cannot train them either); ``make_train_step`` trains
-them from a batch that has them. ``--mesh`` takes only ``none``: the port
-serves across a model-axis mesh (``launch/serve.py --tp``), but training
-under a mesh (``train_shardings``, FSDP) waits for the data-axis slice,
-ROADMAP.md queue 1 item 9.
+them from a batch that has them.
+
+``--mesh DxM`` trains the dense archs across D·M ranks under the
+reference's training plan (``launch.mesh.make_plan(mesh, fsdp=True)``):
+D data ranks, each taking its rows of every batch and holding its FSDP
+(ZeRO-3) block of every float weight and of its optimizer state, M model
+ranks splitting the projections (``training.train_loop``). The ranks come
+from torchrun (each joins the group it describes) or are spawned here
+(``launch/mesh_job.py``'s ``train``: ranks on ``cuda:(r % device_count)``,
+NCCL where each has a card of its own, gloo where they share one; on the
+CPU over gloo with ``--device cpu``). Rank 0 prints and writes the
+checkpoints (the whole state, in the single-device format: a mesh run
+resumes on one device and back)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --mesh 2x2 --steps 20 --batch 4 --seq 32
+
+``--mesh single`` is the reference's (16, 16) production mesh, which
+needs 256 ranks (torchrun); ``--mesh multi`` (its pod axis) is refused,
+naming ROADMAP.md queue 1 item 9 step 5; the MoE, SSM, hybrid, VLM and
+audio archs under a mesh are refused (steps 3 and 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
 from repro_torch.training import checkpoint as ckpt_mod
 from repro_torch.training import optimizer as opt_mod
@@ -42,7 +64,8 @@ from repro_torch.training.train_loop import init_train_state, make_train_step
 FRONTEND_INPUTS = {"vlm": "image_embeds", "audio": "audio_frames"}
 
 
-def main(argv=None):
+def main(argv=None, rank_device=None):
+    """The training run; ``rank_device``: a spawned rank's device."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=300)
@@ -60,21 +83,26 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--mesh", default="none",
-                    help="none (the only value: training under a mesh waits "
-                         "for the data-axis slice, ROADMAP.md queue 1 item "
-                         "9)")
+                    help="none | single (the reference's 16x16, 256 ranks) "
+                         "| multi (its pod axis: refused) | DxM (data x "
+                         "model ranks, e.g. 2x2; FSDP over data)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: training under a mesh (its "
-                 "train_shardings, FSDP) is not ported: it waits for the "
-                 "data-axis slice, the rest of the distributed slice "
-                 "(ROADMAP.md queue 1 item 9); use --mesh none (serving "
-                 "runs across a model-axis mesh: launch/serve.py --tp)")
+    mesh = None
+    if args.mesh == "multi":
+        ap.error(f"--mesh multi: {mesh_mod.POD_AXIS_REFUSAL}")
+    elif args.mesh == "single":
+        mesh = (16, 16)
+    elif args.mesh != "none":
+        try:
+            mesh = tuple(int(v) for v in args.mesh.lower().split("x"))
+        except ValueError:
+            mesh = ()
+        if len(mesh) != 2 or min(mesh) < 1:
+            ap.error(f"--mesh wants none, single, multi or 'DxM' (e.g. "
+                     f"2x2), got {args.mesh!r}")
 
-    device = api.resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (registry.get_reduced(args.arch) if args.reduced
            else registry.get_config(args.arch))
     cfg = cfg.replace(activation_dtype=torch.float32)
@@ -85,21 +113,68 @@ def main(argv=None):
             "input), and the synthetic token data carries tokens only; "
             "train it through training.train_loop.make_train_step with a "
             "batch that has it")
+    if mesh is None:
+        return _train(args, cfg, api.resolve_device(args.device), None)
+    if mesh[0] * mesh[1] > 1:
+        from repro_torch.distributed.sharding import AxisPlan, Mesh
+        api.check_train_mesh(cfg, AxisPlan(Mesh(("data", "model"), mesh,
+                                                (0, 0), {})))
+    if rank_device is not None or dist.is_initialized():
+        return _train(args, cfg, rank_device, mesh, ap)
+    device = mesh_mod.from_env(args.device)
+    if device is not None:  # a rank torchrun started
+        try:
+            return _train(args, cfg, device, mesh, ap)
+        finally:
+            dist.destroy_process_group()
+    if mesh == (16, 16):
+        ap.error(f"--mesh single: mesh 16x16 needs 256 ranks, have 1 (the "
+                 "reference's production mesh: start 256 ranks with "
+                 "torchrun)")
+    from repro_torch.launch import mesh_job
+    codes = mesh_mod.spawn(mesh_job.train, mesh[0] * mesh[1],
+                           device=args.device,
+                           args=(list(sys.argv[1:] if argv is None
+                                      else argv),))
+    return codes[0]
 
+
+def _train(args, cfg, device, mesh, ap=None):
+    """The training loop, on one device or as one rank of the mesh (on
+    ``device``, joined to the group)."""
+    plan = None
+    if mesh is not None:
+        try:
+            m = (mesh_mod.make_production_mesh(device=device)
+                 if mesh == (16, 16) and args.mesh == "single" else
+                 mesh_mod.make_serving_mesh(data=mesh[0], model=mesh[1],
+                                            device=device))
+        except ValueError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
+        plan = mesh_mod.make_plan(m, fsdp=True)
+    rank0 = plan is None or dist.get_rank() == 0
+    print = builtins.print if rank0 else (lambda *a, **k: None)
+    if plan is not None:
+        print(f"training mesh {plan.mesh.shape[0]}x{plan.mesh.shape[1]} "
+              f"(data x model), FSDP over data, backend "
+              f"{plan.mesh.backend}, rank 0 on {device}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
     sched = opt_mod.lr_schedule(args.lr, warmup=20, total=args.steps)
     opt = opt_mod.make_optimizer(args.optimizer, lr=sched)
     step_fn = make_train_step(cfg, opt, microbatches=args.microbatches,
                               grad_compression=args.grad_compression,
-                              qat=not args.no_qat)
+                              qat=not args.no_qat, plan=plan)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     state = init_train_state(gen, cfg, opt, device,
-                             grad_compression=args.grad_compression)
+                             grad_compression=args.grad_compression,
+                             plan=plan)
     start = 0
     rm = None
     if args.ckpt_dir:
-        rm = ckpt_mod.RestartManager(args.ckpt_dir, every=args.ckpt_every)
+        rm = ckpt_mod.RestartManager(args.ckpt_dir, every=args.ckpt_every,
+                                     plan=plan, cfg=cfg)
         restored, start = rm.restore_or_none(state)
         if restored is not None:
             state = restored
@@ -131,7 +206,8 @@ def main(argv=None):
         return 0
     first = np.mean(losses[:10]) if len(losses) >= 10 else losses[0]
     last = np.mean(losses[-10:])
-    print(f"loss {first:.4f} -> {last:.4f} over {len(losses)} steps")
+    print(f"loss {first:.4f} -> {last:.4f} over {len(losses)} steps",
+          flush=True)
     # short resume windows overlap; only fail on a clear regression
     return 0 if (last <= first * 1.02 or len(losses) < 20) else 1
 

@@ -4,17 +4,18 @@ cache init, dispatched on ``cfg.family``.
 
 ``forward`` and ``init_cache`` take the mesh plan from
 ``distributed.sharding.plan_scope`` (params sharded by ``shard_params``):
-the dense and MoE families run across the model and data axes; the
-others under a mesh raise a ValueError (ROADMAP.md queue 1 item 9). A 1x1
-plan is the single-device path."""
+the dense and MoE families serve across the model and data axes, the
+dense family also trains there (an FSDP plan, or any plan under
+``check_train_mesh``); MoE training under a mesh waits for ROADMAP.md
+queue 1 item 9 step 3, and the others under any mesh raise a ValueError
+naming step 8. A 1x1 plan is the single-device path."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.registry import ArchConfig
-from repro_torch.distributed.sharding import (data_split, model_split,
-                                              shard_params)
+from repro_torch.distributed.sharding import current_plan, shard_params
 from repro_torch.models import audio, hybrid, kvcache, layers as L, moe
 from repro_torch.models import quantized, ssm, transformer, vlm
 
@@ -87,9 +88,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
     ``xattn_layers``; whisper's ``enc_layers`` and ``dec_layers``). The
     VLM's gates are 0.0, as the reference's init leaves them.
 
-    With a mesh ``plan`` (the dense and MoE families) this rank's blocks
-    alone: the embedding, each layer once packed, and the head are cut to
-    the rank's blocks (``sharding.shard_params`` on that subtree) before
+    With a mesh ``plan`` (the dense and MoE families; an FSDP plan, the
+    dense family's float training build, also cuts each float weight to
+    its data-axis block) this rank's blocks alone: the embedding, each
+    layer once packed, and the head are cut to the rank's blocks
+    (``sharding.shard_params`` on that subtree) before
     the next is drawn, in the whole build's order of draws, so the tree
     equals ``shard_params(init_params(...), plan, cfg)`` leaf for leaf and
     the device never holds more than the rank's shard and one float
@@ -172,18 +175,47 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda", *,
 
 
 MESH_FAMILIES = ("dense", "moe")
+TRAIN_MESH_FAMILIES = ("dense",)
+
+
+def splits(plan) -> bool:
+    """Whether ``plan`` splits the model or the batch (a 1x1 plan or None
+    is the single-device path)."""
+    return plan is not None and (plan.axis_size("model") > 1
+                                 or plan.axis_size("batch") > 1)
 
 
 def _check_mesh(cfg: ArchConfig, plan=None):
     """Raise where ``plan`` (default: the active plan) splits the model or
-    the batch and the family does not run under a mesh."""
-    split = (model_split() is not None or data_split() is not None
-             if plan is None else
-             plan.axis_size("model") > 1 or plan.axis_size("batch") > 1)
-    if split and cfg.family not in MESH_FAMILIES:
+    the batch and the family does not run under a mesh, or where it has an
+    FSDP axis (a training plan) and the family does not train under
+    one."""
+    active = current_plan() if plan is None else plan
+    if not splits(active):
+        return
+    if cfg.family not in MESH_FAMILIES:
         raise ValueError(
             f"{cfg.arch_id}: the {cfg.family} family does not run under a "
-            "mesh yet (only dense and MoE do): ROADMAP.md queue 1 item 9")
+            "mesh yet (only dense and MoE do): ROADMAP.md queue 1 item 9 "
+            "step 8")
+    if active.axis_size("fsdp") > 1:
+        check_train_mesh(cfg, active)
+
+
+def check_train_mesh(cfg: ArchConfig, plan):
+    """Raise where ``plan`` splits the model or the batch and the family
+    does not train under a mesh: only the dense family does. MoE waits for
+    the expert-parallel training path (the reference's per-data-shard
+    routing, ``_moe_mlp_shardmap``, a different function from one
+    device's): ROADMAP.md queue 1 item 9 step 3; the SSM, hybrid, VLM and
+    audio families for step 8."""
+    if not splits(plan) or cfg.family in TRAIN_MESH_FAMILIES:
+        return
+    step = ("3 (the expert-parallel training path, the reference's "
+            "_moe_mlp_shardmap)" if cfg.family == "moe" else "8")
+    raise ValueError(
+        f"{cfg.arch_id}: the {cfg.family} family does not train under a "
+        f"mesh yet (only dense does): ROADMAP.md queue 1 item 9 step {step}")
 
 
 def forward(params, batch, cfg: ArchConfig, **kw):

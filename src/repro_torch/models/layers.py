@@ -14,6 +14,15 @@ on its output channels with no collective, row-parallel on its K-range
 with the partial products summed over the ranks, or whole. Attention runs
 on the rank's local heads, so ``wo`` takes its input split; a consumer
 whose layout disagrees with its producer's slices or gathers its input.
+
+Training under a mesh (float weights, ``quant["qat"]``): the collectives
+carry gradients (``collectives`` module docstring); a replicated
+activation entering column-parallel projections passes
+``collectives.replicated_input`` once (attention's QKV, the MLP's gate and
+up), so its gradient is the sum of the ranks' partials; a row-parallel
+weight is fake-quantized with its whole row's scale (the ranks' K-blocks
+reduced: the max of their absmax, or their |w| sums over K), so every
+rank quantizes its block as one device quantizes the whole row.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core import mpgemm as mp
-from repro_torch.core.quantize import fake_quant
+from repro_torch.core.quantize import fake_quant, fq_scale
 from repro_torch.core.table import true_divide
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import model_split
@@ -109,10 +118,12 @@ def lut_dense(p: Params, x: torch.Tensor, quant: Optional[dict] = None,
         k = x.shape[-1] // len(parts)
         return _row_parallel(parts, [x[..., r * k:(r + 1) * k]
                                      for r in range(len(parts))], quant,
-                             collectives.reduce_parts)
+                             collectives.reduce_parts, x.shape[-1])
     if p.get("tp") == "row":
+        m = model_split().axis_size("model")
         return _row_parallel([p], [x if x_split else _k_block(x)], quant,
-                             lambda ts, op: collectives.all_reduce(ts[0], op))
+                             lambda ts, op: collectives.all_reduce(ts[0], op),
+                             x.shape[-1] * (m if x_split else 1))
     if x_split:
         x = collectives.all_gather(x, dim=-1)
     if "qw" in p:
@@ -133,21 +144,39 @@ def lut_dense(p: Params, x: torch.Tensor, quant: Optional[dict] = None,
 
 
 def _k_block(x: torch.Tensor) -> torch.Tensor:
-    """This rank's contiguous block of x's last dim over the model axis."""
-    plan = model_split()
-    m, r = plan.axis_size("model"), plan.rank_along("model")
-    k = x.shape[-1] // m
-    return x[..., r * k:(r + 1) * k]
+    """This rank's contiguous block of x's last dim over the model axis
+    (``collectives.scatter``: its gradient gathers the ranks' blocks)."""
+    return collectives.scatter(x, dim=-1, axis="model")
 
 
-def _row_parallel(parts, xs, quant: Optional[dict], reduce) -> torch.Tensor:
+def _qat_row_blocks(ws, q: dict, reduce, k_total: int):
+    """Row-parallel W blocks [K/m, N] fake-quantized with their whole rows'
+    scales: each output channel's statistic over its K-blocks reduced by
+    ``reduce`` (absmax: the max; ternary: the |w| sum, over ``k_total``)."""
+    bits, scheme = q.get("weight_bits", 2), q.get("scheme", "symmetric")
+    with torch.no_grad():
+        wts = [w.T.to(torch.float32) for w in ws]
+        if scheme == "ternary":
+            stat = reduce([wt.abs().sum(dim=-1, keepdim=True)
+                           for wt in wts], "sum")
+        else:
+            stat = reduce([wt.abs().amax(dim=-1, keepdim=True)
+                           for wt in wts], "max")
+        s = fq_scale(None, bits, scheme, stat=stat, k=k_total)
+    return [fake_quant(w.T, bits, scheme, scale=s).T for w in ws]
+
+
+def _row_parallel(parts, xs, quant: Optional[dict], reduce,
+                  k_total: int) -> torch.Tensor:
     """A row-parallel projection: each W block's f32 partial product on
     its K-range of x (``parts`` and ``xs`` pair up: this rank's one, or a
     control's m), reduced over the ranks by ``reduce(tensors, op)``, then
     the bias once. A per_row INT8 table is quantized with the whole row's
     scale, the max of the K-ranges' row scales (exact: the scale is a
     monotone function of the row's largest group sum), so its codes are
-    the single-device codes on each range."""
+    the single-device codes on each range; a float W under QAT is
+    fake-quantized with its whole rows' scales (``_qat_row_blocks``;
+    ``k_total`` is the contraction's whole K)."""
     q = quant or {}
     if "qw" in parts[0]:
         mode = q.get("mpgemm_mode", "lut_xla")
@@ -162,8 +191,11 @@ def _row_parallel(parts, xs, quant: Optional[dict], reduce) -> torch.Tensor:
                         out_dtype=torch.float32, row_scale=rs)
               for p, x in zip(parts, xs)]
     else:
-        ys = [x.to(torch.float32) @ p["w"].to(x.dtype).to(torch.float32)
-              for p, x in zip(parts, xs)]
+        ws = [p["w"] for p in parts]
+        if q.get("qat"):
+            ws = _qat_row_blocks(ws, q, reduce, k_total)
+        ys = [x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
+              for w, x in zip(ws, xs)]
     y = reduce(ys, "sum").to(xs[0].dtype)
     if "b" in parts[0]:
         y = y + parts[0]["b"].to(y.dtype)
@@ -427,6 +459,8 @@ def attention_apply(p: Params, x: torch.Tensor, cfg, *, kv_cache=None,
     # under a mesh: this rank's heads (the whole heads where attention
     # runs replicated)
     heads_split = p["wq"].get("tp") == "col"
+    if heads_split:
+        x = collectives.replicated_input(x)
     q = lut_dense(p["wq"], x, quant, tbl).reshape(b, s, -1, hd)
     if xattn_kv is not None:
         k, v = xattn_kv
@@ -583,6 +617,8 @@ def mlp_apply(p: Params, x: torch.Tensor,
     form, ``jax.nn.gelu``'s default). Float weights (the training
     forward) read no table."""
     tbl = make_table(x, quant) if "qw" in p["up"] else None
+    if p["up"].get("tp") == "col":
+        x = collectives.replicated_input(x)
     if "gate" in p:
         g = lut_dense(p["gate"], x, quant, tbl)
         u = lut_dense(p["up"], x, quant, tbl)

@@ -13,16 +13,27 @@ rank's forward takes its own rows of the batch (the engine's slots); the
 mesh's one-device control (``"rows"``: D in the tree,
 ``sharding.one_device_control``) runs a batch D divides as D row blocks
 in turn (``row_blocks``).
+
+Training under a mesh: the embedding's and the head's collectives carry
+gradients (``collectives``); under an FSDP plan (ZeRO-3) the embedding,
+each layer and the head gather their data-axis blocks just before they
+run (``collectives.fsdp_gather_tree``), and a layer runs under
+``torch.utils.checkpoint``, so its gathered weights are dropped after its
+forward and gathered again for its backward: no rank holds the whole
+float model outside one layer, the embedding and the head.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import local_kv_heads, model_split
+from repro_torch.distributed.sharding import (current_plan, local_kv_heads,
+                                              model_split, plan_scope)
 from repro_torch.models import kvcache, layers as L
 
 Params = Dict[str, Any]
@@ -36,6 +47,7 @@ def embed_init(gen, vocab: int, d_model: int, dtype=torch.float32,
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    p = collectives.fsdp_gather_tree(p)
     table = p["table"]
     if p.get("tp") != "vocab":
         return table[tokens]
@@ -51,18 +63,26 @@ def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def head_apply(p: Params, h: torch.Tensor, quant=None) -> torch.Tensor:
     """Logits [.., V]; a vocab-split head's blocks gathered in rank order."""
+    p = collectives.fsdp_gather_tree(p)
+    if p.get("tp") == "col":
+        h = collectives.replicated_input(h)
     y = L.lut_dense(p, h, quant)
     return collectives.all_gather(y, dim=-1) if p.get("tp") == "col" else y
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None, *,
+            tokens: Optional[int] = None) -> torch.Tensor:
     """Token-mean cross entropy in f32; with ``mask`` the mean over the
-    masked-in tokens (at least one)."""
+    masked-in tokens (at least one). ``tokens``: the NLL sum over these
+    logits divided by that count instead (a data rank's share of the
+    whole batch's token mean)."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
+    if tokens is not None:
+        return nll.sum() / tokens
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)
@@ -105,11 +125,31 @@ def stack_apply(layers, h: torch.Tensor, cfg, *, caches=None, cache_pos=0,
                 quant=None, page_table=None, window=None):
     """The layer loop; layer l reads and writes ``caches[*][l]`` in place.
     ``page_table`` ([B, nb], paged caches) is one table for all layers."""
+    plan = current_plan()
+    zero3 = (plan is not None and plan.fsdp is not None and caches is None
+             and torch.is_grad_enabled())
     for i, lp in enumerate(layers):
+        if zero3:  # gathered in the forward, again in the backward
+            h = checkpoint(functools.partial(_gathered_block, lp, cfg=cfg,
+                                             quant=quant, window=window,
+                                             plan=plan),
+                           h, use_reentrant=False)
+            continue
+        lp = collectives.fsdp_gather_tree(lp)
         lc = None if caches is None else kvcache.layer_cache(caches, i)
         h, _ = block_apply(lp, h, cfg, cache=lc, cache_pos=cache_pos,
                            quant=quant, page_table=page_table, window=window)
     return h, caches
+
+
+def _gathered_block(lp: Params, h: torch.Tensor, *, cfg, quant, window,
+                    plan):
+    """One layer of an FSDP train forward: its blocks gathered, then run,
+    under ``plan`` (its recomputation runs in the backward, on autograd's
+    own thread where the card's backward runs)."""
+    with plan_scope(plan):
+        return block_apply(collectives.fsdp_gather_tree(lp), h, cfg,
+                           quant=quant, window=window)[0]
 
 
 def row_blocks(params: Params, tokens, caches=None, cache_pos=0,

@@ -218,6 +218,10 @@ class ServingEngine:
         if tuning_cache is not None:
             from repro_torch.core import autotune
             self.tuning_cache = autotune.configure(tuning_cache)
+        if plan is not None and plan.fsdp is not None:
+            raise ValueError("serving takes a plan without FSDP "
+                             "(launch.mesh.make_plan(mesh, fsdp=False)), as "
+                             "the reference's serve does")
         if plan is not None:  # this rank's blocks
             params = shard_params(params, plan, cfg)
         self.device = params["embed"]["table"].device

@@ -11,6 +11,13 @@ writer never corrupts the latest checkpoint.
 optionally write on a background thread (at most one write in flight; the
 host snapshot is taken before ``maybe_save`` returns, so the training step
 never waits on disk and a later update cannot race the writer).
+
+Under a mesh (``RestartManager(plan=, cfg=)``) a checkpoint is the whole
+train state in the single-device format: every rank joins its blocks
+(``sharding.gather_train_state``), rank 0 writes, and the others wait for
+that write in ``wait()`` (and before the next save). A checkpoint restores
+onto one device, or onto any mesh: each rank reads the whole state on the
+host and keeps its blocks (``sharding.shard_train_state``).
 """
 
 from __future__ import annotations
@@ -79,9 +86,11 @@ def save(ckpt_dir: str, step: int, tree, *, extra: Optional[Dict] = None):
     return final
 
 
-def restore(ckpt_dir: str, tree_like, step: Optional[int] = None):
+def restore(ckpt_dir: str, tree_like, step: Optional[int] = None, *,
+            device=None):
     """Restore into the structure of ``tree_like``: each leaf takes the
-    dtype and device of ``tree_like``'s. Returns (tree, step)."""
+    dtype and device (or ``device``) of ``tree_like``'s, and the stored
+    shape. Returns (tree, step)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {ckpt_dir}")
@@ -95,7 +104,8 @@ def restore(ckpt_dir: str, tree_like, step: Optional[int] = None):
                          f"{set(names) ^ set(manifest['names'])}")
     data = _stored_arrays(os.path.join(d, "shard_0.npz"))
     restored = [torch.from_numpy(data[f"a{i}"]).to(
-        device=c.device, dtype=c.dtype, copy=True)
+        device=c.device if device is None else device, dtype=c.dtype,
+        copy=True)
         for i, (_, c) in enumerate(named)]
     return tree_unflatten(tree_like, restored), step
 
@@ -152,22 +162,42 @@ class RestartManager:
     resume-from-latest-complete."""
 
     def __init__(self, ckpt_dir: str, *, every: int = 100, keep: int = 3,
-                 async_write: bool = True):
+                 async_write: bool = True, plan=None, cfg=None):
         self.dir = ckpt_dir
         self.every = every
         self.keep = keep
         self.async_write = async_write
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
-        os.makedirs(ckpt_dir, exist_ok=True)
+        self.plan, self.cfg = plan, cfg
+        self._specs = None  # the params' specs under ``plan``
+        self._mesh = plan is not None and math.prod(plan.mesh.shape) > 1
+        self._rank = (torch.distributed.get_rank()
+                      if self._mesh and torch.distributed.is_initialized()
+                      else 0)
+        if self._rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
 
     def maybe_save(self, step: int, tree, extra=None, force=False):
+        """Save ``tree`` (a train state) at ``step`` when due. Under a
+        mesh every rank must call it: the ranks' blocks are joined, rank 0
+        writes."""
         if not force and (self.every <= 0 or step % self.every != 0):
             return False
+        if self._mesh:
+            from repro_torch.distributed.sharding import gather_train_state
+            from repro_torch.training.train_loop import param_specs
+            self.wait()
+            if self._specs is None:
+                self._specs = param_specs(tree["params"], self.plan,
+                                          self.cfg)
+            tree = gather_train_state(tree, self.plan, self._specs)
+            if self._rank != 0:
+                return True
         named = tree_paths(tree)
         host_tree = tree_unflatten(tree, [_host_copy(x) for _, x in named])
         if self.async_write:
-            self.wait()  # at most one write in flight
+            self._join()  # at most one write in flight
             self._thread = threading.Thread(
                 target=self._save_and_gc_reporting,
                 args=(step, host_tree, extra), daemon=True)
@@ -189,7 +219,15 @@ class RestartManager:
             self._error = e
 
     def wait(self):
-        """Waits for the write in flight; raises what it raised."""
+        """Waits for the write in flight (under a mesh, every rank waits
+        for rank 0's: every rank must call it); raises what it raised."""
+        try:
+            self._join()
+        finally:
+            if self._mesh:
+                torch.distributed.barrier()
+
+    def _join(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -198,8 +236,17 @@ class RestartManager:
             raise err
 
     def restore_or_none(self, tree_like):
+        """(the newest complete checkpoint's state, its step), or (None,
+        0). Under a mesh ``tree_like`` is this rank's state and the result
+        its blocks of the whole saved state."""
         step = latest_step(self.dir)
         if step is None:
             return None, 0
-        tree, step = restore(self.dir, tree_like, step)
-        return tree, step
+        if not self._mesh:
+            return restore(self.dir, tree_like, step)
+        from repro_torch.core.tree import tree_leaves, tree_map
+        from repro_torch.distributed.sharding import shard_train_state
+        whole, step = restore(self.dir, tree_like, step, device="cpu")
+        device = tree_leaves(tree_like)[0].device
+        return tree_map(lambda t: t.to(device), shard_train_state(
+            whole, self.plan, self.cfg)), step

@@ -9,10 +9,13 @@ against the reference's on the same trees).
 
 API: ``opt = make_optimizer(name, lr=..., **kw)``; ``state = opt.init(params)``;
 ``params, state = opt.update(grads, state, params)``: new trees, the inputs
-untouched. ``lr`` is a float or a function of the step tensor
-(``lr_schedule``). The step counter, the bias corrections, Adafactor's
-decay and the schedule are f32 tensor arithmetic, as in the reference
-(Python floats are f64 and would round differently).
+untouched. ``update(..., gnorm=)`` takes the gradients' global norm as
+given (AdamW's clip reads it; a mesh's train step computes it over the
+ranks' blocks, ``train_loop``); the others ignore it. ``lr`` is a float
+or a function of the step tensor (``lr_schedule``). The step counter,
+the bias corrections, Adafactor's decay and the schedule are f32 tensor
+arithmetic, as in the reference (Python floats are f64 and would round
+differently).
 """
 
 from __future__ import annotations
@@ -96,10 +99,10 @@ def adamw(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                 "v": tree_map(zeros_like_state, params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
         step = state["step"] + 1
         if grad_clip is not None:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if gnorm is None else gnorm
             factor = torch.clamp_max(
                 _f32(grad_clip, gnorm) / gnorm.clamp_min(1e-12), 1.0)
             grads = tree_map(lambda g: g * factor, grads)
@@ -152,7 +155,7 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_threshold=1.0,
         return {"step": _step0(params), "v": tree_map(state_for, params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
         step = state["step"] + 1
         t = step.to(torch.float32)
         lr_t = _lr_at(lr, step)
@@ -191,7 +194,7 @@ def momentum(lr=1e-2, beta=0.9, weight_decay=0.0):
                     p, dtype=torch.float32), params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
         lr_t = _lr_at(lr, state["step"] + 1)
 
         def upd(p, g, m):

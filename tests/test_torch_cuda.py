@@ -1394,6 +1394,39 @@ def _data_collectives_probe(ctx):
     return {k: v.cpu() for k, v in out.items()}, collectives.counters()
 
 
+def test_gloo_train_mesh_on_the_card(cuda, monkeypatch):
+    """Two ranks on one card over gloo train reduced tinyllama
+    (tests/test_torch_train_mesh.py's rank worker): 3 AdamW steps at 2x1
+    with and without FSDP equal bit for bit (deterministic kernels), and
+    a 1x2 step's gathered gradients within 1e-4 of each leaf's largest
+    |g| of one device's on the card. A card's backward runs on autograd's
+    own thread, away from the plan: every collective's backward must
+    reach its group."""
+    import os
+    import test_torch_train_mesh as TM
+    from repro_torch.core.tree import tree_map, tree_paths
+    from repro_torch.launch import mesh
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as T
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    jobs = [(f"adamw_{on}", 2, on, "adamw", 3, None, None, False, None)
+            for on in (False, True)]
+    jobs.append(("grads", 1, True, "momentum", 1, None, None, True, None))
+    res = mesh.spawn(TM._rank_train, 2, args=(jobs,))
+    for r in res:
+        assert r["adamw_True"]["metrics"] == r["adamw_False"]["metrics"]
+        assert TM._equal(r["adamw_True"]["state"], r["adamw_False"]["state"])
+    cfg = TM._cfg()
+    opt = O.make_optimizer("momentum", lr=TM.LR["momentum"])
+    state = tree_map(lambda t: t.to(cuda), TM._whole_state(cfg, opt))
+    want, _ = T.make_train_step(cfg, opt).grads(state, TM._batch(0, cfg))
+    for (path, w), g in zip(tree_paths(want), res[0]["grads"]["grads"]):
+        w = w.cpu()
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max(), path
+
+
 def test_gloo_data_axis_collectives_and_a_2x1_forward(cuda, monkeypatch):
     """Two data ranks on one card over gloo: the data axis's all_gather
     and all_reduce of f32 and int64 card tensors (blocks in data order,

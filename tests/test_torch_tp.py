@@ -389,14 +389,19 @@ def test_serve_entry_point_tp2_on_cpu(capfd):
 
 
 def test_refusals():
-    """What the data-axis slice leaves refused: FSDP, a sequence axis, and
-    the SSM, hybrid, VLM and audio families under a mesh, whether it
-    splits the model or the batch (a data axis and ``--mesh 2x1`` are
-    served: tests/test_torch_dp.py)."""
+    """What stays refused: a sequence axis, and the SSM, hybrid, VLM and
+    audio families under a mesh, whether it splits the model or the batch
+    (a data axis and ``--mesh 2x1`` are served: tests/test_torch_dp.py).
+    ``make_plan`` maps FSDP onto the data axis, the reference's default
+    (training under a mesh: tests/test_torch_train_mesh.py); serving
+    passes ``fsdp=False``, and the engine refuses an FSDP plan."""
     from repro_torch.distributed import collectives
     from repro_torch.launch import serve
-    with pytest.raises(ValueError, match="queue 1 item 9"):
-        mesh_mod.make_plan(mesh_mod.make_serving_mesh(), fsdp=True)
+    fsdp_plan = mesh_mod.make_plan(mesh_mod.make_serving_mesh(), fsdp=True)
+    assert fsdp_plan.fsdp == "data" and fsdp_plan.resolve("fsdp") == "data"
+    assert mesh_mod.make_plan(mesh_mod.make_serving_mesh()) == fsdp_plan
+    assert mesh_mod.make_plan(mesh_mod.make_serving_mesh(),
+                              fsdp=False).fsdp is None
     seq_plan = SH.AxisPlan(mesh=SH.Mesh(("data", "model"), (2, 1), (0, 0),
                                         {}), seq="data")
     with SH.plan_scope(seq_plan):
@@ -421,6 +426,13 @@ def test_refusals():
             with pytest.raises(ValueError, match="queue 1 item 9"):
                 tapi.init_params(torch.Generator().manual_seed(0), cfg,
                                  "cpu", plan=plan)
+    cfg = _cfg("tinyllama-1.1b")
+    params = tapi.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(ValueError, match="without FSDP"):
+        ServingEngine(cfg, params, max_batch=2, max_seq=16,
+                      plan=SH.AxisPlan(mesh=SH.Mesh(("data", "model"),
+                                                    (2, 1), (0, 0), {}),
+                                       fsdp="data"))
 
 
 def test_a_rank_without_a_card_raises(monkeypatch):
